@@ -1,0 +1,159 @@
+"""The port's flash forward (plain version, the CPU path of the wrapper)
+held against the JAX package's Pallas kernels run in interpret mode.
+
+Inputs are made with numpy from a seed and handed to both.  Tolerances:
+f32 out/lse 1e-5 (same math, other summation order); bf16 out 2e-2 (p and
+out round to bf16 where an ulp apart in f32 can flip a rounding), bf16
+lse 1e-4.  Only rows whose query is a real token are compared, as in
+tests/test_flash_attention.py.
+"""
+
+import importlib
+
+import numpy as np
+import pytest
+
+import jax.numpy as jnp
+import torch
+
+from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.kernels import flash_attention as tfa
+
+jfa = importlib.import_module("mxnet_tpu.kernels.flash_attention")
+
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2e-2, 1e-4)}
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _inputs(B=2, H=2, Lq=256, Lk=256, D=64, seed=7):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, H, Lq, D).astype(np.float32),
+            r.randn(B, H, Lk, D).astype(np.float32),
+            r.randn(B, H, Lk, D).astype(np.float32))
+
+
+def _seg(B, L, valid):
+    return (np.arange(L)[None, :] < np.asarray(valid)[:, None]) \
+        .astype(np.int32)
+
+
+def _run_both(q, k, v, seg_q, seg_kv, causal, dname, block=512):
+    """(jax out, jax lse, torch out, torch lse) as float32 numpy."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    jq, jk, jv = (jnp.asarray(x, JNP[dname]) for x in (q, k, v))
+    js = [None if s is None else jnp.asarray(s) for s in (seg_q, seg_kv)]
+    jout, jlse = jfa._fwd(jq, jk, jv, js[0], js[1], causal, scale,
+                          block, block, 0, True)
+    tq, tk, tv = (torch.tensor(x).to(TORCH[dname]) for x in (q, k, v))
+    ts = [None if s is None else torch.tensor(s) for s in (seg_q, seg_kv)]
+    # the plain version streams kv at the JAX kernel's block, so p rounds
+    # to bf16 exactly where the TPU kernel rounds it
+    bk = jfa._pick_block(k.shape[2], block)
+    tout, tlse = tfa.flash_attention_reference(
+        tq, tk, tv, ts[0], ts[1], causal, scale,
+        block_k=None if bk == k.shape[2] else bk)
+    return (np.asarray(jout, np.float32), np.asarray(jlse, np.float32),
+            tout.float().numpy(), tlse.numpy())
+
+
+def _assert_close(res, rows, dname):
+    jout, jlse, tout, tlse = res
+    tol_out, tol_lse = TOL[dname]
+    d_out = (np.abs(jout - tout) * rows[:, None, :, None]).max()
+    d_lse = (np.abs(jlse - tlse) * rows[:, None, :]).max()
+    assert d_out <= tol_out, f"out max diff {d_out}"
+    assert d_lse <= tol_lse, f"lse max diff {d_lse}"
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("with_seg", [False, True])
+def test_reference_matches_jax_single_tile(dname, causal, with_seg):
+    q, k, v = _inputs()
+    seg = _seg(2, 256, (200, 256)) if with_seg else None
+    res = _run_both(q, k, v, seg, seg, causal, dname)
+    rows = np.ones((2, 256), bool) if seg is None else seg.astype(bool)
+    _assert_close(res, rows, dname)
+
+
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_matches_jax_multi_tile(dname, causal):
+    """block 128 forces the streaming Pallas kernel (2 x 2 tiles, causal
+    tile skipping) — the plain version streams at the same block."""
+    q, k, v = _inputs()
+    seg = _seg(2, 256, (177, 256))
+    res = _run_both(q, k, v, seg, seg, causal, dname, block=128)
+    _assert_close(res, seg.astype(bool), dname)
+
+
+@pytest.mark.parametrize("with_seg", [False, True])
+def test_reference_matches_jax_cross_lengths(with_seg):
+    q, k, v = _inputs(Lq=128, Lk=256, seed=3)
+    seg_q = np.ones((2, 128), np.int32) if with_seg else None
+    seg_kv = _seg(2, 256, (180, 256)) if with_seg else None
+    res = _run_both(q, k, v, seg_q, seg_kv, False, "float32")
+    _assert_close(res, np.ones((2, 128), bool), "float32")
+
+
+def test_fully_masked_rows_match_jax():
+    """Queries whose id appears nowhere in kv: 0 output and lse = -1e4
+    in both (the dense oracle would return a uniform average)."""
+    q, k, v = _inputs(Lq=128, Lk=128)
+    seg_q = np.ones((2, 128), np.int32)
+    seg_kv = np.zeros((2, 128), np.int32)
+    jout, jlse, tout, tlse = _run_both(q, k, v, seg_q, seg_kv, False,
+                                       "float32")
+    assert np.all(tout == 0.0) and np.all(jout == 0.0)
+    np.testing.assert_allclose(tlse, jlse)
+    assert np.all(tlse == np.float32(-1e4))
+
+
+def test_one_sided_segments_rejected():
+    q, k, v = (torch.tensor(x) for x in _inputs(Lq=128, Lk=128))
+    seg = torch.ones((2, 128), dtype=torch.int32)
+    with pytest.raises(ValueError, match="BOTH seg_q and seg_kv"):
+        tfa.flash_attention(q, k, v, seg, None, False, 0.125)
+    with pytest.raises(ValueError, match="BOTH seg_q and seg_kv"):
+        tfa.flash_attention(q, k, v, None, seg, False, 0.125)
+
+
+def test_cpu_wrapper_runs_plain_version():
+    """On a CPU tensor the wrapper is the plain version, and launches
+    nothing."""
+    q, k, v = (torch.tensor(x) for x in _inputs(Lq=128, Lk=128))
+    before = tfa.launches
+    out = tfa.flash_attention(q, k, v, None, None, True, 0.125)
+    ref, _ = tfa.flash_attention_reference(q, k, v, None, None, True, 0.125)
+    assert torch.equal(out, ref) and tfa.launches == before
+
+
+def test_streaming_reference_equals_single_block_f32():
+    """Streaming the kv axis at the kernel's tile (online softmax) gives
+    the direct softmax in f32 up to rounding."""
+    q, k, v = (torch.tensor(x) for x in _inputs(Lq=256, Lk=256))
+    a, la = tfa.flash_attention_reference(q, k, v, None, None, True, 0.125)
+    b, lb = tfa.flash_attention_reference(q, k, v, None, None, True, 0.125,
+                                          block_k=tfa.KV_TILE)
+    torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
+    torch.testing.assert_close(la, lb, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("shape,dtype,match", [
+    ((1, 2, 128, 12), torch.float32, "multiple of 8"),
+    ((1, 2, 128, 264), torch.float32, "up to 256"),
+    ((1, 2, 128, 64), torch.float16, "float32 or bfloat16"),
+])
+def test_kernel_argument_checks(shape, dtype, match):
+    """The wrapper refuses what the kernel does not take before any
+    launch (the checks run on the host)."""
+    x = torch.zeros(shape, dtype=dtype)
+    with pytest.raises(MXNetError, match=match):
+        tfa._check(x, x, x, None, None)
+
+
+def test_other_devices_raise():
+    x = torch.zeros((1, 2, 128, 64), device="meta")
+    with pytest.raises(MXNetError, match="no kernel for device"):
+        tfa.flash_attention(x, x, x)
