@@ -29,8 +29,9 @@ The second-to-last line is ``{"kernels": [...]}`` and the last
 ``{"ok": true, "device": {...}}``.
 
 Tolerances (max abs error on valid rows): f32 out and lse 2e-5 (f32
-accumulation in another order); bf16 out 2e-2 (p and out round to bf16),
-bf16 lse 1e-4.  The plain version streams kv at the kernel's tile so p
+accumulation in another order); bf16 out 4e-3 (p and out round to bf16:
+twice the worst error seen on an H100, two bf16 ulps at |out| < 1), bf16
+lse 1e-4.  The plain version streams kv at the kernel's tile so p
 rounds where the kernel rounds it.  Prefill logits kernel vs plain: 1e-3.
 """
 
@@ -47,7 +48,7 @@ import numpy as np
 
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}  # H100 SXM, dense
 HBM_BYTES_PER_S = 3.35e12
-TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 1e-4)}  # (out, lse)
+TOL = {"float32": (2e-5, 2e-5), "bfloat16": (4e-3, 1e-4)}  # (out, lse)
 LOGITS_TOL = 1e-3
 
 
@@ -198,8 +199,7 @@ def serve_phase(torch, fa, llama, serving, args):
     gen = torch.Generator(device="cuda").manual_seed(args.seed)
     t0 = time.perf_counter()
     net = llama.llama_model("llama3_8b", vocab_size=vocab, device="cuda",
-                            generator=gen, init_std=0.02,
-                            num_layers=args.layers)
+                            generator=gen, init_std=0.02)
     torch.cuda.synchronize()
     layers = len(net.blocks)
     n_params = sum(p.numel() for p in net.parameters())
@@ -269,8 +269,6 @@ def serve_phase(torch, fa, llama, serving, args):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--layers", type=int, default=None,
-                    help="cut llama3_8b's depth (default: all 32 layers)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 

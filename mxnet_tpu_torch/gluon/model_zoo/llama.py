@@ -45,18 +45,28 @@ class RMSNorm(nn.Module):
         return (out * self.weight.float()).to(x.dtype)
 
 
+def _rope_angles(pos, half, base):
+    """Rotary angles (len(pos), half) for integer positions ``pos``."""
+    inv = 1.0 / (base ** (torch.arange(0, half, device=pos.device).float()
+                          / half))
+    return pos.float()[:, None] * inv[None, :]
+
+
+def _rotate(x, ang):
+    """Rotate the two halves of x's last dim by ``ang`` (broadcast against
+    x[..., :half])."""
+    half = x.shape[-1] // 2
+    cos = torch.cos(ang).to(x.dtype)
+    sin = torch.sin(ang).to(x.dtype)
+    x1, x2 = x[..., :half], x[..., half:]
+    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+
+
 def _rope(x, base=500000.0):
     """Rotary embeddings over the last dim; x: (B, H, L, D)."""
     L, D = x.shape[2], x.shape[3]
-    half = D // 2
-    inv = 1.0 / (base ** (torch.arange(0, half, device=x.device).float()
-                          / half))
-    pos = torch.arange(L, device=x.device).float()
-    ang = pos[:, None] * inv[None, :]                       # (L, half)
-    cos = torch.cos(ang).reshape(1, 1, L, half).to(x.dtype)
-    sin = torch.sin(ang).reshape(1, 1, L, half).to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return _rotate(x, _rope_angles(torch.arange(L, device=x.device),
+                                   D // 2, base))
 
 
 def _linear(units_in, units_out, device, dtype):
@@ -86,7 +96,7 @@ class LlamaBlock(nn.Module):
         self.attn_norm = RMSNorm(units, device=device, dtype=dtype)
         self.mlp_norm = RMSNorm(units, device=device, dtype=dtype)
 
-    def forward(self, x, flash_reference=False):
+    def forward(self, x):
         # x: (B, L, C) batch-major
         B, L, _ = x.shape
         h = self.attn_norm(x)
@@ -100,8 +110,7 @@ class LlamaBlock(nn.Module):
         k = _rope(k)
         ctx_vec = masked_att_qkv(q, k, v, None,
                                  num_kv_groups=self.heads // self.kv_heads,
-                                 causal=True,
-                                 flash_reference=flash_reference)
+                                 causal=True)
         attn = self.o_proj(ctx_vec.transpose(1, 2).reshape(B, L, self.units))
         x = x + attn
         h = self.mlp_norm(x)
@@ -137,21 +146,19 @@ class LlamaModel(nn.Module):
             else:
                 p.normal_(0.0, std, generator=generator)
 
-    def forward(self, tokens, flash_reference=False):
+    def forward(self, tokens):
         # tokens: (B, L) integer -> logits (B, L, vocab)
         x = self.embed(tokens.long())
         for blk in self.blocks:
-            x = blk(x, flash_reference=flash_reference)
+            x = blk(x)
         return self.lm_head(self.norm(x))
 
 
-def _build(name, vocab_size, device, dtype, num_layers=None):
+def _build(name, vocab_size, device, dtype):
     if name not in LLAMA_CONFIGS:
         raise MXNetError(
             f"unknown llama config {name!r}; options {sorted(LLAMA_CONFIGS)}")
     L, U, H, A, KV = LLAMA_CONFIGS[name]
-    if num_layers is not None:
-        L = int(num_layers)
     # parameters are allocated uninitialised on the target device (no
     # default init pass over 8B weights); callers fill them
     with torch.device("meta"):
@@ -161,13 +168,10 @@ def _build(name, vocab_size, device, dtype, num_layers=None):
 
 
 def llama_model(name="llama_tiny", vocab_size=32000, device=None,
-                dtype=torch.float32, generator=None, init_std=0.02,
-                num_layers=None):
+                dtype=torch.float32, generator=None, init_std=0.02):
     """A zoo llama with random weights: Normal(0, ``init_std``) matrices
     from ``generator`` (seeded by the caller; it must live on ``device``).
-    ``device=None`` is the CUDA card.  ``num_layers`` cuts the depth of
-    the named config (its widths stay)."""
-    model = _build(name, vocab_size, resolve_device(device), dtype,
-                   num_layers)
+    ``device=None`` is the CUDA card."""
+    model = _build(name, vocab_size, resolve_device(device), dtype)
     model.init_weights(generator, init_std)
     return model

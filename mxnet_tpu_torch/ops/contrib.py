@@ -69,12 +69,11 @@ def _attend(q, k, v, valid_length, causal, flash_reference=False):
 
 
 def masked_att_qkv(q, k, v, valid_length=None, num_kv_groups=1,
-                   causal=False, flash_reference=False):
+                   causal=False):
     """Masked attention over separate (B, H, L, D) q/k/v.  k/v may carry
     fewer heads (GQA): each kv head serves ``num_kv_groups`` consecutive
     query heads (``repeat_interleave``, the reference's ``jnp.repeat``)."""
     if num_kv_groups > 1:
         k = torch.repeat_interleave(k, num_kv_groups, dim=1)
         v = torch.repeat_interleave(v, num_kv_groups, dim=1)
-    return _attend(q, k, v, valid_length, causal,
-                   flash_reference=flash_reference)
+    return _attend(q, k, v, valid_length, causal)

@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ..base import MXNetError
+from ..gluon.model_zoo import llama
 from ..kernels import paged_attention as _pa
 from ..ops.contrib import _attend
 
@@ -42,31 +43,13 @@ def _rms(x, w, eps):
     return (out * w.float()).to(x.dtype)
 
 
-def _rope_angles(pos_f32, half, base):
-    inv = 1.0 / (base ** (torch.arange(0, half, device=pos_f32.device)
-                          .float() / half))
-    return pos_f32[:, None] * inv[None, :]
-
-
-def _rope_full(x, base):
-    """llama._rope on (B, H, L, D) — positions 0..L-1 (prefill path)."""
-    L, D = x.shape[2], x.shape[3]
-    half = D // 2
-    ang = _rope_angles(torch.arange(L, device=x.device).float(), half, base)
-    cos = torch.cos(ang).reshape(1, 1, L, half).to(x.dtype)
-    sin = torch.sin(ang).reshape(1, 1, L, half).to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+_rope_full = llama._rope      # prefill: positions 0..L-1
 
 
 def _rope_at(x, pos, base):
     """llama._rope on (B, H, 1, D) at per-sequence positions ``pos`` (B,)."""
-    half = x.shape[3] // 2
-    ang = _rope_angles(pos.float(), half, base)               # (B, half)
-    cos = torch.cos(ang)[:, None, None, :].to(x.dtype)
-    sin = torch.sin(ang)[:, None, None, :].to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    ang = llama._rope_angles(pos, x.shape[3] // 2, base)     # (B, half)
+    return llama._rotate(x, ang[:, None, None, :])
 
 
 def _heads(x, n, hd):
@@ -172,8 +155,7 @@ class LlamaServingAdapter:
     adapter serves one engine: the pools are engine state."""
 
     def __init__(self, model, eos_id, prefill_tokens):
-        from ..gluon.model_zoo.llama import LlamaModel
-        if not isinstance(model, LlamaModel):
+        if not isinstance(model, llama.LlamaModel):
             raise MXNetError("LlamaServingAdapter wants a LlamaModel")
         self.prefill_tokens = int(prefill_tokens)
         self.eos_id = int(eos_id)
@@ -262,10 +244,9 @@ class LlamaServingAdapter:
 
 def make_adapter(model, eos_id, prefill_tokens=64):
     """Adapter for a zoo model by type (the ServingEngine entry point)."""
-    from ..gluon.model_zoo.llama import LlamaModel
     if eos_id is None:
         raise MXNetError("serving needs eos_id (generation stop token)")
-    if isinstance(model, LlamaModel):
+    if isinstance(model, llama.LlamaModel):
         return LlamaServingAdapter(model, eos_id, prefill_tokens)
     if type(model).__name__ == "TransformerModel":
         raise MXNetError("transformer (encoder-decoder) serving is not yet "

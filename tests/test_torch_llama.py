@@ -96,8 +96,6 @@ def test_model_init_is_seeded_and_needs_a_device():
     for pa, pb in zip(a.parameters(), b.parameters()):
         assert torch.equal(pa, pb)
     assert torch.all(a.norm.weight == 1.0)
-    assert len(tllama.llama_model("llama_small", vocab_size=50,
-                                  device="cpu", num_layers=1).blocks) == 1
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
             tllama.llama_model("llama_tiny", vocab_size=50)
