@@ -4,40 +4,65 @@
 Run from the repository root with no arguments:  ``python3 chip_smoke.py``
 
 Phases (a failing phase makes the script exit non-zero and print no
-result line):
+result line; each prints its seconds):
  1. device — the card's name and, as ``nvidia-smi --query-gpu=name,
     power.limit --format=csv,noheader`` gives them, its power limit;
- 2. build — compile ``mxnet_tpu_torch/kernels/csrc/flash_fwd.cu`` for
-    sm_90a from this checkout;
- 3. kernel — the flash forward kernel against its plain PyTorch version
-    on the card: out and lse on valid rows, f32 and bf16, causal and not,
-    with and without segment ids (a padded row), at the serving prefill
-    shape (1, 32, 1024, 128), a single-tile (2, 32, 512, 128), a streaming
-    (1, 32, 2048, 128) and a cross-length Lq=256 / Lk=512 shape; times of
-    the kernel, the plain version and, as a yardstick only,
+ 2. build — compile ``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` for
+    sm_90a from this checkout, one nvcc each, in parallel; ptxas registers
+    and spills per kernel;
+ 3. forward kernel — flash_fwd against its plain PyTorch version on the
+    card: out and lse on valid rows, f32 and bf16, causal and not, with and
+    without segment ids (a padded row), at the serving prefill shape
+    (1, 32, 1024, 128), a single-tile (2, 32, 512, 128), a streaming
+    (1, 32, 2048, 128), a cross-length Lq=256 / Lk=512 shape and a head_dim
+    sweep; times of the kernel, the plain version and, as a yardstick only,
     ``torch.nn.functional.scaled_dot_product_attention``;
- 4. oracle — llama_small served on the card (prefill 256: the flash
-    kernel) must be token-identical to greedy full re-encode;
- 5. serve — llama3_8b at full width (32 layers, vocab 128256, f32, random
+ 4. backward kernels — flash_bwd_fused, flash_bwd_dq and flash_bwd_dkv
+    against ``flash_attention_backward_reference`` on the card: dq, dk, dv
+    on valid rows, f32 and bf16, causal and not, with and without segment
+    ids, at the BERT lane (32, 12, 512, 64) -> fused, the llama lane
+    (4, 16, 2048, 128) -> dq + dkv, cross 256/512 -> fused, L=384 -> dq +
+    dkv and a head_dim sweep on both routes; autograd through
+    ``flash_attention`` at both lane shapes; times of each kernel, the
+    plain backward and, as a yardstick only, SDPA's backward (SDPA
+    forward+backward minus SDPA forward);
+ 5. serving oracle — llama_small served on the card (prefill 256: the
+    flash kernel) must be token-identical to greedy full re-encode;
+ 6. serve — llama3_8b at full width (32 layers, vocab 128256, f32, random
     weights from a seeded generator on the card) behind ``ServingEngine(
     max_batch=8, block_tokens=16, max_seq=2048, prefill_tokens=1024)``
     answers 8 requests of 100-1000 prompt tokens, 16 new tokens each; the
-    kernel's launch counter must grow by >= layers per prefill; one prefill
-    is repeated with attention bound explicitly to the plain version and
-    the logits compared.
-The second-to-last line is ``{"kernels": [...]}`` and the last
-``{"ok": true, "device": {...}}``.
+    forward kernel's counter must grow by >= layers per prefill; one
+    prefill is repeated with attention bound to the plain version and the
+    logits compared;
+ 7. train oracle — bert_3_128_2 at seq 512 (fused backward) and llama_small
+    at seq 1024 (dq + dkv) train 3 steps on the card and on the CPU (plain
+    versions) from the same f32 weights and batches: per-step losses agree;
+ 8. train lanes — bench.py's bert_seq512 (BERT-base, batch 32, seq 512)
+    and llama_seq2048 (8 layers, 2048 units, batch 4, seq 2048) lanes at
+    full width, bf16 with multi-precision Adam, 8 steps on one batch (and
+    one padded BERT step): losses finite and falling, kernel launches per
+    step, median step ms, samples/s, MFU, peak memory, and one profiled
+    step's device time by kernel family.
+The second-to-last line is ``{"kernels": [...]}`` (``launches`` counts the
+train lanes' timed steps) and the last ``{"ok": true, "device": {...}}``.
 
-Tolerances (max abs error on valid rows): f32 out and lse 2e-5 (f32
-accumulation in another order); bf16 out 4e-3 (p and out round to bf16:
-twice the worst error seen on an H100, two bf16 ulps at |out| < 1), bf16
-lse 1e-4.  The plain version streams kv at the kernel's tile so p
-rounds where the kernel rounds it.  Prefill logits kernel vs plain: 1e-3.
+Tolerances.  Forward (max abs error on valid rows): f32 out and lse 2e-5
+(f32 accumulation in another order); bf16 out 4e-3 (p and out round to
+bf16: twice the worst error seen on an H100, two bf16 ulps at |out| < 1),
+bf16 lse 1e-4.  The plain version streams kv at the kernel's tile so p
+rounds where the kernel rounds it.  Backward (max abs error over max |ref|,
+valid rows): f32 1e-4 (sum order; the fused kernel's dq sums with atomics
+in an order that changes from run to run); bf16 5e-3, about twice the
+worst seen on an H100 (2.2e-3: ds rounds to bf16 where f32 values an ulp
+apart round differently).  Prefill logits kernel vs plain: 1e-3.  Train
+oracle: per-step losses 1e-4 relative (f32, 3 Adam steps).
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import statistics
 import subprocess
@@ -162,6 +187,154 @@ def kernel_phase(torch, fa):
     return errors, timings
 
 
+BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-3}   # relative to max |ref|
+
+
+def _bwd_bound_ms(kind, B, H, Lq, Lk, D, dtype_name, causal):
+    """Least time for one backward kernel's work: operations (10, 6 or 8
+    B H Lq Lk D for fused, dq and dkv, halved when causal) over the type's
+    peak, or bytes (inputs read once, outputs written once) over HBM
+    bandwidth — the larger, and which one bounds."""
+    elt = 4 if dtype_name == "float32" else 2
+    mult = {"fused": 10, "dq": 6, "dkv": 8}[kind]
+    flops = mult * B * H * Lq * Lk * D * (0.5 if causal else 1.0)
+    ins = elt * B * H * (2 * Lq * D + 2 * Lk * D) + 2 * 4 * B * H * Lq
+    outs = {"fused": elt * B * H * (Lq + 2 * Lk) * D,
+            "dq": elt * B * H * Lq * D,
+            "dkv": elt * B * H * 2 * Lk * D}[kind]
+    t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
+    t_bytes = (ins + outs) / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def _errs(got, ref, rows):
+    """(max |got - ref|, that over max |ref|) over rows (B, L) marked
+    valid."""
+    m = rows[:, None, :, None]
+    diff = ((got.float() - ref.float()).abs() * m).max().item()
+    return diff, diff / max((ref.float().abs() * m).max().item(), 1e-30)
+
+
+def bwd_kernel_phase(torch, fa):
+    """The three backward kernels against the plain backward on the card:
+    dq, dk, dv on valid rows, f32 and bf16, causal and not, with and
+    without segment ids (a padded row); then autograd through
+    ``flash_attention`` at the two lane shapes; then times."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4321)
+    shapes = [("bert-lane", 32, 12, 512, 512, 64),        # fused
+              ("llama-lane", 4, 16, 2048, 2048, 128),     # dq + dkv
+              ("cross", 2, 12, 256, 512, 64),             # fused
+              ("L384", 2, 8, 384, 384, 64)]               # dq + dkv
+    for D in (8, 40, 64, 96, 136, 200, 256):
+        shapes.append((f"head_dim {D} fused", 2, 2, 200, 328, D))
+        shapes.append((f"head_dim {D} split", 2, 2, 384, 640, D))
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    worst = {d: 0.0 for d in dtypes}
+    errors = {}
+    for label, B, H, Lq, Lk, D in shapes:
+        fused = fa.bwd_is_fused(Lq, Lk)
+        for dname, dt in dtypes.items():
+            q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
+                           .to(dt) for L in (Lq, Lk, Lk, Lq))
+            scale = 1.0 / D ** 0.5
+            for causal in (False, True):
+                for with_seg in (False, True):
+                    sq = _segs(torch, B, Lq, 37, dev) if with_seg else None
+                    skv = _segs(torch, B, Lk, 53, dev) if with_seg else None
+                    out, lse = fa._fwd(q, k, v, sq, skv, causal, scale)
+                    got = fa._bwd(q, k, v, sq, skv, out, lse, do, causal,
+                                  scale)
+                    torch.cuda.synchronize()
+                    ref = fa.flash_attention_backward_reference(
+                        q, k, v, sq, skv, out, lse, do, causal, scale)
+                    rq = torch.ones(B, Lq, device=dev) if sq is None \
+                        else sq.float()
+                    rk = torch.ones(B, Lk, device=dev) if skv is None \
+                        else skv.float()
+                    pairs = [_errs(g, r, rows) for g, r, rows in
+                             zip(got, ref, (rq, rk, rk))]
+                    errs = [rel for _, rel in pairs]
+                    e = max(errs)
+                    worst[dname] = max(worst[dname], e)
+                    key = (label, dname, causal, with_seg)
+                    errors[key] = [a for a, _ in pairs]   # dq, dk, dv
+                    ok = e <= BWD_TOL[dname]
+                    _log(f"check bwd {'fused' if fused else 'dq+dkv'} "
+                         f"{label} B={B} H={H} Lq={Lq} Lk={Lk} D={D} {dname}"
+                         f" causal={causal} seg={with_seg}: rel err dq "
+                         f"{errs[0]:.2e} dk {errs[1]:.2e} dv {errs[2]:.2e} "
+                         f"{'ok' if ok else 'FAIL'}")
+                    if not ok:
+                        raise AssertionError(
+                            f"flash backward kernel disagrees with its plain "
+                            f"version at {key}: {errs} (tol "
+                            f"{BWD_TOL[dname]})")
+    _log(f"bwd worst relative error: f32 {worst['float32']:.3e}, bf16 "
+         f"{worst['bfloat16']:.3e}")
+
+    # autograd through flash_attention at the lanes' shapes and types
+    for label, B, H, L, D, causal, want in [
+            ("bert-lane", 32, 12, 512, 64, False, "fused"),
+            ("llama-lane", 4, 16, 2048, 128, True, "split")]:
+        q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
+                       .to(torch.bfloat16) for _ in range(4))
+        seg = _segs(torch, B, L, 100, dev) if label == "bert-lane" else None
+        scale = 1.0 / D ** 0.5
+        before = (fa.bwd_fused_launches, fa.bwd_dq_launches,
+                  fa.bwd_dkv_launches)
+        qg, kg, vg = (x.clone().requires_grad_() for x in (q, k, v))
+        out = fa.flash_attention(qg, kg, vg, seg, seg, causal, scale)
+        got = torch.autograd.grad(out, (qg, kg, vg), do)
+        after = (fa.bwd_fused_launches, fa.bwd_dq_launches,
+                 fa.bwd_dkv_launches)
+        o2, lse = fa._fwd(q, k, v, seg, seg, causal, scale)
+        ref = fa.flash_attention_backward_reference(q, k, v, seg, seg, o2,
+                                                    lse, do, causal, scale)
+        rows = torch.ones(B, L, device=dev) if seg is None else seg.float()
+        e = max(_errs(g, r, rows)[1] for g, r in zip(got, ref))
+        step = [a - b for a, b in zip(after, before)]
+        want_step = [1, 0, 0] if want == "fused" else [0, 1, 1]
+        _log(f"check autograd {label} bf16 causal={causal}: rel err "
+             f"{e:.2e}, launches fused/dq/dkv {step}")
+        if e > BWD_TOL["bfloat16"] or step != want_step:
+            raise AssertionError(f"autograd through flash_attention at "
+                                 f"{label}: err {e}, launches {step}")
+
+    timings = {}
+    for kind, B, H, L, D, causal in [("fused", 32, 12, 512, 64, False),
+                                     ("dq", 4, 16, 2048, 128, True),
+                                     ("dkv", 4, 16, 2048, 128, True)]:
+        dname, dt = "bfloat16", torch.bfloat16
+        q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
+                       .to(dt) for _ in range(4))
+        scale = 1.0 / D ** 0.5
+        out, lse = fa._fwd(q, k, v, None, None, causal, scale)
+        x = fa.prepare_bwd(q, k, v, None, None, out, lse, do, causal, scale)
+        launch = {"fused": fa.launch_bwd_fused, "dq": fa.launch_bwd_dq,
+                  "dkv": fa.launch_bwd_dkv}[kind]
+        t_k = _time_ms(torch, lambda: launch(x))
+        t_p = _time_ms(torch, lambda: fa.flash_attention_backward_reference(
+            q, k, v, None, None, out, lse, do, causal, scale), iters=3, reps=3)
+        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        t_f = _time_ms(torch, lambda: sdpa(qg, kg, vg, is_causal=causal,
+                                           scale=scale))
+        t_fb = _time_ms(torch, lambda: sdpa(qg, kg, vg, is_causal=causal,
+                                            scale=scale).backward(do))
+        bound, bound_by = _bwd_bound_ms(kind, B, H, L, L, D, dname, causal)
+        timings[kind] = {
+            "shape": f"B={B} H={H} Lq=Lk={L} D={D} {dname} "
+                     f"{'causal' if causal else 'non-causal'}",
+            "ms": t_k, "plain_ms": t_p, "library_ms": t_fb - t_f,
+            "bound_ms": bound, "bound_by": bound_by}
+        _log(f"time bwd {kind} B={B} H={H} L={L} D={D} {dname} causal="
+             f"{causal}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa bwd "
+             f"(fwd+bwd - fwd) {t_fb - t_f:.4f} ms, bound {bound:.4f} ms "
+             f"({bound_by}), kernel/bound {t_k / bound:.2f}")
+    return errors, worst, timings
+
+
 def oracle_phase(torch, llama, serving):
     """Paged serving on the card == greedy full re-encode (token identity,
     the reference's serving oracle); prefill and re-encode run at L=256,
@@ -267,6 +440,250 @@ def serve_phase(torch, fa, llama, serving, args):
     return launches, layers, len(prefill_s)
 
 
+TRAIN_TOL = 1e-4       # relative, per-step losses card vs CPU (f32)
+
+
+def _bert_loss(ops_nn):
+    def loss_fn(out, labels):
+        logits = out[2]
+        return ops_nn.softmax_cross_entropy(
+            logits.reshape(-1, logits.shape[-1]).float(),
+            labels.reshape(-1)) / labels.numel()
+    return loss_fn
+
+
+def _llama_loss(ops_nn):
+    def loss_fn(out, labels):
+        return ops_nn.softmax_cross_entropy(
+            out.reshape(-1, out.shape[-1]).float(),
+            labels.reshape(-1)) / labels.numel()
+    return loss_fn
+
+
+def _counts(fa):
+    return {"flash_fwd": fa.launches, "flash_bwd_fused": fa.bwd_fused_launches,
+            "flash_bwd_dq": fa.bwd_dq_launches,
+            "flash_bwd_dkv": fa.bwd_dkv_launches}
+
+
+def _reset_counts(fa):
+    fa.launches = fa.bwd_fused_launches = 0
+    fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
+
+
+def train_oracle_phase(torch, fa, mx):
+    """A small model trains 3 steps on the card (kernels) and on the CPU
+    (plain versions) from the same weights and batches, f32: per-step
+    losses agree to TRAIN_TOL relative.  bert_3_128_2 at seq 512 runs the
+    fused backward, llama_small at seq 1024 (causal) the dq + dkv pair."""
+    import copy
+    bert, llama = mx["bert"], mx["llama"]
+    cases = [
+        ("bert_3_128_2 seq 512", lambda g: bert.bert_model(
+            "bert_3_128_2", vocab_size=1000, max_length=512, dropout=0.0,
+            device="cpu", generator=g), _bert_loss(mx["nn"]), 4, 512,
+         "flash_bwd_fused"),
+        ("llama_small seq 1024", lambda g: llama.llama_model(
+            "llama_small", vocab_size=1000, device="cpu", generator=g),
+         _llama_loss(mx["nn"]), 2, 1024, "flash_bwd_dq"),
+    ]
+    for label, build, loss_fn, B, L, kernel in cases:
+        cpu_net = build(torch.Generator().manual_seed(11))
+        card_net = copy.deepcopy(cpu_net).to("cuda")
+        rng = np.random.RandomState(12)
+        toks = rng.randint(0, 1000, (3, B, L))
+        labs = rng.randint(0, 1000, (3, B, L))
+        losses = []
+        _reset_counts(fa)
+        for net in (card_net, cpu_net):
+            step = mx["parallel"].TrainStep(
+                net, loss_fn, "adam", optimizer_params={"learning_rate": 1e-3})
+            losses.append(step.run(toks, labs).cpu().numpy())
+        counts = _counts(fa)
+        rel = float(np.max(np.abs(losses[0] - losses[1])
+                           / np.abs(losses[1])))
+        _log(f"oracle train {label}: card {losses[0].tolist()} cpu "
+             f"{losses[1].tolist()} rel {rel:.2e} (tol {TRAIN_TOL}); "
+             f"launches {counts}")
+        if not rel <= TRAIN_TOL or counts[kernel] < 3:
+            raise AssertionError(f"train oracle {label} failed: rel {rel}, "
+                                 f"launches {counts}")
+
+
+def _profile_step(torch, step_fn, label):
+    """Device time of one step by kernel family (torch.profiler), against
+    the step's wall time; prints the top kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step_fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue            # host ops: their kernels are listed apart
+        dev_us = getattr(ev, "self_device_time_total",
+                         getattr(ev, "self_cuda_time_total", 0))
+        if dev_us > 0:
+            rows.append((dev_us / 1e3, ev.count, ev.key))
+    rows.sort(reverse=True)
+    total = sum(r[0] for r in rows)
+    fams = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    for ms, _, key in rows:
+        k = key.lower()
+        fam = "flash_fwd" if "flash_fwd" in k else \
+            "flash_bwd" if "flash_bwd" in k else \
+            "gemm" if any(w in k for w in ("gemm", "xmma", "cutlass",
+                                           "nvjet")) else "other"
+        fams[fam] += ms
+    _log(f"profile {label}: one step wall {wall:.1f} ms, device busy "
+         f"{total:.1f} ms (idle share {max(0.0, 1 - total / wall):.3f}); "
+         + ", ".join(f"{k} {v:.1f} ms" for k, v in fams.items()))
+    for ms, n, key in rows[:12]:
+        _log(f"profile {label}:   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
+    return {"wall_ms": wall, "device_ms": total, "families": fams}
+
+
+def train_lane_phase(torch, fa, mx, args):
+    """bench.py's two training lanes at full width on the card: bf16
+    weights (Normal(0.02) from a seeded generator on the card), Adam with
+    multi_precision, lr 1e-4, dropout 0; K steps on one repeated batch.
+    The loss must be finite and fall; each step must launch the forward
+    and the backward kernels per layer; prints median step ms, samples/s,
+    MFU (bench.py's flop formulas against 989 TFLOP/s) and peak memory."""
+    bert, llama = mx["bert"], mx["llama"]
+    results = {}
+    counts_total = {k: 0 for k in _counts(fa)}
+    steps = 8
+
+    class WithLength(torch.nn.Module):
+        """BERT called with a settable valid_length (None = unpadded)."""
+
+        def __init__(self, net):
+            super().__init__()
+            self.net = net
+            self.valid_length = None
+
+        def forward(self, x):
+            return self.net(x, self.valid_length)
+
+    for lane in ("bert_seq512", "llama_seq2048"):
+        # earlier phases' models (llama3_8b's 32 GB) may sit in reference
+        # cycles until a collection: free them before measuring the peak
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        _log(f"lane {lane}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+             f"allocated before the model is built")
+        gen = torch.Generator(device="cuda").manual_seed(args.seed)
+        t0 = time.perf_counter()
+        if lane == "bert_seq512":
+            layers, units, B, L, vocab = 12, 768, 32, 512, 30522
+            core = bert.bert_model("bert_12_768_12", vocab_size=vocab,
+                                   max_length=L, dropout=0.0,
+                                   dtype=torch.bfloat16, generator=gen)
+            net = WithLength(core)
+            loss_fn = _bert_loss(mx["nn"])
+            n_matmul = sum(p.numel() for n, p in core.named_parameters()
+                           if "word_embed" not in n and "position" not in n)
+            flops_tok = 6 * n_matmul + 12 * layers * units * L
+            want = {"flash_fwd": layers, "flash_bwd_fused": layers}
+        else:
+            layers, units, B, L, vocab = 8, 2048, 4, 2048, 8192
+            with torch.device("meta"):
+                net = llama.LlamaModel(vocab_size=vocab, num_layers=layers,
+                                       units=units, hidden=5504, heads=16,
+                                       kv_heads=8, dtype=torch.bfloat16)
+            net = net.to_empty(device="cuda")
+            net.init_weights(gen, 0.02)
+            loss_fn = _llama_loss(mx["nn"])
+            n_matmul = sum(p.numel() for n, p in net.named_parameters()
+                           if not n.startswith("embed"))
+            flops_tok = 6 * n_matmul + 6 * layers * units * L
+            want = {"flash_fwd": layers, "flash_bwd_dq": layers,
+                    "flash_bwd_dkv": layers}
+        n_params = sum(p.numel() for p in net.parameters())
+        opt = mx["optimizer"].Adam(learning_rate=1e-4, multi_precision=True)
+        step = mx["parallel"].TrainStep(net, loss_fn, opt)
+        rng = np.random.RandomState(args.seed)
+        toks = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
+        labs = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
+        torch.cuda.synchronize()
+        _log(f"lane {lane}: {n_params} params ({n_matmul} in matmuls), "
+             f"built in {time.perf_counter() - t0:.1f} s")
+        _reset_counts(fa)
+        losses, step_ms = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            losses.append(step(toks, labs))
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        counts = _counts(fa)
+        losses = [float(x) for x in losses]
+        prof = _profile_step(torch, lambda: step(toks, labs), lane)
+        extra = {}
+        if lane == "bert_seq512":
+            # one step on a padded batch: segment ids reach the kernels
+            lens = torch.tensor(rng.randint(L // 2, L + 1, B), device="cuda")
+            net.valid_length = lens
+            before = fa.bwd_fused_launches
+            padded_loss = float(step(toks, labs))
+            net.valid_length = None
+            extra = {"padded_loss": padded_loss,
+                     "padded_fused": fa.bwd_fused_launches - before}
+            if not np.isfinite(padded_loss) or extra["padded_fused"] < layers:
+                raise AssertionError(f"padded BERT step: {extra}")
+        peak = torch.cuda.max_memory_allocated()
+        med = statistics.median(step_ms[2:])
+        sps = B / (med / 1e3)
+        mfu = sps * L * flops_tok / PEAK_FLOPS["bfloat16"]
+        for k in counts_total:
+            counts_total[k] += counts[k]
+        _log(f"lane {lane}: losses {[round(x, 5) for x in losses]}; step ms "
+             f"{[round(x, 1) for x in step_ms]}; median (steps 3-{steps}) "
+             f"{med:.2f} ms, {sps:.2f} samples/s, MFU {mfu:.4f} (989 TFLOP/s "
+             f"bf16), peak memory {peak / 2**30:.2f} GiB; launches over "
+             f"{steps} steps {counts} {extra}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{lane}: losses not finite and falling: "
+                                 f"{losses}")
+        for k, per_step in want.items():
+            if counts[k] < per_step * steps:
+                raise AssertionError(f"{lane}: {k} launched {counts[k]} "
+                                     f"times in {steps} steps of {layers} "
+                                     f"layers")
+        results[lane] = {"step_ms": med, "samples_per_s": sps, "mfu": mfu,
+                         "peak_gib": peak / 2**30, "profile": prof}
+        step = opt = net = core = None
+    return counts_total, results
+
+
+def _ptxas_summary(log):
+    """One line per compiled kernel: registers and spill bytes."""
+    out, name = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name, spill = line.split("'")[1], ""
+        elif "spill stores" in line and name:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            regs = line.split("Used")[1].split(",")[0].strip()
+            out.append(f"{name[-60:]}: {regs}; {spill}")
+            name = None
+    return out
+
+
+def _phase(label, fn, *a):
+    t0 = time.perf_counter()
+    r = fn(*a)
+    _log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
+    return r
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -277,13 +694,17 @@ def main(argv=None):
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     try:
+        from mxnet_tpu_torch.kernels import _build
         from mxnet_tpu_torch.kernels import flash_attention as fa
-        from mxnet_tpu_torch.gluon.model_zoo import llama
-        from mxnet_tpu_torch import serving
+        from mxnet_tpu_torch.gluon.model_zoo import bert, llama
+        from mxnet_tpu_torch import optimizer, parallel, serving
+        from mxnet_tpu_torch.ops import nn as ops_nn
     except ImportError as e:
         print(f"chip_smoke: the port is not importable here: {e}",
               file=sys.stderr)
         return 3
+    mx = {"bert": bert, "llama": llama, "optimizer": optimizer,
+          "parallel": parallel, "nn": ops_nn}
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -295,12 +716,22 @@ def main(argv=None):
     _log(smi)
 
     t0 = time.perf_counter()
-    fa._kernel_lib()
-    _log(f"build: flash_fwd.cu for sm_90a in {time.perf_counter() - t0:.1f} s")
+    fa._kernel_libs()
+    _log(f"build: flash_fwd.cu and flash_bwd.cu for sm_90a (two nvcc in "
+         f"parallel) in {time.perf_counter() - t0:.1f} s")
+    for src in ("flash_fwd", "flash_bwd"):
+        for line in _ptxas_summary(_build.build_log(src)):
+            _log(f"ptxas {src}: {line}")
 
-    errors, timings = kernel_phase(torch, fa)
-    oracle_phase(torch, llama, serving)
-    launches, layers, prefills = serve_phase(torch, fa, llama, serving, args)
+    errors, timings = _phase("forward kernel", kernel_phase, torch, fa)
+    bwd_errors, _, bwd_times = _phase("backward kernels", bwd_kernel_phase,
+                                      torch, fa)
+    _phase("serving oracle", oracle_phase, torch, llama, serving)
+    serve_launches, _, _ = _phase("serve", serve_phase, torch, fa, llama,
+                                  serving, args)
+    _phase("train oracle", train_oracle_phase, torch, fa, mx)
+    train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
+                                   fa, mx, args)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -309,7 +740,8 @@ def main(argv=None):
         "source": "mxnet_tpu_torch/kernels/csrc/flash_fwd.cu",
         "replaces": "mxnet_tpu/kernels/flash_attention.py:185,248",
         "shape": "B=1 H=32 Lq=Lk=1024 D=128 float32 causal",
-        "launches": launches,
+        "launches": train_launches["flash_fwd"],
+        "serve_launches": serve_launches,
         "max_abs_err": errors[("prefill", "float32", True, False)][0],
         "ms": t_k,
         "plain_ms": t_p,
@@ -317,6 +749,31 @@ def main(argv=None):
         "bound_by": bound_by,
         "library_ms": t_l,
     }]
+    err_of = {
+        "fused": max(bwd_errors[("bert-lane", "bfloat16", False, False)]),
+        "dq": bwd_errors[("llama-lane", "bfloat16", True, False)][0],
+        "dkv": max(bwd_errors[("llama-lane", "bfloat16", True, False)][1:]),
+    }
+    for kind_, line in (("fused", 464), ("dq", 373), ("dkv", 417)):
+        t = bwd_times[kind_]
+        kernels.append({
+            "name": f"flash_bwd_{kind_}",
+            "route": "cuda",
+            "source": "mxnet_tpu_torch/kernels/csrc/flash_bwd.cu",
+            "replaces": f"mxnet_tpu/kernels/flash_attention.py:{line}",
+            "shape": t["shape"],
+            "launches": train_launches[f"flash_bwd_{kind_}"],
+            "max_abs_err": err_of[kind_],
+            "ms": t["ms"],
+            "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+        })
+    for lane, r in lanes.items():
+        _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
+             f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "
+             f"{r['peak_gib']:.2f} GiB ({smi})")
     _log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,6 @@
 """Environment knobs the port reads — its own small copy of the entries of
-``mxnet_tpu/config.py`` that the serving slice uses (same names, same
-defaults, same typed accessors)."""
+``mxnet_tpu/config.py`` that the serving and training slices use (same
+names, same defaults, same typed accessors)."""
 
 from __future__ import annotations
 
@@ -13,11 +13,16 @@ KNOWN_VARS = {
     "MXNET_FUSED_ATTENTION": (
         "1",
         "If 1 (default), attention at flash-eligible shapes runs the "
-        "hand-written flash forward kernel; 0 forces the dense path."),
+        "hand-written flash kernels; 0 forces the dense path."),
     "MXNET_FLASH_MIN_SEQ": (
         "256",
         "Shortest sequence the flash kernel handles; shorter ones take the "
         "dense masked-softmax path."),
+    "MXNET_GELU_TANH": (
+        "0",
+        "If 1, gelu defaults to the tanh approximation "
+        "0.5x(1+tanh(sqrt(2/pi)(x+0.044715x^3))) instead of the exact erf "
+        "form; an explicit approximate= argument always wins."),
     "MXNET_SERVING_BLOCK_TOKENS": (
         "16", "Paged-KV block size (token positions per pool block)."),
     "MXNET_SERVING_MAX_BATCH": (

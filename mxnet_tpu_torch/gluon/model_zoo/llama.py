@@ -17,6 +17,7 @@ import torch.nn.functional as F
 
 from ...base import MXNetError
 from ...context import resolve_device
+from ...initializer import init_weights
 from ...ops.contrib import masked_att_qkv
 
 __all__ = ["LlamaModel", "llama_model", "LLAMA_CONFIGS"]
@@ -121,6 +122,10 @@ class LlamaModel(nn.Module):
     def __init__(self, vocab_size=128256, num_layers=2, units=64,
                  hidden=172, heads=4, kv_heads=2, device=None,
                  dtype=torch.float32):
+        """Widths as keywords, as ``bench.py``'s llama lane builds the
+        reference (``LlamaModel(vocab_size=, num_layers=, units=, hidden=,
+        heads=, kv_heads=)``).  Parameters are trainable, as in the
+        reference; serving runs under ``torch.inference_mode``."""
         super().__init__()
         self.units = units
         self.embed = nn.Embedding(vocab_size, units, device=device,
@@ -136,15 +141,10 @@ class LlamaModel(nn.Module):
     def device(self):
         return self.embed.weight.device
 
-    @torch.no_grad()
     def init_weights(self, generator=None, std=0.02):
         """Normal(0, std) for every matrix, ones for the norms — drawn from
         ``generator`` (which must live on the parameters' device)."""
-        for name, p in self.named_parameters():
-            if name.endswith("norm.weight"):
-                p.fill_(1.0)
-            else:
-                p.normal_(0.0, std, generator=generator)
+        return init_weights(self, generator, std)
 
     def forward(self, tokens):
         # tokens: (B, L) integer -> logits (B, L, vocab)
@@ -164,7 +164,7 @@ def _build(name, vocab_size, device, dtype):
     with torch.device("meta"):
         model = LlamaModel(vocab_size=vocab_size, num_layers=L, units=U,
                            hidden=H, heads=A, kv_heads=KV, dtype=dtype)
-    return model.to_empty(device=device).requires_grad_(False)
+    return model.to_empty(device=device)
 
 
 def llama_model(name="llama_tiny", vocab_size=32000, device=None,

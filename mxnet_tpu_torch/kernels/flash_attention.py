@@ -1,33 +1,42 @@
-"""Flash-attention forward: the hand-written CUDA kernel and its plain twin.
+"""Flash attention: the hand-written CUDA kernels and their plain twins.
 
-Counterpart of ``mxnet_tpu/kernels/flash_attention.py`` (forward half:
-``_fwd``/``_fwd_single`` and their Pallas kernels, ``_canon_segs`` and the
-public ``flash_attention``).  The kernel is ``csrc/flash_fwd.cu``, built for
-``sm_90a`` at first use (``kernels/_build.py``).
+Counterpart of ``mxnet_tpu/kernels/flash_attention.py``: ``_fwd``/
+``_fwd_single`` and ``_bwd``/``_bwd_fused`` with their Pallas kernels,
+``_pick_block``, ``_canon_segs`` and the public ``flash_attention``
+(a ``jax.custom_vjp`` there, a ``torch.autograd.Function`` here).  The
+kernels are ``csrc/flash_fwd.cu`` (forward) and ``csrc/flash_bwd.cu``
+(fused, dq and dkv backward), built for ``sm_90a`` at first use
+(``kernels/_build.py``).
 
 Layout: q, k, v are (B, H, L, D); segment ids are (B, L) int32 and
 attention flows only between positions with EQUAL ids.  Lq != Lk is
-allowed.  Numeric contract (as the TPU kernel): the scale is folded into q
+allowed.  Numeric contract (as the TPU kernels): the scale is folded into q
 in q's dtype, masked logits are -1e30 and the running max starts at
-``_M_FLOOR`` = -1e4, so fully-masked rows return 0 (the dense oracle
-returns a uniform average there instead); out is in q's dtype and lse
-(B, H, Lq) in float32.
+``_M_FLOOR`` = -1e4, so fully-masked rows return 0 with zero gradients (the
+dense oracle returns a uniform average there instead); out is in q's dtype
+and lse (B, H, Lq) in float32.  The backward recomputes p = exp(s - lse)
+and takes delta = rowsum(dO * O) in float32 from torch, as the reference
+takes it from XLA.
 
-Dispatch: a tensor on the CUDA card launches the kernel (or raises); a
-tensor on the CPU runs :func:`flash_attention_reference`, the plain
-PyTorch version of the same function.  There is no fallback from the card
-to the plain version.
+Dispatch: a tensor on the CUDA card launches the kernels (or raises); a
+tensor on the CPU runs :func:`flash_attention_reference` and
+:func:`flash_attention_backward_reference`, the plain PyTorch versions of
+the same functions.  There is no fallback from the card to the plain
+versions.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple, Optional
 
 import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_reference", "launches"]
+__all__ = ["flash_attention", "flash_attention_reference",
+           "flash_attention_backward_reference", "launches",
+           "bwd_fused_launches", "bwd_dq_launches", "bwd_dkv_launches"]
 
 _NEG_INF = -1e30
 _M_FLOOR = -1e4
@@ -35,27 +44,59 @@ _M_FLOOR = -1e4
 # version streams at this block to round p exactly where the kernel does
 KV_TILE = 64
 
-# kernel launches since the counter was last reset (chip_smoke.py resets it
-# before driving the serving path and reads it after); only the wrapper's
-# successful launches count
-launches = 0
+# launches of each kernel since its counter was last reset (chip_smoke.py
+# resets them before driving a path and reads them after); only the
+# wrappers' successful launches count
+launches = 0              # flash_fwd
+bwd_fused_launches = 0    # mx_flash_bwd_fused
+bwd_dq_launches = 0       # mx_flash_bwd_dq
+bwd_dkv_launches = 0      # mx_flash_bwd_dkv
+# sequence block of the reference's dispatch (_bwd's block_q = block_k):
+# the fused backward runs iff each side is one such block
+BWD_BLOCK = 512
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_lib = None
+_libs = {}
 
 
-def _kernel_lib():
-    """The built ``flash_fwd`` library with its C signature declared."""
-    global _lib
-    if _lib is None:
-        from ._build import load_kernel_library
-        lib = load_kernel_library("flash_fwd")
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.mx_flash_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
-                                     ctypes.c_float, i, p]
-        lib.mx_flash_fwd.restype = i
-        _lib = lib
-    return _lib
+def _kernel_libs():
+    """The built ``flash_fwd`` and ``flash_bwd`` libraries with their C
+    signatures declared (both sources compile in parallel)."""
+    if not _libs:
+        from ._build import build_kernel_libraries
+        libs = build_kernel_libraries(["flash_fwd", "flash_bwd"])
+        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        fwd = libs["flash_fwd"]
+        fwd.mx_flash_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+                                     f, i, p]
+        fwd.mx_flash_fwd.restype = i
+        bwd = libs["flash_bwd"]
+        head = [p] * 8                       # q k v do lse delta seg_q seg_kv
+        tail = [i, i, i, i, i, i, f, i, p]   # B H Lq Lk D causal scale dt s
+        bwd.mx_flash_bwd_dq.argtypes = head + [p] + tail
+        bwd.mx_flash_bwd_dkv.argtypes = head + [p, p] + tail
+        bwd.mx_flash_bwd_fused.argtypes = head + [p, p, p] + tail
+        for fn in (bwd.mx_flash_bwd_dq, bwd.mx_flash_bwd_dkv,
+                   bwd.mx_flash_bwd_fused):
+            fn.restype = i
+        _libs.update(libs)
+    return _libs
+
+
+def _pick_block(L, want):
+    """Largest of (want, 256, 128) that divides L, else L (the reference's
+    sequence block, which decides fused vs split backward)."""
+    for b in (want, 256, 128):
+        if b <= L and L % b == 0:
+            return b
+    return L
+
+
+def bwd_is_fused(Lq, Lk):
+    """The reference's ``_bwd`` dispatch: the fused kernel iff both
+    sequences are a single block, else the dq + dkv kernels."""
+    return (_pick_block(Lq, BWD_BLOCK) == Lq
+            and _pick_block(Lk, BWD_BLOCK) == Lk)
 
 
 def _canon_segs(seg_q, seg_kv):
@@ -70,14 +111,16 @@ def _canon_segs(seg_q, seg_kv):
     return seg_q.to(torch.int32), seg_kv.to(torch.int32)
 
 
-def _mask(seg_q, seg_kv, causal, Lq, k0, bk, device):
-    """(B or 1, 1, Lq, bk) bool mask of kv columns k0..k0+bk-1, or None."""
+def _mask(seg_q, seg_kv, causal, q0, nq, k0, nk, device):
+    """(B or 1, 1, nq, nk) bool mask of q rows q0.. against kv columns
+    k0.. (absolute indices for the causal test), or None."""
     mask = None
     if seg_q is not None:
-        mask = seg_q[:, None, :, None] == seg_kv[:, None, None, k0:k0 + bk]
+        mask = seg_q[:, None, q0:q0 + nq, None] \
+            == seg_kv[:, None, None, k0:k0 + nk]
     if causal:
-        qi = torch.arange(Lq, device=device)[:, None]
-        ki = torch.arange(k0, k0 + bk, device=device)[None, :]
+        qi = torch.arange(q0, q0 + nq, device=device)[:, None]
+        ki = torch.arange(k0, k0 + nk, device=device)[None, :]
         cm = (qi >= ki)[None, None]
         mask = cm if mask is None else mask & cm
     return mask
@@ -105,7 +148,8 @@ def flash_attention_reference(q, k, v, seg_q=None, seg_kv=None,
         kt = k[:, :, k0:k0 + bk]
         vt = v[:, :, k0:k0 + bk]
         s = torch.matmul(qs, kt.float().transpose(-1, -2))
-        mask = _mask(seg_q, seg_kv, causal, Lq, k0, kt.shape[2], q.device)
+        mask = _mask(seg_q, seg_kv, causal, 0, Lq, k0, kt.shape[2],
+                     q.device)
         if mask is not None:
             s = s.masked_fill(~mask, _NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
@@ -170,7 +214,7 @@ def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
     Lk = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    lib = _kernel_lib()
+    lib = _kernel_libs()["flash_fwd"]
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mx_flash_fwd(
@@ -198,11 +242,196 @@ def _fwd(q, k, v, seg_q=None, seg_kv=None, causal=False, sm_scale=1.0):
     raise MXNetError(f"flash_attention: no kernel for device {q.device}")
 
 
+# --------------------------------------------------------------------------
+# backward
+# --------------------------------------------------------------------------
+
+def _delta(out, do):
+    """delta_i = rowsum(dO * O) in float32, (B, H, Lq)."""
+    return (do.float() * out.float()).sum(dim=-1)
+
+
+def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
+                                       causal=False, sm_scale=1.0,
+                                       block_q=None, block_k=None):
+    """Plain PyTorch version of the flash backward: returns (dq, dk, dv).
+
+    The TPU kernels' rounding steps, spelled out: s = (q * scale in q's
+    dtype) k^T with -1e30 masking, p = exp(s - lse), dp = dO v^T (dO in v's
+    dtype), ds = p (dp - delta); dq sums (ds in k's dtype) k, dv sums
+    (p in dO's dtype)^T dO, dk sums (ds in q's dtype)^T q with raw q; scale
+    multiplies dq and dk once at the end; every sum is float32 and each
+    gradient is cast to its input's dtype.  With ``block_q``/``block_k`` the
+    work walks (q block, kv block) tiles in the order of the reference's
+    split ``_dq_kernel``/``_dkv_kernel`` grids (kv innermost for dq, q
+    innermost for dk/dv), skipping causal tiles that are wholly masked; by
+    default one tile covers everything, as in ``_bwd_fused_kernel``."""
+    seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    Lq, Lk = q.shape[2], k.shape[2]
+    bq = Lq if block_q is None else int(block_q)
+    bk = Lk if block_k is None else int(block_k)
+    delta = _delta(out, do)[..., None]
+    lse = lse.float()[..., None]
+    qs = (q * torch.tensor(sm_scale, dtype=q.dtype)).float()
+    qf, kf, vf = q.float(), k.float(), v.float()
+    dof = do.to(v.dtype).float()
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
+    for k0 in range(0, Lk, bk):
+        ks = slice(k0, k0 + bk)
+        for q0 in range(0, Lq, bq):
+            qsl = slice(q0, q0 + bq)
+            nq = min(bq, Lq - q0)
+            if causal and q0 + nq - 1 < k0:
+                continue                    # every entry of the tile masked
+            s = torch.matmul(qs[:, :, qsl], kf[:, :, ks].transpose(-1, -2))
+            mask = _mask(seg_q, seg_kv, causal, q0, nq, k0, s.shape[-1],
+                         q.device)
+            if mask is not None:
+                s = s.masked_fill(~mask, _NEG_INF)
+            p = torch.exp(s - lse[:, :, qsl])
+            dp = torch.matmul(dof[:, :, qsl], vf[:, :, ks].transpose(-1, -2))
+            ds = p * (dp - delta[:, :, qsl])
+            dq[:, :, qsl] += torch.matmul(ds.to(k.dtype).float(), kf[:, :, ks])
+            dv[:, :, ks] += torch.matmul(
+                p.to(do.dtype).float().transpose(-1, -2), dof[:, :, qsl])
+            dk[:, :, ks] += torch.matmul(
+                ds.to(q.dtype).float().transpose(-1, -2), qf[:, :, qsl])
+    scale = torch.tensor(sm_scale, dtype=torch.float32)
+    return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
+            dv.to(v.dtype))
+
+
+class BwdInputs(NamedTuple):
+    """The backward kernels' operands, checked, contiguous and on one card
+    (what :func:`prepare_bwd` returns and every ``launch_bwd_*`` takes)."""
+    q: torch.Tensor
+    k: torch.Tensor
+    v: torch.Tensor
+    do: torch.Tensor
+    lse: torch.Tensor
+    delta: torch.Tensor
+    seg_q: Optional[torch.Tensor]
+    seg_kv: Optional[torch.Tensor]
+    causal: bool
+    sm_scale: float
+
+
+def prepare_bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal, sm_scale):
+    """Check the backward's operands and compute delta = rowsum(dO * O)."""
+    seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    _check(q, k, v, seg_q, seg_kv)
+    if do.shape != q.shape or out.shape != q.shape \
+            or lse.shape != q.shape[:3]:
+        raise MXNetError(
+            f"flash_attention backward: do {tuple(do.shape)} / out "
+            f"{tuple(out.shape)} / lse {tuple(lse.shape)} do not match q "
+            f"{tuple(q.shape)}")
+    if seg_q is not None:
+        seg_q, seg_kv = seg_q.contiguous(), seg_kv.contiguous()
+    return BwdInputs(_dense(q), _dense(k), _dense(v), _dense(do.to(q.dtype)),
+                     lse.float().contiguous(), _delta(out, do).contiguous(),
+                     seg_q, seg_kv, bool(causal), float(sm_scale))
+
+
+def _call_bwd(fn, x, outs, name):
+    """Launch one backward entry point on x's stream with ``outs`` (data
+    pointers) between the inputs and the sizes; raise on a refused
+    launch."""
+    B, H, Lq, D = x.q.shape
+    ptr = [t.data_ptr() for t in (x.q, x.k, x.v, x.do, x.lse, x.delta)]
+    ptr += [None if x.seg_q is None else x.seg_q.data_ptr(),
+            None if x.seg_kv is None else x.seg_kv.data_ptr()]
+    with torch.cuda.device(x.q.device):
+        stream = torch.cuda.current_stream(x.q.device).cuda_stream
+        rc = fn(*ptr, *outs, B, H, Lq, x.k.shape[2], D, int(x.causal),
+                x.sm_scale, _DTYPE_CODE[x.q.dtype], stream)
+    if rc != 0:
+        raise MXNetError(f"{name} launch failed (code {rc}) at q "
+                         f"{tuple(x.q.shape)} {x.q.dtype}")
+
+
+def launch_bwd_fused(x):
+    """``mx_flash_bwd_fused``: (dq, dk, dv) from one launch.  dq sums in an
+    f32 workspace with atomics; its scale and cast are torch ops."""
+    global bwd_fused_launches
+    ws = torch.zeros(x.q.shape, dtype=torch.float32, device=x.q.device)
+    dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
+    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_fused, x,
+              [ws.data_ptr(), dk.data_ptr(), dv.data_ptr()],
+              "flash_bwd_fused")
+    bwd_fused_launches += 1
+    dq = (ws * torch.tensor(x.sm_scale, dtype=torch.float32)).to(x.q.dtype)
+    return dq, dk, dv
+
+
+def launch_bwd_dq(x):
+    """``mx_flash_bwd_dq``: dq."""
+    global bwd_dq_launches
+    dq = torch.empty_like(x.q)
+    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_dq, x,
+              [dq.data_ptr()], "flash_bwd_dq")
+    bwd_dq_launches += 1
+    return dq
+
+
+def launch_bwd_dkv(x):
+    """``mx_flash_bwd_dkv``: (dk, dv)."""
+    global bwd_dkv_launches
+    dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
+    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_dkv, x,
+              [dk.data_ptr(), dv.data_ptr()], "flash_bwd_dkv")
+    bwd_dkv_launches += 1
+    return dk, dv
+
+
+def _bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal=False, sm_scale=1.0):
+    """Backward returning (dq, dk, dv): the kernels for CUDA tensors, the
+    plain version (tiled as the reference tiles it) for CPU tensors, an
+    error for anything else."""
+    if q.is_cuda:
+        x = prepare_bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal,
+                        sm_scale)
+        if bwd_is_fused(q.shape[2], k.shape[2]):
+            return launch_bwd_fused(x)
+        return (launch_bwd_dq(x),) + launch_bwd_dkv(x)
+    seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    if q.device.type == "cpu":
+        Lq, Lk = q.shape[2], k.shape[2]
+        return flash_attention_backward_reference(
+            q, k, v, seg_q, seg_kv, out, lse, do, causal, sm_scale,
+            _pick_block(Lq, BWD_BLOCK), _pick_block(Lk, BWD_BLOCK))
+    raise MXNetError(f"flash_attention: no kernel for device {q.device}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The reference's ``jax.custom_vjp``: forward saves q, k, v, the
+    segment ids, out and lse; backward runs :func:`_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, sm_scale):
+        out, lse = _fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, seg_q, seg_kv, out, lse, do, ctx.causal,
+                          ctx.sm_scale)
+        return dq, dk, dv, None, None, None, None
+
+
 def flash_attention(q, k, v, seg_q=None, seg_kv=None, causal=False,
                     sm_scale=1.0):
     """Blockwise (flash) attention: softmax(scale * Q K^T + mask) V.
 
     q, k, v: (B, H, L, D); seg_q/seg_kv: (B, L) int32 segment ids (None =
-    no masking).  Returns (B, H, Lq, D) in q's dtype.  Forward only: the
-    backward kernels are not ported yet."""
-    return _fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)[0]
+    no masking).  Returns (B, H, Lq, D) in q's dtype.  Differentiable in
+    q, k and v: the backward runs the fused kernel when each sequence is a
+    single reference block (<= 512 or no 512/256/128 divisor), else the dq
+    and dkv kernels."""
+    seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    return _FlashAttention.apply(q, k, v, seg_q, seg_kv, causal, sm_scale)

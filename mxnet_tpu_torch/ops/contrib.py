@@ -1,12 +1,14 @@
 """Fused masked attention — the port of ``mxnet_tpu/ops/contrib.py``'s
-attention core (``_flash_eligible``, ``_dense_sdpa``, ``_attend``,
-``masked_att_qkv``).
+attention core (``_split_interleaved``, ``_flash_eligible``,
+``_dense_sdpa``, ``_attend``, ``masked_selfatt``, ``masked_att_qkv``).
 
-``_attend`` picks the flash forward whenever ``_flash_eligible`` holds
+``_attend`` picks flash attention whenever ``_flash_eligible`` holds
 (seq >= MXNET_FLASH_MIN_SEQ, seq % 128 == 0, head_dim % 8 == 0), exactly
 as the reference does on an accelerator; shorter sequences take the dense
-fp32-softmax path.  There is no compile probe: on the card the kernel
-builds and launches or the call raises.
+fp32-softmax path.  Both carry gradients: flash through its autograd
+Function (the backward kernels on the card), dense through torch autograd.
+There is no compile probe: on the card the kernels build and launch or the
+call raises.
 """
 
 from __future__ import annotations
@@ -17,7 +19,16 @@ from .. import config
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
 
-__all__ = ["masked_att_qkv"]
+__all__ = ["masked_selfatt", "masked_att_qkv"]
+
+
+def _split_interleaved(qkv, heads):
+    """(L, B, 3 H D) with q/k/v interleaved per head ([q_h0, k_h0, v_h0,
+    q_h1, ...], the reference transformer.cc layout) -> three (L, B, H, D)
+    views."""
+    L, B, E = qkv.shape
+    x = qkv.reshape(L, B, heads, 3, E // (3 * heads))
+    return x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
 
 
 def _flash_eligible(seq, head_dim):
@@ -66,6 +77,16 @@ def _attend(q, k, v, valid_length, causal, flash_reference=False):
                                              scale)[0]
         return flash_attention(q, k, v, seg, seg, causal, scale)
     return _dense_sdpa(q, k, v, seg, causal, scale)
+
+
+def masked_selfatt(qkv, valid_length=None, heads=1, causal=False):
+    """Fused masked multi-head self-attention over the interleaved
+    (L, B, 3 heads D) ``qkv``; ``valid_length`` (B,) masks positions >=
+    valid_length[b] on both sides.  Returns the context (L, B, heads D)."""
+    L, B, E = qkv.shape
+    q, k, v = (t.permute(1, 2, 0, 3) for t in _split_interleaved(qkv, heads))
+    out = _attend(q, k, v, valid_length, causal)           # (B, H, L, D)
+    return out.permute(2, 0, 1, 3).reshape(L, B, E // 3)
 
 
 def masked_att_qkv(q, k, v, valid_length=None, num_kv_groups=1,
