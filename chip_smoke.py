@@ -14,9 +14,11 @@ result line; each prints its seconds):
     card: out and lse on valid rows, f32 and bf16, causal and not, with and
     without segment ids (a padded row), at the serving prefill shape
     (1, 32, 1024, 128), a single-tile (2, 32, 512, 128), a streaming
-    (1, 32, 2048, 128), a cross-length Lq=256 / Lk=512 shape and a head_dim
-    sweep; times of the kernel, the plain version and, as a yardstick only,
-    ``torch.nn.functional.scaled_dot_product_attention``;
+    (1, 32, 2048, 128), a cross-length Lq=256 / Lk=512 shape, the training
+    lanes' BERT (32, 12, 512, 64) and llama (4, 16, 2048, 128) shapes and a
+    head_dim sweep; times (causal at the serving shapes, each lane's own
+    masking at the lane shapes) of the kernel, the plain version and, as a
+    yardstick only, ``torch.nn.functional.scaled_dot_product_attention``;
  4. backward kernels — flash_bwd_fused, flash_bwd_dq and flash_bwd_dkv
     against ``flash_attention_backward_reference`` on the card: dq, dk, dv
     on valid rows, f32 and bf16, causal and not, with and without segment
@@ -126,12 +128,17 @@ def kernel_phase(torch, fa):
               ("single-tile", 2, 32, 512, 512, 128),
               ("streaming", 1, 32, 2048, 2048, 128),
               ("cross", 2, 32, 256, 512, 128)]
+    # the training lanes' shapes: the BERT lane runs non-causal (padded
+    # batches with segment ids), the llama lane causal
+    lanes = [("bert-lane", 32, 12, 512, 512, 64, False),
+             ("llama-lane", 4, 16, 2048, 2048, 128, True)]
     # every output-column layout of the kernel, ragged tiles included
     head_dims = [(f"head_dim {D}", 2, 2, 200, 328, D)
                  for D in (8, 40, 64, 96, 136, 200, 256)]
     dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
     errors = {}
-    for label, B, H, Lq, Lk, D in shapes + head_dims:
+    for label, B, H, Lq, Lk, D in shapes + [l[:6] for l in lanes] \
+            + head_dims:
         for dname, dt in dtypes.items():
             q = torch.randn(B, H, Lq, D, generator=gen, device=dev).to(dt)
             k = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(dt)
@@ -165,25 +172,28 @@ def kernel_phase(torch, fa):
                             f"{key}: out {e_out} (tol {tol_out}), lse {e_lse}"
                             f" (tol {tol_lse})")
     timings = {}
-    for label, B, H, Lq, Lk, D in shapes:
-        for dname, dt in dtypes.items():
-            q = torch.randn(B, H, Lq, D, generator=gen, device=dev).to(dt)
-            k = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(dt)
-            v = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(dt)
-            scale = 1.0 / D ** 0.5
-            t_k = _time_ms(torch, lambda: fa._fwd(q, k, v, None, None, True,
-                                                  scale))
-            t_p = _time_ms(torch, lambda: fa.flash_attention_reference(
-                q, k, v, None, None, True, scale), iters=5)
-            t_l = _time_ms(torch, lambda: torch.nn.functional
-                           .scaled_dot_product_attention(
-                               q, k, v, is_causal=True, scale=scale))
-            bound, bound_by = _bound_ms(B, H, Lq, Lk, D, dname, True)
-            timings[(label, dname)] = (t_k, t_p, t_l, bound, bound_by)
-            _log(f"time {label} B={B} H={H} Lq={Lq} Lk={Lk} D={D} {dname} "
-                 f"causal: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa "
-                 f"{t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-                 f"kernel/bound {t_k / bound:.2f}")
+    timed = [(label, B, H, Lq, Lk, D, True, dname)
+             for label, B, H, Lq, Lk, D in shapes for dname in dtypes]
+    timed += [lane + ("bfloat16",) for lane in lanes]
+    for label, B, H, Lq, Lk, D, causal, dname in timed:
+        dt = dtypes[dname]
+        q = torch.randn(B, H, Lq, D, generator=gen, device=dev).to(dt)
+        k = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(dt)
+        v = torch.randn(B, H, Lk, D, generator=gen, device=dev).to(dt)
+        scale = 1.0 / D ** 0.5
+        t_k = _time_ms(torch, lambda: fa._fwd(q, k, v, None, None, causal,
+                                              scale))
+        t_p = _time_ms(torch, lambda: fa.flash_attention_reference(
+            q, k, v, None, None, causal, scale), iters=5)
+        t_l = _time_ms(torch, lambda: torch.nn.functional
+                       .scaled_dot_product_attention(
+                           q, k, v, is_causal=causal, scale=scale))
+        bound, bound_by = _bound_ms(B, H, Lq, Lk, D, dname, causal)
+        timings[(label, dname)] = (t_k, t_p, t_l, bound, bound_by)
+        _log(f"time {label} B={B} H={H} Lq={Lq} Lk={Lk} D={D} {dname} "
+             f"causal={causal}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
+             f"sdpa {t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
+             f"kernel/bound {t_k / bound:.2f}")
     return errors, timings
 
 
@@ -716,7 +726,7 @@ def main(argv=None):
     _log(smi)
 
     t0 = time.perf_counter()
-    fa._kernel_libs()
+    _build.build_kernel_libraries(["flash_fwd", "flash_bwd"])
     _log(f"build: flash_fwd.cu and flash_bwd.cu for sm_90a (two nvcc in "
          f"parallel) in {time.perf_counter() - t0:.1f} s")
     for src in ("flash_fwd", "flash_bwd"):

@@ -59,28 +59,34 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 _libs = {}
 
 
-def _kernel_libs():
-    """The built ``flash_fwd`` and ``flash_bwd`` libraries with their C
-    signatures declared (both sources compile in parallel)."""
-    if not _libs:
-        from ._build import build_kernel_libraries
-        libs = build_kernel_libraries(["flash_fwd", "flash_bwd"])
-        p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fwd = libs["flash_fwd"]
-        fwd.mx_flash_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
+def _declare(name, lib):
+    """Declare the C signatures of library ``name``'s entry points."""
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    if name == "flash_fwd":
+        lib.mx_flash_fwd.argtypes = [p, p, p, p, p, p, p, i, i, i, i, i, i,
                                      f, i, p]
-        fwd.mx_flash_fwd.restype = i
-        bwd = libs["flash_bwd"]
-        head = [p] * 8                       # q k v do lse delta seg_q seg_kv
-        tail = [i, i, i, i, i, i, f, i, p]   # B H Lq Lk D causal scale dt s
-        bwd.mx_flash_bwd_dq.argtypes = head + [p] + tail
-        bwd.mx_flash_bwd_dkv.argtypes = head + [p, p] + tail
-        bwd.mx_flash_bwd_fused.argtypes = head + [p, p, p] + tail
-        for fn in (bwd.mx_flash_bwd_dq, bwd.mx_flash_bwd_dkv,
-                   bwd.mx_flash_bwd_fused):
-            fn.restype = i
-        _libs.update(libs)
-    return _libs
+        lib.mx_flash_fwd.restype = i
+        return
+    head = [p] * 8                       # q k v do lse delta seg_q seg_kv
+    tail = [i, i, i, i, i, i, f, i, p]   # B H Lq Lk D causal scale dt s
+    lib.mx_flash_bwd_dq.argtypes = head + [p] + tail
+    lib.mx_flash_bwd_dkv.argtypes = head + [p, p] + tail
+    lib.mx_flash_bwd_fused.argtypes = head + [p, p, p] + tail
+    for fn in (lib.mx_flash_bwd_dq, lib.mx_flash_bwd_dkv,
+               lib.mx_flash_bwd_fused):
+        fn.restype = i
+
+
+def _kernel_lib(name):
+    """The library built from ``csrc/<name>.cu`` with its C signatures
+    declared, built at the first launch of one of its kernels (so the
+    forward never waits on, or fails with, the backward's source)."""
+    if name not in _libs:
+        from ._build import build_kernel_libraries
+        lib = build_kernel_libraries([name])[name]
+        _declare(name, lib)
+        _libs[name] = lib
+    return _libs[name]
 
 
 def _pick_block(L, want):
@@ -214,7 +220,7 @@ def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
     Lk = k.shape[2]
     out = torch.empty_like(q)
     lse = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
-    lib = _kernel_libs()["flash_fwd"]
+    lib = _kernel_lib("flash_fwd")
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = lib.mx_flash_fwd(
@@ -358,7 +364,7 @@ def launch_bwd_fused(x):
     global bwd_fused_launches
     ws = torch.zeros(x.q.shape, dtype=torch.float32, device=x.q.device)
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
-    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_fused, x,
+    _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_fused, x,
               [ws.data_ptr(), dk.data_ptr(), dv.data_ptr()],
               "flash_bwd_fused")
     bwd_fused_launches += 1
@@ -370,7 +376,7 @@ def launch_bwd_dq(x):
     """``mx_flash_bwd_dq``: dq."""
     global bwd_dq_launches
     dq = torch.empty_like(x.q)
-    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_dq, x,
+    _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dq, x,
               [dq.data_ptr()], "flash_bwd_dq")
     bwd_dq_launches += 1
     return dq
@@ -380,7 +386,7 @@ def launch_bwd_dkv(x):
     """``mx_flash_bwd_dkv``: (dk, dv)."""
     global bwd_dkv_launches
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
-    _call_bwd(_kernel_libs()["flash_bwd"].mx_flash_bwd_dkv, x,
+    _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dkv, x,
               [dk.data_ptr(), dv.data_ptr()], "flash_bwd_dkv")
     bwd_dkv_launches += 1
     return dk, dv

@@ -18,6 +18,7 @@ import torch
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
+from mxnet_tpu_torch.gluon.model_zoo import llama as tllama
 from mxnet_tpu_torch.ops import contrib as tcontrib
 
 VOCAB = 97
@@ -94,6 +95,18 @@ def test_bert_init_policy_and_trainable():
             assert torch.all(p == 1), name
         else:
             assert 0.015 < float(p.detach().std()) < 0.025, name
+
+
+def test_llama_parameters_trainable():
+    """The zoo llama's parameters are trainable, as the reference's are
+    (serving runs under ``torch.inference_mode`` and needs no freezing)."""
+    net = tllama.llama_model("llama_tiny", vocab_size=50, device="cpu",
+                             generator=torch.Generator().manual_seed(1))
+    params = list(net.named_parameters())
+    assert params
+    for name, p in params:
+        assert p.requires_grad, name
+        assert p.is_leaf, name
 
 
 def test_masked_selfatt_splits_heads_interleaved():

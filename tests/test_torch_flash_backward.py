@@ -183,3 +183,30 @@ def test_backward_argument_checks_run_on_the_host():
     m = torch.zeros((1, 2, 128, 64), device="meta")
     with pytest.raises(MXNetError, match="no kernel for device"):
         tfa._bwd(m, m, m, None, None, m, m[..., 0], m)
+
+
+def test_each_library_is_built_by_its_own_wrapper(monkeypatch):
+    """The forward asks the builder for ``flash_fwd`` alone and the
+    backward for ``flash_bwd`` alone, so serving (forward only) never
+    depends on the backward's source."""
+    from types import SimpleNamespace
+    from mxnet_tpu_torch.kernels import _build
+
+    asked = []
+
+    def fake_build(sources):
+        asked.append(list(sources))
+        names = ("mx_flash_fwd", "mx_flash_bwd_dq", "mx_flash_bwd_dkv",
+                 "mx_flash_bwd_fused")
+        return {s: SimpleNamespace(**{n: SimpleNamespace() for n in names})
+                for s in sources}
+
+    monkeypatch.setattr(_build, "build_kernel_libraries", fake_build)
+    monkeypatch.setattr(tfa, "_libs", {})
+    fwd = tfa._kernel_lib("flash_fwd")
+    assert asked == [["flash_fwd"]]
+    assert fwd.mx_flash_fwd.argtypes and fwd.mx_flash_fwd.restype
+    assert tfa._kernel_lib("flash_fwd") is fwd          # built once
+    bwd = tfa._kernel_lib("flash_bwd")
+    assert asked == [["flash_fwd"], ["flash_bwd"]]
+    assert len(bwd.mx_flash_bwd_fused.argtypes) == 20
