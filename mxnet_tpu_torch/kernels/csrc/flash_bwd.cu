@@ -42,18 +42,22 @@
 //     pair and one launch yields all three gradients.  The order of those
 //     additions changes from run to run, so dq's f32 rounding does too;
 //     the wrapper scales and casts the workspace after the launch.
-// Products run on the CUDA cores in f32 FMA for both dtypes: the tensor
-// cores would round f32 inputs to TF32, which the reference does not.
+// Products run on the CUDA cores in f32 FMA: the tensor cores would round
+// f32 inputs to TF32, which the reference does not.  These kernels run
+// every f32 call, bf16 dq and fused, and bf16 dkv with D > 128; bf16 dkv
+// with D <= 128 runs the tensor-core kernel in namespace tc below.
 //
 // Bound: at the training shapes (L = 512-2048, D = 64-128) the work is
 // 6-10 L^2 D flops per head against ~8 L D elements moved, far above the
 // card's ridge point, so the kernels are bound by operations: f32 FMA on
-// the CUDA cores (67 TFLOP/s peak).  This first version reloads k/v tiles
-// from L2 once per product instead of keeping them resident; wgmma for
-// bf16, TMA and resident operands are left for a later version.
+// the CUDA cores (67 TFLOP/s peak).  They reload k/v tiles from L2 once
+// per product instead of keeping them resident.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -438,6 +442,288 @@ flash_bwd_dkv_kernel(Args a) {
                     1.f, ty, tx);
 }
 
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// dk, dv for bf16 with D <= 128 on the tensor cores (the port of _dkv_kernel)
+//
+// _dkv_kernel's products are bf16 x bf16 with f32 accumulation (_bmm,
+// Precision.DEFAULT), and its roundings sit at the operands (q * scale for
+// s^T, p^T to dO's dtype, ds^T to q's dtype), which is what wgmma computes
+// from bf16 operands.  On the card the plain version computes the same
+// products as torch.bmm(..., out_dtype=float32), bf16 on the tensor cores.
+//
+// Design.  A CTA of two warpgroups (256 threads) owns kBN = 128 kv rows of
+// one (b, h); each warpgroup owns 64 of them and keeps its 64 x DP dK and dV
+// rows in f32 registers for the whole q loop.
+//   - K and V of the CTA's rows are loaded once by TMA and stay resident in
+//     shared memory.
+//   - q and dO stream in tiles of kBM = 64 rows through a two-stage ring
+//     filled by TMA: one thread loads the first two tiles, and afterwards
+//     the last of the 8 warps to be done with a stage (a shared counter)
+//     loads the tile two ahead into it, so neither warpgroup waits for the
+//     other.  Each warpgroup writes its own copy of q-hat = round(q *
+//     round(scale)) and of the tile's lse, delta and segment ids.
+//   - Per tile a warpgroup runs s^T = K q-hat^T and dp^T = V dO^T (wgmma,
+//     operands in shared memory, 2 x 32 f32 registers), forms p^T =
+//     exp(s^T - lse) and ds^T = p^T (dp^T - delta) on the fragments, rounds
+//     them to bf16 in registers and runs dV += p^T dO and dK += ds^T q (raw
+//     q) with those as register A operands, dO and q read MN-major.
+//   - dK is multiplied by scale once, at the end, and both are cast to bf16.
+// Causal q tiles wholly above a warpgroup's rows are skipped.  Eight warps
+// leave each thread 255 registers: the 192 f32 accumulators of DP = 128 and
+// the rest fit without spills (see flash_fwd.cu on why there is no
+// producer warp).  Shared memory: 196 KB at DP = 128, 100 KB at DP = 64;
+// one CTA per SM.
+// Bound: 8 L^2 D flops per head against ~8 L D values: tensor-core bf16
+// operations (989 TFLOP/s).
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBN = 128;        // kv rows of a CTA, 64 per warpgroup
+constexpr int kBM = 64;         // q rows of a streamed tile
+constexpr int kStages = 2;
+constexpr int kThreads = 256;
+constexpr int kMaxD = 128;
+
+template <int DP>
+struct DkvSmem {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kKV = kPanels * kBN * kRowBytes;   // resident K or V
+  static constexpr int kQ = kPanels * kBM * kRowBytes;    // q, dO or q-hat tile
+  static constexpr int kOffV = kKV;
+  // stage s at kOffStage + s * kStage: q, dO, q-hat of warpgroups 0 and 1
+  static constexpr int kOffStage = 2 * kKV;
+  static constexpr int kStage = 4 * kQ;
+  // lse, delta, seg_q of a tile, per (stage, warpgroup)
+  static constexpr int kOffStats = kOffStage + kStages * kStage;
+  static constexpr int kStats = 3 * kBM * 4;
+  static constexpr int kOffBar = kOffStats + kStages * 2 * kStats;  // kv, full[]
+  static constexpr int kOffDone = kOffBar + 8 * (1 + kStages);      // done[]
+  static constexpr int kBytes = kOffDone + 4 * kStages + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ seg_q,
+                             const int* __restrict__ seg_kv,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int Lq,
+                             int Lk, int D, int causal, float scale) {
+  using L = DkvSmem<DP>;
+  constexpr int P = L::kPanels;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // swizzle atoms: 1024 B
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sK = base, sV = base + L::kOffV;
+  const uint32_t bar_kv = base + L::kOffBar;
+  const uint32_t bar_full = bar_kv + 8;
+  // warps done with each stage's current tile, counted up forever
+  unsigned* done = reinterpret_cast<unsigned*>(gbase + L::kOffDone);
+
+  const int k0 = blockIdx.x * kBN;      // causal: the heaviest tiles come first
+  const int b = blockIdx.z;
+  const int bh = b * H + blockIdx.y;
+  // causal: q tiles ending before this CTA's first key are all masked
+  const int first = causal ? k0 / kBM : 0;
+  const int n_tiles = (Lq + kBM - 1) / kBM - first;
+
+  // q and dO of tile j into stage s
+  auto load_q = [&](int j, int s) {
+    const uint32_t st = base + L::kOffStage + s * L::kStage;
+    const int q0 = (first + j) * kBM;
+    mbar_expect_tx(bar_full + 8 * s, 2 * L::kQ);
+    tma_load_tile(st, &map_q, bar_full + 8 * s, P, kBM, q0, bh);
+    tma_load_tile(st + L::kQ, &map_do, bar_full + 8 * s, P, kBM, q0, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_expect_tx(bar_kv, 2 * L::kKV);
+    tma_load_tile(sK, &map_k, bar_kv, P, kBN, k0, bh);
+    tma_load_tile(sV, &map_v, bar_kv, P, kBN, k0, bh);
+    for (int j = 0; j < min(kStages, n_tiles); ++j) load_q(j, j);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  // this thread's kv rows (fragment entries e < 2 and e >= 2) and the first
+  // of its two q columns in every 8-column group
+  const int wg_first = k0 + 64 * wg;
+  const int kr0 = wg_first + 16 * (t / 32) + lane / 4;
+  const int kr1 = kr0 + 8;
+  const int c_in = 2 * (lane % 4);
+  const bool has_seg = seg_q != nullptr;
+  const int skv0 = has_seg && kr0 < Lk ? seg_kv[(size_t)b * Lk + kr0] : 0;
+  const int skv1 = has_seg && kr1 < Lk ? seg_kv[(size_t)b * Lk + kr1] : 0;
+  const float scale_t = round_bf16(scale);
+
+  float dk_acc[DP / 2], dv_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+  mbar_wait(bar_kv, 0);
+
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % kStages;
+    const int q0 = (first + j) * kBM;
+    const uint32_t sQ = base + L::kOffStage + s * L::kStage;
+    const uint32_t sDO = sQ + L::kQ, sQh = sQ + (2 + wg) * L::kQ;
+    float* stats = reinterpret_cast<float*>(gbase + L::kOffStats +
+                                            (2 * s + wg) * L::kStats);
+    const bool live = wg_first < Lk && (!causal || q0 + kBM - 1 >= wg_first);
+    float lse_r = 0.f, delta_r = 0.f;
+    int seg_r = 0;
+    if (live && t < kBM && q0 + t < Lq) {
+      lse_r = lse[(size_t)bh * Lq + q0 + t];
+      delta_r = delta[(size_t)bh * Lq + q0 + t];
+      if (has_seg) seg_r = seg_q[(size_t)b * Lq + q0 + t];
+    }
+    mbar_wait(bar_full + 8 * s, (j / kStages) & 1);
+    if (live) {
+      // this warpgroup's q-hat and statistics of the tile
+      uint8_t* g = gbase + (sQ - base);
+      for (int i = t; i < L::kQ / 16; i += 128)
+        scale_chunk(reinterpret_cast<const uint4*>(g) + i,
+                    reinterpret_cast<uint4*>(g + (2 + wg) * L::kQ) + i,
+                    scale_t);
+      if (t < kBM) {
+        stats[t] = lse_r;
+        stats[kBM + t] = delta_r;
+        reinterpret_cast<int*>(stats)[2 * kBM + t] = seg_r;
+      }
+      fence_proxy_async();
+      named_barrier(1 + wg, 128);
+
+      float sT[kBM / 2], dpT[kBM / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss(sT, desc_kmajor(sK, kBN, 64 * wg, k),
+                 desc_kmajor(sQh, kBM, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss(dpT, desc_kmajor(sV, kBN, 64 * wg, k),
+                 desc_kmajor(sDO, kBM, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(sT);
+      hold(dpT);
+
+      const int* sseg = reinterpret_cast<const int*>(stats + 2 * kBM);
+      const bool masked = has_seg || q0 + kBM > Lq || wg_first + 64 > Lk ||
+                          (causal && q0 < wg_first + 63);
+#pragma unroll
+      for (int i = 0; i < kBM / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int c = 8 * i + c_in + (e & 1);      // q column in the tile
+          float sv = sT[4 * i + e];
+          if (masked) {
+            const int kr = e < 2 ? kr0 : kr1;
+            bool ok = kr < Lk && q0 + c < Lq;
+            if (has_seg) ok = ok && sseg[c] == (e < 2 ? skv0 : skv1);
+            if (causal) ok = ok && q0 + c >= kr;
+            if (!ok) sv = kNegInf;
+          }
+          const float p = expf(sv - stats[c]);
+          dpT[4 * i + e] = p * (dpT[4 * i + e] - stats[kBM + c]);
+          sT[4 * i + e] = p;
+        }
+      // p^T in dO's dtype and ds^T in q's dtype as register A operands
+      uint32_t pf[kBM / 16][4], df[kBM / 16][4];
+#pragma unroll
+      for (int k = 0; k < kBM / 16; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          pf[k][e] = pack_bf16(sT[8 * k + 2 * e], sT[8 * k + 2 * e + 1]);
+          df[k][e] = pack_bf16(dpT[8 * k + 2 * e], dpT[8 * k + 2 * e + 1]);
+        }
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBM / 16; ++k)
+        wgmma_rs(dv_acc, pf[k], desc_mnmajor(sDO, kBM, k));
+#pragma unroll
+      for (int k = 0; k < kBM / 16; ++k)
+        wgmma_rs(dk_acc, df[k], desc_mnmajor(sQ, kBM, k));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(dv_acc);
+      hold(dk_acc);
+      hold(pf);
+      hold(df);
+    }
+    // this warp is done with stage s; the last of the 8 refills it
+    __syncwarp();
+    if (lane == 0 && j + kStages < n_tiles &&
+        atomicAdd(&done[s], 1u) % 8 == 7)
+      load_q(j + kStages, s);
+  }
+
+  __nv_bfloat16* dkb = dk + (size_t)bh * Lk * D;
+  __nv_bfloat16* dvb = dv + (size_t)bh * Lk * D;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + c_in;
+    if (col >= D) continue;
+    if (kr0 < Lk) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)kr0 * D + col) =
+          pack_bf16(dk_acc[4 * i] * scale, dk_acc[4 * i + 1] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)kr0 * D + col) =
+          pack_bf16(dv_acc[4 * i], dv_acc[4 * i + 1]);
+    }
+    if (kr1 < Lk) {
+      *reinterpret_cast<uint32_t*>(dkb + (size_t)kr1 * D + col) =
+          pack_bf16(dk_acc[4 * i + 2] * scale, dk_acc[4 * i + 3] * scale);
+      *reinterpret_cast<uint32_t*>(dvb + (size_t)kr1 * D + col) =
+          pack_bf16(dv_acc[4 * i + 2], dv_acc[4 * i + 3]);
+    }
+  }
+}
+
+template <int DP>
+cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  if (!make_map(&mq, a.q, B * a.H, a.Lq, a.D, kBM) ||
+      !make_map(&mdo, a.dout, B * a.H, a.Lq, a.D, kBM) ||
+      !make_map(&mk, a.k, B * a.H, a.Lk, a.D, kBN) ||
+      !make_map(&mv, a.v, B * a.H, a.Lk, a.D, kBN))
+    return cudaErrorInvalidValue;
+  const int smem = DkvSmem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dkv_bf16_tc_kernel<DP>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((a.Lk + kBN - 1) / kBN, a.H, B);
+  flash_bwd_dkv_bf16_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+      static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
+      a.H, a.Lq, a.Lk, a.D, a.causal, a.scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_dkv(const Args& a, int B, cudaStream_t stream) {
+  return a.D <= 64 ? launch_dkv<64>(a, B, stream)
+                   : launch_dkv<128>(a, B, stream);
+}
+
+}  // namespace tc
+
+namespace {
+
 enum Kind { kDq = 0, kDkv = 1, kFusedKind = 2 };
 
 size_t smem_bytes(int D, Kind kind) {
@@ -464,8 +750,14 @@ cudaError_t launch(Kernel kernel, Kind kind, const Args& a, int B,
 template <typename T, int NG>
 cudaError_t launch_kind(Kind kind, const Args& a, int B, cudaStream_t s) {
   if (kind == kDq) return launch(flash_bwd_dq_kernel<T, NG>, kind, a, B, s);
-  if (kind == kDkv)
-    return launch(flash_bwd_dkv_kernel<T, NG, false>, kind, a, B, s);
+  if (kind == kDkv) {
+    // bf16 dkv with D <= tc::kMaxD = 64 NG runs tc::dispatch_dkv (run sends
+    // it there), so that instantiation is not built
+    if constexpr (std::is_same<T, float>::value || 64 * NG > tc::kMaxD)
+      return launch(flash_bwd_dkv_kernel<T, NG, false>, kind, a, B, s);
+    else
+      return cudaErrorInvalidValue;
+  }
   return launch(flash_bwd_dkv_kernel<T, NG, true>, kind, a, B, s);
 }
 
@@ -487,6 +779,8 @@ int run(Kind kind, const Args& a, int B, int dtype, void* stream) {
   cudaError_t err;
   if (dtype == 0)
     err = dispatch_d<float>(kind, a, B, s);
+  else if (dtype == 1 && kind == kDkv && a.D <= tc::kMaxD)
+    err = tc::dispatch_dkv(a, B, s);
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(kind, a, B, s);
   else

@@ -35,17 +35,20 @@
 //      the thread's 4 x (4 NG) accumulator slice (cols 4 (tx + 16 g)) takes
 //      P V from one 16-byte load of P^T and NG of V per kv row.
 // Products run on the CUDA cores in f32 FMA: the tensor cores would round
-// f32 inputs to TF32, which the reference does not.
+// f32 inputs to TF32, which the reference does not.  This kernel runs f32,
+// and bf16 with D > 128; bf16 with D <= 128 runs the tensor-core kernel in
+// namespace tc below.
 //
 // Bound: at serving shapes (L = 1024, D = 128) the work is ~4 L^2 D flops
 // per head against ~4 L D elements moved, far above the card's ridge
 // point, so the kernel is bound by operations: f32 FMA on the CUDA cores
-// (67 TFLOP/s peak) for both dtypes.  Shared memory is 87 KB at D = 128,
-// two CTAs per SM.  wgmma, TMA and warp specialisation are left for a
-// later version.
+// (67 TFLOP/s peak).  Shared memory is 87 KB at D = 128, two CTAs per SM.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -317,10 +320,13 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
                        const int* seg_q, const int* seg_kv, void* out,
                        float* lse, int B, int H, int Lq, int Lk, int D,
                        int causal, float scale, cudaStream_t stream) {
-  if (D <= 64)
-    return launch<T, 1>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
-  if (D <= 128)
-    return launch<T, 2>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+  // bf16 heads up to 128 run the tensor-core kernel (tc::): not built here
+  if constexpr (std::is_same<T, float>::value) {
+    if (D <= 64)
+      return launch<T, 1>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+    if (D <= 128)
+      return launch<T, 2>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+  }
   if (D <= 192)
     return launch<T, 3>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
   return launch<T, 4>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
@@ -328,7 +334,288 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
 
 }  // namespace
 
+// ---------------------------------------------------------------------------
+// bf16, D <= 128: tensor cores
+//
+// The TPU kernel computes both products with bf16 operands and f32
+// accumulation (_bmm, Precision.DEFAULT), which is what wgmma computes from
+// bf16; the bf16 roundings sit at the operands (q * scale, p), so this
+// kernel keeps the reference's numerics while running every product on the
+// tensor cores.
+//
+// Design.  A CTA of two warpgroups (256 threads) owns 128 q rows of one
+// (b, h), 64 rows per warpgroup.  K and V tiles of kBN = 128 rows stream
+// through a two-stage shared-memory ring filled by TMA: one thread loads Q
+// and the first two tiles, and afterwards the last of the 8 warps to be
+// done with a stage (a shared counter) loads the tile two ahead into it, so
+// neither warpgroup waits for the other.  Q is rounded in place to
+// round(q * round(scale)).  Per kv tile a warpgroup runs S = Q K^T (wgmma,
+// A and B from shared memory) into 64 f32 registers, masks and runs the
+// online softmax on those fragments (rows reduced across the 4 lanes that
+// share them), rescales its 64 x DP f32 accumulator, rounds p to bf16 in
+// registers and runs O += P V with P as the register A operand and V read
+// MN-major.  The plain version streams kv at kBN for bf16
+// (flash_attention.kv_tile), so p rounds where the kernel rounds it.
+// Eight warps leave each thread 255 registers (ptxas: 244 at DP = 128, no
+// spills); a ninth, producer warp would put three warps on one of the SM's
+// four register-file quarters and cap every thread at 168, and setmaxnreg
+// on a producer warpgroup did not lift ptxas's allocation past ~192.
+// Shared memory: 160 KB at DP = 128 (Q 32 KB, two stages of K and V),
+// 80 KB at DP = 64; one CTA per SM.
+// Bound: ~4 L^2 D flops per head against ~4 L D values, well above the
+// ridge point: tensor-core bf16 operations (989 TFLOP/s).
+namespace tc {
+
+using namespace hopper;
+
+constexpr int kBM = 128;        // q rows of a CTA, 64 per warpgroup
+constexpr int kBN = 128;        // kv rows of a tile
+constexpr int kStages = 2;
+constexpr int kThreads = 256;
+constexpr int kMaxD = 128;
+constexpr float kNegInf = -1e30f;
+constexpr float kMFloor = -1e4f;
+
+template <int DP>
+struct Smem {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kQ = kPanels * kBM * kRowBytes;     // bytes of Q
+  static constexpr int kKV = kPanels * kBN * kRowBytes;    // of a K or V tile
+  static constexpr int kOffK = kQ;                         // + stage * kKV
+  static constexpr int kOffV = kOffK + kStages * kKV;
+  static constexpr int kOffBar = kOffV + kStages * kKV;    // q, full[]
+  static constexpr int kOffDone = kOffBar + 8 * (1 + kStages);  // done[]
+  static constexpr int kBytes = kOffDone + 4 * kStages + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                         const __grid_constant__ CUtensorMap map_k,
+                         const __grid_constant__ CUtensorMap map_v,
+                         const int* __restrict__ seg_q,
+                         const int* __restrict__ seg_kv,
+                         __nv_bfloat16* __restrict__ out,
+                         float* __restrict__ lse, int H, int Lq, int Lk, int D,
+                         int causal, float scale) {
+  using L = Smem<DP>;
+  constexpr int P = L::kPanels;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // swizzle atoms: 1024 B
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base;
+  const uint32_t bar_q = base + L::kOffBar;
+  const uint32_t bar_full = bar_q + 8;
+  // warps done with each stage's current tile, counted up forever
+  unsigned* done = reinterpret_cast<unsigned*>(gbase + L::kOffDone);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBM;   // heaviest causal first
+  const int b = blockIdx.z;
+  const int bh = b * H + blockIdx.y;
+  int n_kv = (Lk + kBN - 1) / kBN;
+  if (causal) n_kv = min(n_kv, (min(q0 + kBM, Lq) - 1) / kBN + 1);
+
+  // kv tile `it` into stage `s`
+  auto load_kv = [&](int it, int s) {
+    mbar_expect_tx(bar_full + 8 * s, 2 * L::kKV);
+    tma_load_tile(base + L::kOffK + s * L::kKV, &map_k, bar_full + 8 * s, P,
+                  kBN, it * kBN, bh);
+    tma_load_tile(base + L::kOffV + s * L::kKV, &map_v, bar_full + 8 * s, P,
+                  kBN, it * kBN, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_expect_tx(bar_q, L::kQ);
+    tma_load_tile(sQ, &map_q, bar_q, P, kBM, q0, bh);
+    for (int it = 0; it < min(kStages, n_kv); ++it) load_kv(it, it);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  // this thread's accumulator rows (fragment entries j < 2 and j >= 2) and
+  // the first of its two columns in every 8-column group
+  const int row0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;
+  const int row1 = row0 + 8;
+  const int c_in = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg;
+  const int wg_last = min(wg_first + 63, Lq - 1);
+  const bool has_seg = seg_q != nullptr;
+  const int sq0 = has_seg && row0 < Lq ? seg_q[(size_t)b * Lq + row0] : 0;
+  const int sq1 = has_seg && row1 < Lq ? seg_q[(size_t)b * Lq + row1] : 0;
+
+  // this warpgroup's 64 q rows to round(q * round(scale)), in place
+  mbar_wait(bar_q, 0);
+  const float scale_t = round_bf16(scale);
+  for (int i = t; i < P * 64 * 8; i += 128) {
+    uint4* c = reinterpret_cast<uint4*>(
+        gbase + (i / 512) * kBM * kRowBytes + (64 * wg) * kRowBytes +
+        (i % 512) * 16);
+    scale_chunk(c, c, scale_t);
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+
+  float o[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+  float m0 = kMFloor, m1 = kMFloor, l0 = 0.f, l1 = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kStages;
+    const int k0 = it * kBN;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    if (wg_first < Lq && (!causal || k0 <= wg_last)) {
+      const uint32_t sK = base + L::kOffK + s * L::kKV;
+      const uint32_t sV = base + L::kOffV + s * L::kKV;
+      float sc[kBN / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss(sc, desc_kmajor(sQ, kBM, 64 * wg, k),
+                 desc_kmajor(sK, kBN, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(sc);
+
+      if (has_seg || k0 + kBN > Lk || (causal && k0 + kBN - 1 > wg_first)) {
+#pragma unroll
+        for (int i = 0; i < kBN / 8; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int col = k0 + 8 * i + c_in + (j & 1);
+            const int row = j < 2 ? row0 : row1;
+            bool ok = col < Lk;
+            if (causal) ok = ok && row >= col;
+            if (has_seg && ok)
+              ok = (j < 2 ? sq0 : sq1) == seg_kv[(size_t)b * Lk + col];
+            if (!ok) sc[4 * i + j] = kNegInf;
+          }
+      }
+      // online softmax of rows row0 (entries j = 0, 1) and row1 (2, 3)
+      float mx0 = m0, mx1 = m1;
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        mx0 = fmaxf(mx0, fmaxf(sc[4 * i], sc[4 * i + 1]));
+        mx1 = fmaxf(mx1, fmaxf(sc[4 * i + 2], sc[4 * i + 3]));
+      }
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+      float ps0 = 0.f, ps1 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kBN / 8; ++i) {
+        sc[4 * i] = expf(sc[4 * i] - mx0);
+        sc[4 * i + 1] = expf(sc[4 * i + 1] - mx0);
+        sc[4 * i + 2] = expf(sc[4 * i + 2] - mx1);
+        sc[4 * i + 3] = expf(sc[4 * i + 3] - mx1);
+        ps0 += sc[4 * i] + sc[4 * i + 1];
+        ps1 += sc[4 * i + 2] + sc[4 * i + 3];
+      }
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 1);
+      ps0 += __shfl_xor_sync(0xffffffffu, ps0, 2);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 1);
+      ps1 += __shfl_xor_sync(0xffffffffu, ps1, 2);
+      const float a0 = expf(m0 - mx0), a1 = expf(m1 - mx1);
+      l0 = l0 * a0 + ps0;
+      l1 = l1 * a1 + ps1;
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int i = 0; i < DP / 8; ++i) {
+        o[4 * i] *= a0;
+        o[4 * i + 1] *= a0;
+        o[4 * i + 2] *= a1;
+        o[4 * i + 3] *= a1;
+      }
+      // p in v's dtype as the A operand: the accumulator fragment of
+      // columns 16 k .. 16 k + 15 is the A fragment of k16 step k
+      uint32_t pf[kBN / 16][4];
+#pragma unroll
+      for (int k = 0; k < kBN / 16; ++k)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          pf[k][j] = pack_bf16(sc[8 * k + 2 * j], sc[8 * k + 2 * j + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kBN / 16; ++k)
+        wgmma_rs(o, pf[k], desc_mnmajor(sV, kBN, k));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(o);
+      hold(pf);
+    }
+    // this warp is done with stage s; the last of the 8 refills it
+    __syncwarp();
+    if (lane == 0 && it + kStages < n_kv &&
+        atomicAdd(&done[s], 1u) % 8 == 7)
+      load_kv(it + kStages, s);
+  }
+
+  const float safe0 = l0 == 0.f ? 1.f : l0;     // fully masked rows
+  const float safe1 = l1 == 0.f ? 1.f : l1;
+  __nv_bfloat16* ob = out + (size_t)bh * Lq * D;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + c_in;
+    if (col >= D) continue;
+    if (row0 < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row0 * D + col) =
+          pack_bf16(o[4 * i] / safe0, o[4 * i + 1] / safe0);
+    if (row1 < Lq)
+      *reinterpret_cast<uint32_t*>(ob + (size_t)row1 * D + col) =
+          pack_bf16(o[4 * i + 2] / safe1, o[4 * i + 3] / safe1);
+  }
+  if (lane % 4 == 0) {
+    if (row0 < Lq) lse[(size_t)bh * Lq + row0] = m0 + logf(safe0);
+    if (row1 < Lq) lse[(size_t)bh * Lq + row1] = m1 + logf(safe1);
+  }
+}
+
+template <int DP>
+cudaError_t launch(const void* q, const void* k, const void* v,
+                   const int* seg_q, const int* seg_kv, void* out, float* lse,
+                   int B, int H, int Lq, int Lk, int D, int causal, float scale,
+                   cudaStream_t stream) {
+  CUtensorMap mq, mk, mv;
+  if (!make_map(&mq, q, B * H, Lq, D, kBM) ||
+      !make_map(&mk, k, B * H, Lk, D, kBN) ||
+      !make_map(&mv, v, B * H, Lk, D, kBN))
+    return cudaErrorInvalidValue;
+  const int smem = Smem<DP>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_bf16_tc_kernel<DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return err;
+  dim3 grid((Lq + kBM - 1) / kBM, H, B);
+  flash_fwd_bf16_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, seg_q, seg_kv, static_cast<__nv_bfloat16*>(out), lse, H, Lq,
+      Lk, D, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t dispatch_d(const void* q, const void* k, const void* v,
+                       const int* seg_q, const int* seg_kv, void* out,
+                       float* lse, int B, int H, int Lq, int Lk, int D,
+                       int causal, float scale, cudaStream_t stream) {
+  if (D <= 64)
+    return launch<64>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+  return launch<128>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+}
+
+}  // namespace tc
+
 // Plain C entry point (bound with ctypes).  dtype: 0 = f32, 1 = bf16.
+// bf16 with D <= tc::kMaxD runs the tensor-core kernel; f32, and bf16 with
+// a wider head, the CUDA-core kernel.
 // Returns 0 on a successful launch, a cudaError_t code otherwise, and -1
 // for arguments the kernel does not take.
 extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
@@ -343,6 +630,8 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   cudaError_t err;
   if (dtype == 0)
     err = dispatch_d<float>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
+  else if (dtype == 1 && D <= tc::kMaxD)
+    err = tc::dispatch_d(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
   else

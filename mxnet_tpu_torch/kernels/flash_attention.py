@@ -35,14 +35,16 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["flash_attention", "flash_attention_reference",
-           "flash_attention_backward_reference", "launches",
-           "bwd_fused_launches", "bwd_dq_launches", "bwd_dkv_launches"]
+           "flash_attention_backward_reference", "kv_tile",
+           "uses_tensor_cores", "launches", "bwd_fused_launches",
+           "bwd_dq_launches", "bwd_dkv_launches", "fwd_wide_bf16_launches",
+           "bwd_dkv_wide_bf16_launches"]
 
 _NEG_INF = -1e30
 _M_FLOOR = -1e4
-# kv rows per tile of the CUDA kernel (kBK in csrc/flash_fwd.cu): the plain
-# version streams at this block to round p exactly where the kernel does
-KV_TILE = 64
+# widest head_dim of the bf16 tensor-core kernels (tc::kMaxD in csrc/): the
+# C entry points send bf16 calls with a wider head to the CUDA-core kernels
+TC_MAX_D = 128
 
 # launches of each kernel since its counter was last reset (chip_smoke.py
 # resets them before driving a path and reads them after); only the
@@ -51,6 +53,10 @@ launches = 0              # flash_fwd
 bwd_fused_launches = 0    # mx_flash_bwd_fused
 bwd_dq_launches = 0       # mx_flash_bwd_dq
 bwd_dkv_launches = 0      # mx_flash_bwd_dkv
+# of those, the bf16 launches with head_dim > TC_MAX_D, which the C entry
+# point runs on the CUDA-core kernel instead of the tensor cores
+fwd_wide_bf16_launches = 0
+bwd_dkv_wide_bf16_launches = 0
 # sequence block of the reference's dispatch (_bwd's block_q = block_k):
 # the fused backward runs iff each side is one such block
 BWD_BLOCK = 512
@@ -87,6 +93,20 @@ def _kernel_lib(name):
         _declare(name, lib)
         _libs[name] = lib
     return _libs[name]
+
+
+def uses_tensor_cores(dtype, head_dim):
+    """Whether the C entry points run (q's dtype, head_dim) on the bf16
+    tensor-core kernels (flash_fwd and flash_bwd_dkv)."""
+    return dtype == torch.bfloat16 and head_dim <= TC_MAX_D
+
+
+def kv_tile(dtype, head_dim):
+    """kv rows per tile of the forward kernel that takes (dtype, head_dim):
+    128 on the tensor cores (tc::kBN), 64 on the CUDA cores (kBK).  p is
+    rounded relative to the running max after each tile, so the plain
+    version streams at this block to round p where the kernel does."""
+    return 128 if uses_tensor_cores(dtype, head_dim) else 64
 
 
 def _pick_block(L, want):
@@ -132,19 +152,38 @@ def _mask(seg_q, seg_kv, causal, q0, nq, k0, nk, device):
     return mask
 
 
+def _product(a, b, tensor_cores):
+    """a @ b over the last two dims, summed in float32: the reference's
+    ``_bmm`` (operands in their dtype, ``preferred_element_type=f32``).
+
+    With ``tensor_cores`` and bf16 operands on the card the product runs as
+    ``torch.bmm(..., out_dtype=torch.float32)`` on the tensor cores, as the
+    bf16 tensor-core kernels compute it, so the plain version rounds p and ds
+    to bf16 after the same sums; otherwise in float32 (bf16 products are
+    exact there), as the CUDA-core kernels and the CPU compute it."""
+    if tensor_cores and a.is_cuda and a.dtype == b.dtype == torch.bfloat16:
+        lead = a.shape[:-2]
+        out = torch.bmm(a.reshape(-1, *a.shape[-2:]),
+                        b.reshape(-1, *b.shape[-2:]), out_dtype=torch.float32)
+        return out.reshape(*lead, a.shape[-2], b.shape[-1])
+    return torch.matmul(a.float(), b.float())
+
+
 def flash_attention_reference(q, k, v, seg_q=None, seg_kv=None,
                               causal=False, sm_scale=1.0, block_k=None):
     """Plain PyTorch version of the flash forward: returns (out, lse).
 
     Same numerics as the kernel (scale folded into q in q's dtype, -1e30
     masking, running max floored at -1e4, p rounded to v's dtype before
-    the PV product, f32 accumulation, fully-masked rows -> 0).  With
-    ``block_k`` the kv axis streams in blocks with the online-softmax
-    update of the TPU ``_fwd_kernel``; by default the whole row is one
-    block, as in ``_fwd_single_kernel``."""
+    the PV product, f32 accumulation, fully-masked rows -> 0; on the card
+    the products of the tensor-core kernel's inputs run on the tensor
+    cores, see :func:`_product`).  With ``block_k`` the kv axis streams in
+    blocks with the online-softmax update of the TPU ``_fwd_kernel``; by
+    default the whole row is one block, as in ``_fwd_single_kernel``."""
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
     Lq, Lk = q.shape[2], k.shape[2]
-    qs = (q * torch.tensor(sm_scale, dtype=q.dtype)).float()
+    tc = uses_tensor_cores(q.dtype, q.shape[-1])
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
     bk = Lk if block_k is None else int(block_k)
     m = torch.full(q.shape[:3] + (1,), _M_FLOOR, dtype=torch.float32,
                    device=q.device)
@@ -153,7 +192,7 @@ def flash_attention_reference(q, k, v, seg_q=None, seg_kv=None,
     for k0 in range(0, Lk, bk):
         kt = k[:, :, k0:k0 + bk]
         vt = v[:, :, k0:k0 + bk]
-        s = torch.matmul(qs, kt.float().transpose(-1, -2))
+        s = _product(qs, kt.transpose(-1, -2), tc)
         mask = _mask(seg_q, seg_kv, causal, 0, Lq, k0, kt.shape[2],
                      q.device)
         if mask is not None:
@@ -162,7 +201,7 @@ def flash_attention_reference(q, k, v, seg_q=None, seg_kv=None,
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        acc = acc * alpha + torch.matmul(p.to(v.dtype).float(), vt.float())
+        acc = acc * alpha + _product(p.to(v.dtype), vt, tc)
         m = m_new
     safe_l = torch.where(l == 0.0, torch.ones_like(l), l)
     out = (acc / safe_l).to(q.dtype)
@@ -211,7 +250,7 @@ def _dense(t):
 
 def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
     """Run the CUDA kernel: returns (out, lse)."""
-    global launches
+    global launches, fwd_wide_bf16_launches
     _check(q, k, v, seg_q, seg_kv)
     q, k, v = _dense(q), _dense(k), _dense(v)
     if seg_q is not None:
@@ -233,6 +272,8 @@ def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
         raise MXNetError(f"flash_fwd kernel launch failed (code {rc}) at "
                          f"q {tuple(q.shape)} {q.dtype}")
     launches += 1
+    if q.dtype == torch.bfloat16 and not uses_tensor_cores(q.dtype, D):
+        fwd_wide_bf16_launches += 1
     return out, lse
 
 
@@ -271,16 +312,22 @@ def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
     work walks (q block, kv block) tiles in the order of the reference's
     split ``_dq_kernel``/``_dkv_kernel`` grids (kv innermost for dq, q
     innermost for dk/dv), skipping causal tiles that are wholly masked; by
-    default one tile covers everything, as in ``_bwd_fused_kernel``."""
+    default one tile covers everything, as in ``_bwd_fused_kernel``.
+
+    Each gradient's products are computed as the kernel that returns it
+    computes them (:func:`_product`): on the card, dk and dv of the split
+    route in bf16 with head_dim <= TC_MAX_D (the tensor-core dkv kernel) on
+    the tensor cores, everything else in float32."""
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
     Lq, Lk = q.shape[2], k.shape[2]
+    tc_dkv = uses_tensor_cores(q.dtype, q.shape[-1]) \
+        and not bwd_is_fused(Lq, Lk)
     bq = Lq if block_q is None else int(block_q)
     bk = Lk if block_k is None else int(block_k)
     delta = _delta(out, do)[..., None]
     lse = lse.float()[..., None]
-    qs = (q * torch.tensor(sm_scale, dtype=q.dtype)).float()
-    qf, kf, vf = q.float(), k.float(), v.float()
-    dof = do.to(v.dtype).float()
+    qs = q * torch.tensor(sm_scale, dtype=q.dtype)
+    p_dtype, do = do.dtype, do.to(v.dtype)
     dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
@@ -291,19 +338,26 @@ def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
             nq = min(bq, Lq - q0)
             if causal and q0 + nq - 1 < k0:
                 continue                    # every entry of the tile masked
-            s = torch.matmul(qs[:, :, qsl], kf[:, :, ks].transpose(-1, -2))
-            mask = _mask(seg_q, seg_kv, causal, q0, nq, k0, s.shape[-1],
-                         q.device)
-            if mask is not None:
-                s = s.masked_fill(~mask, _NEG_INF)
-            p = torch.exp(s - lse[:, :, qsl])
-            dp = torch.matmul(dof[:, :, qsl], vf[:, :, ks].transpose(-1, -2))
-            ds = p * (dp - delta[:, :, qsl])
-            dq[:, :, qsl] += torch.matmul(ds.to(k.dtype).float(), kf[:, :, ks])
-            dv[:, :, ks] += torch.matmul(
-                p.to(do.dtype).float().transpose(-1, -2), dof[:, :, qsl])
-            dk[:, :, ks] += torch.matmul(
-                ds.to(q.dtype).float().transpose(-1, -2), qf[:, :, qsl])
+            mask = _mask(seg_q, seg_kv, causal, q0, nq, k0,
+                         k[:, :, ks].shape[2], q.device)
+
+            def p_ds(tc):
+                s = _product(qs[:, :, qsl], k[:, :, ks].transpose(-1, -2), tc)
+                if mask is not None:
+                    s = s.masked_fill(~mask, _NEG_INF)
+                p = torch.exp(s - lse[:, :, qsl])
+                dp = _product(do[:, :, qsl], v[:, :, ks].transpose(-1, -2),
+                              tc)
+                return p, p * (dp - delta[:, :, qsl])
+
+            p, ds = p_ds(False)
+            dq[:, :, qsl] += _product(ds.to(k.dtype), k[:, :, ks], False)
+            if tc_dkv:
+                p, ds = p_ds(True)
+            dv[:, :, ks] += _product(p.to(p_dtype).transpose(-1, -2),
+                                     do[:, :, qsl], tc_dkv)
+            dk[:, :, ks] += _product(ds.to(q.dtype).transpose(-1, -2),
+                                     q[:, :, qsl], tc_dkv)
     scale = torch.tensor(sm_scale, dtype=torch.float32)
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
             dv.to(v.dtype))
@@ -384,11 +438,14 @@ def launch_bwd_dq(x):
 
 def launch_bwd_dkv(x):
     """``mx_flash_bwd_dkv``: (dk, dv)."""
-    global bwd_dkv_launches
+    global bwd_dkv_launches, bwd_dkv_wide_bf16_launches
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dkv, x,
               [dk.data_ptr(), dv.data_ptr()], "flash_bwd_dkv")
     bwd_dkv_launches += 1
+    if x.q.dtype == torch.bfloat16 \
+            and not uses_tensor_cores(x.q.dtype, x.q.shape[-1]):
+        bwd_dkv_wide_bf16_launches += 1
     return dk, dv
 
 

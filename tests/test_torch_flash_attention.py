@@ -129,15 +129,63 @@ def test_cpu_wrapper_runs_plain_version():
     assert torch.equal(out, ref) and tfa.launches == before
 
 
-def test_streaming_reference_equals_single_block_f32():
-    """Streaming the kv axis at the kernel's tile (online softmax) gives
+@pytest.mark.parametrize("tile", sorted({
+    tfa.kv_tile(torch.float32, 64), tfa.kv_tile(torch.bfloat16, 64),
+    tfa.kv_tile(torch.bfloat16, 256)}))
+def test_streaming_reference_equals_single_block_f32(tile):
+    """Streaming the kv axis at each kernel's tile (online softmax) gives
     the direct softmax in f32 up to rounding."""
     q, k, v = (torch.tensor(x) for x in _inputs(Lq=256, Lk=256))
     a, la = tfa.flash_attention_reference(q, k, v, None, None, True, 0.125)
     b, lb = tfa.flash_attention_reference(q, k, v, None, None, True, 0.125,
-                                          block_k=tfa.KV_TILE)
+                                          block_k=tile)
     torch.testing.assert_close(a, b, rtol=0, atol=1e-5)
     torch.testing.assert_close(la, lb, rtol=0, atol=1e-5)
+
+
+def test_kv_tile_follows_the_kernel_route():
+    """bf16 up to TC_MAX_D runs the tensor-core kernel (kv tile 128); f32,
+    and bf16 with a wider head, the CUDA-core kernel (kv tile 64)."""
+    assert tfa.kv_tile(torch.bfloat16, 64) == 128
+    assert tfa.kv_tile(torch.bfloat16, tfa.TC_MAX_D) == 128
+    assert tfa.kv_tile(torch.bfloat16, tfa.TC_MAX_D + 8) == 64
+    assert tfa.kv_tile(torch.float32, 64) == 64
+    assert tfa.uses_tensor_cores(torch.bfloat16, 128)
+    assert not tfa.uses_tensor_cores(torch.float32, 128)
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+def test_plain_products_are_float32_on_the_cpu(tensor_cores):
+    """The plain versions sum every product in float32; on the CPU they
+    multiply in float32 even for the products the card runs on its tensor
+    cores (bf16 products are exact in float32)."""
+    r = np.random.RandomState(0)
+    a = torch.tensor(r.randn(2, 3, 8, 16)).to(torch.bfloat16)
+    b = torch.tensor(r.randn(2, 3, 16, 4)).to(torch.bfloat16)
+    got = tfa._product(a, b, tensor_cores)
+    assert got.dtype == torch.float32
+    assert torch.equal(got, torch.matmul(a.float(), b.float()))
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_reference_at_bf16_kernel_tile_matches_jax(causal):
+    """The plain version streaming at the bf16 tensor-core kernel's tile
+    (128) against the Pallas streaming kernel at block 128, bf16, seq 256,
+    with segment ids: p rounds relative to the same running maxima."""
+    q, k, v = _inputs()
+    seg = _seg(2, 256, (177, 256))
+    scale = 1.0 / q.shape[-1] ** 0.5
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    jout, jlse = jfa._fwd(jq, jk, jv, jnp.asarray(seg), jnp.asarray(seg),
+                          causal, scale, 128, 128, 0, True)
+    tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
+    ts = torch.tensor(seg)
+    tout, tlse = tfa.flash_attention_reference(
+        tq, tk, tv, ts, ts, causal, scale,
+        block_k=tfa.kv_tile(torch.bfloat16, q.shape[-1]))
+    _assert_close((np.asarray(jout, np.float32), np.asarray(jlse, np.float32),
+                   tout.float().numpy(), tlse.numpy()),
+                  seg.astype(bool), "bfloat16")
 
 
 @pytest.mark.parametrize("shape,dtype,match", [
