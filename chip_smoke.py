@@ -25,9 +25,12 @@ result line; each prints its seconds):
     ids, at the BERT lane (32, 12, 512, 64) -> fused, the llama lane
     (4, 16, 2048, 128) -> dq + dkv, cross 256/512 -> fused, L=384 -> dq +
     dkv and a head_dim sweep on both routes; autograd through
-    ``flash_attention`` at both lane shapes; times of each kernel, the
-    plain backward and, as a yardstick only, SDPA's backward (dq, dk, dv
-    by ``torch.autograd.grad`` of one recorded SDPA forward);
+    ``flash_attention`` at both lane shapes; times of each kernel (bf16,
+    and f32 for fused and dq at the same shapes), the plain backward and,
+    as a yardstick only, SDPA's backward (dq, dk, dv by
+    ``torch.autograd.grad`` of one recorded SDPA forward), read twice: CUDA
+    events around the call, and the sum of its device kernels in one
+    ``torch.profiler`` window (the number the ``library_ms`` column takes);
  5. serving oracle — llama_small served on the card (prefill 256: the
     flash kernel) must be token-identical to greedy full re-encode;
  6. serve — llama3_8b at full width (32 layers, vocab 128256, f32, random
@@ -344,35 +347,56 @@ def bwd_kernel_phase(torch, fa):
     for kind, B, H, L, D, causal in [("fused", 32, 12, 512, 64, False),
                                      ("dq", 4, 16, 2048, 128, True),
                                      ("dkv", 4, 16, 2048, 128, True)]:
-        dname, dt = "bfloat16", torch.bfloat16
-        q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
-                       .to(dt) for _ in range(4))
-        scale = 1.0 / D ** 0.5
-        out, lse = fa._fwd(q, k, v, None, None, causal, scale)
-        x = fa.prepare_bwd(q, k, v, None, None, out, lse, do, causal, scale)
         launch = {"fused": fa.launch_bwd_fused, "dq": fa.launch_bwd_dq,
                   "dkv": fa.launch_bwd_dkv}[kind]
-        t_k = _time_ms(torch, lambda: launch(x))
-        t_p = _time_ms(torch, lambda: fa.flash_attention_backward_reference(
-            q, k, v, None, None, out, lse, do, causal, scale), iters=3, reps=3)
-        # SDPA's backward alone: dq, dk, dv of one recorded forward
-        qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
-        o = torch.nn.functional.scaled_dot_product_attention(
-            qg, kg, vg, is_causal=causal, scale=scale)
-        t_l = _time_ms(torch, lambda: torch.autograd.grad(
-            o, (qg, kg, vg), do, retain_graph=True))
-        del o
-        bound, bound_by = _bwd_bound_ms(kind, B, H, L, L, D, dname, causal)
-        timings[kind] = {
-            "shape": f"B={B} H={H} Lq=Lk={L} D={D} {dname} "
-                     f"{'causal' if causal else 'non-causal'}",
-            "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-            "bound_ms": bound, "bound_by": bound_by}
-        _log(f"time bwd {kind} B={B} H={H} L={L} D={D} {dname} causal="
-             f"{causal}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, sdpa bwd "
-             f"(dq+dk+dv) {t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-             f"kernel/bound {t_k / bound:.2f}, kernel/sdpa "
-             f"{t_k / t_l:.2f}")
+        # f32 (the CUDA-core kernels) for fused and dq, then bf16 with the
+        # plain version and SDPA
+        for dname in (("float32", "bfloat16") if kind != "dkv"
+                      else ("bfloat16",)):
+            dt = dtypes[dname]
+            shape = (f"B={B} H={H} Lq=Lk={L} D={D} {dname} "
+                     f"{'causal' if causal else 'non-causal'}")
+            q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
+                           .to(dt) for _ in range(4))
+            scale = 1.0 / D ** 0.5
+            out, lse = fa._fwd(q, k, v, None, None, causal, scale)
+            x = fa.prepare_bwd(q, k, v, None, None, out, lse, do, causal,
+                               scale)
+            t_k = _time_ms(torch, lambda: launch(x))
+            bound, bound_by = _bwd_bound_ms(kind, B, H, L, L, D, dname,
+                                            causal)
+            if dname == "float32":
+                timings[kind] = {"f32_ms": t_k, "f32_bound_ms": bound,
+                                 "f32_bound_by": bound_by}
+                _log(f"time bwd {kind} {shape}: kernel {t_k:.4f} "
+                     f"ms, bound {bound:.4f} ms ({bound_by}), kernel/bound "
+                     f"{t_k / bound:.2f}")
+                continue
+            t_p = _time_ms(torch, lambda: fa.flash_attention_backward_reference(
+                q, k, v, None, None, out, lse, do, causal, scale), iters=3,
+                reps=3)
+            # SDPA's backward alone: dq, dk, dv of one recorded forward
+            qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+            o = torch.nn.functional.scaled_dot_product_attention(
+                qg, kg, vg, is_causal=causal, scale=scale)
+
+            def sdpa_bwd():
+                return torch.autograd.grad(o, (qg, kg, vg), do,
+                                           retain_graph=True)
+
+            t_le = _time_ms(torch, sdpa_bwd)
+            t_l = _device_ms(torch, sdpa_bwd)
+            del o
+            timings.setdefault(kind, {}).update({
+                "shape": shape,
+                "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
+                "library_events_ms": t_le, "bound_ms": bound,
+                "bound_by": bound_by})
+            _log(f"time bwd {kind} {shape}: kernel {t_k:.4f} ms, "
+                 f"plain {t_p:.4f} ms, sdpa bwd (dq+dk+dv) {t_l:.4f} ms "
+                 f"device kernels, {t_le:.4f} ms CUDA events, bound "
+                 f"{bound:.4f} ms ({bound_by}), kernel/bound "
+                 f"{t_k / bound:.2f}, kernel/sdpa {t_k / t_l:.2f}")
     return errors, worst, timings
 
 
@@ -501,18 +525,23 @@ def _llama_loss(ops_nn):
     return loss_fn
 
 
+_COUNTERS = {"flash_fwd": "launches",
+             "flash_bwd_fused": "bwd_fused_launches",
+             "flash_bwd_dq": "bwd_dq_launches",
+             "flash_bwd_dkv": "bwd_dkv_launches",
+             "flash_fwd_wide_bf16": "fwd_wide_bf16_launches",
+             "flash_bwd_fused_wide_bf16": "bwd_fused_wide_bf16_launches",
+             "flash_bwd_dq_wide_bf16": "bwd_dq_wide_bf16_launches",
+             "flash_bwd_dkv_wide_bf16": "bwd_dkv_wide_bf16_launches"}
+
+
 def _counts(fa):
-    return {"flash_fwd": fa.launches, "flash_bwd_fused": fa.bwd_fused_launches,
-            "flash_bwd_dq": fa.bwd_dq_launches,
-            "flash_bwd_dkv": fa.bwd_dkv_launches,
-            "flash_fwd_wide_bf16": fa.fwd_wide_bf16_launches,
-            "flash_bwd_dkv_wide_bf16": fa.bwd_dkv_wide_bf16_launches}
+    return {k: getattr(fa, attr) for k, attr in _COUNTERS.items()}
 
 
 def _reset_counts(fa):
-    fa.launches = fa.bwd_fused_launches = 0
-    fa.bwd_dq_launches = fa.bwd_dkv_launches = 0
-    fa.fwd_wide_bf16_launches = fa.bwd_dkv_wide_bf16_launches = 0
+    for attr in _COUNTERS.values():
+        setattr(fa, attr, 0)
 
 
 def train_oracle_phase(torch, fa, mx):
@@ -554,16 +583,16 @@ def train_oracle_phase(torch, fa, mx):
                                  f"launches {counts}")
 
 
-def _profile_step(torch, step_fn, label):
-    """Device time of one step by kernel family (torch.profiler), against
-    the step's wall time; prints the top kernels."""
+def _profiled(torch, fn):
+    """Run fn once under torch.profiler: (wall ms to the end of its device
+    work, [(device ms, count, kernel name)] largest first)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        step_fn()
+        fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     rows = []
@@ -575,6 +604,27 @@ def _profile_step(torch, step_fn, label):
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
+    return wall, rows
+
+
+def _device_ms(torch, fn, iters=20):
+    """Device time per call of fn: the sum of its kernels' times in one
+    torch.profiler window of ``iters`` calls, after a warm-up."""
+    for _ in range(3):
+        fn()
+
+    def window():
+        for _ in range(iters):
+            fn()
+
+    _, rows = _profiled(torch, window)
+    return sum(r[0] for r in rows) / iters
+
+
+def _profile_step(torch, step_fn, label):
+    """Device time of one step by kernel family (torch.profiler), against
+    the step's wall time; prints the top kernels."""
+    wall, rows = _profiled(torch, step_fn)
     total = sum(r[0] for r in rows)
     fams = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
     for ms, _, key in rows:
@@ -700,7 +750,7 @@ def train_lane_phase(torch, fa, mx, args):
                 raise AssertionError(f"{lane}: {k} launched {counts[k]} "
                                      f"times in {steps} steps of {layers} "
                                      f"layers")
-        wide = counts["flash_fwd_wide_bf16"] + counts["flash_bwd_dkv_wide_bf16"]
+        wide = sum(n for k, n in counts.items() if k.endswith("_wide_bf16"))
         if wide:
             raise AssertionError(f"{lane}: {wide} bf16 launches ran on the "
                                  f"CUDA-core route for wide heads")
@@ -837,6 +887,9 @@ def main(argv=None):
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
+            "library_events_ms": t["library_events_ms"],
+            # the f32 kernel (CUDA cores) at the same shape, where timed
+            **{k: v for k, v in t.items() if k.startswith("f32_")},
         })
     for lane, r in lanes.items():
         _log(f"train {lane}: step {r['step_ms']:.2f} ms, "

@@ -44,8 +44,8 @@
 //     the wrapper scales and casts the workspace after the launch.
 // Products run on the CUDA cores in f32 FMA: the tensor cores would round
 // f32 inputs to TF32, which the reference does not.  These kernels run
-// every f32 call, bf16 dq and fused, and bf16 dkv with D > 128; bf16 dkv
-// with D <= 128 runs the tensor-core kernel in namespace tc below.
+// every f32 call and every bf16 call with D > 128; bf16 calls with D <= 128
+// run the tensor-core kernels in namespace tc below (dq, dkv and fused).
 //
 // Bound: at the training shapes (L = 512-2048, D = 64-128) the work is
 // 6-10 L^2 D flops per head against ~8 L D elements moved, far above the
@@ -216,6 +216,8 @@ struct Args {
   int H, Lq, Lk, D, causal;
   float scale;
 };
+
+enum Kind { kDq = 0, kDkv = 1, kFusedKind = 2 };
 
 // dQ rows of one q tile, looping over kv tiles (the port of _dq_kernel).
 template <typename T, int NG>
@@ -445,17 +447,20 @@ flash_bwd_dkv_kernel(Args a) {
 }  // namespace
 
 // ---------------------------------------------------------------------------
-// dk, dv for bf16 with D <= 128 on the tensor cores (the port of _dkv_kernel)
+// bf16 with D <= 128 on the tensor cores: dk, dv (the port of _dkv_kernel),
+// dq, dk, dv of one single-block sequence (_bwd_fused_kernel) and dq
+// (_dq_kernel)
 //
-// _dkv_kernel's products are bf16 x bf16 with f32 accumulation (_bmm,
-// Precision.DEFAULT), and its roundings sit at the operands (q * scale for
-// s^T, p^T to dO's dtype, ds^T to q's dtype), which is what wgmma computes
-// from bf16 operands.  On the card the plain version computes the same
-// products as torch.bmm(..., out_dtype=float32), bf16 on the tensor cores.
+// The TPU kernels' products are bf16 x bf16 with f32 accumulation (_bmm,
+// Precision.DEFAULT), and their roundings sit at the operands (q * scale
+// for s, p to dO's dtype, ds to q's and k's dtype), which is what wgmma
+// computes from bf16 operands.  On the card the plain version computes the
+// same products as torch.bmm(..., out_dtype=float32), bf16 on the tensor
+// cores.
 //
-// Design.  A CTA of two warpgroups (256 threads) owns kBN = 128 kv rows of
-// one (b, h); each warpgroup owns 64 of them and keeps its 64 x DP dK and dV
-// rows in f32 registers for the whole q loop.
+// dkv and fused.  A CTA of two warpgroups (256 threads) owns kBN = 128 kv
+// rows of one (b, h); each warpgroup owns 64 of them and keeps its 64 x DP
+// dK and dV rows in f32 registers for the whole q loop.
 //   - K and V of the CTA's rows are loaded once by TMA and stay resident in
 //     shared memory.
 //   - q and dO stream in tiles of kBM = 64 rows through a two-stage ring
@@ -469,25 +474,57 @@ flash_bwd_dkv_kernel(Args a) {
 //     exp(s^T - lse) and ds^T = p^T (dp^T - delta) on the fragments, rounds
 //     them to bf16 in registers and runs dV += p^T dO and dK += ds^T q (raw
 //     q) with those as register A operands, dO and q read MN-major.
+//   - fused: dQ contracts over kv, but the ds^T fragments hold kv rows, so
+//     each warpgroup also writes its ds^T tile (64 x 64 bf16) to its own
+//     shared-memory tile and runs the tile's dQ share = ds K_wg (64 q rows x
+//     DP, one 64-column panel at a time) with A = ds read MN-major from
+//     that tile and B = its K rows read MN-major.  Two lanes swap halves so
+//     each thread holds 4 adjacent columns of one row, and the share goes to
+//     the f32 workspace by one float4 atomicAdd (a vector reduction, sm_90)
+//     per 4 values: per q tile and (b, h), Lk / 64 reductions for every 4
+//     elements where the CUDA-core kernel made Lk / 64 scalar ones for every
+//     element, 4x fewer.  The order of those additions changes from run to
+//     run, so dq's f32 rounding does too; the wrapper scales and casts the
+//     workspace after the launch.
 //   - dK is multiplied by scale once, at the end, and both are cast to bf16.
 // Causal q tiles wholly above a warpgroup's rows are skipped.  Eight warps
-// leave each thread 255 registers: the 192 f32 accumulators of DP = 128 and
-// the rest fit without spills (see flash_fwd.cu on why there is no
-// producer warp).  Shared memory: 196 KB at DP = 128, 100 KB at DP = 64;
-// one CTA per SM.
-// Bound: 8 L^2 D flops per head against ~8 L D values: tensor-core bf16
-// operations (989 TFLOP/s).
+// leave each thread 255 registers: the 128 f32 accumulators of dK and dV at
+// DP = 128 (and the 32 of a dQ share panel in fused) and the rest fit
+// without spills (ptxas: 229 dkv, 225 fused; see flash_fwd.cu on why there
+// is no producer warp).
+// Shared memory: 196 KB at DP = 128, 100 KB at DP = 64, and 16 KB more for
+// the ds^T tiles of fused; one CTA per SM.
+//
+// dq.  A CTA of two warpgroups owns kDqRows = 128 q rows of one (b, h), 64
+// per warpgroup, heaviest causal tiles first.  Its q-hat (rounded in place)
+// and dO rows are loaded once by TMA and stay resident; each thread keeps
+// the lse and delta of its two rows in registers.  K and V stream in tiles
+// of kDqKv = 64 rows through a two-stage ring refilled as in dkv.  Per kv
+// tile a warpgroup runs S = q-hat K^T and dP = dO V^T (wgmma, both K-major,
+// 2 x 32 f32 registers), forms p = exp(S - lse) and ds = p (dP - delta) on
+// the fragments, rounds ds to bf16 in registers and runs dQ += ds K with ds
+// as the register A operand (S's fragment of columns 16 k.. is the A
+// fragment of k16 step k) and K read MN-major from the same tile.  Causal
+// kv tiles wholly above a warpgroup's rows are skipped.  dQ (64 x DP f32
+// per warpgroup) is multiplied by scale once at the end and cast to bf16;
+// there are no atomics, so dq is deterministic.  Shared memory: 128 KB at
+// DP = 128, 64 KB at DP = 64.
+//
+// Bound: 8 (dkv), 10 (fused) or 6 (dq) L^2 D flops per head, halved when
+// causal, against ~8 L D values: tensor-core bf16 operations (989 TFLOP/s).
 namespace tc {
 
 using namespace hopper;
 
-constexpr int kBN = 128;        // kv rows of a CTA, 64 per warpgroup
+constexpr int kBN = 128;        // kv rows of a dkv / fused CTA, 64 per warpgroup
 constexpr int kBM = 64;         // q rows of a streamed tile
+constexpr int kDqRows = 128;    // q rows of a dq CTA, 64 per warpgroup
+constexpr int kDqKv = 64;       // kv rows of a tile streamed by dq
 constexpr int kStages = 2;
 constexpr int kThreads = 256;
 constexpr int kMaxD = 128;
 
-template <int DP>
+template <int DP, bool kFused>
 struct DkvSmem {
   static constexpr int kPanels = DP / kPanel;
   static constexpr int kKV = kPanels * kBN * kRowBytes;   // resident K or V
@@ -496,28 +533,34 @@ struct DkvSmem {
   // stage s at kOffStage + s * kStage: q, dO, q-hat of warpgroups 0 and 1
   static constexpr int kOffStage = 2 * kKV;
   static constexpr int kStage = 4 * kQ;
+  // fused: the ds^T tile (64 kv rows of 64 q columns) of each warpgroup
+  static constexpr int kDs = kBM * kRowBytes;
+  static constexpr int kOffDs = kOffStage + kStages * kStage;
   // lse, delta, seg_q of a tile, per (stage, warpgroup)
-  static constexpr int kOffStats = kOffStage + kStages * kStage;
+  static constexpr int kOffStats = kOffDs + (kFused ? 2 * kDs : 0);
   static constexpr int kStats = 3 * kBM * 4;
   static constexpr int kOffBar = kOffStats + kStages * 2 * kStats;  // kv, full[]
   static constexpr int kOffDone = kOffBar + 8 * (1 + kStages);      // done[]
   static constexpr int kBytes = kOffDone + 4 * kStages + 1024;
 };
 
-template <int DP>
-__global__ void __launch_bounds__(kThreads, 1)
-flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
-                             const __grid_constant__ CUtensorMap map_k,
-                             const __grid_constant__ CUtensorMap map_v,
-                             const __grid_constant__ CUtensorMap map_do,
-                             const float* __restrict__ lse,
-                             const float* __restrict__ delta,
-                             const int* __restrict__ seg_q,
-                             const int* __restrict__ seg_kv,
-                             __nv_bfloat16* __restrict__ dk,
-                             __nv_bfloat16* __restrict__ dv, int H, int Lq,
-                             int Lk, int D, int causal, float scale) {
-  using L = DkvSmem<DP>;
+// the body of the dkv and fused kernels; kFused adds each tile's dQ share
+// to dq_ws
+template <int DP, bool kFused>
+__device__ __forceinline__ void dkv_tc(const CUtensorMap* map_q,
+                                       const CUtensorMap* map_k,
+                                       const CUtensorMap* map_v,
+                                       const CUtensorMap* map_do,
+                                       const float* __restrict__ lse,
+                                       const float* __restrict__ delta,
+                                       const int* __restrict__ seg_q,
+                                       const int* __restrict__ seg_kv,
+                                       float* __restrict__ dq_ws,
+                                       __nv_bfloat16* __restrict__ dk,
+                                       __nv_bfloat16* __restrict__ dv, int H,
+                                       int Lq, int Lk, int D, int causal,
+                                       float scale) {
+  using L = DkvSmem<DP, kFused>;
   constexpr int P = L::kPanels;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t raw = smem_addr(smem_raw);
@@ -541,8 +584,8 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     const uint32_t st = base + L::kOffStage + s * L::kStage;
     const int q0 = (first + j) * kBM;
     mbar_expect_tx(bar_full + 8 * s, 2 * L::kQ);
-    tma_load_tile(st, &map_q, bar_full + 8 * s, P, kBM, q0, bh);
-    tma_load_tile(st + L::kQ, &map_do, bar_full + 8 * s, P, kBM, q0, bh);
+    tma_load_tile(st, map_q, bar_full + 8 * s, P, kBM, q0, bh);
+    tma_load_tile(st + L::kQ, map_do, bar_full + 8 * s, P, kBM, q0, bh);
   };
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -552,8 +595,8 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
     }
     fence_barrier_init();
     mbar_expect_tx(bar_kv, 2 * L::kKV);
-    tma_load_tile(sK, &map_k, bar_kv, P, kBN, k0, bh);
-    tma_load_tile(sV, &map_v, bar_kv, P, kBN, k0, bh);
+    tma_load_tile(sK, map_k, bar_kv, P, kBN, k0, bh);
+    tma_load_tile(sV, map_v, bar_kv, P, kBN, k0, bh);
     for (int j = 0; j < min(kStages, n_tiles); ++j) load_q(j, j);
   }
   __syncthreads();
@@ -561,10 +604,12 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
   const int wg = threadIdx.x / 128;
   const int t = threadIdx.x % 128;
   const int lane = t % 32;
-  // this thread's kv rows (fragment entries e < 2 and e >= 2) and the first
-  // of its two q columns in every 8-column group
+  // this thread's fragment rows (entries e < 2, and e >= 2 eight rows on)
+  // within a warpgroup's 64, and the first of its two columns in every
+  // 8-column group
+  const int fr = 16 * (t / 32) + lane / 4;
   const int wg_first = k0 + 64 * wg;
-  const int kr0 = wg_first + 16 * (t / 32) + lane / 4;
+  const int kr0 = wg_first + fr;
   const int kr1 = kr0 + 8;
   const int c_in = 2 * (lane % 4);
   const bool has_seg = seg_q != nullptr;
@@ -652,6 +697,24 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
           pf[k][e] = pack_bf16(sT[8 * k + 2 * e], sT[8 * k + 2 * e + 1]);
           df[k][e] = pack_bf16(dpT[8 * k + 2 * e], dpT[8 * k + 2 * e + 1]);
         }
+      const uint32_t sDs = base + L::kOffDs + wg * L::kDs;
+      if constexpr (kFused) {
+        // ds^T (k's dtype = q's) into this warpgroup's swizzled tile: df[k][e]
+        // holds kv row fr (+ 8 for odd e), q columns 16 k + 8 (e / 2) + c_in
+        uint8_t* sd = gbase + (sDs - base);
+#pragma unroll
+        for (int k = 0; k < kBM / 16; ++k)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = fr + 8 * (e & 1);
+            const int c = 16 * k + 8 * (e >> 1) + c_in;
+            *reinterpret_cast<uint32_t*>(sd + r * kRowBytes +
+                                         ((c / 8) ^ (r % 8)) * 16 +
+                                         (c % 8) * 2) = df[k][e];
+          }
+        fence_proxy_async();
+        named_barrier(1 + wg, 128);
+      }
       wgmma_fence();
 #pragma unroll
       for (int k = 0; k < kBM / 16; ++k)
@@ -665,6 +728,41 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
       hold(dk_acc);
       hold(pf);
       hold(df);
+      if constexpr (kFused) {
+        // the tile's dQ share: rows q0 + fr (+ 8), one 64-column panel h of
+        // K at a time; lanes 2m and 2m + 1 swap halves so that the even lane
+        // holds columns 8 i + (c_in & 4) .. + 3 of row fr and the odd lane
+        // those of row fr + 8
+        float* wsb = dq_ws + (size_t)bh * Lq * D;
+        const bool odd = lane & 1;
+        const int r = q0 + fr + (odd ? 8 : 0);
+#pragma unroll 1
+        for (int h = 0; h < P; ++h) {
+          float part[32];
+          wgmma_fence();
+#pragma unroll
+          for (int k = 0; k < 64 / 16; ++k)
+            wgmma_ss_mn(part, desc_mnmajor(sDs, kBM, k),
+                        desc_mnmajor(sK + (h * kBN + 64 * wg) * kRowBytes,
+                                     kBN, k),
+                        k > 0);
+          wgmma_commit();
+          wgmma_wait_all();
+          hold(part);
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float x0 = __shfl_xor_sync(0xffffffffu,
+                                             odd ? part[4 * i] : part[4 * i + 2], 1);
+            const float x1 = __shfl_xor_sync(0xffffffffu,
+                                             odd ? part[4 * i + 1] : part[4 * i + 3], 1);
+            const int col = 64 * h + 8 * i + (c_in & 4);
+            if (r < Lq && col < D)
+              atomicAdd(reinterpret_cast<float4*>(wsb + (size_t)r * D + col),
+                        odd ? make_float4(x0, x1, part[4 * i + 2], part[4 * i + 3])
+                            : make_float4(part[4 * i], part[4 * i + 1], x0, x1));
+          }
+        }
+      }
     }
     // this warp is done with stage s; the last of the 8 refills it
     __syncwarp();
@@ -695,36 +793,266 @@ flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
 }
 
 template <int DP>
-cudaError_t launch_dkv(const Args& a, int B, cudaStream_t stream) {
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const float* __restrict__ lse,
+                             const float* __restrict__ delta,
+                             const int* __restrict__ seg_q,
+                             const int* __restrict__ seg_kv,
+                             float* __restrict__ dq_ws,
+                             __nv_bfloat16* __restrict__ dk,
+                             __nv_bfloat16* __restrict__ dv, int H, int Lq,
+                             int Lk, int D, int causal, float scale) {
+  dkv_tc<DP, false>(&map_q, &map_k, &map_v, &map_do, lse, delta, seg_q,
+                    seg_kv, dq_ws, dk, dv, H, Lq, Lk, D, causal, scale);
+}
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_fused_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               const __grid_constant__ CUtensorMap map_do,
+                               const float* __restrict__ lse,
+                               const float* __restrict__ delta,
+                               const int* __restrict__ seg_q,
+                               const int* __restrict__ seg_kv,
+                               float* __restrict__ dq_ws,
+                               __nv_bfloat16* __restrict__ dk,
+                               __nv_bfloat16* __restrict__ dv, int H, int Lq,
+                               int Lk, int D, int causal, float scale) {
+  dkv_tc<DP, true>(&map_q, &map_k, &map_v, &map_do, lse, delta, seg_q,
+                   seg_kv, dq_ws, dk, dv, H, Lq, Lk, D, causal, scale);
+}
+
+template <int DP>
+struct DqSmem {
+  static constexpr int kPanels = DP / kPanel;
+  static constexpr int kQ = kPanels * kDqRows * kRowBytes;   // q-hat or dO
+  static constexpr int kKV = kPanels * kDqKv * kRowBytes;    // a K or V tile
+  static constexpr int kOffDO = kQ;
+  // stage s at kOffStage + s * 2 kKV: K, then V
+  static constexpr int kOffStage = 2 * kQ;
+  static constexpr int kOffBar = kOffStage + kStages * 2 * kKV;   // q, full[]
+  static constexpr int kOffDone = kOffBar + 8 * (1 + kStages);    // done[]
+  static constexpr int kBytes = kOffDone + 4 * kStages + 1024;
+};
+
+template <int DP>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_bf16_tc_kernel(const __grid_constant__ CUtensorMap map_q,
+                            const __grid_constant__ CUtensorMap map_k,
+                            const __grid_constant__ CUtensorMap map_v,
+                            const __grid_constant__ CUtensorMap map_do,
+                            const float* __restrict__ lse,
+                            const float* __restrict__ delta,
+                            const int* __restrict__ seg_q,
+                            const int* __restrict__ seg_kv,
+                            __nv_bfloat16* __restrict__ dq, int H, int Lq,
+                            int Lk, int D, int causal, float scale) {
+  using L = DqSmem<DP>;
+  constexpr int P = L::kPanels;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_addr(smem_raw);
+  const uint32_t base = (raw + 1023) & ~1023u;     // swizzle atoms: 1024 B
+  uint8_t* gbase = smem_raw + (base - raw);
+  const uint32_t sQ = base, sDO = base + L::kOffDO;
+  const uint32_t bar_q = base + L::kOffBar;
+  const uint32_t bar_full = bar_q + 8;
+  // warps done with each stage's current tile, counted up forever
+  unsigned* done = reinterpret_cast<unsigned*>(gbase + L::kOffDone);
+
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * kDqRows;  // heaviest causal first
+  const int b = blockIdx.z;
+  const int bh = b * H + blockIdx.y;
+  int n_kv = (Lk + kDqKv - 1) / kDqKv;
+  if (causal) n_kv = min(n_kv, (min(q0 + kDqRows, Lq) - 1) / kDqKv + 1);
+
+  // K and V of kv tile `it` into stage `s`
+  auto load_kv = [&](int it, int s) {
+    const uint32_t st = base + L::kOffStage + s * 2 * L::kKV;
+    mbar_expect_tx(bar_full + 8 * s, 2 * L::kKV);
+    tma_load_tile(st, &map_k, bar_full + 8 * s, P, kDqKv, it * kDqKv, bh);
+    tma_load_tile(st + L::kKV, &map_v, bar_full + 8 * s, P, kDqKv,
+                  it * kDqKv, bh);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      done[s] = 0;
+    }
+    fence_barrier_init();
+    mbar_expect_tx(bar_q, 2 * L::kQ);
+    tma_load_tile(sQ, &map_q, bar_q, P, kDqRows, q0, bh);
+    tma_load_tile(sDO, &map_do, bar_q, P, kDqRows, q0, bh);
+    for (int it = 0; it < min(kStages, n_kv); ++it) load_kv(it, it);
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  const int t = threadIdx.x % 128;
+  const int lane = t % 32;
+  // this thread's dQ rows (fragment entries e < 2 and e >= 2) and the first
+  // of its two columns in every 8-column group
+  const int row0 = q0 + 64 * wg + 16 * (t / 32) + lane / 4;
+  const int row1 = row0 + 8;
+  const int c_in = 2 * (lane % 4);
+  const int wg_first = q0 + 64 * wg;
+  const int wg_last = min(wg_first + 63, Lq - 1);
+  const bool has_seg = seg_q != nullptr;
+  const int sq0 = has_seg && row0 < Lq ? seg_q[(size_t)b * Lq + row0] : 0;
+  const int sq1 = has_seg && row1 < Lq ? seg_q[(size_t)b * Lq + row1] : 0;
+  const float lse0 = row0 < Lq ? lse[(size_t)bh * Lq + row0] : 0.f;
+  const float lse1 = row1 < Lq ? lse[(size_t)bh * Lq + row1] : 0.f;
+  const float delta0 = row0 < Lq ? delta[(size_t)bh * Lq + row0] : 0.f;
+  const float delta1 = row1 < Lq ? delta[(size_t)bh * Lq + row1] : 0.f;
+
+  // this warpgroup's 64 q rows to round(q * round(scale)), in place
+  mbar_wait(bar_q, 0);
+  const float scale_t = round_bf16(scale);
+  for (int i = t; i < P * 64 * 8; i += 128) {
+    uint4* c = reinterpret_cast<uint4*>(
+        gbase + (i / 512) * kDqRows * kRowBytes + (64 * wg) * kRowBytes +
+        (i % 512) * 16);
+    scale_chunk(c, c, scale_t);
+  }
+  fence_proxy_async();
+  named_barrier(1 + wg, 128);
+
+  float dq_acc[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dq_acc[i] = 0.f;
+
+  for (int it = 0; it < n_kv; ++it) {
+    const int s = it % kStages;
+    const int k0 = it * kDqKv;
+    mbar_wait(bar_full + 8 * s, (it / kStages) & 1);
+    if (wg_first < Lq && (!causal || k0 <= wg_last)) {
+      const uint32_t sK = base + L::kOffStage + s * 2 * L::kKV;
+      const uint32_t sV = sK + L::kKV;
+      float sc[kDqKv / 2], dp[kDqKv / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss(sc, desc_kmajor(sQ, kDqRows, 64 * wg, k),
+                 desc_kmajor(sK, kDqKv, 0, k), k > 0);
+#pragma unroll
+      for (int k = 0; k < DP / 16; ++k)
+        wgmma_ss(dp, desc_kmajor(sDO, kDqRows, 64 * wg, k),
+                 desc_kmajor(sV, kDqKv, 0, k), k > 0);
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(sc);
+      hold(dp);
+
+      const bool masked = has_seg || k0 + kDqKv > Lk ||
+                          (causal && k0 + kDqKv - 1 > wg_first);
+#pragma unroll
+      for (int i = 0; i < kDqKv / 8; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float sv = sc[4 * i + e];
+          if (masked) {
+            const int col = k0 + 8 * i + c_in + (e & 1);
+            bool ok = col < Lk;
+            if (causal) ok = ok && (e < 2 ? row0 : row1) >= col;
+            if (has_seg && ok)
+              ok = (e < 2 ? sq0 : sq1) == seg_kv[(size_t)b * Lk + col];
+            if (!ok) sv = kNegInf;
+          }
+          const float p = expf(sv - (e < 2 ? lse0 : lse1));
+          sc[4 * i + e] = p * (dp[4 * i + e] - (e < 2 ? delta0 : delta1));
+        }
+      // ds in k's dtype as the register A operand
+      uint32_t df[kDqKv / 16][4];
+#pragma unroll
+      for (int k = 0; k < kDqKv / 16; ++k)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          df[k][e] = pack_bf16(sc[8 * k + 2 * e], sc[8 * k + 2 * e + 1]);
+      wgmma_fence();
+#pragma unroll
+      for (int k = 0; k < kDqKv / 16; ++k)
+        wgmma_rs(dq_acc, df[k], desc_mnmajor(sK, kDqKv, k));
+      wgmma_commit();
+      wgmma_wait_all();
+      hold(dq_acc);
+      hold(df);
+    }
+    // this warp is done with stage s; the last of the 8 refills it
+    __syncwarp();
+    if (lane == 0 && it + kStages < n_kv &&
+        atomicAdd(&done[s], 1u) % 8 == 7)
+      load_kv(it + kStages, s);
+  }
+
+  __nv_bfloat16* dqb = dq + (size_t)bh * Lq * D;
+#pragma unroll
+  for (int i = 0; i < DP / 8; ++i) {
+    const int col = 8 * i + c_in;
+    if (col >= D) continue;
+    if (row0 < Lq)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row0 * D + col) =
+          pack_bf16(dq_acc[4 * i] * scale, dq_acc[4 * i + 1] * scale);
+    if (row1 < Lq)
+      *reinterpret_cast<uint32_t*>(dqb + (size_t)row1 * D + col) =
+          pack_bf16(dq_acc[4 * i + 2] * scale, dq_acc[4 * i + 3] * scale);
+  }
+}
+
+template <int DP>
+cudaError_t launch(Kind kind, const Args& a, int B, cudaStream_t stream) {
+  // dq: CTAs of kDqRows q rows stream kv tiles of kDqKv; dkv and fused: CTAs
+  // of kBN kv rows stream q tiles of kBM
+  const bool dq = kind == kDq;
   CUtensorMap mq, mk, mv, mdo;
-  if (!make_map(&mq, a.q, B * a.H, a.Lq, a.D, kBM) ||
-      !make_map(&mdo, a.dout, B * a.H, a.Lq, a.D, kBM) ||
-      !make_map(&mk, a.k, B * a.H, a.Lk, a.D, kBN) ||
-      !make_map(&mv, a.v, B * a.H, a.Lk, a.D, kBN))
+  if (!make_map(&mq, a.q, B * a.H, a.Lq, a.D, dq ? kDqRows : kBM) ||
+      !make_map(&mdo, a.dout, B * a.H, a.Lq, a.D, dq ? kDqRows : kBM) ||
+      !make_map(&mk, a.k, B * a.H, a.Lk, a.D, dq ? kDqKv : kBN) ||
+      !make_map(&mv, a.v, B * a.H, a.Lk, a.D, dq ? kDqKv : kBN))
     return cudaErrorInvalidValue;
-  const int smem = DkvSmem<DP>::kBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_bwd_dkv_bf16_tc_kernel<DP>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  const int rows = dq ? kDqRows : kBN;
+  dim3 grid(((dq ? a.Lq : a.Lk) + rows - 1) / rows, a.H, B);
+  cudaError_t err;
+  if (dq) {
+    const int smem = DqSmem<DP>::kBytes;
+    err = cudaFuncSetAttribute(flash_bwd_dq_bf16_tc_kernel<DP>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               smem);
+    if (err != cudaSuccess) return err;
+    flash_bwd_dq_bf16_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(
+        mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+        static_cast<__nv_bfloat16*>(a.dq), a.H, a.Lq, a.Lk, a.D, a.causal,
+        a.scale);
+    return cudaGetLastError();
+  }
+  const bool fused = kind == kFusedKind;
+  auto kernel = fused ? flash_bwd_fused_bf16_tc_kernel<DP>
+                      : flash_bwd_dkv_bf16_tc_kernel<DP>;
+  const int smem = fused ? DkvSmem<DP, true>::kBytes
+                         : DkvSmem<DP, false>::kBytes;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Lk + kBN - 1) / kBN, a.H, B);
-  flash_bwd_dkv_bf16_tc_kernel<DP><<<grid, kThreads, smem, stream>>>(
-      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv,
+  kernel<<<grid, kThreads, smem, stream>>>(
+      mq, mk, mv, mdo, a.lse, a.delta, a.seg_q, a.seg_kv, a.dq_ws,
       static_cast<__nv_bfloat16*>(a.dk), static_cast<__nv_bfloat16*>(a.dv),
       a.H, a.Lq, a.Lk, a.D, a.causal, a.scale);
   return cudaGetLastError();
 }
 
-cudaError_t dispatch_dkv(const Args& a, int B, cudaStream_t stream) {
-  return a.D <= 64 ? launch_dkv<64>(a, B, stream)
-                   : launch_dkv<128>(a, B, stream);
+cudaError_t dispatch(Kind kind, const Args& a, int B, cudaStream_t stream) {
+  return a.D <= 64 ? launch<64>(kind, a, B, stream)
+                   : launch<128>(kind, a, B, stream);
 }
 
 }  // namespace tc
 
 namespace {
-
-enum Kind { kDq = 0, kDkv = 1, kFusedKind = 2 };
 
 size_t smem_bytes(int D, Kind kind) {
   const int tiles = kind == kDq ? 1 : kind == kDkv ? 2 : 3;
@@ -749,16 +1077,16 @@ cudaError_t launch(Kernel kernel, Kind kind, const Args& a, int B,
 
 template <typename T, int NG>
 cudaError_t launch_kind(Kind kind, const Args& a, int B, cudaStream_t s) {
-  if (kind == kDq) return launch(flash_bwd_dq_kernel<T, NG>, kind, a, B, s);
-  if (kind == kDkv) {
-    // bf16 dkv with D <= tc::kMaxD = 64 NG runs tc::dispatch_dkv (run sends
-    // it there), so that instantiation is not built
-    if constexpr (std::is_same<T, float>::value || 64 * NG > tc::kMaxD)
+  // bf16 with D <= tc::kMaxD = 64 NG runs tc::dispatch (run sends it
+  // there), so those instantiations are not built
+  if constexpr (std::is_same<T, float>::value || 64 * NG > tc::kMaxD) {
+    if (kind == kDq) return launch(flash_bwd_dq_kernel<T, NG>, kind, a, B, s);
+    if (kind == kDkv)
       return launch(flash_bwd_dkv_kernel<T, NG, false>, kind, a, B, s);
-    else
-      return cudaErrorInvalidValue;
+    return launch(flash_bwd_dkv_kernel<T, NG, true>, kind, a, B, s);
+  } else {
+    return cudaErrorInvalidValue;
   }
-  return launch(flash_bwd_dkv_kernel<T, NG, true>, kind, a, B, s);
 }
 
 template <typename T>
@@ -779,8 +1107,8 @@ int run(Kind kind, const Args& a, int B, int dtype, void* stream) {
   cudaError_t err;
   if (dtype == 0)
     err = dispatch_d<float>(kind, a, B, s);
-  else if (dtype == 1 && kind == kDkv && a.D <= tc::kMaxD)
-    err = tc::dispatch_dkv(a, B, s);
+  else if (dtype == 1 && a.D <= tc::kMaxD)
+    err = tc::dispatch(kind, a, B, s);
   else if (dtype == 1)
     err = dispatch_d<__nv_bfloat16>(kind, a, B, s);
   else

@@ -12,8 +12,9 @@
 //     S = Q K^T): 8-row groups 1024 bytes apart (SBO), k16 steps 32 bytes
 //     apart inside the 128-byte row, the next panel for k >= 64;
 //   - MN-major (the contraction runs down the rows: V of P V, dO and Q of
-//     dV/dK): 8-row groups 1024 bytes apart (SBO), panels of 64 output
-//     columns one panel apart (LBO), k16 steps 16 rows (2048 bytes) apart.
+//     dV/dK, K of dQ, and ds^T read as the A of dS K): 8-row groups 1024
+//     bytes apart (SBO), panels of 64 output columns one panel apart (LBO),
+//     k16 steps 16 rows (2048 bytes) apart.
 // Columns past the tensor's D and rows past its L are zero-filled by TMA,
 // so padded columns add nothing to any product.
 
@@ -228,6 +229,25 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t desc_a,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// d (64 x 64 f32) = A (64 x 16) B (16 x 64) (+ d if accumulate), A and B
+// read from shared memory MN-major (wgmma's transpose bits, 16-bit types)
+__device__ __forceinline__ void wgmma_ss_mn(float (&d)[32], uint64_t desc_a,
+                                            uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

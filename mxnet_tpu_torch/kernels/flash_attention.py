@@ -38,6 +38,7 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "flash_attention_backward_reference", "kv_tile",
            "uses_tensor_cores", "launches", "bwd_fused_launches",
            "bwd_dq_launches", "bwd_dkv_launches", "fwd_wide_bf16_launches",
+           "bwd_fused_wide_bf16_launches", "bwd_dq_wide_bf16_launches",
            "bwd_dkv_wide_bf16_launches"]
 
 _NEG_INF = -1e30
@@ -56,6 +57,8 @@ bwd_dkv_launches = 0      # mx_flash_bwd_dkv
 # of those, the bf16 launches with head_dim > TC_MAX_D, which the C entry
 # point runs on the CUDA-core kernel instead of the tensor cores
 fwd_wide_bf16_launches = 0
+bwd_fused_wide_bf16_launches = 0
+bwd_dq_wide_bf16_launches = 0
 bwd_dkv_wide_bf16_launches = 0
 # sequence block of the reference's dispatch (_bwd's block_q = block_k):
 # the fused backward runs iff each side is one such block
@@ -97,7 +100,7 @@ def _kernel_lib(name):
 
 def uses_tensor_cores(dtype, head_dim):
     """Whether the C entry points run (q's dtype, head_dim) on the bf16
-    tensor-core kernels (flash_fwd and flash_bwd_dkv)."""
+    tensor-core kernels (flash_fwd and every flash_bwd kernel)."""
     return dtype == torch.bfloat16 and head_dim <= TC_MAX_D
 
 
@@ -314,14 +317,14 @@ def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
     innermost for dk/dv), skipping causal tiles that are wholly masked; by
     default one tile covers everything, as in ``_bwd_fused_kernel``.
 
-    Each gradient's products are computed as the kernel that returns it
-    computes them (:func:`_product`): on the card, dk and dv of the split
-    route in bf16 with head_dim <= TC_MAX_D (the tensor-core dkv kernel) on
-    the tensor cores, everything else in float32."""
+    The products are computed as the kernels compute them
+    (:func:`_product`): on the card, bf16 with head_dim <= TC_MAX_D (the
+    tensor-core kernels, both routes) on the tensor cores, everything else
+    in float32.  s, p and ds are formed once per tile, as the kernels form
+    them, and feed dq, dk and dv alike."""
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
     Lq, Lk = q.shape[2], k.shape[2]
-    tc_dkv = uses_tensor_cores(q.dtype, q.shape[-1]) \
-        and not bwd_is_fused(Lq, Lk)
+    tc = uses_tensor_cores(q.dtype, q.shape[-1])
     bq = Lq if block_q is None else int(block_q)
     bk = Lk if block_k is None else int(block_k)
     delta = _delta(out, do)[..., None]
@@ -340,24 +343,17 @@ def flash_attention_backward_reference(q, k, v, seg_q, seg_kv, out, lse, do,
                 continue                    # every entry of the tile masked
             mask = _mask(seg_q, seg_kv, causal, q0, nq, k0,
                          k[:, :, ks].shape[2], q.device)
-
-            def p_ds(tc):
-                s = _product(qs[:, :, qsl], k[:, :, ks].transpose(-1, -2), tc)
-                if mask is not None:
-                    s = s.masked_fill(~mask, _NEG_INF)
-                p = torch.exp(s - lse[:, :, qsl])
-                dp = _product(do[:, :, qsl], v[:, :, ks].transpose(-1, -2),
-                              tc)
-                return p, p * (dp - delta[:, :, qsl])
-
-            p, ds = p_ds(False)
-            dq[:, :, qsl] += _product(ds.to(k.dtype), k[:, :, ks], False)
-            if tc_dkv:
-                p, ds = p_ds(True)
+            s = _product(qs[:, :, qsl], k[:, :, ks].transpose(-1, -2), tc)
+            if mask is not None:
+                s = s.masked_fill(~mask, _NEG_INF)
+            p = torch.exp(s - lse[:, :, qsl])
+            dp = _product(do[:, :, qsl], v[:, :, ks].transpose(-1, -2), tc)
+            ds = p * (dp - delta[:, :, qsl])
+            dq[:, :, qsl] += _product(ds.to(k.dtype), k[:, :, ks], tc)
             dv[:, :, ks] += _product(p.to(p_dtype).transpose(-1, -2),
-                                     do[:, :, qsl], tc_dkv)
+                                     do[:, :, qsl], tc)
             dk[:, :, ks] += _product(ds.to(q.dtype).transpose(-1, -2),
-                                     q[:, :, qsl], tc_dkv)
+                                     q[:, :, qsl], tc)
     scale = torch.tensor(sm_scale, dtype=torch.float32)
     return ((dq * scale).to(q.dtype), (dk * scale).to(k.dtype),
             dv.to(v.dtype))
@@ -412,27 +408,39 @@ def _call_bwd(fn, x, outs, name):
                          f"{tuple(x.q.shape)} {x.q.dtype}")
 
 
+def _wide_bf16(x):
+    """Whether the C entry point runs x on a CUDA-core kernel although it
+    is bf16 (head_dim > TC_MAX_D)."""
+    return x.q.dtype == torch.bfloat16 \
+        and not uses_tensor_cores(x.q.dtype, x.q.shape[-1])
+
+
 def launch_bwd_fused(x):
     """``mx_flash_bwd_fused``: (dq, dk, dv) from one launch.  dq sums in an
-    f32 workspace with atomics; its scale and cast are torch ops."""
-    global bwd_fused_launches
+    f32 workspace with atomics, in an order that changes from run to run;
+    its scale and cast are torch ops."""
+    global bwd_fused_launches, bwd_fused_wide_bf16_launches
     ws = torch.zeros(x.q.shape, dtype=torch.float32, device=x.q.device)
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_fused, x,
               [ws.data_ptr(), dk.data_ptr(), dv.data_ptr()],
               "flash_bwd_fused")
     bwd_fused_launches += 1
-    dq = (ws * torch.tensor(x.sm_scale, dtype=torch.float32)).to(x.q.dtype)
+    bwd_fused_wide_bf16_launches += _wide_bf16(x)
+    # dq = round(ws * scale) in q's dtype, in one pass
+    dq = torch.mul(ws, torch.tensor(x.sm_scale, dtype=torch.float32),
+                   out=torch.empty_like(x.q))
     return dq, dk, dv
 
 
 def launch_bwd_dq(x):
     """``mx_flash_bwd_dq``: dq."""
-    global bwd_dq_launches
+    global bwd_dq_launches, bwd_dq_wide_bf16_launches
     dq = torch.empty_like(x.q)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dq, x,
               [dq.data_ptr()], "flash_bwd_dq")
     bwd_dq_launches += 1
+    bwd_dq_wide_bf16_launches += _wide_bf16(x)
     return dq
 
 
@@ -443,9 +451,7 @@ def launch_bwd_dkv(x):
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dkv, x,
               [dk.data_ptr(), dv.data_ptr()], "flash_bwd_dkv")
     bwd_dkv_launches += 1
-    if x.q.dtype == torch.bfloat16 \
-            and not uses_tensor_cores(x.q.dtype, x.q.shape[-1]):
-        bwd_dkv_wide_bf16_launches += 1
+    bwd_dkv_wide_bf16_launches += _wide_bf16(x)
     return dk, dv
 
 

@@ -210,3 +210,64 @@ def test_each_library_is_built_by_its_own_wrapper(monkeypatch):
     bwd = tfa._kernel_lib("flash_bwd")
     assert asked == [["flash_fwd"], ["flash_bwd"]]
     assert len(bwd.mx_flash_bwd_fused.argtypes) == 20
+
+
+@pytest.mark.parametrize("D", [64, 128, 136])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("block", [None, 128], ids=["fused", "split"])
+def test_plain_backward_products_follow_the_kernels(monkeypatch, block,
+                                                    dname, D):
+    """Every product of the plain backward asks for the tensor cores
+    exactly when the kernels run (dtype, head_dim) there, on both routes,
+    and s, p and ds are formed once per tile: five products a tile (s, dp,
+    dq, dv, dk)."""
+    flags = []
+    product = tfa._product
+
+    def recording(a, b, tensor_cores):
+        flags.append(tensor_cores)
+        return product(a, b, tensor_cores)
+
+    monkeypatch.setattr(tfa, "_product", recording)
+    q, k, v, do = (torch.tensor(x).to(TORCH[dname])
+                   for x in _inputs(B=1, H=1, D=D, seed=2))
+    out, lse = tfa.flash_attention_reference(q, k, v, None, None, False,
+                                             0.125)
+    flags.clear()
+    tfa.flash_attention_backward_reference(q, k, v, None, None, out, lse, do,
+                                           False, 0.125, block, block)
+    tiles = 1 if block is None else (256 // block) ** 2
+    assert len(flags) == 5 * tiles
+    assert set(flags) == {tfa.uses_tensor_cores(TORCH[dname], D)}
+
+
+@pytest.mark.parametrize("D", [64, 128, 136])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["fused", "dq", "dkv"])
+def test_wide_head_counters_count_bf16_beyond_the_tensor_cores(
+        monkeypatch, kind, dname, D):
+    """Each backward wrapper counts its launch, and counts it again as a
+    wide bf16 launch exactly when the C entry point runs it on a CUDA-core
+    kernel although it is bf16 (head_dim > TC_MAX_D)."""
+    from types import SimpleNamespace
+
+    names = ("mx_flash_bwd_fused", "mx_flash_bwd_dq", "mx_flash_bwd_dkv")
+    lib = SimpleNamespace(**{n: n for n in names})
+    called = []
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda name: lib)
+    monkeypatch.setattr(tfa, "_call_bwd",
+                        lambda fn, x, outs, name: called.append(fn))
+    counters = [f"bwd_{k}{w}_launches" for k in ("fused", "dq", "dkv")
+                for w in ("", "_wide_bf16")]
+    for name in counters:
+        monkeypatch.setattr(tfa, name, 0)
+    q = torch.zeros((1, 2, 16, D), dtype=TORCH[dname])
+    x = tfa.prepare_bwd(q, q, q, None, None, q, torch.zeros(1, 2, 16), q,
+                        False, 0.125)
+    getattr(tfa, f"launch_bwd_{kind}")(x)
+    assert called == [f"mx_flash_bwd_{kind}"]
+    want_wide = int(dname == "bfloat16" and D > tfa.TC_MAX_D)
+    counts = {n: getattr(tfa, n) for n in counters}
+    assert counts.pop(f"bwd_{kind}_launches") == 1
+    assert counts.pop(f"bwd_{kind}_wide_bf16_launches") == want_wide
+    assert not any(counts.values())
