@@ -9,28 +9,32 @@ result line; each prints its seconds):
     power.limit --format=csv,noheader`` gives them, its power limit;
  2. build — compile ``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` for
     sm_90a from this checkout, one nvcc each, in parallel; ptxas registers
-    and spills per kernel (a bf16 tensor-core kernel that spills fails);
+    and spills per kernel (a tensor-core kernel or a forward kernel that
+    spills fails);
  3. forward kernel — flash_fwd against its plain PyTorch version on the
     card: out and lse on valid rows, f32 and bf16, causal and not, with and
     without segment ids (a padded row), at the serving prefill shape
     (1, 32, 1024, 128), a single-tile (2, 32, 512, 128), a streaming
     (1, 32, 2048, 128), a cross-length Lq=256 / Lk=512 shape, the training
     lanes' BERT (32, 12, 512, 64) and llama (4, 16, 2048, 128) shapes and a
-    head_dim sweep; times (causal at the serving shapes, each lane's own
-    masking at the lane shapes) of the kernel, the plain version and, as a
-    yardstick only, ``torch.nn.functional.scaled_dot_product_attention``;
+    head_dim sweep; two f32 launches at the prefill shape must agree bit
+    for bit; times (causal at the serving shapes, each lane's own masking
+    at the lane shapes) of the kernel, the plain version and, as a
+    yardstick only, ``torch.nn.functional.scaled_dot_product_attention``
+    (for f32, with the names of the kernels SDPA ran);
  4. backward kernels — flash_bwd_fused, flash_bwd_dq and flash_bwd_dkv
     against ``flash_attention_backward_reference`` on the card: dq, dk, dv
     on valid rows, f32 and bf16, causal and not, with and without segment
     ids, at the BERT lane (32, 12, 512, 64) -> fused, the llama lane
     (4, 16, 2048, 128) -> dq + dkv, cross 256/512 -> fused, L=384 -> dq +
     dkv and a head_dim sweep on both routes; autograd through
-    ``flash_attention`` at both lane shapes; times of each kernel (bf16,
-    and f32 for fused and dq at the same shapes), the plain backward and,
-    as a yardstick only, SDPA's backward (dq, dk, dv by
+    ``flash_attention`` at both lane shapes; times of each kernel in f32
+    and bf16 at the same shapes, the plain backward and, as a yardstick
+    only, SDPA's backward in the same dtype (dq, dk, dv by
     ``torch.autograd.grad`` of one recorded SDPA forward), read twice: CUDA
     events around the call, and the sum of its device kernels in one
-    ``torch.profiler`` window (the number the ``library_ms`` column takes);
+    ``torch.profiler`` window (the number the ``library_ms`` column takes),
+    with the names of those kernels;
  5. serving oracle — llama_small served on the card (prefill 256: the
     flash kernel) must be token-identical to greedy full re-encode;
  6. serve — llama3_8b at full width (32 layers, vocab 128256, f32, random
@@ -47,11 +51,13 @@ result line; each prints its seconds):
     and llama_seq2048 (8 layers, 2048 units, batch 4, seq 2048) lanes at
     full width, bf16 with multi-precision Adam, 8 steps on one batch (and
     one padded BERT step): losses finite and falling, kernel launches per
-    step (none on the CUDA-core route for wide bf16 heads), median step
-    ms, samples/s, MFU, peak memory, and one profiled step's device time
-    by kernel family.
+    step (none on the CUDA-core route for wide bf16 heads, none f32),
+    median step ms, samples/s, MFU, peak memory, and one profiled step's
+    device time by kernel family.
 The second-to-last line is ``{"kernels": [...]}`` (``launches`` counts the
-train lanes' timed steps) and the last ``{"ok": true, "device": {...}}``.
+train lanes' timed steps, ``serve_launches`` the serve phase's and
+``f32_launches`` the f32 launches of both, as the wrappers count them) and
+the last ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
 (f32 accumulation in another order); bf16 lse 1e-4; bf16 out at most 2
@@ -203,7 +209,20 @@ def kernel_phase(torch, fa):
                             f"{key}: out {shown} (tol {tol_out or BF16_OUT_ULPS}"
                             f"{'' if tol_out else ' ulp'}), lse {e_lse} (tol "
                             f"{tol_lse})")
-    timings = {}
+    # the CUDA-core kernel sums without atomics: two launches on the same
+    # inputs give the same bits
+    B, H, L, D = 1, 32, 1024, 128
+    q, k, v = (torch.randn(B, H, L, D, generator=gen, device=dev)
+               for _ in range(3))
+    first = fa._fwd(q, k, v, None, None, True, D ** -0.5)
+    again = fa._fwd(q, k, v, None, None, True, D ** -0.5)
+    same = all(torch.equal(a, b) for a, b in zip(first, again))
+    _log(f"check determinism prefill B={B} H={H} L={L} D={D} float32 "
+         f"causal=True: two launches {'bitwise equal' if same else 'DIFFER'}")
+    if not same:
+        raise AssertionError("flash_fwd f32 is not deterministic")
+
+    timings, sdpa_kernels = {}, {}
     timed = [(label, B, H, Lq, Lk, D, True, dname)
              for label, B, H, Lq, Lk, D in shapes for dname in dtypes]
     timed += [lane + ("bfloat16",) for lane in lanes]
@@ -222,11 +241,20 @@ def kernel_phase(torch, fa):
                            q, k, v, is_causal=causal, scale=scale))
         bound, bound_by = _bound_ms(B, H, Lq, Lk, D, dname, causal)
         timings[(label, dname)] = (t_k, t_p, t_l, bound, bound_by)
+        extra = ""
+        if dname == "float32":
+            _, names = _device_ms(torch, lambda: torch.nn.functional
+                                  .scaled_dot_product_attention(
+                                      q, k, v, is_causal=causal,
+                                      scale=scale), iters=1)
+            sdpa_kernels[label] = names
+            extra = f"; sdpa ran {names}"
         _log(f"time {label} B={B} H={H} Lq={Lq} Lk={Lk} D={D} {dname} "
              f"causal={causal}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, "
              f"sdpa {t_l:.4f} ms, bound {bound:.4f} ms ({bound_by}), "
-             f"kernel/bound {t_k / bound:.2f}, kernel/sdpa {t_k / t_l:.2f}")
-    return errors, timings
+             f"kernel/bound {t_k / bound:.2f}, kernel/sdpa {t_k / t_l:.2f}"
+             + extra)
+    return errors, timings, sdpa_kernels
 
 
 BWD_TOL = {"float32": 1e-4, "bfloat16": 5e-3}   # relative to max |ref|
@@ -349,10 +377,9 @@ def bwd_kernel_phase(torch, fa):
                                      ("dkv", 4, 16, 2048, 128, True)]:
         launch = {"fused": fa.launch_bwd_fused, "dq": fa.launch_bwd_dq,
                   "dkv": fa.launch_bwd_dkv}[kind]
-        # f32 (the CUDA-core kernels) for fused and dq, then bf16 with the
-        # plain version and SDPA
-        for dname in (("float32", "bfloat16") if kind != "dkv"
-                      else ("bfloat16",)):
+        # f32 (the CUDA-core kernels), then bf16 (the tensor cores), each
+        # with the plain version and SDPA's backward in the same dtype
+        for dname in ("float32", "bfloat16"):
             dt = dtypes[dname]
             shape = (f"B={B} H={H} Lq=Lk={L} D={D} {dname} "
                      f"{'causal' if causal else 'non-causal'}")
@@ -365,13 +392,6 @@ def bwd_kernel_phase(torch, fa):
             t_k = _time_ms(torch, lambda: launch(x))
             bound, bound_by = _bwd_bound_ms(kind, B, H, L, L, D, dname,
                                             causal)
-            if dname == "float32":
-                timings[kind] = {"f32_ms": t_k, "f32_bound_ms": bound,
-                                 "f32_bound_by": bound_by}
-                _log(f"time bwd {kind} {shape}: kernel {t_k:.4f} "
-                     f"ms, bound {bound:.4f} ms ({bound_by}), kernel/bound "
-                     f"{t_k / bound:.2f}")
-                continue
             t_p = _time_ms(torch, lambda: fa.flash_attention_backward_reference(
                 q, k, v, None, None, out, lse, do, causal, scale), iters=3,
                 reps=3)
@@ -385,18 +405,21 @@ def bwd_kernel_phase(torch, fa):
                                            retain_graph=True)
 
             t_le = _time_ms(torch, sdpa_bwd)
-            t_l = _device_ms(torch, sdpa_bwd)
+            t_l, names = _device_ms(torch, sdpa_bwd)
             del o
-            timings.setdefault(kind, {}).update({
-                "shape": shape,
-                "ms": t_k, "plain_ms": t_p, "library_ms": t_l,
-                "library_events_ms": t_le, "bound_ms": bound,
-                "bound_by": bound_by})
+            rec = {"shape": shape, "ms": t_k, "plain_ms": t_p,
+                   "library_ms": t_l, "library_events_ms": t_le,
+                   "library_kernels": names, "bound_ms": bound,
+                   "bound_by": bound_by}
+            pre = "f32_" if dname == "float32" else ""
+            timings.setdefault(kind, {}).update(
+                {pre + key: val for key, val in rec.items()})
             _log(f"time bwd {kind} {shape}: kernel {t_k:.4f} ms, "
                  f"plain {t_p:.4f} ms, sdpa bwd (dq+dk+dv) {t_l:.4f} ms "
                  f"device kernels, {t_le:.4f} ms CUDA events, bound "
                  f"{bound:.4f} ms ({bound_by}), kernel/bound "
-                 f"{t_k / bound:.2f}, kernel/sdpa {t_k / t_l:.2f}")
+                 f"{t_k / bound:.2f}, kernel/sdpa {t_k / t_l:.2f}; sdpa ran "
+                 f"{names}")
     return errors, worst, timings
 
 
@@ -441,6 +464,8 @@ def serve_phase(torch, fa, llama, serving, args):
     torch.cuda.synchronize()
     layers = len(net.blocks)
     n_params = sum(p.numel() for p in net.parameters())
+    if {p.dtype for p in net.parameters()} != {torch.float32}:
+        raise AssertionError("llama3_8b serving is meant to run in f32")
     _log(f"serve: llama3_8b layers={layers} params={n_params} "
          f"({n_params * 4 / 1e9:.2f} GB f32) built in "
          f"{time.perf_counter() - t0:.1f} s")
@@ -467,11 +492,12 @@ def serve_phase(torch, fa, llama, serving, args):
     lens = np.linspace(100, 1000, 8).astype(int)
     prompts = [rng.randint(3, vocab, int(n)).tolist() for n in lens]
     new = 16
-    fa.launches = 0
+    _reset_counts(fa)
     t0 = time.perf_counter()
     outs = eng.generate(prompts, max_new_tokens=new)
     wall = time.perf_counter() - t0
-    launches = fa.launches
+    counts = _counts(fa)
+    launches = counts["flash_fwd"]
     ad.prefill, ad.decode = orig_prefill, orig_decode
     for p, o in zip(prompts, outs):
         if len(o) != new or not all(0 <= t < vocab for t in o):
@@ -487,7 +513,8 @@ def serve_phase(torch, fa, llama, serving, args):
          f"[{', '.join(f'{s * 1e3:.1f}' for s in prefill_s)}]; "
          f"{len(decode_s)} decode steps (B=8) median "
          f"{statistics.median(decode_s) * 1e3:.1f} ms; flash launches "
-         f"{launches} ({launches / len(prefill_s):.1f} per prefill)")
+         f"{launches} ({launches / len(prefill_s):.1f} per prefill); "
+         f"launches {counts}")
     row = np.zeros(eng.cache.max_blocks_per_seq, np.int32)   # scratch row
     tok_k, logits_k = ad.prefill_logits(prompts[-1], row)
     tok_p, logits_p = ad.prefill_logits(prompts[-1], row,
@@ -502,7 +529,7 @@ def serve_phase(torch, fa, llama, serving, args):
     if err > LOGITS_TOL or tok_k != outs[-1][0]:
         raise AssertionError("prefill with the kernel disagrees with the "
                              "plain version or with the served token")
-    return launches, layers, len(prefill_s)
+    return counts
 
 
 TRAIN_TOL = 1e-4       # relative, per-step losses card vs CPU (f32)
@@ -532,7 +559,11 @@ _COUNTERS = {"flash_fwd": "launches",
              "flash_fwd_wide_bf16": "fwd_wide_bf16_launches",
              "flash_bwd_fused_wide_bf16": "bwd_fused_wide_bf16_launches",
              "flash_bwd_dq_wide_bf16": "bwd_dq_wide_bf16_launches",
-             "flash_bwd_dkv_wide_bf16": "bwd_dkv_wide_bf16_launches"}
+             "flash_bwd_dkv_wide_bf16": "bwd_dkv_wide_bf16_launches",
+             "flash_fwd_f32": "fwd_f32_launches",
+             "flash_bwd_fused_f32": "bwd_fused_f32_launches",
+             "flash_bwd_dq_f32": "bwd_dq_f32_launches",
+             "flash_bwd_dkv_f32": "bwd_dkv_f32_launches"}
 
 
 def _counts(fa):
@@ -608,8 +639,9 @@ def _profiled(torch, fn):
 
 
 def _device_ms(torch, fn, iters=20):
-    """Device time per call of fn: the sum of its kernels' times in one
-    torch.profiler window of ``iters`` calls, after a warm-up."""
+    """(device time per call of fn, names of the kernels it ran, cut to 100
+    characters): the sum of its kernels' times in one torch.profiler window
+    of ``iters`` calls, after a warm-up."""
     for _ in range(3):
         fn()
 
@@ -618,7 +650,8 @@ def _device_ms(torch, fn, iters=20):
             fn()
 
     _, rows = _profiled(torch, window)
-    return sum(r[0] for r in rows) / iters
+    return (sum(r[0] for r in rows) / iters,
+            sorted({r[2][:100] for r in rows}))
 
 
 def _profile_step(torch, step_fn, label):
@@ -754,6 +787,9 @@ def train_lane_phase(torch, fa, mx, args):
         if wide:
             raise AssertionError(f"{lane}: {wide} bf16 launches ran on the "
                                  f"CUDA-core route for wide heads")
+        f32 = sum(n for k, n in counts.items() if k.endswith("_f32"))
+        if f32:
+            raise AssertionError(f"{lane}: {f32} f32 launches in a bf16 lane")
         results[lane] = {"step_ms": med, "samples_per_s": sps, "mfu": mfu,
                          "peak_gib": peak / 2**30, "profile": prof}
         step = opt = net = core = None
@@ -827,15 +863,18 @@ def main(argv=None):
         for name, regs, spilled, spill in _ptxas_summary(
                 _build.build_log(src)):
             _log(f"ptxas {src}: {name}: {regs}; {spill}")
-            if "_tc_kernel" in name and spilled:
+            # the tensor-core kernels and every forward kernel (the
+            # CUDA-core one included) must keep their registers
+            if (src == "flash_fwd" or "_tc_kernel" in name) and spilled:
                 raise AssertionError(f"{name} spills {spilled} bytes")
 
-    errors, timings = _phase("forward kernel", kernel_phase, torch, fa)
+    errors, timings, sdpa_kernels = _phase("forward kernel", kernel_phase,
+                                           torch, fa)
     bwd_errors, _, bwd_times = _phase("backward kernels", bwd_kernel_phase,
                                       torch, fa)
     _phase("serving oracle", oracle_phase, torch, llama, serving)
-    serve_launches, _, _ = _phase("serve", serve_phase, torch, fa, llama,
-                                  serving, args)
+    serve_counts = _phase("serve", serve_phase, torch, fa, llama, serving,
+                          args)
     _phase("train oracle", train_oracle_phase, torch, fa, mx)
     train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
                                    fa, mx, args)
@@ -848,14 +887,25 @@ def main(argv=None):
         "replaces": "mxnet_tpu/kernels/flash_attention.py:185,248",
         "shape": "B=1 H=32 Lq=Lk=1024 D=128 float32 causal",
         "launches": train_launches["flash_fwd"],
-        "serve_launches": serve_launches,
+        "serve_launches": serve_counts["flash_fwd"],
         "max_abs_err": errors[("prefill", "float32", True, False)][0],
         "ms": t_k,
         "plain_ms": t_p,
         "bound_ms": bound,
         "bound_by": bound_by,
         "library_ms": t_l,
+        "library_kernels": sdpa_kernels["prefill"],
+        # f32 launches counted by the wrapper in serving and the lanes
+        "f32_launches": serve_counts["flash_fwd_f32"]
+        + train_launches["flash_fwd_f32"],
     }]
+    t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
+    kernels[0].update({
+        "single_tile_shape": "B=2 H=32 Lq=Lk=512 D=128 float32 causal",
+        "single_tile_ms": t_k, "single_tile_plain_ms": t_p,
+        "single_tile_library_ms": t_l, "single_tile_bound_ms": bound,
+        "single_tile_bound_by": bound_by,
+        "single_tile_library_kernels": sdpa_kernels["single-tile"]})
     # the bf16 tensor-core kernel at the training lanes' shapes
     for lane, prefix in (("llama-lane", "lane"), ("bert-lane", "bert_lane")):
         t_k, t_p, t_l, bound, bound_by = timings[(lane, "bfloat16")]
@@ -867,11 +917,12 @@ def main(argv=None):
             f"{prefix}_ms": t_k, f"{prefix}_plain_ms": t_p,
             f"{prefix}_library_ms": t_l, f"{prefix}_bound_ms": bound,
             f"{prefix}_bound_by": bound_by})
-    err_of = {
-        "fused": max(bwd_errors[("bert-lane", "bfloat16", False, False)]),
-        "dq": bwd_errors[("llama-lane", "bfloat16", True, False)][0],
-        "dkv": max(bwd_errors[("llama-lane", "bfloat16", True, False)][1:]),
-    }
+    def err_of(kind_, dname):
+        if kind_ == "fused":
+            return max(bwd_errors[("bert-lane", dname, False, False)])
+        e = bwd_errors[("llama-lane", dname, True, False)]
+        return e[0] if kind_ == "dq" else max(e[1:])
+
     for kind_, line in (("fused", 464), ("dq", 373), ("dkv", 417)):
         t = bwd_times[kind_]
         kernels.append({
@@ -881,15 +932,20 @@ def main(argv=None):
             "replaces": f"mxnet_tpu/kernels/flash_attention.py:{line}",
             "shape": t["shape"],
             "launches": train_launches[f"flash_bwd_{kind_}"],
-            "max_abs_err": err_of[kind_],
+            "max_abs_err": err_of(kind_, "bfloat16"),
             "ms": t["ms"],
             "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"],
             "bound_by": t["bound_by"],
             "library_ms": t["library_ms"],
             "library_events_ms": t["library_events_ms"],
-            # the f32 kernel (CUDA cores) at the same shape, where timed
+            "library_kernels": t["library_kernels"],
+            # the f32 kernel (CUDA cores) at the same shape, and its
+            # launches counted by the wrapper in serving and the lanes
             **{k: v for k, v in t.items() if k.startswith("f32_")},
+            "f32_max_abs_err": err_of(kind_, "float32"),
+            "f32_launches": serve_counts[f"flash_bwd_{kind_}_f32"]
+            + train_launches[f"flash_bwd_{kind_}_f32"],
         })
     for lane, r in lanes.items():
         _log(f"train {lane}: step {r['step_ms']:.2f} ms, "

@@ -22,27 +22,68 @@
 //   - causal masks qi >= ki (top-left aligned, Lq != Lk allowed), and kv
 //     tiles wholly above the diagonal are skipped.
 //
-// Design: one CTA of 256 threads per (q tile of 64 rows, head, batch),
-// heaviest causal q tiles first.  Thread (ty, tx) of a 16 x 16 grid owns
-// rows 4 ty .. 4 ty + 3 of the tile.  Per kv tile of 64 rows:
-//   1. K^T is staged in shared memory (d-major), and S = (scale Q) K^T is
-//      computed as a 4 x 4 register tile per thread (cols 4 tx .. 4 tx + 3)
-//      from two 16-byte shared loads per d;
-//   2. the online softmax runs in registers: the 16 threads sharing a row
-//      reduce its max and sum with shuffles, and rescale their slice of
-//      the f32 output accumulator;
-//   3. P^T goes to shared memory, V is staged in the buffer K^T used, and
-//      the thread's 4 x (4 NG) accumulator slice (cols 4 (tx + 16 g)) takes
-//      P V from one 16-byte load of P^T and NG of V per kv row.
-// Products run on the CUDA cores in f32 FMA: the tensor cores would round
-// f32 inputs to TF32, which the reference does not.  This kernel runs f32,
-// and bf16 with D > 128; bf16 with D <= 128 runs the tensor-core kernel in
-// namespace tc below.
+// Two kernels: simt::flash_fwd_kernel on the CUDA cores runs f32 at every
+// D and bf16 with D > 128; tc::flash_fwd_bf16_tc_kernel below runs bf16
+// with D <= 128 on the tensor cores.
 //
-// Bound: at serving shapes (L = 1024, D = 128) the work is ~4 L^2 D flops
-// per head against ~4 L D elements moved, far above the card's ridge
-// point, so the kernel is bound by operations: f32 FMA on the CUDA cores
-// (67 TFLOP/s peak).  Shared memory is 87 KB at D = 128, two CTAs per SM.
+// ---------------------------------------------------------------------------
+// CUDA cores (simt::)
+//
+// simt::flash_fwd_kernel replaces the Pallas kernels _fwd_kernel and
+// _fwd_single_kernel (mxnet_tpu/kernels/flash_attention.py:185,248) for
+// f32 at every D and for bf16 with D > 128.  Products run as f32 FMA:
+// the tensor cores would round f32 inputs to TF32, which the reference
+// does not.
+//
+// Bound.  ~4 L^2 D flops per head (half when causal) against ~4 L D values
+// moved is far above the card's ridge point: the kernel is bound by
+// operations, f32 FMA on the CUDA cores (67 TFLOP/s).  An SM issues 128
+// FMAs per clock but reads 128 bytes (32 floats) of shared memory per
+// clock, so both products must take many FMAs per shared-memory load, and
+// the loads must be in flight while the FMAs run.
+//
+// Design.  One CTA of 256 threads per (tile of BQ q rows, head, batch);
+// BQ = 128 (64 when D > 128).  The q tile is the grid's slowest axis,
+// heaviest (causal) first, so every head's longest tiles start in the
+// first wave and the short ones fill the tail.  Thread (ty, tx) of an
+// NR x TC grid (16 x 16, or 8 x 32) owns the 8 q rows 8 ty .. 8 ty + 7,
+// and in registers, as a SIMT GEMM blocks them, an 8 x NS tile of S (kv
+// columns tx + TC c) and an 8 x 4 NG tile of the f32 output accumulator
+// (columns 4 tx + 4 TC g .. + 3): 8 x 4 and 8 x 8 at D = 128.
+//   - Q is scaled once and stored d-major (Q^T), so one 16-byte load gives
+//     4 of the thread's rows at one d.  K and V stay row-major, as they
+//     arrive: S = (scale Q) K^T is taken over d in chunks of 4, one float4
+//     of a k row against 4 d rows of Q^T: 128 FMAs per 12 16-byte loads at
+//     D = 128, the Q^T loads shared by the 16 threads of a row.
+//   - p goes to shared memory kv-major (P^T), and O += P V reads 8 rows of
+//     P^T and 4 NG columns of V per kv row: 64 FMAs per 4 loads at D = 128.
+//     P^T rows pass only between the threads of one row (one warp).
+//   - In both products the next step's operands are loaded into a second
+//     set of registers while this step's FMAs run.
+//   - Row strides are padded by 16 bytes, so the 8 threads of each quarter
+//     warp hit distinct banks.
+//   - K and V tiles of kBK = 64 rows stream through a ring of kStages (3,
+//     or 2 for f32 at D > 128) shared-memory stages, in the order K0 V0 K1
+//     V1 ..., filled by 16-byte cp.async (zero fill past Lk): each tile is
+//     issued kStages - 1 tiles ahead and lands while the FMAs of the tiles
+//     before it run.  One __syncthreads per tile: it publishes the tile
+//     and frees the stage the next copy refills.
+//   - Masks run only where they can bite: the diagonal tiles of a causal
+//     call, the ragged last tile, every tile when segment ids are given.
+//     On a causal diagonal tile, a warp whose rows (16, or 8 at BQ = 64)
+//     all lie above the tile's first key skips it (it would add p = 0 with alpha = 1), so
+//     its SM partners issue alone.
+//   - The row max is reduced across the TC threads of a row per tile (it
+//     rescales the output); the row sum stays per thread until the end.
+//   - No atomics: two launches on the same inputs give the same bits.
+// Shared memory at D = 128: Q^T 66 KB, P^T 33 KB, three 33 KB stages, one
+// CTA (8 warps) per SM.  ptxas (sm_90a): 209 registers at <float, 128,
+// 128>, 162-167 at the other instantiations, no spills.
+// What still holds it back (PERF.md): exp in full precision and the
+// online softmax between the two products, and only 8 warps per SM to
+// hide shared-memory latency.  Splitting d across two thread sets to give
+// each an 8 x 8 S tile, and mbarriers in place of the per-tile
+// __syncthreads, were tried and did not help.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -50,12 +91,12 @@
 
 #include "hopper.cuh"
 
-namespace {
+namespace simt {
 
-constexpr int kBQ = 64;
-constexpr int kBK = 64;
 constexpr int kThreads = 256;
-constexpr int kLdT = 68;   // row stride of the d-major tiles: 16-byte rows
+constexpr int kBK = 64;          // kv rows per tile (flash_attention.kv_tile)
+constexpr int kRows = 8;         // q rows per thread
+constexpr int kMaxSmem = 232448; // bytes of shared memory a CTA may use
 constexpr float kNegInf = -1e30f;
 constexpr float kMFloor = -1e4f;
 
@@ -70,6 +111,7 @@ template <> struct Elt<float> {
   }
   // round an f32 value to the storage type (identity for f32)
   static __device__ __forceinline__ float round(float x) { return x; }
+  static __device__ __forceinline__ float of(float x) { return x; }
 };
 
 template <> struct Elt<__nv_bfloat16> {
@@ -81,234 +123,337 @@ template <> struct Elt<__nv_bfloat16> {
                        __uint_as_float(u.y << 16),
                        __uint_as_float(u.y & 0xffff0000u));
   }
-  static __device__ __forceinline__ unsigned short bits(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-  }
   static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
     uint2 u;
-    u.x = (unsigned)bits(x.x) | ((unsigned)bits(x.y) << 16);
-    u.y = (unsigned)bits(x.z) | ((unsigned)bits(x.w) << 16);
+    u.x = hopper::pack_bf16(x.x, x.y);
+    u.y = hopper::pack_bf16(x.z, x.w);
     *reinterpret_cast<uint2*>(p) = u;
   }
   static __device__ __forceinline__ float round(float x) {
     return __bfloat162float(__float2bfloat16_rn(x));
   }
+  static __device__ __forceinline__ __nv_bfloat16 of(float x) {
+    return __float2bfloat16_rn(x);
+  }
 };
 
-// reductions over the 16 lanes (one thread row tx = 0..15) sharing a row
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+__device__ __forceinline__ float lane(const float4& x, int e) {
+  return e == 0 ? x.x : e == 1 ? x.y : e == 2 ? x.z : x.w;
 }
 
-__device__ __forceinline__ float row_sum(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
+// 16 bytes global -> shared, asynchronously; src_bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(dst),
+               "l"(src), "r"(src_bytes)
+               : "memory");
 }
 
-size_t smem_bytes(int D) {
-  // Q^T and the K^T / V buffer (D x kLdT each; V takes kBK x D <= that),
-  // P^T (kBK x kLdT), segment ids of the q and kv tiles
-  return sizeof(float) * (2 * (size_t)D * kLdT + (size_t)kBK * kLdT) +
-         sizeof(int) * (kBQ + kBK);
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
 }
 
-// NG: 4-column output groups per thread are tx + 16 g for g < NG (D <= 64 NG)
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads, NG <= 2 ? 2 : 1)
+// wait until at most N of this thread's commit groups are in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// The thread grid and shared-memory plan of a CTA for element type T, head
+// dimension padded to DP and BQ q rows.  Stages first (cp.async wants
+// 16-byte aligned rows), then Q^T, then P^T.
+template <typename T, int DP, int BQ>
+struct Plan {
+  static constexpr int kEpc = 16 / sizeof(T);       // elements per 16 bytes
+  static constexpr int kNR = BQ / kRows;            // thread rows
+  static constexpr int kTC = kThreads / kNR;        // threads per row
+  static constexpr int kNS = kBK / kTC;             // S columns per thread
+  static constexpr int kNG = DP / (4 * kTC);        // output float4 groups
+  static constexpr int kLdKV = DP + kEpc;           // K / V row stride
+  static constexpr int kLdQ = BQ + kEpc;            // Q^T row stride
+  static constexpr int kLdP = BQ + 4;               // P^T row stride (f32)
+  static constexpr int kTile = kBK * kLdKV;         // elements of a stage
+  static constexpr int kTileBytes = kTile * (int)sizeof(T);
+  static constexpr int kQBytes = DP * kLdQ * (int)sizeof(T);
+  static constexpr int kPBytes = kBK * kLdP * 4;
+  static constexpr int kStages =
+      3 * kTileBytes + kQBytes + kPBytes <= kMaxSmem ? 3 : 2;
+  static constexpr int kBytes = kStages * kTileBytes + kQBytes + kPBytes;
+  static_assert(kNS * kTC == kBK && kNG * 4 * kTC == DP, "thread grid");
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+template <typename T, int DP, int BQ>
+__global__ void __launch_bounds__(kThreads, 1)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const int* __restrict__ seg_q,
                  const int* __restrict__ seg_kv, T* __restrict__ out,
                  float* __restrict__ lse, int H, int Lq, int Lk, int D,
                  int causal, float scale) {
+  using L = Plan<T, DP, BQ>;
+  constexpr int TC = L::kTC, NS = L::kNS, NG = L::kNG, S = L::kStages;
   extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  float* sQT = smem;                     // D x kLdT   (scaled q, d-major)
-  float* sKV = sQT + D * kLdT;           // D x kLdT as K^T, kBK x D as V
-  float* sPT = sKV + D * kLdT;           // kBK x kLdT (p, kv-major)
-  int* sSegQ = reinterpret_cast<int*>(sPT + kBK * kLdT);   // kBQ
-  int* sSegK = sSegQ + kBQ;                                // kBK
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* sRing = reinterpret_cast<T*>(smem);
+  T* sQT = reinterpret_cast<T*>(smem + S * L::kTileBytes);
+  float* sPT = reinterpret_cast<float*>(smem + S * L::kTileBytes + L::kQBytes);
 
   const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  // heaviest (last) causal q tiles start first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * H + h;
+  const int tx = tid % TC, ty = tid / TC;
+  // q tiles are the grid's slowest axis, heaviest (causal) first, so
+  // every head's longest tiles start in the first wave
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int b = blockIdx.y;
+  const size_t bh = (size_t)b * H + blockIdx.x;
   const T* qb = q + bh * Lq * D;
   const T* kb = k + bh * Lk * D;
   const T* vb = v + bh * Lk * D;
   const bool has_seg = seg_q != nullptr;
-  const int D4 = D / 4;
-
-  // scale folded into q in q's dtype: round(round(q) * round(scale))
-  const float scale_t = Elt<T>::round(scale);
-  for (int i = tid; i < kBQ * D4; i += kThreads) {
-    const int r = i % kBQ, d = (i / kBQ) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (q0 + r < Lq) x = Elt<T>::load4(qb + (size_t)(q0 + r) * D + d);
-    sQT[(d + 0) * kLdT + r] = Elt<T>::round(x.x * scale_t);
-    sQT[(d + 1) * kLdT + r] = Elt<T>::round(x.y * scale_t);
-    sQT[(d + 2) * kLdT + r] = Elt<T>::round(x.z * scale_t);
-    sQT[(d + 3) * kLdT + r] = Elt<T>::round(x.w * scale_t);
-  }
-  if (has_seg && tid < kBQ)
-    sSegQ[tid] = (q0 + tid < Lq) ? seg_q[(size_t)b * Lq + q0 + tid] : 0;
-
-  float acc[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
-  float m_row[4], l_row[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m_row[i] = kMFloor;
-    l_row[i] = 0.f;
-  }
 
   int n_kv = (Lk + kBK - 1) / kBK;
   if (causal) {
     // kv tiles whose first key lies past this q tile's last row are
     // entirely masked: skip them (the accumulators pass through)
-    const int last_q = min(q0 + kBQ, Lq) - 1;
-    n_kv = min(n_kv, last_q / kBK + 1);
+    n_kv = min(n_kv, (min(q0 + BQ, Lq) - 1) / kBK + 1);
+  }
+  const int n_tiles = 2 * n_kv;
+
+  // ring tile t (K of kv tile t / 2 for even t, V for odd t) into stage
+  // t % S, as one commit group (empty past the last tile, so the group
+  // count stays uniform)
+  const int cpr = D / L::kEpc;                 // 16-byte chunks per row
+  auto issue = [&](int t) {
+    if (t < n_tiles) {
+      const T* src = (t & 1) ? vb : kb;
+      const int k0 = (t >> 1) * kBK;
+      T* dst = sRing + (t % S) * L::kTile;
+      for (int i = tid; i < kBK * cpr; i += kThreads) {
+        const int r = i / cpr, c = (i % cpr) * L::kEpc;
+        const bool ok = k0 + r < Lk;
+        cp_async16(hopper::smem_addr(dst + r * L::kLdKV + c),
+                   ok ? src + (size_t)(k0 + r) * D + c : src, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int t = 0; t < S - 1; ++t) issue(t);
+
+  // columns D .. DP - 1 of every stage stay zero (no copy writes them)
+  for (int i = tid; i < S * kBK * (DP - D); i += kThreads)
+    sRing[(i / (DP - D)) * L::kLdKV + D + i % (DP - D)] = Elt<T>::of(0.f);
+
+  // scale folded into q in q's dtype: round(round(q) * round(scale)),
+  // stored d-major; rows past Lq and columns past D are zero
+  const float scale_t = Elt<T>::round(scale);
+  for (int i = tid; i < BQ * (DP / 4); i += kThreads) {
+    const int r = i % BQ, d = (i / BQ) * 4;
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < Lq && d < D) x = Elt<T>::load4(qb + (size_t)(q0 + r) * D + d);
+    sQT[(d + 0) * L::kLdQ + r] = Elt<T>::of(Elt<T>::round(x.x * scale_t));
+    sQT[(d + 1) * L::kLdQ + r] = Elt<T>::of(Elt<T>::round(x.y * scale_t));
+    sQT[(d + 2) * L::kLdQ + r] = Elt<T>::of(Elt<T>::round(x.z * scale_t));
+    sQT[(d + 3) * L::kLdQ + r] = Elt<T>::of(Elt<T>::round(x.w * scale_t));
   }
 
-  for (int it = 0; it < n_kv; ++it) {
-    const int k0 = it * kBK;
-    __syncthreads();   // previous tile's P V is done with sKV and sPT
-    for (int i = tid; i < kBK * D4; i += kThreads) {
-      const int c = i % kBK, d = (i / kBK) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Lk) x = Elt<T>::load4(kb + (size_t)(k0 + c) * D + d);
-      sKV[(d + 0) * kLdT + c] = x.x;
-      sKV[(d + 1) * kLdT + c] = x.y;
-      sKV[(d + 2) * kLdT + c] = x.z;
-      sKV[(d + 3) * kLdT + c] = x.w;
-    }
-    if (has_seg && tid < kBK)
-      sSegK[tid] = (k0 + tid < Lk) ? seg_kv[(size_t)b * Lk + k0 + tid] : 0;
-    __syncthreads();
+  float acc[kRows][4 * NG];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
+  float m_row[kRows], l_part[kRows];     // l: this thread's columns only
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m_row[i] = kMFloor;
+    l_part[i] = 0.f;
+  }
+  const T* sQrow = sQT + kRows * ty;
+  const int warp_last_row = q0 + kRows * ((tid | 31) / TC) + kRows - 1;
+  const float* sProw = sPT + kRows * ty;
 
-    // S = (scale Q) K^T: rows 4 ty + i, cols 4 tx + j
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; ++d) {
-      const float4 a = *reinterpret_cast<const float4*>(&sQT[d * kLdT + ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&sKV[d * kLdT + tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(av[i], cv[j], s[i][j]);
-    }
+  for (int t = 0; t < n_tiles; ++t) {
+    cp_async_wait<S - 2>();   // tile t has landed (this thread's copies)
+    __syncthreads();          // ... and everyone's; tile t - 1 is consumed
+    issue(t + S - 1);         // into tile t - 1's stage
+    const T* tile = sRing + (t % S) * L::kTile;
+    const int k0 = (t >> 1) * kBK;
+    // a warp whose rows all lie above this kv tile's first key (causal)
+    // would add p = 0 with alpha = 1: it skips the tile, bit for bit alike
+    if (causal && warp_last_row < k0) continue;
 
-    // mask, then the online softmax of the thread's 4 rows
+    if ((t & 1) == 0) {
+      // S = (scale Q) K^T: rows 8 ty + i, columns tx + TC c
+      float s[kRows][NS];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
+      for (int i = 0; i < kRows; ++i)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j;
-        bool ok = k0 + c < Lk;
-        if (has_seg) ok = ok && sSegQ[r] == sSegK[c];
-        if (causal) ok = ok && q0 + r >= k0 + c;
-        if (!ok) s[i][j] = kNegInf;
-      }
-      const float mx = row_max(fmaxf(fmaxf(s[i][0], s[i][1]),
-                                     fmaxf(s[i][2], s[i][3])));
-      const float m_new = fmaxf(m_row[i], mx);
-      float psum = 0.f;
+        for (int c = 0; c < NS; ++c) s[i][c] = 0.f;
+      // operands of the next step are loaded while this one's FMAs run
+      // (registers double-buffered): the k rows' float4 one chunk of 4 d
+      // ahead, the Q^T pair one d ahead
+      const T* krow = tile + tx * L::kLdKV;
+      float4 kf[NS], qa[2];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        psum += p;
-        s[i][j] = Elt<T>::round(p);     // p in v's dtype for the PV product
-      }
-      const float alpha = expf(m_row[i] - m_new);
-      l_row[i] = l_row[i] * alpha + row_sum(psum);
-      m_row[i] = m_new;
-#pragma unroll
-      for (int j = 0; j < 4 * NG; ++j) acc[i][j] *= alpha;
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&sPT[(tx * 4 + j) * kLdT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();   // everyone is done reading K^T; P^T is complete
-
-    for (int i = tid; i < kBK * D4; i += kThreads) {
-      const int c = i / D4, d = (i % D4) * 4;
-      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (k0 + c < Lk) x = Elt<T>::load4(vb + (size_t)(k0 + c) * D + d);
-      *reinterpret_cast<float4*>(&sKV[c * D + d]) = x;
-    }
-    __syncthreads();
-
-    // acc += P V
+      for (int c = 0; c < NS; ++c)
+        kf[c] = Elt<T>::load4(krow + TC * c * L::kLdKV);
+      qa[0] = Elt<T>::load4(sQrow);
+      qa[1] = Elt<T>::load4(sQrow + 4);
 #pragma unroll 2
-    for (int c = 0; c < kBK; ++c) {
-      const float4 p = *reinterpret_cast<const float4*>(&sPT[c * kLdT + ty * 4]);
-      const float pv[4] = {p.x, p.y, p.z, p.w};
+      for (int d = 0; d < D; d += 4) {
+        const int dn = d + 4 < D ? d + 4 : d;
+        float4 kn[NS];
 #pragma unroll
-      for (int g = 0; g < NG; ++g) {
-        const int d = (tx + 16 * g) * 4;
-        if (d < D) {
-          const float4 x = *reinterpret_cast<const float4*>(&sKV[c * D + d]);
+        for (int c = 0; c < NS; ++c)
+          kn[c] = Elt<T>::load4(krow + TC * c * L::kLdKV + dn);
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
+        for (int e = 0; e < 4; ++e) {
+          const T* qn = sQrow + (e < 3 ? d + e + 1 : dn) * L::kLdQ;
+          const float4 qb0 = Elt<T>::load4(qn), qb1 = Elt<T>::load4(qn + 4);
+          const float av[kRows] = {qa[0].x, qa[0].y, qa[0].z, qa[0].w,
+                                   qa[1].x, qa[1].y, qa[1].z, qa[1].w};
+#pragma unroll
+          for (int c = 0; c < NS; ++c) {
+            const float kv = lane(kf[c], e);
+#pragma unroll
+            for (int i = 0; i < kRows; ++i) s[i][c] = fmaf(av[i], kv, s[i][c]);
+          }
+          qa[0] = qb0;
+          qa[1] = qb1;
+        }
+#pragma unroll
+        for (int c = 0; c < NS; ++c) kf[c] = kn[c];
+      }
+
+      if (has_seg || k0 + kBK > Lk || (causal && k0 + kBK - 1 > q0)) {
+        int sq[kRows];
+#pragma unroll
+        for (int i = 0; i < kRows; ++i) {
+          const int r = q0 + kRows * ty + i;
+          sq[i] = has_seg && r < Lq ? seg_q[(size_t)b * Lq + r] : 0;
+        }
+#pragma unroll
+        for (int c = 0; c < NS; ++c) {
+          const int col = k0 + tx + TC * c;
+          const bool in = col < Lk;
+          const int skv = has_seg && in ? seg_kv[(size_t)b * Lk + col] : 0;
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            bool ok = in;
+            if (has_seg) ok = ok && sq[i] == skv;
+            if (causal) ok = ok && q0 + kRows * ty + i >= col;
+            if (!ok) s[i][c] = kNegInf;
+          }
+        }
+      }
+
+      // online softmax of the thread's rows; p to P^T in v's dtype
+#pragma unroll
+      for (int i = 0; i < kRows; ++i) {
+        float mx = s[i][0];
+#pragma unroll
+        for (int c = 1; c < NS; ++c) mx = fmaxf(mx, s[i][c]);
+#pragma unroll
+        for (int o = TC / 2; o > 0; o >>= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m_row[i], mx);
+        const float alpha = expf(m_row[i] - m_new);
+        float psum = 0.f;
+#pragma unroll
+        for (int c = 0; c < NS; ++c) {
+          const float p = expf(s[i][c] - m_new);
+          psum += p;
+          s[i][c] = Elt<T>::round(p);
+        }
+        l_part[i] = l_part[i] * alpha + psum;
+        m_row[i] = m_new;
+#pragma unroll
+        for (int j = 0; j < 4 * NG; ++j) acc[i][j] *= alpha;
+      }
+#pragma unroll
+      for (int c = 0; c < NS; ++c) {
+        float* dst = sPT + (tx + TC * c) * L::kLdP + kRows * ty;
+        *reinterpret_cast<float4*>(dst) =
+            make_float4(s[0][c], s[1][c], s[2][c], s[3][c]);
+        *reinterpret_cast<float4*>(dst + 4) =
+            make_float4(s[4][c], s[5][c], s[6][c], s[7][c]);
+      }
+    } else {
+      // acc += P V (P^T was published by this tile's __syncthreads)
+      // P^T and V rows one kv row ahead, as in S
+      const T* vcol = tile + 4 * tx;
+      float4 pa[2], va[NG];
+      pa[0] = *reinterpret_cast<const float4*>(sProw);
+      pa[1] = *reinterpret_cast<const float4*>(sProw + 4);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) va[g] = Elt<T>::load4(vcol + 4 * TC * g);
+#pragma unroll 4
+      for (int j = 0; j < kBK; ++j) {
+        const int jn = j + 1 < kBK ? j + 1 : j;
+        const float4 pb0 =
+            *reinterpret_cast<const float4*>(sProw + jn * L::kLdP);
+        const float4 pb1 =
+            *reinterpret_cast<const float4*>(sProw + jn * L::kLdP + 4);
+        float4 vb[NG];
+#pragma unroll
+        for (int g = 0; g < NG; ++g)
+          vb[g] = Elt<T>::load4(vcol + jn * L::kLdKV + 4 * TC * g);
+        const float pv[kRows] = {pa[0].x, pa[0].y, pa[0].z, pa[0].w,
+                                 pa[1].x, pa[1].y, pa[1].z, pa[1].w};
+#pragma unroll
+        for (int g = 0; g < NG; ++g) {
+          const float4 x = va[g];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
             acc[i][4 * g + 0] = fmaf(pv[i], x.x, acc[i][4 * g + 0]);
             acc[i][4 * g + 1] = fmaf(pv[i], x.y, acc[i][4 * g + 1]);
             acc[i][4 * g + 2] = fmaf(pv[i], x.z, acc[i][4 * g + 2]);
             acc[i][4 * g + 3] = fmaf(pv[i], x.w, acc[i][4 * g + 3]);
           }
         }
+        pa[0] = pb0;
+        pa[1] = pb1;
+#pragma unroll
+        for (int g = 0; g < NG; ++g) va[g] = vb[g];
       }
     }
   }
+  cp_async_wait<0>();
 
   T* ob = out + bh * Lq * D;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (q0 + r >= Lq) continue;
-    const float safe_l = l_row[i] == 0.f ? 1.f : l_row[i];   // fully masked
+  for (int i = 0; i < kRows; ++i) {
+    float l = l_part[i];
+#pragma unroll
+    for (int o = TC / 2; o > 0; o >>= 1)
+      l += __shfl_xor_sync(0xffffffffu, l, o);
+    const int r = q0 + kRows * ty + i;
+    if (r >= Lq) continue;
+    const float safe_l = l == 0.f ? 1.f : l;   // fully masked
 #pragma unroll
     for (int g = 0; g < NG; ++g) {
-      const int d = (tx + 16 * g) * 4;
+      const int d = 4 * (tx + TC * g);
       if (d < D)
-        Elt<T>::store4(ob + (size_t)(q0 + r) * D + d,
+        Elt<T>::store4(ob + (size_t)r * D + d,
                        make_float4(acc[i][4 * g + 0] / safe_l,
                                    acc[i][4 * g + 1] / safe_l,
                                    acc[i][4 * g + 2] / safe_l,
                                    acc[i][4 * g + 3] / safe_l));
     }
-    if (tx == 0) lse[bh * Lq + q0 + r] = m_row[i] + logf(safe_l);
+    if (tx == 0) lse[bh * Lq + r] = m_row[i] + logf(safe_l);
   }
 }
 
-template <typename T, int NG>
+template <typename T, int DP, int BQ>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const int* seg_q, const int* seg_kv, void* out, float* lse,
                    int B, int H, int Lq, int Lk, int D, int causal,
                    float scale, cudaStream_t stream) {
-  const size_t smem = smem_bytes(D);
+  constexpr int smem = Plan<T, DP, BQ>::kBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<T, NG>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+      flash_fwd_kernel<T, DP, BQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return err;
-  dim3 grid((Lq + kBQ - 1) / kBQ, H, B);
-  flash_fwd_kernel<T, NG><<<grid, kThreads, smem, stream>>>(
+  dim3 grid(H, B, (Lq + BQ - 1) / BQ);
+  flash_fwd_kernel<T, DP, BQ><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), seg_q, seg_kv, static_cast<T*>(out), lse, H,
       Lq, Lk, D, causal, scale);
@@ -323,16 +468,14 @@ cudaError_t dispatch_d(const void* q, const void* k, const void* v,
   // bf16 heads up to 128 run the tensor-core kernel (tc::): not built here
   if constexpr (std::is_same<T, float>::value) {
     if (D <= 64)
-      return launch<T, 1>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+      return launch<T, 64, 128>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
     if (D <= 128)
-      return launch<T, 2>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+      return launch<T, 128, 128>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
   }
-  if (D <= 192)
-    return launch<T, 3>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
-  return launch<T, 4>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
+  return launch<T, 256, 64>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, stream);
 }
 
-}  // namespace
+}  // namespace simt
 
 // ---------------------------------------------------------------------------
 // bf16, D <= 128: tensor cores
@@ -629,11 +772,11 @@ extern "C" int mx_flash_fwd(const void* q, const void* k, const void* v,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
-    err = dispatch_d<float>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
+    err = simt::dispatch_d<float>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
   else if (dtype == 1 && D <= tc::kMaxD)
     err = tc::dispatch_d(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
   else if (dtype == 1)
-    err = dispatch_d<__nv_bfloat16>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
+    err = simt::dispatch_d<__nv_bfloat16>(q, k, v, seg_q, seg_kv, out, lse, B, H, Lq, Lk, D, causal, scale, s);
   else
     return -1;
   return static_cast<int>(err);

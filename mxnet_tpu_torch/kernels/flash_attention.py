@@ -39,7 +39,9 @@ __all__ = ["flash_attention", "flash_attention_reference",
            "uses_tensor_cores", "launches", "bwd_fused_launches",
            "bwd_dq_launches", "bwd_dkv_launches", "fwd_wide_bf16_launches",
            "bwd_fused_wide_bf16_launches", "bwd_dq_wide_bf16_launches",
-           "bwd_dkv_wide_bf16_launches"]
+           "bwd_dkv_wide_bf16_launches", "fwd_f32_launches",
+           "bwd_fused_f32_launches", "bwd_dq_f32_launches",
+           "bwd_dkv_f32_launches"]
 
 _NEG_INF = -1e30
 _M_FLOOR = -1e4
@@ -60,6 +62,11 @@ fwd_wide_bf16_launches = 0
 bwd_fused_wide_bf16_launches = 0
 bwd_dq_wide_bf16_launches = 0
 bwd_dkv_wide_bf16_launches = 0
+# and, apart, the f32 launches
+fwd_f32_launches = 0
+bwd_fused_f32_launches = 0
+bwd_dq_f32_launches = 0
+bwd_dkv_f32_launches = 0
 # sequence block of the reference's dispatch (_bwd's block_q = block_k):
 # the fused backward runs iff each side is one such block
 BWD_BLOCK = 512
@@ -106,9 +113,9 @@ def uses_tensor_cores(dtype, head_dim):
 
 def kv_tile(dtype, head_dim):
     """kv rows per tile of the forward kernel that takes (dtype, head_dim):
-    128 on the tensor cores (tc::kBN), 64 on the CUDA cores (kBK).  p is
-    rounded relative to the running max after each tile, so the plain
-    version streams at this block to round p where the kernel does."""
+    128 on the tensor cores (tc::kBN), 64 on the CUDA cores (simt::kBK).
+    p is rounded relative to the running max after each tile, so the
+    plain version streams at this block to round p where the kernel does."""
     return 128 if uses_tensor_cores(dtype, head_dim) else 64
 
 
@@ -253,7 +260,7 @@ def _dense(t):
 
 def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
     """Run the CUDA kernel: returns (out, lse)."""
-    global launches, fwd_wide_bf16_launches
+    global launches, fwd_wide_bf16_launches, fwd_f32_launches
     _check(q, k, v, seg_q, seg_kv)
     q, k, v = _dense(q), _dense(k), _dense(v)
     if seg_q is not None:
@@ -275,8 +282,8 @@ def _launch(q, k, v, seg_q, seg_kv, causal, sm_scale):
         raise MXNetError(f"flash_fwd kernel launch failed (code {rc}) at "
                          f"q {tuple(q.shape)} {q.dtype}")
     launches += 1
-    if q.dtype == torch.bfloat16 and not uses_tensor_cores(q.dtype, D):
-        fwd_wide_bf16_launches += 1
+    fwd_wide_bf16_launches += _wide_bf16(q)
+    fwd_f32_launches += q.dtype == torch.float32
     return out, lse
 
 
@@ -408,25 +415,27 @@ def _call_bwd(fn, x, outs, name):
                          f"{tuple(x.q.shape)} {x.q.dtype}")
 
 
-def _wide_bf16(x):
-    """Whether the C entry point runs x on a CUDA-core kernel although it
+def _wide_bf16(q):
+    """Whether the C entry point runs q on a CUDA-core kernel although it
     is bf16 (head_dim > TC_MAX_D)."""
-    return x.q.dtype == torch.bfloat16 \
-        and not uses_tensor_cores(x.q.dtype, x.q.shape[-1])
+    return q.dtype == torch.bfloat16 \
+        and not uses_tensor_cores(q.dtype, q.shape[-1])
 
 
 def launch_bwd_fused(x):
     """``mx_flash_bwd_fused``: (dq, dk, dv) from one launch.  dq sums in an
     f32 workspace with atomics, in an order that changes from run to run;
     its scale and cast are torch ops."""
-    global bwd_fused_launches, bwd_fused_wide_bf16_launches
+    global bwd_fused_launches, bwd_fused_wide_bf16_launches, \
+        bwd_fused_f32_launches
     ws = torch.zeros(x.q.shape, dtype=torch.float32, device=x.q.device)
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_fused, x,
               [ws.data_ptr(), dk.data_ptr(), dv.data_ptr()],
               "flash_bwd_fused")
     bwd_fused_launches += 1
-    bwd_fused_wide_bf16_launches += _wide_bf16(x)
+    bwd_fused_wide_bf16_launches += _wide_bf16(x.q)
+    bwd_fused_f32_launches += x.q.dtype == torch.float32
     # dq = round(ws * scale) in q's dtype, in one pass
     dq = torch.mul(ws, torch.tensor(x.sm_scale, dtype=torch.float32),
                    out=torch.empty_like(x.q))
@@ -435,23 +444,25 @@ def launch_bwd_fused(x):
 
 def launch_bwd_dq(x):
     """``mx_flash_bwd_dq``: dq."""
-    global bwd_dq_launches, bwd_dq_wide_bf16_launches
+    global bwd_dq_launches, bwd_dq_wide_bf16_launches, bwd_dq_f32_launches
     dq = torch.empty_like(x.q)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dq, x,
               [dq.data_ptr()], "flash_bwd_dq")
     bwd_dq_launches += 1
-    bwd_dq_wide_bf16_launches += _wide_bf16(x)
+    bwd_dq_wide_bf16_launches += _wide_bf16(x.q)
+    bwd_dq_f32_launches += x.q.dtype == torch.float32
     return dq
 
 
 def launch_bwd_dkv(x):
     """``mx_flash_bwd_dkv``: (dk, dv)."""
-    global bwd_dkv_launches, bwd_dkv_wide_bf16_launches
+    global bwd_dkv_launches, bwd_dkv_wide_bf16_launches, bwd_dkv_f32_launches
     dk, dv = torch.empty_like(x.k), torch.empty_like(x.v)
     _call_bwd(_kernel_lib("flash_bwd").mx_flash_bwd_dkv, x,
               [dk.data_ptr(), dv.data_ptr()], "flash_bwd_dkv")
     bwd_dkv_launches += 1
-    bwd_dkv_wide_bf16_launches += _wide_bf16(x)
+    bwd_dkv_wide_bf16_launches += _wide_bf16(x.q)
+    bwd_dkv_f32_launches += x.q.dtype == torch.float32
     return dk, dv
 
 

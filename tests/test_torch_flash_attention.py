@@ -167,25 +167,58 @@ def test_plain_products_are_float32_on_the_cpu(tensor_cores):
     assert torch.equal(got, torch.matmul(a.float(), b.float()))
 
 
+@pytest.mark.parametrize("D", [64, 136])
 @pytest.mark.parametrize("causal", [False, True])
-def test_reference_at_bf16_kernel_tile_matches_jax(causal):
-    """The plain version streaming at the bf16 tensor-core kernel's tile
-    (128) against the Pallas streaming kernel at block 128, bf16, seq 256,
-    with segment ids: p rounds relative to the same running maxima."""
-    q, k, v = _inputs()
+def test_reference_at_bf16_kernel_tile_matches_jax(causal, D):
+    """The plain version streaming at the bf16 kernel's kv tile against the
+    Pallas streaming kernel at that block, bf16, seq 256, with segment ids:
+    p rounds relative to the same running maxima.  head_dim 64 runs the
+    tensor-core kernel (tile 128), head_dim 136 > TC_MAX_D the CUDA-core
+    kernel (tile 64)."""
+    q, k, v = _inputs(D=D)
+    tile = tfa.kv_tile(torch.bfloat16, D)
+    assert tile == (128 if tfa.uses_tensor_cores(torch.bfloat16, D) else 64)
     seg = _seg(2, 256, (177, 256))
-    scale = 1.0 / q.shape[-1] ** 0.5
+    scale = 1.0 / D ** 0.5
     jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
     jout, jlse = jfa._fwd(jq, jk, jv, jnp.asarray(seg), jnp.asarray(seg),
-                          causal, scale, 128, 128, 0, True)
+                          causal, scale, tile, tile, 0, True)
     tq, tk, tv = (torch.tensor(x).to(torch.bfloat16) for x in (q, k, v))
     ts = torch.tensor(seg)
-    tout, tlse = tfa.flash_attention_reference(
-        tq, tk, tv, ts, ts, causal, scale,
-        block_k=tfa.kv_tile(torch.bfloat16, q.shape[-1]))
+    tout, tlse = tfa.flash_attention_reference(tq, tk, tv, ts, ts, causal,
+                                               scale, block_k=tile)
     _assert_close((np.asarray(jout, np.float32), np.asarray(jlse, np.float32),
                    tout.float().numpy(), tlse.numpy()),
                   seg.astype(bool), "bfloat16")
+
+
+@pytest.mark.parametrize("D", [64, 136])
+@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+def test_forward_counters_count_f32_and_wide_bf16(monkeypatch, dname, D):
+    """The forward wrapper counts its launch, apart as an f32 launch when
+    q is f32, and apart as a wide bf16 launch when the C entry point runs
+    bf16 on the CUDA-core kernel (head_dim > TC_MAX_D).  The C entry point
+    and the card's stream are stubbed, so this runs on the CPU."""
+    import contextlib
+    from types import SimpleNamespace
+
+    calls = []
+    lib = SimpleNamespace(mx_flash_fwd=lambda *a: calls.append(a) or 0)
+    monkeypatch.setattr(tfa, "_kernel_lib", lambda name: lib)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda d: SimpleNamespace(cuda_stream=0))
+    counters = ("launches", "fwd_f32_launches", "fwd_wide_bf16_launches")
+    for name in counters:
+        monkeypatch.setattr(tfa, name, 0)
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dname]
+    q = torch.zeros((1, 2, 16, D), dtype=dt)
+    tfa._launch(q, q, q, None, None, True, 0.125)
+    assert len(calls) == 1
+    assert [getattr(tfa, n) for n in counters] == [
+        1, int(dname == "float32"),
+        int(dname == "bfloat16" and D > tfa.TC_MAX_D)]
 
 
 @pytest.mark.parametrize("shape,dtype,match", [

@@ -248,7 +248,8 @@ def test_wide_head_counters_count_bf16_beyond_the_tensor_cores(
         monkeypatch, kind, dname, D):
     """Each backward wrapper counts its launch, and counts it again as a
     wide bf16 launch exactly when the C entry point runs it on a CUDA-core
-    kernel although it is bf16 (head_dim > TC_MAX_D)."""
+    kernel although it is bf16 (head_dim > TC_MAX_D), and as an f32 launch
+    exactly when it is f32."""
     from types import SimpleNamespace
 
     names = ("mx_flash_bwd_fused", "mx_flash_bwd_dq", "mx_flash_bwd_dkv")
@@ -258,7 +259,7 @@ def test_wide_head_counters_count_bf16_beyond_the_tensor_cores(
     monkeypatch.setattr(tfa, "_call_bwd",
                         lambda fn, x, outs, name: called.append(fn))
     counters = [f"bwd_{k}{w}_launches" for k in ("fused", "dq", "dkv")
-                for w in ("", "_wide_bf16")]
+                for w in ("", "_wide_bf16", "_f32")]
     for name in counters:
         monkeypatch.setattr(tfa, name, 0)
     q = torch.zeros((1, 2, 16, D), dtype=TORCH[dname])
@@ -270,4 +271,5 @@ def test_wide_head_counters_count_bf16_beyond_the_tensor_cores(
     counts = {n: getattr(tfa, n) for n in counters}
     assert counts.pop(f"bwd_{kind}_launches") == 1
     assert counts.pop(f"bwd_{kind}_wide_bf16_launches") == want_wide
+    assert counts.pop(f"bwd_{kind}_f32_launches") == int(dname == "float32")
     assert not any(counts.values())
