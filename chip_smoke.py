@@ -9,8 +9,8 @@ result line; each prints its seconds):
     power.limit --format=csv,noheader`` gives them, its power limit;
  2. build — compile ``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` for
     sm_90a from this checkout, one nvcc each, in parallel; ptxas registers
-    and spills per kernel (a tensor-core kernel or a forward kernel that
-    spills fails);
+    and spills per kernel (any kernel but the CUDA-core dq, whose spill is
+    reported, fails if it spills);
  3. forward kernel — flash_fwd against its plain PyTorch version on the
     card: out and lse on valid rows, f32 and bf16, causal and not, with and
     without segment ids (a padded row), at the serving prefill shape
@@ -27,7 +27,9 @@ result line; each prints its seconds):
     on valid rows, f32 and bf16, causal and not, with and without segment
     ids, at the BERT lane (32, 12, 512, 64) -> fused, the llama lane
     (4, 16, 2048, 128) -> dq + dkv, cross 256/512 -> fused, L=384 -> dq +
-    dkv and a head_dim sweep on both routes; autograd through
+    dkv and a head_dim sweep on both routes; two f32 dkv launches at the
+    llama lane shape, and the dk, dv of two f32 fused launches at the BERT
+    lane shape, must agree bit for bit; autograd through
     ``flash_attention`` at both lane shapes; times of each kernel in f32
     and bf16 at the same shapes, the plain backward and, as a yardstick
     only, SDPA's backward in the same dtype (dq, dk, dv by
@@ -49,15 +51,20 @@ result line; each prints its seconds):
     versions) from the same f32 weights and batches: per-step losses agree;
  8. train lanes — bench.py's bert_seq512 (BERT-base, batch 32, seq 512)
     and llama_seq2048 (8 layers, 2048 units, batch 4, seq 2048) lanes at
-    full width, bf16 with multi-precision Adam, 8 steps on one batch (and
-    one padded BERT step): losses finite and falling, kernel launches per
-    step (none on the CUDA-core route for wide bf16 heads, none f32),
-    median step ms, samples/s, MFU, peak memory, and one profiled step's
-    device time by kernel family.
-The second-to-last line is ``{"kernels": [...]}`` (``launches`` counts the
-train lanes' timed steps, ``serve_launches`` the serve phase's and
-``f32_launches`` the f32 launches of both, as the wrappers count them) and
-the last ``{"ok": true, "device": {...}}``.
+    full width, in bf16 with multi-precision Adam, then again in f32 with
+    plain Adam (``bert_seq512_f32``, ``llama_seq2048_f32``, bench.py's
+    lanes under MXNET_BENCH_DTYPE=float32), 8 steps on one batch (and one
+    padded BERT step): losses finite and falling, kernel launches per step
+    (every launch in the lane's dtype; none on the CUDA-core route for wide
+    bf16 heads), median step ms, samples/s, MFU against the dtype's peak,
+    peak memory, and one profiled step's device time by kernel family.
+The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
+f32 prefill shape (``launches`` counts all train lanes' timed steps,
+``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
+both), and each backward entry point twice, bf16 (``flash_bwd_*``, the
+tensor-core kernels, launches of the bf16 lanes) and f32
+(``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes);
+the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
 (f32 accumulation in another order); bf16 lse 1e-4; bf16 out at most 2
@@ -342,6 +349,27 @@ def bwd_kernel_phase(torch, fa):
                             f"{BWD_TOL[dname]})")
     _log(f"bwd worst relative error: f32 {worst['float32']:.3e}, bf16 "
          f"{worst['bfloat16']:.3e}")
+
+    # the CUDA-core dkv kernel sums dk and dv without atomics: two launches
+    # on the same inputs give the same bits, in fused too (whose dq goes
+    # through atomics and is not reproducible bit for bit)
+    for kind, B, H, L, D, causal in [("dkv", 4, 16, 2048, 128, True),
+                                     ("fused", 32, 12, 512, 64, False)]:
+        q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
+                       for _ in range(4))
+        out, lse = fa._fwd(q, k, v, None, None, causal, D ** -0.5)
+        x = fa.prepare_bwd(q, k, v, None, None, out, lse, do, causal,
+                           D ** -0.5)
+        launch = fa.launch_bwd_dkv if kind == "dkv" else \
+            lambda x: fa.launch_bwd_fused(x)[1:]
+        first, again = launch(x), launch(x)
+        same = all(torch.equal(a, b) for a, b in zip(first, again))
+        _log(f"check determinism bwd {kind} B={B} H={H} L={L} D={D} float32 "
+             f"causal={causal}: dk, dv of two launches "
+             f"{'bitwise equal' if same else 'DIFFER'}")
+        if not same:
+            raise AssertionError(f"flash_bwd {kind} f32 dk/dv is not "
+                                 f"deterministic")
 
     # autograd through flash_attention at the lanes' shapes and types
     for label, B, H, L, D, causal, want in [
@@ -675,13 +703,24 @@ def _profile_step(torch, step_fn, label):
     return {"wall_ms": wall, "device_ms": total, "families": fams}
 
 
-def train_lane_phase(torch, fa, mx, args):
-    """bench.py's two training lanes at full width on the card: bf16
-    weights (Normal(0.02) from a seeded generator on the card), Adam with
-    multi_precision, lr 1e-4, dropout 0; K steps on one repeated batch.
-    The loss must be finite and fall; each step must launch the forward
-    and the backward kernels per layer; prints median step ms, samples/s,
-    MFU (bench.py's flop formulas against 989 TFLOP/s) and peak memory."""
+# bench.py's training lanes (:529-535) and the dtype each runs in; the f32
+# lanes are the same lanes under MXNET_BENCH_DTYPE=float32 (bench.py:392),
+# with plain f32 Adam as bench.py takes it there (multi_precision only for
+# bf16)
+TRAIN_LANES = (("bert_seq512", "bfloat16"), ("llama_seq2048", "bfloat16"),
+               ("bert_seq512_f32", "float32"),
+               ("llama_seq2048_f32", "float32"))
+
+
+def train_lane_phase(torch, fa, mx, args, lanes=TRAIN_LANES):
+    """bench.py's training lanes at full width on the card: weights
+    Normal(0.02) from a seeded generator on the card in the lane's dtype,
+    Adam at lr 1e-4 (multi_precision for bf16, plain for f32), dropout 0;
+    K steps on one repeated batch.  The loss must be finite and fall; each
+    step must launch the forward and the backward kernels per layer, in the
+    lane's dtype and on its route (bf16: tensor cores only; f32: no bf16
+    launch); prints median step ms, samples/s, MFU (bench.py's flop
+    formulas against the dtype's peak) and peak memory."""
     bert, llama = mx["bert"], mx["llama"]
     results = {}
     counts_total = {k: 0 for k in _counts(fa)}
@@ -698,7 +737,9 @@ def train_lane_phase(torch, fa, mx, args):
         def forward(self, x):
             return self.net(x, self.valid_length)
 
-    for lane in ("bert_seq512", "llama_seq2048"):
+    for lane, dname in lanes:
+        dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dname]
+        f32 = dname == "float32"
         # earlier phases' models (llama3_8b's 32 GB) may sit in reference
         # cycles until a collection: free them before measuring the peak
         gc.collect()
@@ -708,40 +749,43 @@ def train_lane_phase(torch, fa, mx, args):
              f"allocated before the model is built")
         gen = torch.Generator(device="cuda").manual_seed(args.seed)
         t0 = time.perf_counter()
-        if lane == "bert_seq512":
+        sfx = "_f32" if f32 else ""
+        if lane.startswith("bert_seq512"):
             layers, units, B, L, vocab = 12, 768, 32, 512, 30522
             core = bert.bert_model("bert_12_768_12", vocab_size=vocab,
-                                   max_length=L, dropout=0.0,
-                                   dtype=torch.bfloat16, generator=gen)
+                                   max_length=L, dropout=0.0, dtype=dtype,
+                                   generator=gen)
             net = WithLength(core)
             loss_fn = _bert_loss(mx["nn"])
             n_matmul = sum(p.numel() for n, p in core.named_parameters()
                            if "word_embed" not in n and "position" not in n)
             flops_tok = 6 * n_matmul + 12 * layers * units * L
-            want = {"flash_fwd": layers, "flash_bwd_fused": layers}
+            want = {"flash_fwd" + sfx: layers, "flash_bwd_fused" + sfx: layers}
         else:
             layers, units, B, L, vocab = 8, 2048, 4, 2048, 8192
             with torch.device("meta"):
                 net = llama.LlamaModel(vocab_size=vocab, num_layers=layers,
                                        units=units, hidden=5504, heads=16,
-                                       kv_heads=8, dtype=torch.bfloat16)
+                                       kv_heads=8, dtype=dtype)
             net = net.to_empty(device="cuda")
             net.init_weights(gen, 0.02)
             loss_fn = _llama_loss(mx["nn"])
             n_matmul = sum(p.numel() for n, p in net.named_parameters()
                            if not n.startswith("embed"))
             flops_tok = 6 * n_matmul + 6 * layers * units * L
-            want = {"flash_fwd": layers, "flash_bwd_dq": layers,
-                    "flash_bwd_dkv": layers}
+            want = {"flash_fwd" + sfx: layers, "flash_bwd_dq" + sfx: layers,
+                    "flash_bwd_dkv" + sfx: layers}
+        if {p.dtype for p in net.parameters()} != {dtype}:
+            raise AssertionError(f"{lane}: weights are not all {dname}")
         n_params = sum(p.numel() for p in net.parameters())
-        opt = mx["optimizer"].Adam(learning_rate=1e-4, multi_precision=True)
+        opt = mx["optimizer"].Adam(learning_rate=1e-4, multi_precision=not f32)
         step = mx["parallel"].TrainStep(net, loss_fn, opt)
         rng = np.random.RandomState(args.seed)
         toks = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
         labs = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
         torch.cuda.synchronize()
         _log(f"lane {lane}: {n_params} params ({n_matmul} in matmuls), "
-             f"built in {time.perf_counter() - t0:.1f} s")
+             f"{dname}, built in {time.perf_counter() - t0:.1f} s")
         _reset_counts(fa)
         losses, step_ms = [], []
         for _ in range(steps):
@@ -753,7 +797,7 @@ def train_lane_phase(torch, fa, mx, args):
         losses = [float(x) for x in losses]
         prof = _profile_step(torch, lambda: step(toks, labs), lane)
         extra = {}
-        if lane == "bert_seq512":
+        if lane.startswith("bert_seq512"):
             # one step on a padded batch: segment ids reach the kernels
             lens = torch.tensor(rng.randint(L // 2, L + 1, B), device="cuda")
             net.valid_length = lens
@@ -767,14 +811,15 @@ def train_lane_phase(torch, fa, mx, args):
         peak = torch.cuda.max_memory_allocated()
         med = statistics.median(step_ms[2:])
         sps = B / (med / 1e3)
-        mfu = sps * L * flops_tok / PEAK_FLOPS["bfloat16"]
+        mfu = sps * L * flops_tok / PEAK_FLOPS[dname]
         for k in counts_total:
             counts_total[k] += counts[k]
         _log(f"lane {lane}: losses {[round(x, 5) for x in losses]}; step ms "
              f"{[round(x, 1) for x in step_ms]}; median (steps 3-{steps}) "
-             f"{med:.2f} ms, {sps:.2f} samples/s, MFU {mfu:.4f} (989 TFLOP/s "
-             f"bf16), peak memory {peak / 2**30:.2f} GiB; launches over "
-             f"{steps} steps {counts} {extra}")
+             f"{med:.2f} ms, {sps:.2f} samples/s, MFU {mfu:.4f} "
+             f"({PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s {dname}), peak memory "
+             f"{peak / 2**30:.2f} GiB; launches over {steps} steps {counts} "
+             f"{extra}")
         if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
             raise AssertionError(f"{lane}: losses not finite and falling: "
                                  f"{losses}")
@@ -787,9 +832,14 @@ def train_lane_phase(torch, fa, mx, args):
         if wide:
             raise AssertionError(f"{lane}: {wide} bf16 launches ran on the "
                                  f"CUDA-core route for wide heads")
-        f32 = sum(n for k, n in counts.items() if k.endswith("_f32"))
-        if f32:
-            raise AssertionError(f"{lane}: {f32} f32 launches in a bf16 lane")
+        # every launch in the lane's dtype: the f32 counters count all of
+        # them in an f32 lane and none in a bf16 lane
+        for kernel in ("flash_fwd", "flash_bwd_fused", "flash_bwd_dq",
+                       "flash_bwd_dkv"):
+            n, n32 = counts[kernel], counts[kernel + "_f32"]
+            if n32 != (n if f32 else 0):
+                raise AssertionError(f"{lane}: {n - n32} bf16 and {n32} f32 "
+                                     f"{kernel} launches in a {dname} lane")
         results[lane] = {"step_ms": med, "samples_per_s": sps, "mfu": mfu,
                          "peak_gib": peak / 2**30, "profile": prof}
         step = opt = net = core = None
@@ -862,10 +912,12 @@ def main(argv=None):
     for src in ("flash_fwd", "flash_bwd"):
         for name, regs, spilled, spill in _ptxas_summary(
                 _build.build_log(src)):
-            _log(f"ptxas {src}: {name}: {regs}; {spill}")
-            # the tensor-core kernels and every forward kernel (the
-            # CUDA-core one included) must keep their registers
-            if (src == "flash_fwd" or "_tc_kernel" in name) and spilled:
+            # every kernel but the CUDA-core dq (a known spill, its own
+            # redesign) must keep its registers
+            known = name.startswith("flash_bwd_dq_kernel<")
+            _log(f"ptxas {src}: {name}: {regs}; {spill}"
+                 + (" (reported, not failed)" if known and spilled else ""))
+            if spilled and not known:
                 raise AssertionError(f"{name} spills {spilled} bytes")
 
     errors, timings, sdpa_kernels = _phase("forward kernel", kernel_phase,
@@ -923,30 +975,37 @@ def main(argv=None):
         e = bwd_errors[("llama-lane", dname, True, False)]
         return e[0] if kind_ == "dq" else max(e[1:])
 
+    # one entry per backward entry point and dtype: bf16 runs the
+    # tensor-core kernels (tc::), f32 the CUDA-core ones; launches are the
+    # train lanes' (the bf16 lanes' for bf16, the f32 lanes' for f32)
+    cuda_core = {"fused": "simt::flash_bwd_dkv_kernel<float, DP, BK, BQ, "
+                          "true>",
+                 "dq": "flash_bwd_dq_kernel<float, NG>",
+                 "dkv": "simt::flash_bwd_dkv_kernel<float, DP, BK, BQ, "
+                        "false>"}
     for kind_, line in (("fused", 464), ("dq", 373), ("dkv", 417)):
         t = bwd_times[kind_]
-        kernels.append({
-            "name": f"flash_bwd_{kind_}",
-            "route": "cuda",
-            "source": "mxnet_tpu_torch/kernels/csrc/flash_bwd.cu",
-            "replaces": f"mxnet_tpu/kernels/flash_attention.py:{line}",
-            "shape": t["shape"],
-            "launches": train_launches[f"flash_bwd_{kind_}"],
-            "max_abs_err": err_of(kind_, "bfloat16"),
-            "ms": t["ms"],
-            "plain_ms": t["plain_ms"],
-            "bound_ms": t["bound_ms"],
-            "bound_by": t["bound_by"],
-            "library_ms": t["library_ms"],
-            "library_events_ms": t["library_events_ms"],
-            "library_kernels": t["library_kernels"],
-            # the f32 kernel (CUDA cores) at the same shape, and its
-            # launches counted by the wrapper in serving and the lanes
-            **{k: v for k, v in t.items() if k.startswith("f32_")},
-            "f32_max_abs_err": err_of(kind_, "float32"),
-            "f32_launches": serve_counts[f"flash_bwd_{kind_}_f32"]
-            + train_launches[f"flash_bwd_{kind_}_f32"],
-        })
+        n_all = train_launches[f"flash_bwd_{kind_}"]
+        n_f32 = train_launches[f"flash_bwd_{kind_}_f32"]
+        for dname, pre in (("bfloat16", ""), ("float32", "f32_")):
+            kernels.append({
+                "name": f"flash_bwd_{kind_}" + ("_f32" if pre else ""),
+                "kernel": cuda_core[kind_] if pre
+                else f"tc::flash_bwd_{kind_}_bf16_tc_kernel<DP>",
+                "route": "cuda",
+                "source": "mxnet_tpu_torch/kernels/csrc/flash_bwd.cu",
+                "replaces": f"mxnet_tpu/kernels/flash_attention.py:{line}",
+                "shape": t[pre + "shape"],
+                "launches": n_f32 if pre else n_all - n_f32,
+                "max_abs_err": err_of(kind_, dname),
+                "ms": t[pre + "ms"],
+                "plain_ms": t[pre + "plain_ms"],
+                "bound_ms": t[pre + "bound_ms"],
+                "bound_by": t[pre + "bound_by"],
+                "library_ms": t[pre + "library_ms"],
+                "library_events_ms": t[pre + "library_events_ms"],
+                "library_kernels": t[pre + "library_kernels"],
+            })
     for lane, r in lanes.items():
         _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
              f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "

@@ -22,42 +22,76 @@
 // Causal tiles whose every entry is masked are skipped, as the TPU grid
 // does (:387-389, :432-434).
 //
-// Design.  Tiles are 64 q rows by 64 kv rows; a CTA of 256 threads is a
-// 16 x 16 grid (ty, tx), and thread (ty, tx) owns a 4 x 4 block of each
-// 64 x 64 score tile (rows 4 ty.., cols 4 tx..).  Operand tiles are staged
-// in shared memory d-major (D x 68 floats, 16-byte rows) so a score tile
-// costs two 16-byte shared loads per d for 16 FMAs, as in flash_fwd.cu.
-// Two D x 68 staging buffers are reused for every operand of a step
-// (q/k, then dO/v, then the row-major right-hand sides of the
-// accumulations), which keeps shared memory at 2 D x 68 floats plus one to
-// three 64 x 68 tiles for p and ds: 69-122 KB at D = 64-128, 157-192 KB at
-// D = 256, so every head_dim the forward takes fits.
-//   - dq: one CTA per (q tile, head, batch), heaviest causal tiles first,
-//     loops over kv tiles and keeps its 64 x D dQ rows in f32 registers.
-//   - dkv: one CTA per (kv tile, head, batch) loops over q tiles and keeps
-//     its 64 x D dK and dV rows in f32 registers.
-//   - fused: the dkv CTA also turns each tile's ds into a dQ share
-//     (ds K over its 64 kv rows) and adds it to an f32 workspace with
-//     atomicAdd, so S, P and dS are computed once per (q tile, kv tile)
-//     pair and one launch yields all three gradients.  The order of those
-//     additions changes from run to run, so dq's f32 rounding does too;
-//     the wrapper scales and casts the workspace after the launch.
-// Products run on the CUDA cores in f32 FMA: the tensor cores would round
-// f32 inputs to TF32, which the reference does not.  These kernels run
-// every f32 call and every bf16 call with D > 128; bf16 calls with D <= 128
-// run the tensor-core kernels in namespace tc below (dq, dkv and fused).
+// Two families of kernels:
+//   - CUDA cores, f32 at every D and bf16 with D > tc::kMaxD = 128: dq is
+//     flash_bwd_dq_kernel below; dkv and fused are simt::flash_bwd_dkv_kernel.
+//   - tensor cores, bf16 with D <= 128: namespace tc (dq, dkv and fused).
+// Products on the CUDA cores run in f32 FMA: the tensor cores would round
+// f32 inputs to TF32, which the reference does not.
+//
+// dq (CUDA cores).  Tiles are 64 q rows by 64 kv rows; a CTA of 256
+// threads is a 16 x 16 grid (ty, tx), and thread (ty, tx) owns a 4 x 4
+// block of each 64 x 64 score tile (rows 4 ty.., cols 4 tx..).  Operand
+// tiles are staged in shared memory d-major (D x 68 floats, 16-byte rows),
+// two D x 68 buffers reused for every operand of a step, so a score tile
+// costs two 16-byte shared loads per d for 16 FMAs.  One CTA per (q tile,
+// head, batch), heaviest causal tiles first, loops over kv tiles and keeps
+// its 64 x D dQ rows in f32 registers.
+//
+// dkv and fused (CUDA cores, simt::flash_bwd_dkv_kernel<T, DP, BK, BQ,
+// kFused>).  A CTA of 256 threads owns BK kv rows of one (b, h) and loops
+// over q tiles of BQ rows: <float, 64, 128, 64>, <float, 128, 64, 64> and
+// <T, 256, 32, 32>.
+//   - K and V of the CTA's rows are loaded once by 16-byte cp.async (zero
+//     fill past Lk) and stay resident, row-major, for the whole q loop.
+//   - q, dO (raw, swizzled 16-byte chunks), lse, delta and seg_q of each q
+//     tile stream through a ring of 2-3 stages of cp.async copies, issued
+//     S - 1 tiles ahead; one __syncthreads per tile publishes a tile and
+//     frees the stage the next copy refills.  q is staged once: q-hat =
+//     round(q * round(scale)) is formed in registers where S^T reads it.
+//   - The 8 warps split into two groups of 4 that work side by side on
+//     the same (q tile, kv rows) pair: group 0 computes S^T = K q-hat^T
+//     and group 1 dP^T = V dO^T, each thread an RC x RQ block (16 x 4 at
+//     D = 64: 20 16-byte loads per 256 FMAs; 8 x 4 at D = 128: 12 per
+//     128).  Group 0 forms p = exp(S^T - lse) (masked only on diagonal,
+//     ragged or segmented tiles) and writes it, rounded to dO's dtype, to
+//     a q-major swizzled tile; group 1 reads p at its own positions, forms
+//     ds = p (dP^T - delta) rounded to q's dtype and writes it beside p.
+//     Named barriers (bar.arrive / bar.sync) carry the hand-off, so group
+//     0 starts dV while group 1 forms ds.  (Splitting the softmax between
+//     the groups, each forming p and ds for half the q columns across two
+//     __syncthreads, was slower: more shared traffic, no overlap.)
+//   - Group 0 keeps dV += P^T dO, group 1 dK += dS^T q (raw q) in f32
+//     registers: RC x 4 NG per thread (16 x 4 at D = 64, 8 x 8 at D = 128:
+//     64 FMAs per five or four 16-byte loads).  Both sums run over q rows
+//     in a fixed order: no atomics, so dk and dv are deterministic.
+//   - fused: after each tile all 256 threads form its dQ share = ds K
+//     over the CTA's kv rows (RQ x 4 per thread per 64-column panel; the
+//     16 lanes of a half warp share rows, so ds loads are broadcasts and K
+//     loads 16 adjacent float4) and add it to an f32 workspace by one
+//     float4 atomicAdd (a vector reduction, sm_90) per 4 values; 128 kv
+//     rows per CTA at D = 64 halve those additions.  Their order changes
+//     from run to run, so dq's f32 rounding does too; the wrapper scales
+//     and casts the workspace after the launch.
+//   - The kv tile is the grid's slowest axis, heaviest (causal: first)
+//     tiles first, so every head's longest CTAs start in the first wave.
+//   - Shared memory, f32: at D = 64 K and V 64 KB, two 33 KB stages, p
+//     and ds 64 KB (195 KB); at D = 128 K and V 64 KB, two 65 KB stages, p
+//     and ds 32 KB (226 KB).  One CTA of 8 warps per SM.
 //
 // Bound: at the training shapes (L = 512-2048, D = 64-128) the work is
-// 6-10 L^2 D flops per head against ~8 L D elements moved, far above the
-// card's ridge point, so the kernels are bound by operations: f32 FMA on
-// the CUDA cores (67 TFLOP/s peak).  They reload k/v tiles from L2 once
-// per product instead of keeping them resident.
+// 6 (dq), 8 (dkv) or 10 (fused) L^2 D flops per head, halved when causal,
+// against ~8 L D values moved, far above the card's ridge point: the
+// CUDA-core kernels are bound by operations, f32 FMA (67 TFLOP/s peak).
+// An SM issues 128 FMAs per clock but reads 128 bytes of shared memory
+// per clock, so every product takes several FMAs per byte it loads.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "simt.cuh"
 
 namespace {
 
@@ -66,39 +100,7 @@ constexpr int kThreads = 256;
 constexpr int kLdT = 68;      // row stride of d-major tiles and p/ds tiles
 constexpr float kNegInf = -1e30f;
 
-template <typename T> struct Elt;
-
-template <> struct Elt<float> {
-  static __device__ __forceinline__ float4 load4(const float* p) {
-    return *reinterpret_cast<const float4*>(p);
-  }
-  static __device__ __forceinline__ void store4(float* p, float4 x) {
-    *reinterpret_cast<float4*>(p) = x;
-  }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <> struct Elt<__nv_bfloat16> {
-  static __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
-    const uint2 u = *reinterpret_cast<const uint2*>(p);
-    return make_float4(__uint_as_float(u.x << 16),
-                       __uint_as_float(u.x & 0xffff0000u),
-                       __uint_as_float(u.y << 16),
-                       __uint_as_float(u.y & 0xffff0000u));
-  }
-  static __device__ __forceinline__ unsigned short bits(float x) {
-    return __bfloat16_as_ushort(__float2bfloat16_rn(x));
-  }
-  static __device__ __forceinline__ void store4(__nv_bfloat16* p, float4 x) {
-    uint2 u;
-    u.x = (unsigned)bits(x.x) | ((unsigned)bits(x.y) << 16);
-    u.y = (unsigned)bits(x.z) | ((unsigned)bits(x.w) << 16);
-    *reinterpret_cast<uint2*>(p) = u;
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16_rn(x));
-  }
-};
+using simt::Elt;
 
 // Rows r0 .. r0 + 63 of a (L, D) matrix into dst d-major (dst[d * kLdT + r]),
 // zero past L; with kScale each value becomes round(x * scale_t) in T.
@@ -303,148 +305,385 @@ flash_bwd_dq_kernel(Args a) {
                     a.scale, ty, tx);
 }
 
-// dK and dV rows of one kv tile, looping over q tiles (the port of
-// _dkv_kernel); kFused also adds each tile's dQ share to a.dq_ws (the port
-// of _bwd_fused_kernel).
-template <typename T, int NG, bool kFused>
-__global__ void __launch_bounds__(kThreads, NG <= (kFused ? 1 : 2) ? 2 : 1)
-flash_bwd_dkv_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = a.D;
-  float* bufA = smem;                       // D x kLdT
-  float* bufB = bufA + D * kLdT;            // D x kLdT
-  float* sP = bufB + D * kLdT;              // kB x kLdT: p[r][c]
-  float* sDS = sP + kB * kLdT;              // kB x kLdT: ds[r][c]
-  float* sDSq = sDS + kB * kLdT;            // fused: kB x kLdT: ds[c][r]
-  float* sLse = sDSq + (kFused ? kB * kLdT : 0);
-  float* sDelta = sLse + kB;
-  int* sSegQ = reinterpret_cast<int*>(sDelta + kB);
-  int* sSegK = sSegQ + kB;
+}  // namespace
 
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int k0 = blockIdx.x * kB;     // causal: the heaviest tiles come first
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * a.H + blockIdx.y;
-  const int Lq = a.Lq, Lk = a.Lk;
+// ---------------------------------------------------------------------------
+// CUDA cores: dk, dv (the port of _dkv_kernel) and, fused, dq, dk, dv of one
+// single-block sequence (_bwd_fused_kernel), for f32 at every D and bf16
+// with D > tc::kMaxD.  The design is in the header comment.
+namespace simt {
+
+constexpr int kThreads = 256;       // two groups of four warps
+constexpr int kMaxSmem = 232448;    // bytes of shared memory a CTA may use
+constexpr float kNegInf = -1e30f;
+
+// offset of element (r, col) of a tile of rows of W elements of T whose
+// 16-byte chunks are swizzled: chunk c of row r sits at c ^ (r % 8), so 8
+// threads reading one chunk position of 8 consecutive rows, or 8 chunks
+// of one row, hit distinct banks (W / chunk >= 8)
+template <typename T, int W>
+__device__ __forceinline__ int swz(int r, int col) {
+  constexpr int E = 16 / sizeof(T);
+  static_assert(W / E >= 8, "a swizzled row holds at least 8 chunks");
+  return r * W + (((col / E) ^ (r & 7)) * E) + (col % E);
+}
+
+// The shared-memory plan of a dkv / fused CTA: element type T, head dim
+// padded to DP, BK kv rows per CTA, BQ q rows per streamed tile.  K and V
+// (row-major, resident), then kStages ring stages (q, dO swizzled, then
+// lse, delta and seg_q of the tile), then p and ds (f32, swizzled, q-major).
+template <typename T, int DP, int BK, int BQ>
+struct DkvPlan {
+  static constexpr int kRC = BK / 8;     // kv rows of a thread (8 thread rows)
+  static constexpr int kRQ = BQ / 16;    // q rows of a thread in S^T and dP^T
+  static constexpr int kNG = DP / 64;    // float4 column groups of dK / dV
+  static constexpr int kEpc = 16 / sizeof(T);
+  static constexpr int kKV = BK * DP * (int)sizeof(T);
+  static constexpr int kQ = BQ * DP * (int)sizeof(T);
+  static constexpr int kStats = 3 * BQ * 4;
+  static constexpr int kStage = 2 * kQ + kStats;
+  static constexpr int kPS = BQ * BK * 4;
+  static constexpr int kFixed = 2 * kKV + 2 * kPS;
+  static constexpr int kStages = kFixed + 3 * kStage <= kMaxSmem ? 3 : 2;
+  static constexpr int kBytes = kFixed + kStages * kStage;
+  static_assert(kRC % 4 == 0 && kRQ >= 1 && kNG >= 1, "thread grid");
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+// acc[i][j] = sum_{d < D} a[RC ty + i][d] * f(b[tx + 16 j][d]): a row-major
+// with rows of DP elements, b a swizzled tile; f(x) = round(x * mul) in T
+// with kScale (q-hat), else x.  Per 4 d, RC + RQ 16-byte loads (the a rows
+// are the same for the 16 threads of a thread row) for 4 RC RQ FMAs.
+template <typename T, int DP, int RC, int RQ, bool kScale>
+__device__ __forceinline__ void product_rows(float (&acc)[RC][RQ],
+                                             const T* a, const T* b, int D,
+                                             int ty, int tx, float mul) {
+#pragma unroll
+  for (int i = 0; i < RC; ++i)
+#pragma unroll
+    for (int j = 0; j < RQ; ++j) acc[i][j] = 0.f;
+  const T* arow = a + RC * ty * DP;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RC], bv[RQ];
+#pragma unroll
+    for (int i = 0; i < RC; ++i) av[i] = Elt<T>::load4(arow + i * DP + d);
+#pragma unroll
+    for (int j = 0; j < RQ; ++j) {
+      bv[j] = Elt<T>::load4(b + swz<T, DP>(tx + 16 * j, d));
+      if (kScale) {
+        bv[j].x = Elt<T>::round(bv[j].x * mul);
+        bv[j].y = Elt<T>::round(bv[j].y * mul);
+        bv[j].z = Elt<T>::round(bv[j].z * mul);
+        bv[j].w = Elt<T>::round(bv[j].w * mul);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < RC; ++i)
+#pragma unroll
+        for (int j = 0; j < RQ; ++j)
+          acc[i][j] = fmaf(lane(av[i], e), lane(bv[j], e), acc[i][j]);
+  }
+}
+
+// acc[i][4 g + e] += sum_{r < BQ} t[r][RC ty + i] * m[r][4 tx + 64 g + e]:
+// t a swizzled BQ x BK f32 tile (p or ds), m a swizzled BQ x DP tile (dO or
+// q).  Per q row, RC / 4 + NG 16-byte loads for 4 RC NG FMAs.
+template <typename T, int DP, int BK, int BQ, int RC, int NG>
+__device__ __forceinline__ void accumulate_rows(float (&acc)[RC][4 * NG],
+                                                const float* t, const T* m,
+                                                int ty, int tx) {
+#pragma unroll 2
+  for (int r = 0; r < BQ; ++r) {
+    float4 tv[RC / 4], mv[NG];
+#pragma unroll
+    for (int u = 0; u < RC / 4; ++u)
+      tv[u] = *reinterpret_cast<const float4*>(
+          t + swz<float, BK>(r, RC * ty + 4 * u));
+#pragma unroll
+    for (int g = 0; g < NG; ++g)
+      mv[g] = Elt<T>::load4(m + swz<T, DP>(r, 4 * tx + 64 * g));
+#pragma unroll
+    for (int i = 0; i < RC; ++i) {
+      const float w = lane(tv[i / 4], i % 4);
+#pragma unroll
+      for (int g = 0; g < NG; ++g) {
+        acc[i][4 * g + 0] = fmaf(w, mv[g].x, acc[i][4 * g + 0]);
+        acc[i][4 * g + 1] = fmaf(w, mv[g].y, acc[i][4 * g + 1]);
+        acc[i][4 * g + 2] = fmaf(w, mv[g].z, acc[i][4 * g + 2]);
+        acc[i][4 * g + 3] = fmaf(w, mv[g].w, acc[i][4 * g + 3]);
+      }
+    }
+  }
+}
+
+// dK and dV of BK kv rows, looping over q tiles; kFused also adds each
+// tile's dQ share to a.dq_ws.
+template <typename T, int DP, int BK, int BQ, bool kFused>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dkv_kernel(Args a) {
+  using L = DkvPlan<T, DP, BK, BQ>;
+  constexpr int RC = L::kRC, RQ = L::kRQ, NG = L::kNG, S = L::kStages;
+  constexpr int E = L::kEpc;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* sK = reinterpret_cast<T*>(smem);
+  T* sV = reinterpret_cast<T*>(smem + L::kKV);
+  char* ring = smem + 2 * L::kKV;
+  float* sP = reinterpret_cast<float*>(ring + S * L::kStage);
+  float* sDS = sP + BQ * BK;
+
+  // group 0 computes S^T, p and dV; group 1 dP^T, ds and dK
+  const int tid = threadIdx.x, grp = tid / 128;
+  const int ty = (tid % 128) / 16, tx = tid % 16;
+  // kv tiles are the grid's slowest axis, heaviest (causal: first) first,
+  // so every head's longest tiles start in the first wave
+  const int k0 = blockIdx.z * BK;
+  const int b = blockIdx.y;
+  const size_t bh = (size_t)b * a.H + blockIdx.x;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D;
   const T* qb = static_cast<const T*>(a.q) + bh * Lq * D;
   const T* kb = static_cast<const T*>(a.k) + bh * Lk * D;
   const T* vb = static_cast<const T*>(a.v) + bh * Lk * D;
   const T* dob = static_cast<const T*>(a.dout) + bh * Lq * D;
   const bool has_seg = a.seg_q != nullptr;
   const float scale_t = Elt<T>::round(a.scale);
+  // causal: q tiles ending before this CTA's first key are all masked
+  const int first = a.causal ? k0 / BQ : 0;
+  const int n_tiles = max((Lq + BQ - 1) / BQ - first, 0);
+  const int cpr = D / E;                       // 16-byte chunks per row
 
-  if (has_seg && tid < kB)
-    sSegK[tid] = (k0 + tid < Lk) ? a.seg_kv[(size_t)b * Lk + k0 + tid] : 0;
-  float acc_dk[4][4 * NG], acc_dv[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NG; ++j) acc_dk[i][j] = acc_dv[i][j] = 0.f;
-
-  const int n_q = (Lq + kB - 1) / kB;
-  // causal: q tiles ending before this kv tile's first key are all masked
-  const int first = a.causal ? k0 / kB : 0;
-
-  for (int iq = first; iq < n_q; ++iq) {
-    const int q0 = iq * kB;
-    __syncthreads();   // the previous tile is done with every buffer
-    stage_dmajor<T, false>(bufA, kb, k0, Lk, D, 0.f);
-    stage_dmajor<T, true>(bufB, qb, q0, Lq, D, scale_t);
-    if (tid < kB) {
-      const bool in = q0 + tid < Lq;
-      sLse[tid] = in ? a.lse[bh * Lq + q0 + tid] : 0.f;
-      sDelta[tid] = in ? a.delta[bh * Lq + q0 + tid] : 0.f;
-      if (has_seg) sSegQ[tid] = in ? a.seg_q[(size_t)b * Lq + q0 + tid] : 0;
-    }
-    __syncthreads();
-    float s[4][4], dp[4][4];   // transposed tiles: rows kv 4 ty.., cols q 4 tx..
-    tile_product(s, bufA, bufB, D, ty, tx);
-    __syncthreads();
-    stage_dmajor<T, false>(bufA, vb, k0, Lk, D, 0.f);
-    stage_dmajor<T, false>(bufB, dob, q0, Lq, D, 0.f);
-    __syncthreads();
-    tile_product(dp, bufA, bufB, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int r = tx * 4 + j;
-        bool ok = k0 + c < Lk && q0 + r < Lq;
-        if (has_seg) ok = ok && sSegQ[r] == sSegK[c];
-        if (a.causal) ok = ok && q0 + r >= k0 + c;
-        const float p = expf((ok ? s[i][j] : kNegInf) - sLse[r]);
-        dp[i][j] = Elt<T>::round(p * (dp[i][j] - sDelta[r]));   // ds, q's dtype
-        s[i][j] = Elt<T>::round(p);                               // p, dO's dtype
+  // K and V rows k0.. once, zero past Lk (they ride in the first group)
+  for (int i = tid; i < BK * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i % cpr) * E;
+    const bool ok = k0 + r < Lk;
+    const size_t off = ok ? (size_t)(k0 + r) * D + c : 0;
+    cp_async16(hopper::smem_addr(sK + r * DP + c), kb + off, ok ? 16 : 0);
+    cp_async16(hopper::smem_addr(sV + r * DP + c), vb + off, ok ? 16 : 0);
+  }
+  // ring tile j (q, dO, lse, delta, seg_q of q tile first + j) into stage
+  // j % S, as one commit group (empty past the last tile)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const int q0 = (first + j) * BQ;
+      char* st = ring + (j % S) * L::kStage;
+      T* sq = reinterpret_cast<T*>(st);
+      T* sdo = reinterpret_cast<T*>(st + L::kQ);
+      float* stats = reinterpret_cast<float*>(st + 2 * L::kQ);
+      for (int i = tid; i < BQ * cpr; i += kThreads) {
+        const int r = i / cpr, c = (i % cpr) * E;
+        const bool ok = q0 + r < Lq;
+        const size_t off = ok ? (size_t)(q0 + r) * D + c : 0;
+        const int dst = swz<T, DP>(r, c);
+        cp_async16(hopper::smem_addr(sq + dst), qb + off, ok ? 16 : 0);
+        cp_async16(hopper::smem_addr(sdo + dst), dob + off, ok ? 16 : 0);
       }
-      if (kFused)
-        *reinterpret_cast<float4*>(&sDSq[c * kLdT + tx * 4]) =
-            make_float4(dp[i][0], dp[i][1], dp[i][2], dp[i][3]);
+      for (int i = tid; i < 3 * BQ; i += kThreads) {
+        const int w = i / BQ, r = q0 + i % BQ;
+        const void* src = a.lse;
+        bool ok = r < Lq;
+        if (ok && w == 0) src = a.lse + bh * Lq + r;
+        if (ok && w == 1) src = a.delta + bh * Lq + r;
+        if (w == 2) {
+          ok = ok && has_seg;
+          if (ok) src = a.seg_q + (size_t)b * Lq + r;
+        }
+        cp_async4(hopper::smem_addr(stats + i), src, ok ? 4 : 0);
+      }
     }
+    cp_async_commit();
+  };
+  for (int j = 0; j < S - 1; ++j) issue(j);
+
+  int skv[RC];   // segment ids of this thread's kv rows
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(&sP[(tx * 4 + j) * kLdT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-      *reinterpret_cast<float4*>(&sDS[(tx * 4 + j) * kLdT + ty * 4]) =
-          make_float4(dp[0][j], dp[1][j], dp[2][j], dp[3][j]);
+  for (int i = 0; i < RC; ++i) {
+    const int c = k0 + RC * ty + i;
+    skv[i] = has_seg && c < Lk ? a.seg_kv[(size_t)b * Lk + c] : 0;
+  }
+  float acc[RC][4 * NG];   // dV (group 0) or dK (group 1) rows RC ty + i
+#pragma unroll
+  for (int i = 0; i < RC; ++i)
+#pragma unroll
+    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<S - 2>();   // tile j has landed (this thread's copies)
+    __syncthreads();          // ... and everyone's; tile j - 1 is consumed
+    issue(j + S - 1);         // into tile j - 1's stage
+    const int q0 = (first + j) * BQ;
+    const char* st = ring + (j % S) * L::kStage;
+    const T* sq = reinterpret_cast<const T*>(st);
+    const T* sdo = reinterpret_cast<const T*>(st + L::kQ);
+    const float* sLse = reinterpret_cast<const float*>(st + 2 * L::kQ);
+    const float* sDelta = sLse + BQ;
+    const int* sSeg = reinterpret_cast<const int*>(sDelta + BQ);
+    if (grp == 0) {
+      // S^T = K q-hat^T, p = exp(S^T - lse) on this thread's 8 x 4 block
+      float s[RC][RQ];
+      product_rows<T, DP, RC, RQ, true>(s, sK, sq, D, ty, tx, scale_t);
+      const bool masked = has_seg || q0 + BQ > Lq || k0 + BK > Lk ||
+                          (a.causal && q0 < k0 + BK - 1);
+#pragma unroll
+      for (int jj = 0; jj < RQ; ++jj) {
+        const int r = tx + 16 * jj;
+        const float lse_r = sLse[r];
+#pragma unroll
+        for (int i = 0; i < RC; ++i) {
+          float sv = s[i][jj];
+          if (masked) {
+            const int c = k0 + RC * ty + i;
+            bool ok = c < Lk && q0 + r < Lq;
+            if (has_seg) ok = ok && sSeg[r] == skv[i];
+            if (a.causal) ok = ok && q0 + r >= c;
+            if (!ok) sv = kNegInf;
+          }
+          s[i][jj] = expf(sv - lse_r);
+        }
+        // p in dO's dtype for dV; unrounded p for ds where rounding
+        // changes it (bf16), in the ds tile that group 1 overwrites
+#pragma unroll
+        for (int u = 0; u < RC / 4; ++u) {
+          const int o = swz<float, BK>(r, RC * ty + 4 * u);
+          *reinterpret_cast<float4*>(sP + o) = make_float4(
+              Elt<T>::round(s[4 * u][jj]), Elt<T>::round(s[4 * u + 1][jj]),
+              Elt<T>::round(s[4 * u + 2][jj]), Elt<T>::round(s[4 * u + 3][jj]));
+          if constexpr (!std::is_same<T, float>::value)
+            *reinterpret_cast<float4*>(sDS + o) = make_float4(
+                s[4 * u][jj], s[4 * u + 1][jj], s[4 * u + 2][jj],
+                s[4 * u + 3][jj]);
+        }
+      }
+      named_arrive(1, kThreads);            // p to group 1
+      hopper::named_barrier(2, 128);        // ... and to all of group 0
+      accumulate_rows<T, DP, BK, BQ, RC, NG>(acc, sP, sdo, ty, tx);
+      if constexpr (kFused) hopper::named_barrier(3, kThreads);  // ds
+    } else {
+      // dP^T = V dO^T, ds = p (dP^T - delta) on the same block
+      float dp[RC][RQ];
+      product_rows<T, DP, RC, RQ, false>(dp, sV, sdo, D, ty, tx, 1.f);
+      hopper::named_barrier(1, kThreads);   // p from group 0
+      const float* pin = std::is_same<T, float>::value ? sP : sDS;
+#pragma unroll
+      for (int jj = 0; jj < RQ; ++jj) {
+        const int r = tx + 16 * jj;
+        const float delta_r = sDelta[r];
+#pragma unroll
+        for (int u = 0; u < RC / 4; ++u) {
+          const int o = swz<float, BK>(r, RC * ty + 4 * u);
+          const float4 p = *reinterpret_cast<const float4*>(pin + o);
+          *reinterpret_cast<float4*>(sDS + o) = make_float4(   // q's dtype
+              Elt<T>::round(p.x * (dp[4 * u][jj] - delta_r)),
+              Elt<T>::round(p.y * (dp[4 * u + 1][jj] - delta_r)),
+              Elt<T>::round(p.z * (dp[4 * u + 2][jj] - delta_r)),
+              Elt<T>::round(p.w * (dp[4 * u + 3][jj] - delta_r)));
+        }
+      }
+      if constexpr (kFused) named_arrive(3, kThreads);   // ds to group 0
+      hopper::named_barrier(4, 128);        // ds to all of group 1
+      accumulate_rows<T, DP, BK, BQ, RC, NG>(acc, sDS, sq, ty, tx);  // raw q
     }
-    __syncthreads();   // p / ds complete; V^T / dO^T reads done
-    stage_rows<T>(bufA, dob, q0, Lq, D);
-    stage_rows<T>(bufB, qb, q0, Lq, D);       // raw q for dk
-    __syncthreads();
-    accumulate<NG>(acc_dv, sP, bufA, D, ty, tx);
-    accumulate<NG>(acc_dk, sDS, bufB, D, ty, tx);
-    if (kFused) {
-      __syncthreads();   // dO / q rows read
-      stage_rows<T>(bufA, kb, k0, Lk, D);
-      __syncthreads();
-      // this tile's dQ share: rows q0 + 4 ty + i, one 4-column group at a
-      // time so no second 64 x D accumulator lives in registers
+    if constexpr (kFused) {
+      // this tile's dQ share, ds K over the CTA's kv rows: thread rows
+      // rg + 16 i and columns 4 dg .. + 3 of each 64-column panel, added to
+      // the f32 workspace by one float4 atomicAdd per 4 values.  The 16
+      // lanes of a half warp share their rows (one broadcast ds load) and
+      // read 16 adjacent float4 of a K row
+      const int rg = tid / 16, dg = tid % 16;
       float* wsb = a.dq_ws + bh * Lq * D;
 #pragma unroll 1
-      for (int g = 0; g < NG; ++g) {
-        const int d = (tx + 16 * g) * 4;
-        if (d >= D) break;
-        float part[4][4];
+      for (int h = 0; h < DP / 64 && 64 * h < D; ++h) {
+        const int d = 64 * h + 4 * dg;
+        float part[RQ][4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+        for (int i = 0; i < RQ; ++i)
 #pragma unroll
           for (int e = 0; e < 4; ++e) part[i][e] = 0.f;
-#pragma unroll 4
-        for (int c = 0; c < kB; ++c) {
-          const float4 w = *reinterpret_cast<const float4*>(&sDSq[c * kLdT + ty * 4]);
-          const float4 x = *reinterpret_cast<const float4*>(&bufA[c * D + d]);
-          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll 2
+        for (int c = 0; c < BK; c += 4) {
+          float4 w[RQ], kx[4];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            part[i][0] = fmaf(wv[i], x.x, part[i][0]);
-            part[i][1] = fmaf(wv[i], x.y, part[i][1]);
-            part[i][2] = fmaf(wv[i], x.z, part[i][2]);
-            part[i][3] = fmaf(wv[i], x.w, part[i][3]);
-          }
+          for (int i = 0; i < RQ; ++i)
+            w[i] = *reinterpret_cast<const float4*>(
+                sDS + swz<float, BK>(rg + 16 * i, c));
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            kx[e] = Elt<T>::load4(sK + (c + e) * DP + d);
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+#pragma unroll
+            for (int i = 0; i < RQ; ++i) {
+              const float wv = lane(w[i], e);
+              part[i][0] = fmaf(wv, kx[e].x, part[i][0]);
+              part[i][1] = fmaf(wv, kx[e].y, part[i][1]);
+              part[i][2] = fmaf(wv, kx[e].z, part[i][2]);
+              part[i][3] = fmaf(wv, kx[e].w, part[i][3]);
+            }
         }
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const int r = q0 + ty * 4 + i;
-          if (r < Lq) {
-            float* o = wsb + (size_t)r * D + d;
-            atomicAdd(o + 0, part[i][0]);
-            atomicAdd(o + 1, part[i][1]);
-            atomicAdd(o + 2, part[i][2]);
-            atomicAdd(o + 3, part[i][3]);
-          }
+        for (int i = 0; i < RQ; ++i) {
+          const int r = q0 + rg + 16 * i;
+          if (r < Lq && d < D)
+            atomicAdd(reinterpret_cast<float4*>(wsb + (size_t)r * D + d),
+                      make_float4(part[i][0], part[i][1], part[i][2],
+                                  part[i][3]));
         }
       }
     }
   }
-  store_rows<T, NG>(static_cast<T*>(a.dk) + bh * Lk * D, acc_dk, k0, Lk, D,
-                    a.scale, ty, tx);
-  store_rows<T, NG>(static_cast<T*>(a.dv) + bh * Lk * D, acc_dv, k0, Lk, D,
-                    1.f, ty, tx);
+  cp_async_wait<0>();
+
+  // dV (group 0) and scale * dK (group 1), cast to T
+  T* dst = static_cast<T*>(grp == 0 ? a.dv : a.dk) + bh * Lk * D;
+  const float mul = grp == 0 ? 1.f : a.scale;
+#pragma unroll
+  for (int i = 0; i < RC; ++i) {
+    const int c = k0 + RC * ty + i;
+    if (c >= Lk) continue;
+#pragma unroll
+    for (int g = 0; g < NG; ++g) {
+      const int d = 4 * tx + 64 * g;
+      if (d < D)
+        Elt<T>::store4(dst + (size_t)c * D + d,
+                       make_float4(acc[i][4 * g + 0] * mul,
+                                   acc[i][4 * g + 1] * mul,
+                                   acc[i][4 * g + 2] * mul,
+                                   acc[i][4 * g + 3] * mul));
+    }
+  }
 }
 
-}  // namespace
+template <typename T, int DP, int BK, int BQ>
+cudaError_t launch_dkv(bool fused, const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = DkvPlan<T, DP, BK, BQ>::kBytes;
+  auto kernel = fused ? flash_bwd_dkv_kernel<T, DP, BK, BQ, true>
+                      : flash_bwd_dkv_kernel<T, DP, BK, BQ, false>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_kv = (a.Lk + BK - 1) / BK;
+  if (n_kv > 65535) return cudaErrorInvalidValue;
+  dim3 grid(a.H, B, n_kv);
+  kernel<<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f32: <64, 128, 64> (16 x 4 S^T and dV / dK blocks) and <128, 64, 64>
+// (8 x 4 S^T, 8 x 8 dV / dK); D > 128, f32 or bf16: <256, 32, 32> (4 x 2
+// and 4 x 16)
+template <typename T>
+cudaError_t dispatch_dkv(bool fused, const Args& a, int B, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.D <= 64) return launch_dkv<T, 64, 128, 64>(fused, a, B, s);
+    if (a.D <= 128) return launch_dkv<T, 128, 64, 64>(fused, a, B, s);
+  }
+  return launch_dkv<T, 256, 32, 32>(fused, a, B, s);
+}
+
+}  // namespace simt
+
 
 // ---------------------------------------------------------------------------
 // bf16 with D <= 128 on the tensor cores: dk, dv (the port of _dkv_kernel),
@@ -1054,36 +1293,26 @@ cudaError_t dispatch(Kind kind, const Args& a, int B, cudaStream_t stream) {
 
 namespace {
 
-size_t smem_bytes(int D, Kind kind) {
-  const int tiles = kind == kDq ? 1 : kind == kDkv ? 2 : 3;
-  const int stats = kind == kDq ? 0 : 2 * kB;   // lse, delta of a q tile
-  return sizeof(float) * (2 * (size_t)D * kLdT + (size_t)tiles * kB * kLdT +
-                          stats) +
+// dq: D x kLdT staging tiles for q-hat / dO and k / v, one 64 x kLdT ds
+// tile and the segment ids of both sides
+size_t smem_bytes(int D) {
+  return sizeof(float) * (2 * (size_t)D * kLdT + (size_t)kB * kLdT) +
          sizeof(int) * 2 * kB;
 }
 
-template <typename Kernel>
-cudaError_t launch(Kernel kernel, Kind kind, const Args& a, int B,
-                   cudaStream_t stream) {
-  const size_t smem = smem_bytes(a.D, kind);
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int L = kind == kDq ? a.Lq : a.Lk;
-  dim3 grid((L + kB - 1) / kB, a.H, B);
-  kernel<<<grid, kThreads, smem, stream>>>(a);
-  return cudaGetLastError();
-}
-
 template <typename T, int NG>
-cudaError_t launch_kind(Kind kind, const Args& a, int B, cudaStream_t s) {
+cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
   // bf16 with D <= tc::kMaxD = 64 NG runs tc::dispatch (run sends it
   // there), so those instantiations are not built
   if constexpr (std::is_same<T, float>::value || 64 * NG > tc::kMaxD) {
-    if (kind == kDq) return launch(flash_bwd_dq_kernel<T, NG>, kind, a, B, s);
-    if (kind == kDkv)
-      return launch(flash_bwd_dkv_kernel<T, NG, false>, kind, a, B, s);
-    return launch(flash_bwd_dkv_kernel<T, NG, true>, kind, a, B, s);
+    const size_t smem = smem_bytes(a.D);
+    cudaError_t err = cudaFuncSetAttribute(
+        flash_bwd_dq_kernel<T, NG>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    dim3 grid((a.Lq + kB - 1) / kB, a.H, B);
+    flash_bwd_dq_kernel<T, NG><<<grid, kThreads, smem, stream>>>(a);
+    return cudaGetLastError();
   } else {
     return cudaErrorInvalidValue;
   }
@@ -1091,10 +1320,11 @@ cudaError_t launch_kind(Kind kind, const Args& a, int B, cudaStream_t s) {
 
 template <typename T>
 cudaError_t dispatch_d(Kind kind, const Args& a, int B, cudaStream_t s) {
-  if (a.D <= 64) return launch_kind<T, 1>(kind, a, B, s);
-  if (a.D <= 128) return launch_kind<T, 2>(kind, a, B, s);
-  if (a.D <= 192) return launch_kind<T, 3>(kind, a, B, s);
-  return launch_kind<T, 4>(kind, a, B, s);
+  if (kind != kDq) return simt::dispatch_dkv<T>(kind == kFusedKind, a, B, s);
+  if (a.D <= 64) return launch_dq<T, 1>(a, B, s);
+  if (a.D <= 128) return launch_dq<T, 2>(a, B, s);
+  if (a.D <= 192) return launch_dq<T, 3>(a, B, s);
+  return launch_dq<T, 4>(a, B, s);
 }
 
 int run(Kind kind, const Args& a, int B, int dtype, void* stream) {

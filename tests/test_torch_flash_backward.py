@@ -8,7 +8,9 @@ ds round to bf16 where values an f32 ulp apart can round differently, as
 in tests/test_torch_flash_attention.py).  Block 512 at L <= 512 runs the
 fused ``_bwd_fused_kernel``; block 128 at L = 256 runs the split
 ``_dq_kernel``/``_dkv_kernel`` grid, which the plain version walks in the
-same tile order.
+same tile order.  The plain version is what ``chip_smoke.py`` holds the
+CUDA kernels to on the card, so the comparison runs at head_dims that pick
+each of their instantiations.
 """
 
 import importlib
@@ -69,12 +71,21 @@ def _assert_close(pairs, dname):
         assert err <= TOL[dname], f"{name} relative error {err}"
 
 
-@pytest.mark.parametrize("dname", ["float32", "bfloat16"])
+# head_dims that pick each instantiation of the CUDA-core dkv / fused
+# kernel (f32: DP = 64, 128 and 256, the last also for bf16 above the
+# tensor cores' 128) and the tensor-core route (bf16 64)
+CASES = [("float32", 64), ("float32", 128), ("float32", 136),
+         ("float32", 256), ("bfloat16", 64), ("bfloat16", 136)]
+
+
+@pytest.mark.parametrize("dname,D", CASES,
+                         ids=[f"{d}-D{n}" for d, n in CASES])
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("with_seg", [False, True])
 @pytest.mark.parametrize("block", [512, 128], ids=["fused", "split"])
-def test_backward_reference_matches_jax(dname, causal, with_seg, block):
-    q, k, v, do = _inputs()
+def test_backward_reference_matches_jax(dname, D, causal, with_seg, block):
+    """L = 256: block 512 runs the fused kernel, block 128 the split one."""
+    q, k, v, do = _inputs(D=D)
     seg = _seg(256, (190, 256)) if with_seg else None
     _assert_close(_run_both(q, k, v, do, seg, seg, causal, dname, block),
                   dname)
