@@ -9,8 +9,7 @@ result line; each prints its seconds):
     power.limit --format=csv,noheader`` gives them, its power limit;
  2. build — compile ``kernels/csrc/flash_fwd.cu`` and ``flash_bwd.cu`` for
     sm_90a from this checkout, one nvcc each, in parallel; ptxas registers
-    and spills per kernel (any kernel but the CUDA-core dq, whose spill is
-    reported, fails if it spills);
+    and spills per kernel (the phase fails if any kernel spills);
  3. forward kernel — flash_fwd against its plain PyTorch version on the
     card: out and lse on valid rows, f32 and bf16, causal and not, with and
     without segment ids (a padded row), at the serving prefill shape
@@ -27,9 +26,9 @@ result line; each prints its seconds):
     on valid rows, f32 and bf16, causal and not, with and without segment
     ids, at the BERT lane (32, 12, 512, 64) -> fused, the llama lane
     (4, 16, 2048, 128) -> dq + dkv, cross 256/512 -> fused, L=384 -> dq +
-    dkv and a head_dim sweep on both routes; two f32 dkv launches at the
-    llama lane shape, and the dk, dv of two f32 fused launches at the BERT
-    lane shape, must agree bit for bit; autograd through
+    dkv and a head_dim sweep on both routes; two f32 dq and two f32 dkv
+    launches at the llama lane shape, and the dk, dv of two f32 fused
+    launches at the BERT lane shape, must agree bit for bit; autograd through
     ``flash_attention`` at both lane shapes; times of each kernel in f32
     and bf16 at the same shapes, the plain backward and, as a yardstick
     only, SDPA's backward in the same dtype (dq, dk, dv by
@@ -350,25 +349,28 @@ def bwd_kernel_phase(torch, fa):
     _log(f"bwd worst relative error: f32 {worst['float32']:.3e}, bf16 "
          f"{worst['bfloat16']:.3e}")
 
-    # the CUDA-core dkv kernel sums dk and dv without atomics: two launches
-    # on the same inputs give the same bits, in fused too (whose dq goes
-    # through atomics and is not reproducible bit for bit)
-    for kind, B, H, L, D, causal in [("dkv", 4, 16, 2048, 128, True),
+    # the CUDA-core dq and dkv kernels sum without atomics: two launches on
+    # the same inputs give the same bits, and so do fused's dk, dv (its dq
+    # goes through atomics and is not reproducible bit for bit)
+    for kind, B, H, L, D, causal in [("dq", 4, 16, 2048, 128, True),
+                                     ("dkv", 4, 16, 2048, 128, True),
                                      ("fused", 32, 12, 512, 64, False)]:
         q, k, v, do = (torch.randn(B, H, L, D, generator=gen, device=dev)
                        for _ in range(4))
         out, lse = fa._fwd(q, k, v, None, None, causal, D ** -0.5)
         x = fa.prepare_bwd(q, k, v, None, None, out, lse, do, causal,
                            D ** -0.5)
-        launch = fa.launch_bwd_dkv if kind == "dkv" else \
-            lambda x: fa.launch_bwd_fused(x)[1:]
+        launch, what = {
+            "dq": (lambda x: (fa.launch_bwd_dq(x),), "dq"),
+            "dkv": (fa.launch_bwd_dkv, "dk, dv"),
+            "fused": (lambda x: fa.launch_bwd_fused(x)[1:], "dk, dv")}[kind]
         first, again = launch(x), launch(x)
         same = all(torch.equal(a, b) for a, b in zip(first, again))
         _log(f"check determinism bwd {kind} B={B} H={H} L={L} D={D} float32 "
-             f"causal={causal}: dk, dv of two launches "
+             f"causal={causal}: {what} of two launches "
              f"{'bitwise equal' if same else 'DIFFER'}")
         if not same:
-            raise AssertionError(f"flash_bwd {kind} f32 dk/dv is not "
+            raise AssertionError(f"flash_bwd {kind} f32 {what} is not "
                                  f"deterministic")
 
     # autograd through flash_attention at the lanes' shapes and types
@@ -712,7 +714,7 @@ TRAIN_LANES = (("bert_seq512", "bfloat16"), ("llama_seq2048", "bfloat16"),
                ("llama_seq2048_f32", "float32"))
 
 
-def train_lane_phase(torch, fa, mx, args, lanes=TRAIN_LANES):
+def train_lane_phase(torch, fa, mx, args):
     """bench.py's training lanes at full width on the card: weights
     Normal(0.02) from a seeded generator on the card in the lane's dtype,
     Adam at lr 1e-4 (multi_precision for bf16, plain for f32), dropout 0;
@@ -737,7 +739,7 @@ def train_lane_phase(torch, fa, mx, args, lanes=TRAIN_LANES):
         def forward(self, x):
             return self.net(x, self.valid_length)
 
-    for lane, dname in lanes:
+    for lane, dname in TRAIN_LANES:
         dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}[dname]
         f32 = dname == "float32"
         # earlier phases' models (llama3_8b's 32 GB) may sit in reference
@@ -912,12 +914,8 @@ def main(argv=None):
     for src in ("flash_fwd", "flash_bwd"):
         for name, regs, spilled, spill in _ptxas_summary(
                 _build.build_log(src)):
-            # every kernel but the CUDA-core dq (a known spill, its own
-            # redesign) must keep its registers
-            known = name.startswith("flash_bwd_dq_kernel<")
-            _log(f"ptxas {src}: {name}: {regs}; {spill}"
-                 + (" (reported, not failed)" if known and spilled else ""))
-            if spilled and not known:
+            _log(f"ptxas {src}: {name}: {regs}; {spill}")
+            if spilled:
                 raise AssertionError(f"{name} spills {spilled} bytes")
 
     errors, timings, sdpa_kernels = _phase("forward kernel", kernel_phase,
@@ -980,7 +978,7 @@ def main(argv=None):
     # train lanes' (the bf16 lanes' for bf16, the f32 lanes' for f32)
     cuda_core = {"fused": "simt::flash_bwd_dkv_kernel<float, DP, BK, BQ, "
                           "true>",
-                 "dq": "flash_bwd_dq_kernel<float, NG>",
+                 "dq": "simt::flash_bwd_dq_kernel<float, DP, BQ, BK>",
                  "dkv": "simt::flash_bwd_dkv_kernel<float, DP, BK, BQ, "
                         "false>"}
     for kind_, line in (("fused", 464), ("dq", 373), ("dkv", 417)):

@@ -23,21 +23,49 @@
 // does (:387-389, :432-434).
 //
 // Two families of kernels:
-//   - CUDA cores, f32 at every D and bf16 with D > tc::kMaxD = 128: dq is
-//     flash_bwd_dq_kernel below; dkv and fused are simt::flash_bwd_dkv_kernel.
+//   - CUDA cores, f32 at every D and bf16 with D > tc::kMaxD = 128, in
+//     namespace simt: dq is simt::flash_bwd_dq_kernel, dkv and fused are
+//     simt::flash_bwd_dkv_kernel.
 //   - tensor cores, bf16 with D <= 128: namespace tc (dq, dkv and fused).
 // Products on the CUDA cores run in f32 FMA: the tensor cores would round
 // f32 inputs to TF32, which the reference does not.
 //
-// dq (CUDA cores).  Tiles are 64 q rows by 64 kv rows; a CTA of 256
-// threads is a 16 x 16 grid (ty, tx), and thread (ty, tx) owns a 4 x 4
-// block of each 64 x 64 score tile (rows 4 ty.., cols 4 tx..).  Operand
-// tiles are staged in shared memory d-major (D x 68 floats, 16-byte rows),
-// two D x 68 buffers reused for every operand of a step, so a score tile
-// costs two 16-byte shared loads per d for 16 FMAs.  One CTA per (q tile,
-// head, batch), heaviest causal tiles first, loops over kv tiles and keeps
-// its 64 x D dQ rows in f32 registers.
-//
+// dq (CUDA cores, simt::flash_bwd_dq_kernel<T, DP, BQ, BK>): the forward
+// with a second product.  A CTA of 256 threads owns BQ q rows of one (b,
+// h) and loops over kv tiles of BK rows: <float, 64, 128, 64>, <float,
+// 128, 64, 64> and <T, 256, 32, 32>.
+//   - q and dO of the CTA's rows are loaded once by 16-byte cp.async (zero
+//     fill past Lq) and stay resident, row-major; q-hat = round(q *
+//     round(scale)) is formed once, in place.  Each thread keeps the lse
+//     (group 0) or delta (group 1) of its rows in registers.
+//   - K and V of each kv tile stream through a ring of 2-3 stages of
+//     cp.async copies, issued S - 1 tiles ahead, row-major: one copy of K
+//     serves both S (over d) and dQ += ds K (over kv rows).  One
+//     __syncthreads per tile publishes a tile and frees the stage the next
+//     copy refills.
+//   - Rows of q-hat, dO, K and V are padded by 16 bytes, so adjacent rows
+//     sit in different banks and every 16-byte load of a warp below is one
+//     conflict-free wavefront at a plain address.  (The swizzle of the
+//     dkv kernel does the same without padding, but its xor arithmetic
+//     took issue slots from the FMAs; the padding fits the budget here.)
+//   - Group 0 (warps 0-3) computes S = q-hat K^T, group 1 (warps 4-7) dP =
+//     dO V^T on the same entries, each thread an RM x RN block (16 x 4 at
+//     D = 64, 8 x 4 at D = 128: 20 and 12 16-byte loads per 256 and 128
+//     FMAs; 4 x 2 at D = 256).  Group 0 forms p = exp(S - lse) (masked only
+//     on diagonal, ragged or segmented tiles) into a kv-major f32 tile and
+//     arrives at a named barrier; group 1 waits there, overwrites p with ds
+//     = p (dP - delta) rounded to k's dtype, and a second named barrier
+//     hands ds to all 8 warps.
+//   - All 256 threads then run dQ += ds K, each an 8 x 4 block of f32
+//     registers (per kv row, two ds loads and one K load for 32 FMAs),
+//     summed over kv rows in a fixed order: no atomics, so dq is
+//     deterministic.
+//   - The q tile is the grid's slowest axis, heaviest (causal: last) tiles
+//     first; causal kv tiles wholly above the diagonal are skipped.
+//   - Shared memory, f32: at D = 128 q-hat and dO 66 KB, two 66 KB stages,
+//     the p / ds tile 17 KB (215 KB); at D = 64 q-hat and dO 68 KB, three
+//     34 KB stages, p / ds 33 KB (203 KB).  One CTA of 8 warps per SM.
+
 // dkv and fused (CUDA cores, simt::flash_bwd_dkv_kernel<T, DP, BK, BQ,
 // kFused>).  A CTA of 256 threads owns BK kv rows of one (b, h) and loops
 // over q tiles of BQ rows: <float, 64, 128, 64>, <float, 128, 64, 64> and
@@ -95,119 +123,7 @@
 
 namespace {
 
-constexpr int kB = 64;        // rows of a q tile and of a kv tile
-constexpr int kThreads = 256;
-constexpr int kLdT = 68;      // row stride of d-major tiles and p/ds tiles
-constexpr float kNegInf = -1e30f;
-
-using simt::Elt;
-
-// Rows r0 .. r0 + 63 of a (L, D) matrix into dst d-major (dst[d * kLdT + r]),
-// zero past L; with kScale each value becomes round(x * scale_t) in T.
-template <typename T, bool kScale>
-__device__ __forceinline__ void stage_dmajor(float* dst, const T* src, int r0,
-                                             int L, int D, float scale_t) {
-  const int D4 = D / 4;
-  for (int i = threadIdx.x; i < kB * D4; i += kThreads) {
-    const int r = i % kB, d = (i / kB) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < L) x = Elt<T>::load4(src + (size_t)(r0 + r) * D + d);
-    if (kScale) {
-      x.x = Elt<T>::round(x.x * scale_t);
-      x.y = Elt<T>::round(x.y * scale_t);
-      x.z = Elt<T>::round(x.z * scale_t);
-      x.w = Elt<T>::round(x.w * scale_t);
-    }
-    dst[(d + 0) * kLdT + r] = x.x;
-    dst[(d + 1) * kLdT + r] = x.y;
-    dst[(d + 2) * kLdT + r] = x.z;
-    dst[(d + 3) * kLdT + r] = x.w;
-  }
-}
-
-// Rows r0 .. r0 + 63 of a (L, D) matrix into dst row-major (dst[c * D + d]),
-// zero past L.
-template <typename T>
-__device__ __forceinline__ void stage_rows(float* dst, const T* src, int r0,
-                                           int L, int D) {
-  const int D4 = D / 4;
-  for (int i = threadIdx.x; i < kB * D4; i += kThreads) {
-    const int c = i / D4, d = (i % D4) * 4;
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + c < L) x = Elt<T>::load4(src + (size_t)(r0 + c) * D + d);
-    *reinterpret_cast<float4*>(&dst[c * D + d]) = x;
-  }
-}
-
-// out[i][j] = sum_d a[d][4 ty + i] * b[d][4 tx + j] over d-major tiles
-__device__ __forceinline__ void tile_product(float (&out)[4][4],
-                                             const float* a, const float* b,
-                                             int D, int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) out[i][j] = 0.f;
-#pragma unroll 4
-  for (int d = 0; d < D; ++d) {
-    const float4 x = *reinterpret_cast<const float4*>(&a[d * kLdT + ty * 4]);
-    const float4 y = *reinterpret_cast<const float4*>(&b[d * kLdT + tx * 4]);
-    const float xv[4] = {x.x, x.y, x.z, x.w};
-    const float yv[4] = {y.x, y.y, y.z, y.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) out[i][j] = fmaf(xv[i], yv[j], out[i][j]);
-  }
-}
-
-// acc[i][4 g + e] += sum_c t[c][4 ty + i] * m[c][4 (tx + 16 g) + e], with t a
-// 64 x kLdT tile and m row-major 64 x D
-template <int NG>
-__device__ __forceinline__ void accumulate(float (&acc)[4][4 * NG],
-                                           const float* t, const float* m,
-                                           int D, int ty, int tx) {
-#pragma unroll 2
-  for (int c = 0; c < kB; ++c) {
-    const float4 p = *reinterpret_cast<const float4*>(&t[c * kLdT + ty * 4]);
-    const float pv[4] = {p.x, p.y, p.z, p.w};
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int d = (tx + 16 * g) * 4;
-      if (d < D) {
-        const float4 x = *reinterpret_cast<const float4*>(&m[c * D + d]);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          acc[i][4 * g + 0] = fmaf(pv[i], x.x, acc[i][4 * g + 0]);
-          acc[i][4 * g + 1] = fmaf(pv[i], x.y, acc[i][4 * g + 1]);
-          acc[i][4 * g + 2] = fmaf(pv[i], x.z, acc[i][4 * g + 2]);
-          acc[i][4 * g + 3] = fmaf(pv[i], x.w, acc[i][4 * g + 3]);
-        }
-      }
-    }
-  }
-}
-
-// rows 4 ty + i (< L - r0) of acc * mul, cast to T, into dst rows r0..
-template <typename T, int NG>
-__device__ __forceinline__ void store_rows(T* dst, const float (&acc)[4][4 * NG],
-                                           int r0, int L, int D, float mul,
-                                           int ty, int tx) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = ty * 4 + i;
-    if (r0 + r >= L) continue;
-#pragma unroll
-    for (int g = 0; g < NG; ++g) {
-      const int d = (tx + 16 * g) * 4;
-      if (d < D)
-        Elt<T>::store4(dst + (size_t)(r0 + r) * D + d,
-                       make_float4(acc[i][4 * g + 0] * mul,
-                                   acc[i][4 * g + 1] * mul,
-                                   acc[i][4 * g + 2] * mul,
-                                   acc[i][4 * g + 3] * mul));
-    }
-  }
-}
+constexpr float kNegInf = -1e30f;   // masked logits
 
 struct Args {
   const void *q, *k, *v, *dout;
@@ -220,90 +136,6 @@ struct Args {
 };
 
 enum Kind { kDq = 0, kDkv = 1, kFusedKind = 2 };
-
-// dQ rows of one q tile, looping over kv tiles (the port of _dq_kernel).
-template <typename T, int NG>
-__global__ void __launch_bounds__(kThreads, NG <= 2 ? 2 : 1)
-flash_bwd_dq_kernel(Args a) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = a.D;
-  float* bufA = smem;                       // D x kLdT
-  float* bufB = bufA + D * kLdT;            // D x kLdT
-  float* sDS = bufB + D * kLdT;             // kB x kLdT: ds[c][r]
-  int* sSegQ = reinterpret_cast<int*>(sDS + kB * kLdT);
-  int* sSegK = sSegQ + kB;
-
-  const int tid = threadIdx.x, tx = tid % 16, ty = tid / 16;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * kB;   // heaviest first
-  const int b = blockIdx.z;
-  const size_t bh = (size_t)b * a.H + blockIdx.y;
-  const int Lq = a.Lq, Lk = a.Lk;
-  const T* qb = static_cast<const T*>(a.q) + bh * Lq * D;
-  const T* kb = static_cast<const T*>(a.k) + bh * Lk * D;
-  const T* vb = static_cast<const T*>(a.v) + bh * Lk * D;
-  const T* dob = static_cast<const T*>(a.dout) + bh * Lq * D;
-  const bool has_seg = a.seg_q != nullptr;
-  const float scale_t = Elt<T>::round(a.scale);
-
-  if (has_seg && tid < kB)
-    sSegQ[tid] = (q0 + tid < Lq) ? a.seg_q[(size_t)b * Lq + q0 + tid] : 0;
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = q0 + ty * 4 + i;
-    lse_r[i] = r < Lq ? a.lse[bh * Lq + r] : 0.f;
-    delta_r[i] = r < Lq ? a.delta[bh * Lq + r] : 0.f;
-  }
-  float acc[4][4 * NG];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * NG; ++j) acc[i][j] = 0.f;
-
-  int n_kv = (Lk + kB - 1) / kB;
-  if (a.causal) n_kv = min(n_kv, (min(q0 + kB, Lq) - 1) / kB + 1);
-
-  for (int it = 0; it < n_kv; ++it) {
-    const int k0 = it * kB;
-    __syncthreads();   // the previous tile is done with every buffer
-    stage_dmajor<T, true>(bufA, qb, q0, Lq, D, scale_t);
-    stage_dmajor<T, false>(bufB, kb, k0, Lk, D, 0.f);
-    if (has_seg && tid < kB)
-      sSegK[tid] = (k0 + tid < Lk) ? a.seg_kv[(size_t)b * Lk + k0 + tid] : 0;
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_product(s, bufA, bufB, D, ty, tx);
-    __syncthreads();
-    stage_dmajor<T, false>(bufA, dob, q0, Lq, D, 0.f);
-    stage_dmajor<T, false>(bufB, vb, k0, Lk, D, 0.f);
-    __syncthreads();
-    tile_product(dp, bufA, bufB, D, ty, tx);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int c = tx * 4 + j;
-        bool ok = k0 + c < Lk;
-        if (has_seg) ok = ok && sSegQ[r] == sSegK[c];
-        if (a.causal) ok = ok && q0 + r >= k0 + c;
-        const float p = expf((ok ? s[i][j] : kNegInf) - lse_r[i]);
-        s[i][j] = Elt<T>::round(p * (dp[i][j] - delta_r[i]));   // ds in k's dtype
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      *reinterpret_cast<float4*>(&sDS[(tx * 4 + j) * kLdT + ty * 4]) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    __syncthreads();   // ds complete; dO^T / V^T reads done
-    stage_rows<T>(bufA, kb, k0, Lk, D);
-    __syncthreads();
-    accumulate<NG>(acc, sDS, bufA, D, ty, tx);
-  }
-  store_rows<T, NG>(static_cast<T*>(a.dq) + bh * Lq * D, acc, q0, Lq, D,
-                    a.scale, ty, tx);
-}
 
 }  // namespace
 
@@ -680,6 +512,288 @@ cudaError_t dispatch_dkv(bool fused, const Args& a, int B, cudaStream_t s) {
     if (a.D <= 128) return launch_dkv<T, 128, 64, 64>(fused, a, B, s);
   }
   return launch_dkv<T, 256, 32, 32>(fused, a, B, s);
+}
+
+// The shared-memory plan and thread grid of a dq CTA: element type T, head
+// dim padded to DP, BQ q rows per CTA, BK kv rows per streamed tile.
+// q-hat and dO (resident), then kStages ring stages (K and V of a kv
+// tile), all with rows of DP elements padded by 16 bytes, then the p / ds
+// tile (f32, kv-major, rows of BQ + 4 floats).  The padding puts adjacent
+// rows 16 bytes apart in the banks, so every load below is one
+// conflict-free wavefront with plain addresses.
+template <typename T, int DP, int BQ, int BK>
+struct DqPlan {
+  // S and dP: a group of 4 warps is 2 x 2 warps of 4 x 8 lanes over the BQ
+  // x BK tile; a thread holds kRM q rows (4 apart) by kRN kv columns (8
+  // apart)
+  static constexpr int kRM = BQ / 8;
+  static constexpr int kRN = BK / 16;
+  // dQ: the 8 warps are kWR x kWC over BQ x DP, each 4 x 8 lanes over 4 kRQ
+  // rows by 32 columns; a thread holds kRQ adjacent q rows by 4 columns
+  static constexpr int kWC = DP / 32;
+  static constexpr int kWR = 8 / kWC;
+  static constexpr int kRQ = BQ / (4 * kWR);
+  static constexpr int kEpc = 16 / sizeof(T);
+  static constexpr int kLdP = BQ + 4;
+  static constexpr int kLd = DP + kEpc;
+  static constexpr int kQ = BQ * kLd * (int)sizeof(T);
+  static constexpr int kKV = BK * kLd * (int)sizeof(T);
+  static constexpr int kStage = 2 * kKV;
+  static constexpr int kPS = BK * kLdP * 4;
+  static constexpr int kFixed = 2 * kQ + kPS;
+  static constexpr int kStages = kFixed + 3 * kStage <= kMaxSmem ? 3 : 2;
+  static constexpr int kBytes = kFixed + kStages * kStage;
+  static_assert(kRM >= 1 && kRN >= 1 && kWC * kWR == 8 && kRQ % 4 == 0,
+                "thread grid");
+  static_assert(kBytes <= kMaxSmem, "shared memory");
+};
+
+// acc[i][j] = sum_{d < D} a[ar + 4 i][d] * b[br + 8 j][d], a and b tiles
+// with rows of LD elements.  Per 4 d, RM + RN 16-byte loads for 4 RM RN
+// FMAs; the 4 lane rows of a warp read 4 adjacent rows of a, its 8 lane
+// columns 8 adjacent rows of b.
+template <typename T, int LD, int RM, int RN>
+__device__ __forceinline__ void product_nt(float (&acc)[RM][RN], const T* a,
+                                           const T* b, int ar, int br,
+                                           int D) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i)
+#pragma unroll
+    for (int j = 0; j < RN; ++j) acc[i][j] = 0.f;
+  const T* a0 = a + ar * LD;
+  const T* b0 = b + br * LD;
+#pragma unroll 2
+  for (int d = 0; d < D; d += 4) {
+    float4 av[RM], bv[RN];
+#pragma unroll
+    for (int i = 0; i < RM; ++i) av[i] = Elt<T>::load4(a0 + 4 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < RN; ++j) bv[j] = Elt<T>::load4(b0 + 8 * j * LD + d);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < RM; ++i)
+#pragma unroll
+        for (int j = 0; j < RN; ++j)
+          acc[i][j] = fmaf(lane(av[i], e), lane(bv[j], e), acc[i][j]);
+  }
+}
+
+// acc[i][e] += sum_{c < BK} ds[c][qr + i] * k[c][qc + e]: ds the kv-major
+// p / ds tile (rows of LDP floats), k a tile with rows of LD elements.  Per
+// kv row, RQ / 4 + 1 16-byte loads for 4 RQ FMAs: the 4 lane rows of a warp
+// read 4 chunks of one ds row, its 8 lane columns 8 adjacent chunks of one
+// K row.
+template <typename T, int LD, int BK, int LDP, int RQ>
+__device__ __forceinline__ void accumulate_dq(float (&acc)[RQ][4],
+                                              const float* ds, const T* k,
+                                              int qr, int qc) {
+#pragma unroll 8
+  for (int c = 0; c < BK; ++c) {
+    float4 t[RQ / 4];
+#pragma unroll
+    for (int v = 0; v < RQ / 4; ++v)
+      t[v] = *reinterpret_cast<const float4*>(ds + c * LDP + qr + 4 * v);
+    const float4 kx = Elt<T>::load4(k + c * LD + qc);
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const float w = lane(t[i / 4], i % 4);
+      acc[i][0] = fmaf(w, kx.x, acc[i][0]);
+      acc[i][1] = fmaf(w, kx.y, acc[i][1]);
+      acc[i][2] = fmaf(w, kx.z, acc[i][2]);
+      acc[i][3] = fmaf(w, kx.w, acc[i][3]);
+    }
+  }
+}
+
+// dQ of BQ q rows, looping over kv tiles (the port of _dq_kernel).
+template <typename T, int DP, int BQ, int BK>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_dq_kernel(Args a) {
+  using L = DqPlan<T, DP, BQ, BK>;
+  constexpr int RM = L::kRM, RN = L::kRN, RQ = L::kRQ, S = L::kStages;
+  constexpr int E = L::kEpc, LDP = L::kLdP;
+  extern __shared__ float4 smem4[];
+  char* smem = reinterpret_cast<char*>(smem4);
+  T* sQ = reinterpret_cast<T*>(smem);                 // q-hat
+  T* sDO = reinterpret_cast<T*>(smem + L::kQ);
+  char* ring = smem + 2 * L::kQ;
+  float* sP = reinterpret_cast<float*>(ring + S * L::kStage);   // p, then ds
+
+  const int tid = threadIdx.x, grp = tid / 128, lane_id = tid % 32;
+  // q tiles are the grid's slowest axis, heaviest (causal: last) first, so
+  // every head's longest CTAs start in the first wave
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * BQ;
+  const int b = blockIdx.y;
+  const size_t bh = (size_t)b * a.H + blockIdx.x;
+  const int Lq = a.Lq, Lk = a.Lk, D = a.D;
+  const T* qb = static_cast<const T*>(a.q) + bh * Lq * D;
+  const T* kb = static_cast<const T*>(a.k) + bh * Lk * D;
+  const T* vb = static_cast<const T*>(a.v) + bh * Lk * D;
+  const T* dob = static_cast<const T*>(a.dout) + bh * Lq * D;
+  const bool has_seg = a.seg_q != nullptr;
+  int n_tiles = (Lk + BK - 1) / BK;
+  // causal: kv tiles starting past this q tile's last row are all masked
+  if (a.causal) n_tiles = min(n_tiles, (min(q0 + BQ, Lq) - 1) / BK + 1);
+  const int cpr = D / E;                       // 16-byte chunks per row
+
+  // q and dO rows q0.. once, zero past Lq (they ride in the first group)
+  for (int i = tid; i < BQ * cpr; i += kThreads) {
+    const int r = i / cpr, c = (i % cpr) * E;
+    const bool ok = q0 + r < Lq;
+    const size_t off = ok ? (size_t)(q0 + r) * D + c : 0;
+    const int dst = r * L::kLd + c;
+    cp_async16(hopper::smem_addr(sQ + dst), qb + off, ok ? 16 : 0);
+    cp_async16(hopper::smem_addr(sDO + dst), dob + off, ok ? 16 : 0);
+  }
+  // ring tile j (K and V of kv tile j, zero past Lk) into stage j % S, as
+  // one commit group (empty past the last tile)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const int k0 = j * BK;
+      T* sk = reinterpret_cast<T*>(ring + (j % S) * L::kStage);
+      T* sv = sk + BK * L::kLd;
+      for (int i = tid; i < BK * cpr; i += kThreads) {
+        const int r = i / cpr, c = (i % cpr) * E;
+        const bool ok = k0 + r < Lk;
+        const size_t off = ok ? (size_t)(k0 + r) * D + c : 0;
+        const int dst = r * L::kLd + c;
+        cp_async16(hopper::smem_addr(sk + dst), kb + off, ok ? 16 : 0);
+        cp_async16(hopper::smem_addr(sv + dst), vb + off, ok ? 16 : 0);
+      }
+    }
+    cp_async_commit();
+  };
+  for (int j = 0; j < S - 1; ++j) issue(j);
+
+  // q-hat = round(q * round(scale)) in place, once, on the chunks this
+  // thread copied: its own copies have landed with its first group
+  cp_async_wait<S - 2>();
+  const float scale_t = Elt<T>::round(a.scale);
+  for (int i = tid; i < BQ * cpr; i += kThreads) {
+    T* p = sQ + (i / cpr) * L::kLd + (i % cpr) * E;
+#pragma unroll
+    for (int e = 0; e < E; e += 4) {
+      float4 x = Elt<T>::load4(p + e);
+      x.x = Elt<T>::round(x.x * scale_t);
+      x.y = Elt<T>::round(x.y * scale_t);
+      x.z = Elt<T>::round(x.z * scale_t);
+      x.w = Elt<T>::round(x.w * scale_t);
+      Elt<T>::store4(p + e, x);
+    }
+  }
+
+  // S (group 0) and dP (group 1) entries of this thread: q rows ar + 4 i,
+  // kv columns br + 8 j of the tile; group 0 keeps their lse (and
+  // segment ids), group 1 their delta
+  const int gw = (tid % 128) / 32;
+  const int ar = (gw / 2) * (BQ / 2) + lane_id / 8;
+  const int br = (gw % 2) * (BK / 2) + lane_id % 8;
+  float stat[RM];
+  int sq[RM];
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+    const int r = q0 + ar + 4 * i;
+    stat[i] = r < Lq ? (grp == 0 ? a.lse : a.delta)[bh * Lq + r] : 0.f;
+    sq[i] = has_seg && r < Lq ? a.seg_q[(size_t)b * Lq + r] : 0;
+  }
+  // dQ rows qr .. qr + RQ - 1 and columns qc .. qc + 3 of this thread
+  const int w = tid / 32;
+  const int qr = (w / L::kWC) * 4 * RQ + (lane_id / 8) * RQ;
+  const int qc = (w % L::kWC) * 32 + 4 * (lane_id % 8);
+  float acc[RQ][4];
+#pragma unroll
+  for (int i = 0; i < RQ; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[i][e] = 0.f;
+
+  for (int j = 0; j < n_tiles; ++j) {
+    cp_async_wait<S - 2>();   // tile j has landed (this thread's copies)
+    __syncthreads();          // ... and everyone's; tile j - 1 is consumed
+    issue(j + S - 1);         // into tile j - 1's stage
+    const int k0 = j * BK;
+    const T* sK = reinterpret_cast<const T*>(ring + (j % S) * L::kStage);
+    const T* sV = sK + BK * L::kLd;
+    float s[RM][RN];
+    if (grp == 0) {
+      // S = q-hat K^T, p = exp(S - lse), masked only on diagonal, ragged
+      // or segmented tiles
+      product_nt<T, L::kLd, RM, RN>(s, sQ, sK, ar, br, D);
+      if (has_seg || k0 + BK > Lk || (a.causal && k0 + BK - 1 > q0)) {
+#pragma unroll
+        for (int jj = 0; jj < RN; ++jj) {
+          const int c = k0 + br + 8 * jj;
+          const bool in = c < Lk;
+          const int skv = has_seg && in ? a.seg_kv[(size_t)b * Lk + c] : 0;
+#pragma unroll
+          for (int i = 0; i < RM; ++i) {
+            bool ok = in;
+            if (has_seg) ok = ok && sq[i] == skv;
+            if (a.causal) ok = ok && q0 + ar + 4 * i >= c;
+            if (!ok) s[i][jj] = kNegInf;
+          }
+        }
+      }
+#pragma unroll
+      for (int jj = 0; jj < RN; ++jj)
+#pragma unroll
+        for (int i = 0; i < RM; ++i)
+          sP[(br + 8 * jj) * LDP + ar + 4 * i] = expf(s[i][jj] - stat[i]);
+      named_arrive(1, kThreads);            // p to group 1
+    } else {
+      // dP = dO V^T, then ds = p (dP - delta) in k's dtype over p
+      product_nt<T, L::kLd, RM, RN>(s, sDO, sV, ar, br, D);
+      hopper::named_barrier(1, kThreads);   // p from group 0
+#pragma unroll
+      for (int jj = 0; jj < RN; ++jj)
+#pragma unroll
+        for (int i = 0; i < RM; ++i) {
+          float* p = sP + (br + 8 * jj) * LDP + ar + 4 * i;
+          *p = Elt<T>::round(*p * (s[i][jj] - stat[i]));
+        }
+    }
+    hopper::named_barrier(2, kThreads);     // ds to everyone
+    accumulate_dq<T, L::kLd, BK, LDP, RQ>(acc, sP, sK, qr, qc);
+  }
+  cp_async_wait<0>();
+
+  // scale * dQ, cast to T
+  T* dqb = static_cast<T*>(a.dq) + bh * Lq * D;
+  if (qc < D) {
+#pragma unroll
+    for (int i = 0; i < RQ; ++i) {
+      const int r = q0 + qr + i;
+      if (r < Lq)
+        Elt<T>::store4(dqb + (size_t)r * D + qc,
+                       make_float4(acc[i][0] * a.scale, acc[i][1] * a.scale,
+                                   acc[i][2] * a.scale, acc[i][3] * a.scale));
+    }
+  }
+}
+
+template <typename T, int DP, int BQ, int BK>
+cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
+  constexpr int smem = DqPlan<T, DP, BQ, BK>::kBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_bwd_dq_kernel<T, DP, BQ, BK>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  const int n_q = (a.Lq + BQ - 1) / BQ;
+  if (n_q > 65535) return cudaErrorInvalidValue;
+  dim3 grid(a.H, B, n_q);
+  flash_bwd_dq_kernel<T, DP, BQ, BK><<<grid, kThreads, smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+// f32: <64, 128, 64> (16 x 4 S and dP blocks, 8 x 4 dQ) and <128, 64, 64>
+// (8 x 4, 8 x 4); D > 128, f32 or bf16: <256, 32, 32> (4 x 2, 8 x 4)
+template <typename T>
+cudaError_t dispatch_dq(const Args& a, int B, cudaStream_t s) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (a.D <= 64) return launch_dq<T, 64, 128, 64>(a, B, s);
+    if (a.D <= 128) return launch_dq<T, 128, 64, 64>(a, B, s);
+  }
+  return launch_dq<T, 256, 32, 32>(a, B, s);
 }
 
 }  // namespace simt
@@ -1293,38 +1407,11 @@ cudaError_t dispatch(Kind kind, const Args& a, int B, cudaStream_t stream) {
 
 namespace {
 
-// dq: D x kLdT staging tiles for q-hat / dO and k / v, one 64 x kLdT ds
-// tile and the segment ids of both sides
-size_t smem_bytes(int D) {
-  return sizeof(float) * (2 * (size_t)D * kLdT + (size_t)kB * kLdT) +
-         sizeof(int) * 2 * kB;
-}
-
-template <typename T, int NG>
-cudaError_t launch_dq(const Args& a, int B, cudaStream_t stream) {
-  // bf16 with D <= tc::kMaxD = 64 NG runs tc::dispatch (run sends it
-  // there), so those instantiations are not built
-  if constexpr (std::is_same<T, float>::value || 64 * NG > tc::kMaxD) {
-    const size_t smem = smem_bytes(a.D);
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_bwd_dq_kernel<T, NG>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return err;
-    dim3 grid((a.Lq + kB - 1) / kB, a.H, B);
-    flash_bwd_dq_kernel<T, NG><<<grid, kThreads, smem, stream>>>(a);
-    return cudaGetLastError();
-  } else {
-    return cudaErrorInvalidValue;
-  }
-}
-
+// the CUDA cores: f32 at every D, bf16 with D > tc::kMaxD
 template <typename T>
 cudaError_t dispatch_d(Kind kind, const Args& a, int B, cudaStream_t s) {
-  if (kind != kDq) return simt::dispatch_dkv<T>(kind == kFusedKind, a, B, s);
-  if (a.D <= 64) return launch_dq<T, 1>(a, B, s);
-  if (a.D <= 128) return launch_dq<T, 2>(a, B, s);
-  if (a.D <= 192) return launch_dq<T, 3>(a, B, s);
-  return launch_dq<T, 4>(a, B, s);
+  if (kind == kDq) return simt::dispatch_dq<T>(a, B, s);
+  return simt::dispatch_dkv<T>(kind == kFusedKind, a, B, s);
 }
 
 int run(Kind kind, const Args& a, int B, int dtype, void* stream) {

@@ -71,11 +71,13 @@ def _assert_close(pairs, dname):
         assert err <= TOL[dname], f"{name} relative error {err}"
 
 
-# head_dims that pick each instantiation of the CUDA-core dkv / fused
-# kernel (f32: DP = 64, 128 and 256, the last also for bf16 above the
-# tensor cores' 128) and the tensor-core route (bf16 64)
-CASES = [("float32", 64), ("float32", 128), ("float32", 136),
-         ("float32", 256), ("bfloat16", 64), ("bfloat16", 136)]
+# head_dims that pick each instantiation of the CUDA-core kernels (f32: DP
+# = 64, 128 and 256 for dkv / fused and dq, the last also for bf16 above
+# the tensor cores' 128), their smallest and widest heads (f32 8 and 40
+# under DP = 64, bf16 256) and the tensor-core route (bf16 64)
+CASES = [("float32", 8), ("float32", 40), ("float32", 64), ("float32", 128),
+         ("float32", 136), ("float32", 256), ("bfloat16", 64),
+         ("bfloat16", 136), ("bfloat16", 256)]
 
 
 @pytest.mark.parametrize("dname,D", CASES,

@@ -13,9 +13,10 @@ It builds both libraries (one ``nvcc`` each, in parallel with the forward),
 then
  1. times each backward entry point at ``chip_smoke.py``'s shapes, f32 and
     bf16, in turns base, head, head, base (CUDA events, as chip_smoke);
- 2. runs ``chip_smoke.py``'s f32 training lanes (``bert_seq512_f32``,
-    ``llama_seq2048_f32``) with each library in turn, base first, and
-    prints their median step ms, samples/s, MFU and launches.
+ 2. runs ``chip_smoke.py``'s four training lanes (``bert_seq512``,
+    ``llama_seq2048`` and their f32 twins) with each library in turns
+    base, head, head, base, and prints each run's median step ms,
+    samples/s, MFU, peak memory and device time by kernel family.
 Only the backward library differs between the two sides; the forward is
 the checkout's.  Both sides must build and launch; nothing falls back.
 """
@@ -101,10 +102,9 @@ def main(argv=None):
                   f"ms, bound {bound:.4f} ms ({by})", flush=True)
     mx = {"bert": bert, "llama": llama, "optimizer": optimizer,
           "parallel": parallel, "nn": ops_nn}
-    lanes = tuple(ln for ln in cs.TRAIN_LANES if ln[1] == "float32")
-    for s in ("base", "head"):
+    for s in order:
         fa._libs["flash_bwd"] = sides[s]
-        _, res = cs.train_lane_phase(torch, fa, mx, args, lanes)
+        _, res = cs.train_lane_phase(torch, fa, mx, args)
         for lane, r in res.items():
             fams = {k: round(v, 1)
                     for k, v in r["profile"]["families"].items()}
