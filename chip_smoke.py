@@ -56,13 +56,29 @@ result line; each prints its seconds):
     padded BERT step): losses finite and falling, kernel launches per step
     (every launch in the lane's dtype; none on the CUDA-core route for wide
     bf16 heads), median step ms, samples/s, MFU against the dtype's peak,
-    peak memory, and one profiled step's device time by kernel family.
+    peak memory, and one profiled step's device time by kernel family;
+ 9. gluon — MXNet's canonical Gluon loop (``autograd.record()``,
+    ``SoftmaxCELoss``, ``backward()``, ``gluon.Trainer("adam").step(B)``)
+    over the Gluon BERT: (a) bert_3_128_2 built on the CPU and carried to
+    the card by its ``collect_params()`` names trains 3 steps on a padded
+    seq-512 batch on both devices, per-step losses agreeing; (b)
+    bert_12_768_12 (vocab 30522, batch 32, seq 512) in f32, hybridized,
+    8 steps, then the same weights and batch through ``TrainStep``
+    (per-step losses agree) and 3 steps not hybridized (the NDArray path;
+    losses agree); (c) the same model cast to bf16 with multi-precision
+    Adam, 8 steps, then ``TrainStep`` the same; every Gluon step launches
+    12 forward and 12 fused-backward kernels of its dtype's route; median
+    step ms, samples/s, MFU, peak memory and profiled idle share of the
+    Gluon loop beside ``TrainStep``'s.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
-both), and each backward entry point twice, bf16 (``flash_bwd_*``, the
+both, ``gluon_launches`` those of the Gluon loop's timed steps, f32 and
+bf16), and each backward entry point twice, bf16 (``flash_bwd_*``, the
 tensor-core kernels, launches of the bf16 lanes) and f32
-(``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes);
+(``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes),
+the fused ones with the Gluon loop's launches in its dtype
+(``gluon_launches``);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -83,7 +99,9 @@ max |ref|, valid rows): f32 1e-4 (sum order; the fused kernel's dq sums
 with atomics in an order that changes from run to run); bf16 5e-3, about
 twice the worst seen on an H100 (2.2e-3: ds rounds to bf16 where f32
 values an ulp apart round differently).  Prefill logits kernel vs plain:
-1e-3.  Train oracle: per-step losses 1e-4 relative (f32, 3 Adam steps).
+1e-3.  Train oracle: per-step losses 1e-4 relative (f32, 3 Adam steps);
+the same for the Gluon oracle, the Gluon loop against ``TrainStep`` (f32,
+8 steps) and the imperative against the hybridized loop (f32, 3 steps).
 """
 
 from __future__ import annotations
@@ -848,6 +866,221 @@ def train_lane_phase(torch, fa, mx, args):
     return counts_total, results
 
 
+def _gluon_inputs(tmx, ctx, toks, labs, vl=None):
+    """The batch as NDArrays on ``ctx``: (net inputs, labels)."""
+    x = [tmx.nd.array(toks, ctx=ctx)]
+    if vl is not None:
+        x.append(tmx.nd.array(vl, ctx=ctx))
+    return x, tmx.nd.array(labs, ctx=ctx)
+
+
+def _gluon_steps(tmx, net, inputs, labels, steps, trainer):
+    """``steps`` iterations of MXNet's canonical loop on one batch:
+    record, SoftmaxCELoss on the f32 MLM logits, backward, Trainer.step(B).
+    Returns the per-step losses (the per-token mean) and wall ms."""
+    loss_fn = tmx.gluon.loss.SoftmaxCELoss()
+    losses, step_ms = [], []
+    for _ in range(steps):
+        t = time.perf_counter()
+        with tmx.autograd.record():
+            logits = net(*inputs)[2].astype("float32", copy=False)
+            loss = loss_fn(logits, labels)
+        loss.backward()
+        trainer.step(labels.shape[0])
+        losses.append(loss.mean())
+        tmx.nd.waitall()
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    return [float(l.asscalar()) for l in losses], step_ms
+
+
+def _rel(a, b):
+    return float(np.max(np.abs(np.asarray(a) - np.asarray(b))
+                        / np.abs(np.asarray(b))))
+
+
+def gluon_oracle(torch, fa, tmx):
+    """(a) bert_3_128_2 built once on the CPU, carried to the card by its
+    collect_params() names; 3 hybridized Gluon steps on a padded batch on
+    both devices: per-step losses agree to TRAIN_TOL."""
+    bert = tmx.gluon.model_zoo.bert
+    nets = {}
+    for ctx in (tmx.cpu(), tmx.gpu()):
+        nets[ctx] = bert.BERTModel(vocab_size=1000, num_layers=3, units=128,
+                                   hidden_size=512, num_heads=2,
+                                   max_length=512, dropout=0.0,
+                                   prefix="bert_")
+    tmx.random.seed(21)
+    nets[tmx.cpu()].initialize(tmx.init.Normal(0.02), ctx=tmx.cpu())
+    nets[tmx.gpu()].initialize(tmx.init.Zero(), ctx=tmx.gpu())
+    card = nets[tmx.gpu()].collect_params()
+    for name, p in nets[tmx.cpu()].collect_params().items():
+        card[name].set_data(p.data())
+    rng = np.random.RandomState(22)
+    B, L = 4, 512
+    toks = rng.randint(0, 1000, (B, L))
+    labs = rng.randint(0, 1000, (B, L))
+    vl = rng.randint(L // 2, L + 1, B)
+    losses = {}
+    for ctx in (tmx.gpu(), tmx.cpu()):
+        net = nets[ctx]
+        net.hybridize()
+        trainer = tmx.gluon.Trainer(net.collect_params(), "adam",
+                                    {"learning_rate": 1e-3})
+        inputs, labels = _gluon_inputs(tmx, ctx, toks, labs, vl)
+        if ctx == tmx.gpu():
+            _reset_counts(fa)
+        losses[ctx], _ = _gluon_steps(tmx, net, inputs, labels, 3, trainer)
+        if ctx == tmx.gpu():
+            counts = _counts(fa)
+    rel = _rel(losses[tmx.gpu()], losses[tmx.cpu()])
+    _log(f"oracle gluon bert_3_128_2 seq 512 padded {vl.tolist()}: card "
+         f"{losses[tmx.gpu()]} cpu {losses[tmx.cpu()]} rel {rel:.2e} (tol "
+         f"{TRAIN_TOL}); launches {counts}")
+    if not rel <= TRAIN_TOL or counts["flash_bwd_fused"] < 3:
+        raise AssertionError(f"gluon oracle failed: rel {rel}, launches "
+                             f"{counts}")
+
+
+def _lane_numbers(torch, dname, step_ms, B, L, flops_tok, prof):
+    med = statistics.median(step_ms[2:])
+    sps = B / (med / 1e3)
+    return {"step_ms": med, "samples_per_s": sps,
+            "mfu": sps * L * flops_tok / PEAK_FLOPS[dname],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "idle_share": max(0.0, 1 - prof["device_ms"] / prof["wall_ms"])}
+
+
+def gluon_phase(torch, fa, mx, args, smi):
+    """The Gluon loop over bert_12_768_12 (vocab 30522, batch 32, seq 512,
+    dropout 0) on the card: (a) the oracle above; (b) f32 (MXNet's default
+    dtype): initialize(Normal(0.02), ctx=gpu), hybridize, Trainer("adam",
+    lr 1e-4), 8 steps on one batch; then the same weights and batch through
+    parallel.TrainStep (losses agree to TRAIN_TOL), and 3 steps of the
+    imperative NDArray path (no hybridize; losses agree with the first 3);
+    (c) bf16 via net.cast("bfloat16") and multi_precision Adam, 8 steps,
+    then TrainStep the same.  Each Gluon step must launch 12 flash_fwd and
+    12 fused backward kernels of the lane's dtype and route and no dq or
+    dkv; losses finite and falling.  Prints step ms, samples/s, MFU, peak
+    memory and profiled idle share of the Gluon loop beside TrainStep's."""
+    tmx = mx["pkg"]
+    gluon_oracle(torch, fa, tmx)
+    bert = tmx.gluon.model_zoo.bert
+    layers, units, B, L, vocab, steps = 12, 768, 32, 512, 30522, 8
+    gc.collect()
+    torch.cuda.empty_cache()
+    gpu = tmx.gpu()
+    net = bert.BERTModel(vocab_size=vocab, num_layers=layers, units=units,
+                         hidden_size=3072, num_heads=12, max_length=L,
+                         dropout=0.0, prefix="bert_")
+    tmx.random.seed(args.seed)
+    net.initialize(tmx.init.Normal(0.02), ctx=gpu)
+    params = net.collect_params()
+    start = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    n_matmul = sum(p.numel() for n, p in net.named_parameters()
+                   if "word_embed" not in n and "position" not in n)
+    flops_tok = 6 * n_matmul + 12 * layers * units * L
+    rng = np.random.RandomState(args.seed)
+    toks = rng.randint(0, vocab, (B, L))
+    labs = rng.randint(0, vocab, (B, L))
+    loss_fn = _bert_loss(mx["nn"])
+    inputs, labels = _gluon_inputs(tmx, gpu, toks, labs)
+    results, gluon_counts = {}, {}
+
+    def restart():
+        """The start weights again; no gradient left from the last run."""
+        for k, p in params.items():
+            p.set_data(start[k])
+            p.data()._data.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    for dname, dtype in (("float32", torch.float32),
+                         ("bfloat16", torch.bfloat16)):
+        f32 = dname == "float32"
+        sfx = "_f32" if f32 else ""
+        lane = f"gluon_bert_seq512{sfx}"
+        restart()
+        net.hybridize()
+        if not f32:
+            net.cast("bfloat16")
+        if {p.data()._data.dtype for p in params.values()} != {dtype}:
+            raise AssertionError(f"{lane}: weights are not all {dname}")
+        trainer = tmx.gluon.Trainer(params, "adam", {
+            "learning_rate": 1e-4, "multi_precision": not f32})
+        _reset_counts(fa)
+        losses, step_ms = _gluon_steps(tmx, net, inputs, labels, steps,
+                                       trainer)
+        counts = _counts(fa)
+        gluon_counts[dname] = counts
+
+        prof = _profile_step(torch, lambda: _gluon_steps(
+            tmx, net, inputs, labels, 1, trainer), lane)
+        results[lane] = _lane_numbers(torch, dname, step_ms, B, L, flops_tok,
+                                      prof)
+        _log(f"lane {lane}: losses {[round(x, 5) for x in losses]}; step ms "
+             f"{[round(x, 1) for x in step_ms]}; launches over {steps} steps "
+             f"{counts}")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"{lane}: losses not finite and falling: "
+                                 f"{losses}")
+        want = {"flash_fwd": layers * steps, "flash_bwd_fused": layers * steps,
+                "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                "flash_fwd_f32": layers * steps if f32 else 0,
+                "flash_bwd_fused_f32": layers * steps if f32 else 0}
+        wide = sum(n for k, n in counts.items() if k.endswith("_wide_bf16"))
+        if any(counts[k] != n for k, n in want.items()) or wide:
+            raise AssertionError(f"{lane}: launches {counts}, want {want} "
+                                 f"and no wide bf16 launch")
+
+        # the same weights and batch through parallel.TrainStep
+        restart()
+        opt = mx["optimizer"].Adam(learning_rate=1e-4, multi_precision=not f32)
+        step = mx["parallel"].TrainStep(net, loss_fn, opt)
+        tt, tl = torch.tensor(toks, device="cuda"), \
+            torch.tensor(labs, device="cuda")
+        ts_losses, ts_ms = [], []
+        for _ in range(steps):
+            t = time.perf_counter()
+            ts_losses.append(step(tt, tl))
+            torch.cuda.synchronize()
+            ts_ms.append((time.perf_counter() - t) * 1e3)
+        ts_losses = [float(x) for x in ts_losses]
+        prof = _profile_step(torch, lambda: step(tt, tl), f"trainstep{sfx}")
+        results[f"trainstep_bert_seq512{sfx}"] = _lane_numbers(
+            torch, dname, ts_ms, B, L, flops_tok, prof)
+        rel = _rel(losses, ts_losses)
+        _log(f"lane {lane}: TrainStep on the same weights and batch, losses "
+             f"{[round(x, 5) for x in ts_losses]} rel {rel:.2e}")
+        if f32 and not rel <= TRAIN_TOL:
+            raise AssertionError(f"{lane}: Gluon loop and TrainStep disagree "
+                                 f"(rel {rel}, tol {TRAIN_TOL})")
+        step = opt = None
+        if f32:
+            # the imperative NDArray path: no hybridize
+            restart()
+            net.hybridize(active=False)
+            trainer = tmx.gluon.Trainer(params, "adam",
+                                        {"learning_rate": 1e-4})
+            _reset_counts(fa)
+            imp, _ = _gluon_steps(tmx, net, inputs, labels, 3, trainer)
+            counts = _counts(fa)
+            rel = _rel(imp, losses[:3])
+            _log(f"lane {lane}: imperative (not hybridized) losses "
+                 f"{[round(x, 5) for x in imp]} rel {rel:.2e}; launches "
+                 f"{counts}")
+            if not rel <= TRAIN_TOL or counts["flash_bwd_fused_f32"] != 36:
+                raise AssertionError(f"{lane}: imperative path: rel {rel}, "
+                                     f"launches {counts}")
+        trainer = None
+    for lane, r in results.items():
+        _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
+             f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "
+             f"{r['peak_gib']:.2f} GiB, idle share {r['idle_share']:.3f} "
+             f"({smi})")
+    return gluon_counts, results
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -889,6 +1122,7 @@ def main(argv=None):
         from mxnet_tpu_torch.kernels import _build
         from mxnet_tpu_torch.kernels import flash_attention as fa
         from mxnet_tpu_torch.gluon.model_zoo import bert, llama
+        import mxnet_tpu_torch
         from mxnet_tpu_torch import optimizer, parallel, serving
         from mxnet_tpu_torch.ops import nn as ops_nn
     except ImportError as e:
@@ -896,7 +1130,7 @@ def main(argv=None):
               file=sys.stderr)
         return 3
     mx = {"bert": bert, "llama": llama, "optimizer": optimizer,
-          "parallel": parallel, "nn": ops_nn}
+          "parallel": parallel, "nn": ops_nn, "pkg": mxnet_tpu_torch}
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -928,6 +1162,7 @@ def main(argv=None):
     _phase("train oracle", train_oracle_phase, torch, fa, mx)
     train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
                                    fa, mx, args)
+    gluon_counts, _ = _phase("gluon", gluon_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -948,6 +1183,8 @@ def main(argv=None):
         # f32 launches counted by the wrapper in serving and the lanes
         "f32_launches": serve_counts["flash_fwd_f32"]
         + train_launches["flash_fwd_f32"],
+        # the Gluon loop's timed steps, f32 and bf16 lanes
+        "gluon_launches": sum(c["flash_fwd"] for c in gluon_counts.values()),
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -1004,6 +1241,9 @@ def main(argv=None):
                 "library_events_ms": t[pre + "library_events_ms"],
                 "library_kernels": t[pre + "library_kernels"],
             })
+            if kind_ == "fused":
+                kernels[-1]["gluon_launches"] = \
+                    gluon_counts[dname]["flash_bwd_fused"]
     for lane, r in lanes.items():
         _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
              f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "

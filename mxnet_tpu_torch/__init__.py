@@ -13,10 +13,18 @@ training path: ``parallel.TrainStep`` with MXNet's Adam
 (``optimizer``), the BERT zoo model and the trainable llama, with
 ``flash_attention`` a ``torch.autograd.Function`` whose backward runs the
 hand-written fused, dq and dkv kernels (``kernels/csrc/flash_bwd.cu``).
+Slice 8 ports MXNet's imperative surface: ``mx.nd`` (NDArray over
+``torch.Tensor``, ops generated from ``ops.registry``), ``mx.autograd``
+over torch autograd, and ``mx.gluon`` (Parameter, Block/HybridBlock over
+``torch.nn.Module``, ``nn``, ``loss``, ``Trainer``), with the zoo BERT a
+Gluon HybridBlock.
 
-Entry points run on the CUDA card by default; pass ``device="cpu"`` to run
-on the host (the CPU tests do).  float32 matmuls run in full float32
-(TF32 off), mirroring the reference's "highest" matmul precision.
+Entry points run on the CUDA card by default: the default context is
+``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
+use ``with mx.cpu():`` or ``device="cpu"`` to run on the host (the CPU
+tests do); with no card, asking for the default raises ``MXNetError``.
+float32 matmuls run in full float32 (TF32 off), mirroring the reference's
+"highest" matmul precision.
 """
 
 import torch as _torch
@@ -30,5 +38,12 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from . import config  # noqa: E402,F401
 from .base import MXNetError  # noqa: E402,F401
-from .context import cpu, gpu, resolve_device  # noqa: E402,F401
-from . import initializer, optimizer, parallel  # noqa: E402,F401
+from .context import (Context, cpu, current_context, gpu,  # noqa: E402,F401
+                      resolve_device)
+from . import random  # noqa: E402,F401
+from . import ndarray  # noqa: E402,F401
+from . import ndarray as nd  # noqa: E402,F401
+from . import autograd  # noqa: E402,F401
+from . import initializer  # noqa: E402,F401
+from . import initializer as init  # noqa: E402,F401
+from . import optimizer, gluon, parallel  # noqa: E402,F401

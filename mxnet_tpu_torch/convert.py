@@ -1,8 +1,11 @@
 """Carries weights of a ``mxnet_tpu`` zoo model across to the port.
 
-The reference exports a Gluon net as ``{name: p.data().asnumpy()}`` (over
-``net.collect_params()``); this module maps those names onto the port's
-``nn.Module`` parameters.  For a llama built with ``prefix="llm_"``::
+The reference exports a Gluon net as ``{name: p.data().asnumpy()}`` over
+``net.collect_params()``.  The port's Gluon BERT is a Block with the
+reference's prefixes, so :func:`bert_from_gluon` loads by those names over
+its own ``collect_params()``.  The llama is a ``torch.nn`` module, so
+:func:`llama_from_gluon` maps the names of one built with ``prefix="llm_"``
+onto its parameters::
 
     llm_tok_weight                          -> embed.weight
     llm_layer{i}_{q,k,v,o}_weight           -> blocks.{i}.{q,k,v,o}_proj.weight
@@ -11,20 +14,9 @@ The reference exports a Gluon net as ``{name: p.data().asnumpy()}`` (over
     llm_final_norm_weight                   -> norm.weight
     llm_lm_head_weight                      -> lm_head.weight
 
-and for a BERT built with ``prefix="bert_"``::
-
-    bert_word_weight                        -> word_embed.weight
-    bert_position_weight                    -> position_weight
-    bert_embln_{gamma,beta}                 -> embed_norm.{gamma,beta}
-    bert_enc_layer{i}_{attn_qkv,attn_proj}_{weight,bias}
-        -> encoder.cells.{i}.{attn_qkv,attn_proj}.{weight,bias}
-    bert_enc_layer{i}_ffn{1,2}_{weight,bias}
-        -> encoder.cells.{i}.ffn_{1,2}.{weight,bias}
-    bert_enc_layer{i}_ln{1,2}_{gamma,beta}
-        -> encoder.cells.{i}.layer_norm_{att,ffn}.{gamma,beta}
-    bert_{pooler,decoder}_{weight,bias}     -> {pooler,decoder}.{weight,bias}
-
-Dense weights are (out, in) on both sides, so nothing is transposed.
+Either way every expected name must be present with the expected shape,
+and no other name may be left over.  Dense weights are (out, in) on both
+sides, so nothing is transposed.
 """
 
 from __future__ import annotations
@@ -32,8 +24,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from . import initializer
 from .base import MXNetError
-from .context import resolve_device
+from .context import context_of, resolve_device
 from .gluon.model_zoo import bert as _bert
 from .gluon.model_zoo.llama import LLAMA_CONFIGS, _build
 
@@ -54,24 +47,28 @@ def _param_names(prefix, num_layers):
     return names
 
 
-def _load(model, params, names, what):
-    """Copy ``params`` (Gluon name -> numpy) into ``model`` by ``names``
-    (Gluon name -> port name): every expected name present with the
-    expected shape, and no other name left over."""
-    extra = sorted(set(params) - set(names))
-    missing = sorted(set(names) - set(params))
+def _check_names(params, shapes, what):
+    """Every name of ``shapes`` (name -> shape) in ``params`` (name ->
+    numpy) with that shape, and no other."""
+    extra = sorted(set(params) - set(shapes))
+    missing = sorted(set(shapes) - set(params))
     if extra or missing:
         raise MXNetError(f"{what}: missing {missing}, unexpected {extra}")
+    for name, shape in shapes.items():
+        if tuple(np.shape(params[name])) != tuple(shape):
+            raise MXNetError(f"{name}: shape {np.shape(params[name])} != "
+                             f"{tuple(shape)}")
+
+
+def _load(model, params, names, what):
+    """Copy ``params`` (Gluon name -> numpy) into ``model`` by ``names``
+    (Gluon name -> port name)."""
     own = dict(model.named_parameters())
+    _check_names(params, {g: own[t].shape for g, t in names.items()}, what)
     with torch.no_grad():
         for gname, tname in names.items():
-            src = np.asarray(params[gname], dtype=np.float32)
-            dst = own[tname]
-            if tuple(src.shape) != tuple(dst.shape):
-                raise MXNetError(
-                    f"{gname}: shape {src.shape} != {tname} "
-                    f"{tuple(dst.shape)}")
-            dst.copy_(torch.tensor(src))
+            own[tname].copy_(torch.tensor(np.asarray(params[gname],
+                                                     np.float32)))
     return model
 
 
@@ -98,39 +95,27 @@ def llama_from_gluon(params, prefix="llm_", config="llama_tiny", device=None,
                  "llama_from_gluon")
 
 
-def _bert_names(prefix, num_layers):
-    """Gluon name -> port parameter name for a BERT of ``num_layers``."""
-    names = {f"{prefix}word_weight": "word_embed.weight",
-             f"{prefix}position_weight": "position_weight",
-             f"{prefix}embln_gamma": "embed_norm.gamma",
-             f"{prefix}embln_beta": "embed_norm.beta"}
-    for part in ("pooler", "decoder"):
-        for w in ("weight", "bias"):
-            names[f"{prefix}{part}_{w}"] = f"{part}.{w}"
-    for i in range(num_layers):
-        g, t = f"{prefix}enc_layer{i}_", f"encoder.cells.{i}."
-        for gp, tp in (("attn_qkv", "attn_qkv"), ("attn_proj", "attn_proj"),
-                       ("ffn1", "ffn_1"), ("ffn2", "ffn_2")):
-            for w in ("weight", "bias"):
-                names[f"{g}{gp}_{w}"] = f"{t}{tp}.{w}"
-        for gp, tp in (("ln1", "layer_norm_att"), ("ln2", "layer_norm_ffn")):
-            for w in ("gamma", "beta"):
-                names[f"{g}{gp}_{w}"] = f"{t}{tp}.{w}"
-    return names
-
-
 def bert_from_gluon(params, prefix="bert_", config="bert_3_128_2",
                     device=None, dtype=torch.float32):
-    """Build the port's ``BERTModel`` for zoo ``config`` (dropout 0)
-    holding the reference net's weights ``params`` (name -> numpy array),
-    as strictly as :func:`llama_from_gluon`."""
+    """Build the port's Gluon ``BERTModel`` for zoo ``config`` (dropout 0,
+    names under ``prefix``) holding the reference net's weights ``params``
+    (name -> numpy array), loaded by name over ``collect_params()``."""
     if config not in _bert.BERT_CONFIGS:
         raise MXNetError(f"unknown BERT config {config!r}; options "
                          f"{sorted(_bert.BERT_CONFIGS)}")
     word = _required(params, f"{prefix}word_weight")
     pos = _required(params, f"{prefix}position_weight")
-    model = _bert._build(config, int(word.shape[0]), int(pos.shape[0]), 0.0,
-                         None, resolve_device(device), dtype)
-    return _load(model, params,
-                 _bert_names(prefix, _bert.BERT_CONFIGS[config][0]),
+    L, U, H, A = _bert.BERT_CONFIGS[config]
+    net = _bert.BERTModel(vocab_size=int(word.shape[0]), num_layers=L,
+                          units=U, hidden_size=H, num_heads=A,
+                          max_length=int(pos.shape[0]), dropout=0.0,
+                          prefix=prefix)
+    net.initialize(initializer.Zero(), ctx=context_of(resolve_device(device)))
+    own = net.collect_params()
+    _check_names(params, {k: p.shape for k, p in own.items()},
                  "bert_from_gluon")
+    for name, p in own.items():
+        p.set_data(np.asarray(params[name], np.float32))
+    if dtype != torch.float32:
+        net.cast(dtype)
+    return net

@@ -1,0 +1,298 @@
+"""gluon.Block / HybridBlock over ``torch.nn.Module`` — the port of
+``mxnet_tpu/gluon/block.py``.
+
+A Block is a ``torch.nn.Module``: a child Block assigned as an attribute
+or passed to ``register_child`` is also a torch submodule, and a
+Parameter assigned as an attribute has its ``nn.Parameter`` registered
+under that attribute's name once it has a value (``gluon/parameter.py``),
+so ``net.parameters()``, ``.to()``, forward hooks and ``apply`` are
+torch's.  Names follow the reference letter for letter: the thread-local
+prefix counters and ``name_scope`` of ``_BlockScope`` give
+``collect_params()`` the reference's keys, by which weights are carried
+across (``convert.py``).
+
+``HybridBlock.forward`` takes one of three paths:
+
+- NDArrays, not hybridized: ``hybrid_forward(mx.nd, ...)``, every op an
+  NDArray op through the registry, taped under ``autograd.record()``;
+- NDArrays, hybridized: the inputs are unwrapped once and the whole
+  subtree runs ``hybrid_forward`` on tensors with ``F`` the registered
+  ops' tensor callables (``ops.registry.tensor_ops``), with torch's grad
+  mode on exactly when MXNet records; the outputs are wrapped once.  This
+  is the role of the reference's CachedOp (one ``jax.jit``) without a
+  capture: no per-op NDArray wrapping, registry lookup or tape check;
+- tensors (``parallel.TrainStep``, or a hybridized parent): the tensor
+  path, under torch's current grad mode.
+
+``export`` and ``SymbolBlock`` need ``symbol/`` and are not ported yet.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+
+import torch
+
+from .. import autograd
+from .. import ndarray as nd
+from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
+from ..ops.registry import tensor_ops
+from .parameter import (DeferredInitializationError, Parameter,
+                        ParameterDict)
+
+__all__ = ["Block", "HybridBlock", "SymbolBlock"]
+
+_naming = threading.local()
+
+
+def _prefix_counter(hint):
+    if not hasattr(_naming, "counts"):
+        _naming.counts = {}
+    n = _naming.counts.get(hint, 0)
+    _naming.counts[hint] = n + 1
+    return f"{hint}{n}_"
+
+
+class _BlockScope:
+    """Name scope machinery (the reference's ``_BlockScope``)."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = _prefix_counter(hint)
+            params = ParameterDict(prefix) if params is None \
+                else ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            current._counter[hint] = count + 1
+            prefix = f"{hint}{count}_"
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        return self
+
+    def __exit__(self, *exc):
+        if not self._block._empty_prefix:
+            _BlockScope._current.value = self._old
+        return False
+
+
+class Block(torch.nn.Module):
+    def __init__(self, prefix=None, params=None):
+        super().__init__()
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(prefix, params,
+                                                        self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = {}
+        self._reg_params = {}
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def collect_params(self, select=None):
+        """This block's and its children's parameters by full name, those
+        matching the regex ``select`` when given."""
+        ret = ParameterDict(self._params.prefix)
+        if select is None:
+            ret.update(self.params)
+        else:
+            pat = re.compile(select)
+            ret.update({k: v for k, v in self.params.items()
+                        if pat.match(k)})
+        for child in self._children.values():
+            ret.update(child.collect_params(select=select))
+        return ret
+
+    def __setattr__(self, name, value):
+        if isinstance(value, Block):
+            children = self.__dict__.get("_children")
+            if children is not None:
+                children[name] = value
+        elif isinstance(value, Parameter):
+            reg = self.__dict__.get("_reg_params")
+            if reg is not None:
+                reg[name] = value
+                value._add_owner(self, name)
+        super().__setattr__(name, value)
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+        self._modules[name] = block
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False):
+        self.collect_params().initialize(init=init, ctx=ctx, verbose=verbose,
+                                         force_reinit=force_reinit)
+
+    def hybridize(self, active=True, **kwargs):
+        for child in self._children.values():
+            child.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        for child in self._children.values():
+            child.cast(dtype)
+        for p in self.params.values():
+            p.cast(dtype)
+
+    def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
+        raise MXNetError("Block.save_parameters is not yet ported to "
+                         "mxnet_tpu_torch")
+
+    def load_parameters(self, filename, *args, **kwargs):  # noqa: ARG002
+        raise MXNetError("Block.load_parameters is not yet ported to "
+                         "mxnet_tpu_torch")
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def forward(self, *args, **kwargs):
+        raise NotImplementedError
+
+    def __repr__(self):
+        lines = []
+        for name, child in self._children.items():
+            child_repr = repr(child).replace("\n", "\n  ")
+            lines.append(f"  ({name}): {child_repr}")
+        body = "\n".join(lines)
+        return f"{type(self).__name__}(\n{body}\n)" if body \
+            else f"{type(self).__name__}()"
+
+
+def _unwrap(x):
+    return x._data if isinstance(x, NDArray) else x
+
+
+def _wrap(out):
+    if isinstance(out, torch.Tensor):
+        return NDArray(out)
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap(o) for o in out)
+    return out
+
+
+class HybridBlock(Block):
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+        self._all_params = None
+
+    def hybridize(self, active=True, static_alloc=False, static_shape=False,
+                  **kwargs):
+        """Run this block's subtree on tensors (see the module docstring);
+        ``static_alloc``/``static_shape`` are accepted and have no effect
+        (nothing is captured)."""
+        self._active = active
+        self._all_params = None
+        super().hybridize(active, static_alloc=static_alloc,
+                          static_shape=static_shape, **kwargs)
+
+    def infer_param_shapes(self, args):
+        """Layer-specific deferred-shape rule; layers with deferred
+        parameters override it (Dense, LayerNorm)."""
+        pending = [p.name for p in self._reg_params.values()
+                   if p._data is None and p._deferred_init is not None]
+        if pending:
+            raise DeferredInitializationError(
+                f"{type(self).__name__} cannot infer shapes for deferred "
+                f"parameters {pending}; initialize them explicitly")
+
+    def _params_for(self, args):
+        """The registered parameters' values (NDArrays), finishing any
+        deferred initialization from the inputs' shapes first."""
+        pending = [p for p in self._reg_params.values()
+                   if p._data is None and p._deferred_init is not None]
+        if pending:
+            self.infer_param_shapes(args)
+            for p in pending:
+                p._finish_deferred_init()
+        return {name: p.data() for name, p in self._reg_params.items()}
+
+    def _forward_tensors(self, args, kwargs):
+        params = {}
+        for name, p in self._reg_params.items():
+            if p._data is None:     # deferred, or an error to raise
+                params = {k: v._data
+                          for k, v in self._params_for(args).items()}
+                break
+            params[name] = p._data._data
+        return self.hybrid_forward(tensor_ops, *args, **params, **kwargs)
+
+    def forward(self, *args, **kwargs):
+        for a in args:
+            if isinstance(a, NDArray):
+                break
+        else:
+            return self._forward_tensors(args, kwargs)
+        if not self._active:
+            return self.hybrid_forward(nd, *args, **self._params_for(args),
+                                       **kwargs)
+        recording = autograd.is_recording()
+        with torch.set_grad_enabled(recording):
+            out = self._forward_tensors(
+                [_unwrap(a) for a in args],
+                {k: _unwrap(v) for k, v in kwargs.items()})
+        if recording:
+            if self._all_params is None:
+                self._all_params = list(self.collect_params().values())
+            autograd._note_inputs([p._data for p in self._all_params
+                                   if p._data is not None])
+        return _wrap(out)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+    def export(self, path, epoch=0):  # noqa: ARG002
+        raise MXNetError("HybridBlock.export needs symbol/, which is not "
+                         "yet ported to mxnet_tpu_torch")
+
+
+class SymbolBlock(HybridBlock):
+    def __init__(self, *args, **kwargs):  # noqa: ARG002
+        raise MXNetError("SymbolBlock needs symbol/, which is not yet "
+                         "ported to mxnet_tpu_torch")
+
+    @classmethod
+    def imports(cls, *args, **kwargs):  # noqa: ARG003
+        raise MXNetError("SymbolBlock.imports needs symbol/, which is not "
+                         "yet ported to mxnet_tpu_torch")

@@ -1,1 +1,2 @@
-"""Model zoo of the port: the llama family so far."""
+"""Model zoo of the port: the Gluon BERT (``bert``) and the llama family
+(``llama``, ``torch.nn`` modules so far)."""

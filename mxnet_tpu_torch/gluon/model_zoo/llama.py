@@ -171,7 +171,8 @@ def llama_model(name="llama_tiny", vocab_size=32000, device=None,
                 dtype=torch.float32, generator=None, init_std=0.02):
     """A zoo llama with random weights: Normal(0, ``init_std``) matrices
     from ``generator`` (seeded by the caller; it must live on ``device``).
-    ``device=None`` is the CUDA card."""
+    ``device=None`` is the current context's device (the CUDA card unless
+    ``with mx.cpu():``)."""
     model = _build(name, vocab_size, resolve_device(device), dtype)
     model.init_weights(generator, init_std)
     return model

@@ -1,1 +1,5 @@
-"""Operators of the port (the attention core of ``ops.contrib`` so far)."""
+"""Operators of the port, registered under the reference's names
+(``ops/registry.py``); importing the package registers them all."""
+
+from . import registry  # noqa: F401
+from . import elemwise, reduce, matrix, nn, contrib  # noqa: F401

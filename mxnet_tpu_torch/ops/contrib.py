@@ -8,7 +8,9 @@ as the reference does on an accelerator; shorter sequences take the dense
 fp32-softmax path.  Both carry gradients: flash through its autograd
 Function (the backward kernels on the card), dense through torch autograd.
 There is no compile probe: on the card the kernels build and launch or the
-call raises.
+call raises.  ``masked_selfatt`` and ``masked_att_qkv`` are registered as
+``contrib.masked_selfatt`` and ``contrib.masked_att_qkv``, the names Gluon
+blocks call them by (``F.contrib.masked_selfatt``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from .. import config
 from ..kernels.flash_attention import (flash_attention,
                                        flash_attention_reference)
+from .registry import register
 
 __all__ = ["masked_selfatt", "masked_att_qkv"]
 
@@ -79,6 +82,7 @@ def _attend(q, k, v, valid_length, causal, flash_reference=False):
     return _dense_sdpa(q, k, v, seg, causal, scale)
 
 
+@register("contrib.masked_selfatt")
 def masked_selfatt(qkv, valid_length=None, heads=1, causal=False):
     """Fused masked multi-head self-attention over the interleaved
     (L, B, 3 heads D) ``qkv``; ``valid_length`` (B,) masks positions >=
@@ -89,6 +93,7 @@ def masked_selfatt(qkv, valid_length=None, heads=1, causal=False):
     return out.permute(2, 0, 1, 3).reshape(L, B, E // 3)
 
 
+@register("contrib.masked_att_qkv")
 def masked_att_qkv(q, k, v, valid_length=None, num_kv_groups=1,
                    causal=False):
     """Masked attention over separate (B, H, L, D) q/k/v.  k/v may carry

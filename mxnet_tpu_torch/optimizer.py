@@ -1,6 +1,6 @@
 """Optimizers — the port of ``mxnet_tpu/optimizer.py`` (``Optimizer``,
-``Adam``, ``create``) with the update math of
-``mxnet_tpu/ops/optimizer_ops.py::adam_update``.
+``SGD``, ``Adam``, ``create``) with the update math of
+``mxnet_tpu/ops/optimizer_ops.py::{sgd,sgd_mom,adam}_update``.
 
 MXNet's Adam is not ``torch.optim.Adam``: the bias correction folds into
 the learning rate, lr_t = lr * sqrt(1 - beta2^t) / (1 - beta1^t), and
@@ -9,6 +9,11 @@ epsilon is added to sqrt(v) of the uncorrected second moment:
     g = clip(rescale_grad * grad, +-clip_gradient) + wd * w
     m = beta1 m + (1 - beta1) g;  v = beta2 v + (1 - beta2) g^2
     w = w - lr_t m / (sqrt(v) + epsilon)
+
+MXNet's SGD, with momentum m (state) when ``momentum`` > 0:
+
+    g = clip(rescale_grad * grad, +-clip_gradient) + wd * w
+    m = momentum m - lr g;  w = w + m        (w = w - lr g without momentum)
 
 With ``multi_precision`` a bf16/fp16 weight keeps an f32 master copy and
 f32 m, v; the gradient is cast to f32 and after the update the weight is
@@ -26,7 +31,7 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Optimizer", "Adam", "create", "register"]
+__all__ = ["Optimizer", "SGD", "Adam", "create", "register"]
 
 _REGISTRY = {}
 
@@ -48,8 +53,8 @@ def create(name, **kwargs):
 
 
 class Optimizer:
-    """Base optimizer: learning rate with per-parameter multipliers (by
-    index), weight decay, gradient rescaling and clipping, update counts
+    """Base optimizer: learning rate and weight decay with per-parameter
+    multipliers (by index), gradient rescaling and clipping, update counts
     and multi-precision state."""
 
     def __init__(self, rescale_grad=1.0, wd=0.0, clip_gradient=None,
@@ -63,9 +68,20 @@ class Optimizer:
         self._index_update_count = {}
         self.multi_precision = multi_precision
         self.lr_mult = {}
+        self.wd_mult = {}
+
+    @property
+    def learning_rate(self):
+        return self.lr
+
+    def set_learning_rate(self, lr):
+        self.lr = lr
 
     def set_lr_mult(self, args_lr_mult):
         self.lr_mult = dict(args_lr_mult)
+
+    def set_wd_mult(self, args_wd_mult):
+        self.wd_mult = dict(args_wd_mult)
 
     def _update_count(self, index):
         count = self._index_update_count.get(index, 0) + 1
@@ -74,6 +90,20 @@ class Optimizer:
 
     def _get_lr(self, index):
         return self.lr * self.lr_mult.get(index, 1.0)
+
+    def _get_wd(self, index):
+        return self.wd * self.wd_mult.get(index, 1.0)
+
+    def _prep(self, indices, weights, grads):
+        """clip(rescale_grad * grad) + wd * w, as new tensors."""
+        g = torch._foreach_mul(grads, self.rescale_grad)
+        if self.clip_gradient >= 0:
+            torch._foreach_clamp_min_(g, -self.clip_gradient)
+            torch._foreach_clamp_max_(g, self.clip_gradient)
+        wds = [self._get_wd(i) for i in indices]
+        if any(wds):
+            torch._foreach_add_(g, torch._foreach_mul(weights, wds))
+        return g
 
     @staticmethod
     def _is_half(dtype):
@@ -134,6 +164,27 @@ class Optimizer:
 
 
 @register
+class SGD(Optimizer):
+    def __init__(self, momentum=0.0, lazy_update=False,  # noqa: ARG002
+                 **kwargs):
+        super().__init__(**kwargs)
+        self.momentum = momentum
+
+    def create_state(self, index, weight):
+        return torch.zeros_like(weight) if self.momentum else None
+
+    def _step(self, indices, weights, grads, states):
+        g = self._prep(indices, weights, grads)
+        torch._foreach_mul_(g, [-self._get_lr(i) for i in indices])
+        if self.momentum:
+            torch._foreach_mul_(states, self.momentum)
+            torch._foreach_add_(states, g)
+            torch._foreach_add_(weights, states)
+        else:
+            torch._foreach_add_(weights, g)
+
+
+@register
 class Adam(Optimizer):
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-8, **kwargs):
@@ -152,12 +203,7 @@ class Adam(Optimizer):
                        / (1.0 - b1 ** t))
         ms = [s[0] for s in states]
         vs = [s[1] for s in states]
-        g = torch._foreach_mul(grads, self.rescale_grad)
-        if self.clip_gradient >= 0:
-            torch._foreach_clamp_min_(g, -self.clip_gradient)
-            torch._foreach_clamp_max_(g, self.clip_gradient)
-        if self.wd:
-            torch._foreach_add_(g, torch._foreach_mul(weights, self.wd))
+        g = self._prep(indices, weights, grads)
         torch._foreach_mul_(ms, b1)
         torch._foreach_add_(ms, g, alpha=1.0 - b1)
         torch._foreach_mul_(vs, b2)

@@ -7,14 +7,18 @@ body).
     loss = loss_fn(net(data), label)        # averaged if it has a shape
     loss.backward(); optimizer.update(every trainable parameter)
 
-with the net in training mode.  The reference traces this into one XLA
-program; the port runs it eagerly, with the optimizer's update as
-``torch._foreach_*`` math over all parameters at once.  As in the
-reference, every trainable parameter is updated each step, and one the
-loss does not reach gets a zero gradient.  ``run(stacked_data,
-stacked_label)`` takes the steps along the leading axis and returns their
-losses as one tensor without synchronising each step (the reference scans
-the steps in one program; the port loops).
+under ``autograd.train_mode()`` (MXNet's training flag, which Dropout
+reads).  ``net`` is a Gluon Block, whose trainable parameters are those of
+``collect_params()`` with ``grad_req != "null"``, as in the reference, and
+which runs on tensors (its hybridized path); or a plain ``torch.nn.Module``
+(the zoo llama), whose trainable parameters are those that require grad.
+The reference traces the step into one XLA program; the port runs it
+eagerly, with the optimizer's update as ``torch._foreach_*`` math over all
+parameters at once.  As in the reference, every trainable parameter is
+updated each step, and one the loss does not reach gets a zero gradient.
+``run(stacked_data, stacked_label)`` takes the steps along the leading
+axis and returns their losses as one tensor without synchronising each
+step (the reference scans the steps in one program; the port loops).
 
 Meshes, sharding rules, data layouts, microbatching, rematerialisation and
 autoshard plans are not ported: asking for one raises ``MXNetError``.
@@ -25,8 +29,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import optimizer as opt
+from . import autograd, optimizer as opt
 from .base import MXNetError
+from .gluon.block import Block
 
 __all__ = ["TrainStep"]
 
@@ -66,12 +71,18 @@ class TrainStep:
         self._params = None
         self._states = None
 
+    def _trainable(self):
+        if isinstance(self.net, Block):
+            return [p.data()._data for p in self.net.collect_params().values()
+                    if p.grad_req != "null"]
+        return [p for p in self.net.parameters() if p.requires_grad]
+
     @property
     def device(self):
-        return next(self.net.parameters()).device
+        return self._trainable()[0].device
 
     def _resolve(self):
-        self._params = [p for p in self.net.parameters() if p.requires_grad]
+        self._params = self._trainable()
         self._states = [self.optimizer.create_state_multi_precision(i, p)
                         for i, p in enumerate(self._params)]
 
@@ -84,10 +95,10 @@ class TrainStep:
         if self._params is None:
             self._resolve()
         data, label = self._as_tensor(data), self._as_tensor(label)
-        self.net.train()
         for p in self._params:
             p.grad = None
-        loss = self.loss_fn(self.net(data), label)
+        with autograd.train_mode():
+            loss = self.loss_fn(self.net(data), label)
         if loss.dim():
             loss = loss.mean()
         loss.backward()

@@ -1,5 +1,5 @@
-"""The port's BERT (``nn.Module``s) held against the JAX package's Gluon
-BERT on the same weights, carried across with ``convert.bert_from_gluon``.
+"""The port's Gluon BERT held against the JAX package's Gluon BERT on the
+same weights, carried across by name with ``convert.bert_from_gluon``.
 
 Outputs (sequence output, pooled, MLM logits) are compared in f32 at 2e-5
 absolute: they are O(1) and the two frameworks sum matmuls in another
@@ -15,6 +15,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import bert as jbert
 import torch
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
@@ -124,15 +125,20 @@ def test_masked_selfatt_splits_heads_interleaved():
 
 
 def test_dropout_is_seeded_and_off_in_eval():
+    """Dropout draws from the device's ``mx.random`` generator (the same
+    seed, the same masks) and is on only in MXNet's training mode."""
     net = tbert.bert_model("bert_3_128_2", vocab_size=50, max_length=64,
                            dropout=0.5, device="cpu",
-                           generator=torch.Generator().manual_seed(1),
-                           dropout_generator=torch.Generator().manual_seed(9))
+                           generator=torch.Generator().manual_seed(1))
     toks = torch.randint(0, 50, (2, 16), generator=torch.Generator()
                          .manual_seed(2))
-    net.eval()
     a, b = net(toks)[2], net(toks)[2]
     assert torch.equal(a, b)
-    net.train()
-    c = net(toks)[2]
+    with tmx.autograd.train_mode():
+        tmx.random.seed(9)
+        c = net(toks)[2]
+        tmx.random.seed(9)
+        d = net(toks)[2]
+        e = net(toks)[2]
     assert not torch.equal(a, c)
+    assert torch.equal(c, d) and not torch.equal(d, e)

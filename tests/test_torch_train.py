@@ -3,6 +3,10 @@ MXNet's Adam update, the first step's gradients, and ``TrainStep`` loss
 trajectories, on the same weights (carried across with ``convert``) and
 the same batches.
 
+The BERT is the port's Gluon Block (``TrainStep`` takes it through
+``collect_params()``; the padded case wraps it in a plain ``nn.Module``),
+the llama a ``torch.nn`` module.
+
 Tolerances: Adam weights 1e-6 relative (the same formula, other rounding
 of the folded scalars); gradients 1e-4 of each parameter's max |grad| (the
 two frameworks sum matmuls and softmax reductions in another order, and
@@ -72,12 +76,20 @@ def _torch_loss(out, labels):
         labels.reshape(-1)) / labels.numel()
 
 
+def _torch_names(port, gluon_params):
+    """Torch parameter name -> Gluon name, for a port model holding the
+    Gluon parameters ``gluon_params`` (name -> Parameter)."""
+    by_tensor = {id(p.data()._data): name
+                 for name, p in gluon_params.items()}
+    return {t: by_tensor[id(p)] for t, p in port.named_parameters()}
+
+
 def _build(case, seed=3):
     """(JAX net, port net, port name -> Gluon name) on the same weights."""
     if case.startswith("bert"):
         net = jbert.bert_model("bert_3_128_2", vocab_size=VOCAB["bert"],
                                max_length=L, dropout=0.0, prefix="bert_")
-        names = convert._bert_names("bert_", 3)
+        names = None
     else:
         net = jllama.llama_model("llama_tiny", vocab_size=VOCAB["llama"],
                                  prefix="llm_")
@@ -98,12 +110,14 @@ def _build(case, seed=3):
     if case.startswith("bert"):
         port = convert.bert_from_gluon(params, "bert_", "bert_3_128_2",
                                        device="cpu")
+        gluon_params = port.collect_params()
     else:
         port = convert.llama_from_gluon(params, "llm_", "llama_tiny",
                                         device="cpu")
     if case == "bert_padded":
         net, port = _WithLength(net, VALID), _TorchWithLength(port, VALID)
-        names = {g: f"inner.{t}" for g, t in names.items()}
+    if names is None:
+        return net, port, _torch_names(port, gluon_params)
     return net, port, {t: g for g, t in names.items()}
 
 
