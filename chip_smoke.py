@@ -69,7 +69,20 @@ result line; each prints its seconds):
     Adam, 8 steps, then ``TrainStep`` the same; every Gluon step launches
     12 forward and 12 fused-backward kernels of its dtype's route; median
     step ms, samples/s, MFU, peak memory and profiled idle share of the
-    Gluon loop beside ``TrainStep``'s.
+    Gluon loop beside ``TrainStep``'s;
+10. vision — the convolution, pooling, BatchNorm and pad ops card vs CPU,
+    a small bottleneck ResNet (7x7 stem, max-pool) card vs CPU on the
+    same weights carried by name (predict outputs, one SGD step, the
+    running statistics), then bench.py's ResNet-50 lane: resnet50_v1
+    (classes 1000, Xavier, hybridized) at batch 64, 224x224, 8 SGD
+    momentum steps on one batch through the Gluon loop and through
+    ``TrainStep``, in f32 and after ``net.cast("bfloat16")`` (BatchNorm
+    kept f32, multi-precision SGD); 2 imperative steps; the two paths
+    agreeing under deterministic cuDNN; ``save_parameters`` /
+    ``load_parameters`` into a fresh net bit-identical in npz and dmlc
+    (and bf16 in npz); no flash launch, no TF32 kernel in f32; step ms,
+    images/s, FLOPs per step (counted from the layers), MFU, peak memory,
+    idle share and device time by kernel family.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -78,7 +91,8 @@ bf16), and each backward entry point twice, bf16 (``flash_bwd_*``, the
 tensor-core kernels, launches of the bf16 lanes) and f32
 (``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes),
 the fused ones with the Gluon loop's launches in its dtype
-(``gluon_launches``);
+(``gluon_launches``), every entry with the vision phase's launches
+(``vision_launches``, 0: ResNet-50 has no attention);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -102,6 +116,11 @@ values an ulp apart round differently).  Prefill logits kernel vs plain:
 1e-3.  Train oracle: per-step losses 1e-4 relative (f32, 3 Adam steps);
 the same for the Gluon oracle, the Gluon loop against ``TrainStep`` (f32,
 8 steps) and the imperative against the hybridized loop (f32, 3 steps).
+Vision: each op card vs CPU 1e-5 of max |ref| (f32 sums in another
+order; 6.2e-7 seen on an H100); the small ResNet's outputs, loss and
+statistics 1e-4 of max |ref|; the ResNet-50 Gluon loop against
+``TrainStep`` and the imperative steps TRAIN_TOL relative, under
+deterministic cuDNN (0 seen); checkpoints bit for bit.
 """
 
 from __future__ import annotations
@@ -109,10 +128,13 @@ from __future__ import annotations
 import argparse
 import gc
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -702,25 +724,38 @@ def _device_ms(torch, fn, iters=20):
             sorted({r[2][:100] for r in rows}))
 
 
-def _profile_step(torch, step_fn, label):
+# kernel families of a profiled step: the first family one of whose words
+# is in the kernel's name, else "other"
+_GEMM_WORDS = ("gemm", "xmma", "cutlass", "nvjet")
+FLASH_FAMILIES = (("flash_fwd", ("flash_fwd",)), ("flash_bwd", ("flash_bwd",)),
+                  ("gemm", _GEMM_WORDS))
+VISION_FAMILIES = (
+    ("convolution", ("conv", "fprop", "dgrad", "wgrad", "winograd",
+                     "implicit", "precomputed")),
+    ("batchnorm", ("batch_norm", "batchnorm", "bn_fw", "bn_bw")),
+    ("pooling", ("pool",)),
+    ("gemm", _GEMM_WORDS),
+    ("optimizer", ("foreach", "multi_tensor")))
+
+
+def _profile_step(torch, step_fn, label, families=FLASH_FAMILIES):
     """Device time of one step by kernel family (torch.profiler), against
     the step's wall time; prints the top kernels."""
     wall, rows = _profiled(torch, step_fn)
     total = sum(r[0] for r in rows)
-    fams = {"flash_fwd": 0.0, "flash_bwd": 0.0, "gemm": 0.0, "other": 0.0}
+    fams = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
     for ms, _, key in rows:
         k = key.lower()
-        fam = "flash_fwd" if "flash_fwd" in k else \
-            "flash_bwd" if "flash_bwd" in k else \
-            "gemm" if any(w in k for w in ("gemm", "xmma", "cutlass",
-                                           "nvjet")) else "other"
+        fam = next((f for f, words in families
+                    if any(w in k for w in words)), "other")
         fams[fam] += ms
     _log(f"profile {label}: one step wall {wall:.1f} ms, device busy "
          f"{total:.1f} ms (idle share {max(0.0, 1 - total / wall):.3f}); "
          + ", ".join(f"{k} {v:.1f} ms" for k, v in fams.items()))
     for ms, n, key in rows[:12]:
         _log(f"profile {label}:   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
-    return {"wall_ms": wall, "device_ms": total, "families": fams}
+    return {"wall_ms": wall, "device_ms": total, "families": fams,
+            "kernels": [r[2] for r in rows]}
 
 
 # bench.py's training lanes (:529-535) and the dtype each runs in; the f32
@@ -1081,6 +1116,406 @@ def gluon_phase(torch, fa, mx, args, smi):
     return gluon_counts, results
 
 
+VISION_BATCH, VISION_SIZE = 64, 224   # bench.py:545-547
+# bench.py:158-159 takes SGD lr 0.1, momentum 0.9 at batch 64 to time the
+# step; from Xavier weights that rate does not train: one 64-image batch's
+# loss went 7.82 -> 5.29 -> 9.66 over 8 steps on an H100.  The phase takes
+# the reference recipe's 0.1 per 256 images, scaled to the batch: 0.025
+VISION_SGD = {"learning_rate": 0.1 * VISION_BATCH / 256, "momentum": 0.9}
+VISION_OP_TOL = 1e-5    # card vs CPU per op, f32: max |err| / max |ref|
+VISION_NET_TOL = 1e-4   # card vs CPU small ResNet: outputs, loss, statistics
+
+
+def _rel_err(torch, got, ref):
+    """max |got - ref| / max |ref| over two tensors (any devices)."""
+    g, r = got.detach().double().cpu(), ref.detach().double().cpu()
+    return float((g - r).abs().max() / r.abs().max().clamp(min=1e-30))
+
+
+def _vision_op_cases(tmx, rng):
+    """(name, fn(ctx) -> list of NDArrays) for each op of the vision path,
+    at the small oracle ResNet's shapes."""
+    nd = tmx.nd
+
+    def arr(*shape, lo=None):
+        a = rng.uniform(lo, 1.5, shape) if lo is not None \
+            else rng.randn(*shape)
+        return a.astype(np.float32)
+
+    x, w7 = arr(4, 3, 64, 64), arr(16, 3, 7, 7) * 0.1
+    a16, w3 = arr(4, 16, 16, 16), arr(16, 16, 3, 3) * 0.1
+    a64, w1 = arr(4, 64, 16, 16), arr(128, 64, 1, 1) * 0.1
+    b128 = arr(128)
+    g, b = arr(64, lo=0.5), arr(64) * 0.1
+    mm, mv = arr(64) * 0.1, arr(64, lo=0.5)
+    top = arr(4, 512, 2, 2)
+
+    def bn(ctx, train):
+        stats = [nd.array(mm, ctx=ctx), nd.array(mv, ctx=ctx)]
+        mode = tmx.autograd.train_mode if train else \
+            tmx.autograd.predict_mode
+        with mode():
+            out = nd.BatchNorm(nd.array(a64, ctx=ctx), nd.array(g, ctx=ctx),
+                               nd.array(b, ctx=ctx), *stats, eps=1e-5,
+                               fix_gamma=False)
+        return [out] + stats
+
+    return [
+        ("Convolution 7x7/2 stem", lambda c: [nd.Convolution(
+            nd.array(x, ctx=c), nd.array(w7, ctx=c), kernel=(7, 7),
+            stride=(2, 2), pad=(3, 3), num_filter=16, no_bias=True)]),
+        ("Convolution 3x3", lambda c: [nd.Convolution(
+            nd.array(a16, ctx=c), nd.array(w3, ctx=c), kernel=(3, 3),
+            pad=(1, 1), num_filter=16, no_bias=True)]),
+        ("Convolution 1x1/2 bias", lambda c: [nd.Convolution(
+            nd.array(a64, ctx=c), nd.array(w1, ctx=c), nd.array(b128, ctx=c),
+            kernel=(1, 1), stride=(2, 2), num_filter=128)]),
+        ("Pooling max 3/2/1", lambda c: [nd.Pooling(
+            nd.array(a16, ctx=c), kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+            pool_type="max")]),
+        ("Pooling global avg", lambda c: [nd.Pooling(
+            nd.array(top, ctx=c), global_pool=True, pool_type="avg")]),
+        ("BatchNorm train (out, mean, var)", lambda c: bn(c, True)),
+        ("BatchNorm predict (out, mean, var)", lambda c: bn(c, False)),
+        ("pad reflect", lambda c: [nd.pad(
+            nd.array(a16, ctx=c), mode="reflect",
+            pad_width=(0, 0, 0, 0, 1, 1, 1, 1))]),
+    ]
+
+
+def _vision_sgd_step(tmx, net, x, y, trainer, B):
+    """One step of the ResNet loop: record, softmax cross-entropy of the
+    f32 logits over B (bench.py:149-151), backward, Trainer.step(1)."""
+    with tmx.autograd.record():
+        out = net(x)
+        loss = tmx.nd.softmax_cross_entropy(
+            out.astype("float32", copy=False), y) / B
+    loss.backward()
+    trainer.step(1)
+    return loss
+
+
+def vision_oracle(torch, tmx):
+    """(a) Every op of the vision path, then a small bottleneck ResNet with
+    the 7x7 stem and max-pool (ResNetV1(BottleneckV1, [1,1,1,1],
+    [16,64,128,256,512], classes=10), batch 4, 64x64) on the card and on
+    the CPU from the same weights carried by name: predict-mode outputs,
+    one hybridized Trainer SGD step's loss, the running statistics after
+    it, and the outputs after it."""
+    from mxnet_tpu_torch import convert
+    v = tmx.gluon.model_zoo.vision
+    rng = np.random.RandomState(31)
+    gpu, cpu = tmx.gpu(), tmx.cpu()
+    for name, fn in _vision_op_cases(tmx, rng):
+        card, host = fn(gpu), fn(cpu)
+        err = max(_rel_err(torch, c._data, h._data)
+                  for c, h in zip(card, host))
+        _log(f"oracle vision op {name}: card vs CPU {err:.2e} (tol "
+             f"{VISION_OP_TOL})")
+        if not err <= VISION_OP_TOL:
+            raise AssertionError(f"vision op {name}: {err}")
+
+    def build():
+        return v.ResNetV1(v.BottleneckV1, [1, 1, 1, 1],
+                          [16, 64, 128, 256, 512], classes=10,
+                          prefix="oracle_")
+
+    B = 4
+    x = rng.randn(B, 3, 64, 64).astype(np.float32)
+    y = rng.randint(0, 10, B).astype(np.float32)
+    host = build()
+    tmx.random.seed(32)
+    host.initialize(tmx.init.Xavier(), ctx=cpu)
+    with tmx.autograd.pause():
+        host(tmx.nd.array(x, ctx=cpu))
+    for k, p in host.collect_params().items():
+        if k.endswith("running_mean"):
+            p.set_data(rng.uniform(-0.1, 0.1, p.shape).astype(np.float32))
+        elif k.endswith("running_var"):
+            p.set_data(rng.uniform(0.5, 1.5, p.shape).astype(np.float32))
+    card = convert.load_by_name(
+        build(), {k: p.data().asnumpy()
+                  for k, p in host.collect_params().items()}, device="cuda")
+    res = {}
+    for ctx, net in ((gpu, card), (cpu, host)):
+        xs, ys = tmx.nd.array(x, ctx=ctx), tmx.nd.array(y, ctx=ctx)
+        with tmx.autograd.predict_mode():
+            before = net(xs)
+        net.hybridize()
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", {
+            "learning_rate": 0.1, "momentum": 0.9})
+        loss = _vision_sgd_step(tmx, net, xs, ys, trainer, B)
+        with tmx.autograd.predict_mode():
+            after = net(xs)
+        stats = [p.data()._data for k, p in net.collect_params().items()
+                 if "running" in k]
+        res[ctx] = (before._data, loss._data.detach(), after._data, stats)
+    errs = {"predict": _rel_err(torch, res[gpu][0], res[cpu][0]),
+            "loss": _rel_err(torch, res[gpu][1], res[cpu][1]),
+            "after step": _rel_err(torch, res[gpu][2], res[cpu][2]),
+            "statistics": max(_rel_err(torch, a, b) for a, b in
+                              zip(res[gpu][3], res[cpu][3]))}
+    _log(f"oracle vision small ResNetV1 bottleneck (batch {B}, 64x64): card "
+         f"vs CPU " + ", ".join(f"{k} {e:.2e}" for k, e in errs.items())
+         + f" (tol {VISION_NET_TOL}); loss {res[cpu][1].item():.5f}")
+    if not max(errs.values()) <= VISION_NET_TOL:
+        raise AssertionError(f"vision oracle: {errs}")
+
+
+def _net_flops(torch, tmx, net, x):
+    """Forward FLOPs of ``net`` on ``x`` from its own layers, counted by
+    forward hooks: 2 C_out (C_in / groups) k_h k_w H_out W_out per
+    convolution, 2 in out per Dense row.  This forward also resolves the
+    deferred shapes (predict mode: the statistics stay)."""
+    nn = tmx.gluon.nn
+    total = [0]
+
+    def conv(block, inputs, out):
+        c_out, c_in_g, kh, kw = block.weight.shape
+        total[0] += 2 * c_out * c_in_g * kh * kw * out.shape[0] \
+            * out.shape[2] * out.shape[3]
+
+    def dense(block, inputs, out):
+        total[0] += 2 * math.prod(block.weight.shape) * out.shape[0]
+
+    hooks = [m.register_forward_hook(conv if isinstance(m, nn.Conv2D)
+                                     else dense)
+             for m in net.modules() if isinstance(m, (nn.Conv2D, nn.Dense))]
+    with tmx.autograd.pause(), torch.no_grad():
+        net(x)
+    for h in hooks:
+        h.remove()
+    return total[0]
+
+
+def vision_phase(torch, fa, mx, args, smi):
+    """The reference's ResNet-50 lane (bench.py:126-193, :545-547) on the
+    card: (a) the oracle above; (b) f32: get_model("resnet50_v1",
+    classes=1000), initialize(Xavier(), ctx=gpu), hybridize(),
+    Trainer("sgd", VISION_SGD), softmax cross-entropy / B, 8 steps on one
+    batch of 64 images at 224x224 from --seed, then parallel.TrainStep
+    from the same weights, statistics and batch, both timed; both again
+    under cudnn.deterministic, losses agreeing to TRAIN_TOL, and 2
+    imperative steps (not hybridized) agreeing with the first 2; (d)
+    save_parameters in npz and in dmlc, load_parameters into a fresh
+    resnet50_v1 on the card: predict-mode outputs and every parameter
+    bit-identical; (c) bf16 by net.cast with multi-precision SGD, every
+    BatchNorm parameter still f32, the same runs, and a round trip of the
+    bf16 net through npz, bit-identical.  Losses finite and falling,
+    running statistics moved, no flash kernel launched; f32 runs no TF32
+    kernel.  Prints step ms, images/s, FLOPs per step, MFU, peak memory,
+    idle share and device time by kernel family per lane."""
+    tmx = mx["pkg"]
+    vision_oracle(torch, tmx)
+    v = tmx.gluon.model_zoo.vision
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts(fa)
+    gpu, B, size, classes, steps = tmx.gpu(), VISION_BATCH, VISION_SIZE, \
+        1000, 8
+    net = tmx.gluon.model_zoo.get_model("resnet50_v1", classes=classes)
+    tmx.random.seed(args.seed)
+    net.initialize(tmx.init.Xavier(), ctx=gpu)
+    rng = np.random.RandomState(args.seed)
+    x = rng.randn(B, 3, size, size).astype(np.float32)
+    y = rng.randint(0, classes, B).astype(np.float32)
+    flops_img = _net_flops(torch, tmx, net, tmx.nd.array(x[:1], ctx=gpu))
+    flops_step = 3 * B * flops_img
+    params = net.collect_params()
+    start = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    stats = [k for k in params.keys() if "running" in k]
+    ops_nn = mx["nn"]
+    results, counts = {}, {}
+    _log(f"vision resnet50_v1: {len(params)} parameters "
+         f"({sum(p.data()._data.numel() for p in params.values())} values), "
+         f"{flops_img / 1e9:.4f} GFLOP forward per image, "
+         f"{flops_step / 1e12:.4f} TFLOP per training step (3x forward, "
+         f"batch {B})")
+
+    def restart():
+        for k, p in params.items():
+            p.set_data(start[k])
+            p.data()._data.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def moved():
+        return all(not torch.equal(params[k].data()._data, start[k])
+                   for k in stats)
+
+    def numbers(dname, step_ms, prof):
+        med = statistics.median(step_ms[2:])
+        ips = B / (med / 1e3)
+        return {"step_ms": med, "images_per_s": ips,
+                "flops_per_step": flops_step,
+                "mfu": flops_step / (med / 1e3) / PEAK_FLOPS[dname],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                "idle_share": max(0.0, 1 - prof["device_ms"]
+                                  / prof["wall_ms"]),
+                "families": prof["families"]}
+
+    def gluon_run(dname, xs, ys, n):
+        trainer = tmx.gluon.Trainer(params, "sgd", dict(
+            VISION_SGD, multi_precision=dname == "bfloat16"))
+        losses, ms = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            losses.append(_vision_sgd_step(tmx, net, xs, ys, trainer, B))
+            tmx.nd.waitall()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return [float(l.asscalar()) for l in losses], ms, trainer
+
+    def check_falls(lane, losses):
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0] \
+                or not moved():
+            raise AssertionError(f"{lane}: losses {losses} not finite and "
+                                 f"falling, or statistics unmoved")
+
+    def check_no_tf32(lane, prof):
+        tf32 = [k for k in prof["kernels"] if "tf32" in k.lower()]
+        if tf32:
+            raise AssertionError(f"{lane}: TF32 kernels in an f32 step: "
+                                 f"{tf32[:3]}")
+
+    def trainstep_run(dname, tx, ty, n):
+        opt = mx["optimizer"].SGD(multi_precision=dname == "bfloat16",
+                                  **VISION_SGD)
+        step = mx["parallel"].TrainStep(
+            net, lambda out, lab: ops_nn.softmax_cross_entropy(
+                out.float(), lab) / B, opt)
+        losses, ms = [], []
+        for _ in range(n):
+            t = time.perf_counter()
+            losses.append(step(tx, ty))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+        return [float(x) for x in losses], ms, step
+
+    def lane_run(lane, dname, xs, ys):
+        """The timed Gluon loop and TrainStep with cuDNN's default
+        algorithms, as a user runs them; then both again, and 2 imperative
+        steps (f32), under cudnn.deterministic: cuDNN's default backward
+        algorithms sum in a run-dependent order, which 8 SGD steps of
+        ResNet-50 amplify from 4e-6 to 1e-2 of the loss."""
+        f32 = dname == "float32"
+        tx, ty = xs._data, ys._data
+        restart()
+        losses, ms, trainer = gluon_run(dname, xs, ys, steps)
+        check_falls(lane, losses)
+        prof = _profile_step(torch, lambda: _vision_sgd_step(
+            tmx, net, xs, ys, trainer, B), lane, VISION_FAMILIES)
+        results[lane] = numbers(dname, ms, prof)
+        _log(f"lane {lane}: Gluon loop losses "
+             f"{[round(l, 5) for l in losses]}; step ms "
+             f"{[round(t, 1) for t in ms]}")
+        trainer = None
+        restart()
+        ts_losses, ts_ms, step = trainstep_run(dname, tx, ty, steps)
+        check_falls(lane + " TrainStep", ts_losses)
+        ts_prof = _profile_step(torch, lambda: step(tx, ty),
+                                f"{lane}_trainstep", VISION_FAMILIES)
+        results[f"{lane}_trainstep"] = numbers(dname, ts_ms, ts_prof)
+        _log(f"lane {lane}: TrainStep losses "
+             f"{[round(l, 5) for l in ts_losses]}; step ms "
+             f"{[round(t, 1) for t in ts_ms]}")
+        step = None
+        if f32:
+            check_no_tf32(lane, prof)
+            check_no_tf32(lane + " TrainStep", ts_prof)
+        prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            restart()
+            want, _, _ = gluon_run(dname, xs, ys, steps)
+            restart()
+            got, _, _ = trainstep_run(dname, tx, ty, steps)
+            rel = _rel(got, want)
+            _log(f"lane {lane}: deterministic cuDNN, Gluon loop "
+                 f"{[round(l, 5) for l in want]}, TrainStep on the same "
+                 f"weights, statistics and batch rel {rel:.2e} (tol "
+                 f"{TRAIN_TOL})")
+            if not rel <= TRAIN_TOL:
+                raise AssertionError(f"{lane}: TrainStep and the Gluon loop "
+                                     f"disagree (rel {rel})")
+            if f32:
+                restart()
+                net.hybridize(active=False)
+                imp, _, _ = gluon_run(dname, xs, ys, 2)
+                net.hybridize()
+                rel = _rel(imp, want[:2])
+                _log(f"lane {lane}: imperative (not hybridized) losses "
+                     f"{[round(l, 5) for l in imp]} rel {rel:.2e} (tol "
+                     f"{TRAIN_TOL})")
+                if not rel <= TRAIN_TOL:
+                    raise AssertionError(f"{lane}: imperative path rel "
+                                         f"{rel}")
+        finally:
+            torch.backends.cudnn.deterministic = prev
+
+    def roundtrip(fmt, hybridized, dtype=None):
+        prev = os.environ.get("MXNET_PARAMS_FORMAT")
+        os.environ["MXNET_PARAMS_FORMAT"] = fmt
+        try:
+            with tempfile.TemporaryDirectory() as d:
+                path = os.path.join(d, f"resnet50_v1.{fmt}.params")
+                net.save_parameters(path)
+                fresh = v.resnet50_v1(classes=classes)
+                fresh.hybridize(hybridized)
+                if dtype:
+                    fresh.cast(dtype)
+                fresh.load_parameters(path, ctx=gpu)
+        finally:
+            if prev is None:
+                os.environ.pop("MXNET_PARAMS_FORMAT")
+            else:
+                os.environ["MXNET_PARAMS_FORMAT"] = prev
+        probe = xs if dtype is None else xs.astype(dtype)
+        with tmx.autograd.predict_mode():
+            a, b = net(probe)._data, fresh(probe)._data
+        same = torch.equal(a, b) and all(
+            p.data()._data.dtype == q.data()._data.dtype
+            and torch.equal(p.data()._data, q.data()._data)
+            for p, q in zip(params.values(),
+                            fresh.collect_params().values()))
+        _log(f"checkpoint resnet50_v1 {dtype or 'float32'} via {fmt}: "
+             f"{len(params)} parameters, predict-mode outputs and every "
+             f"parameter bit-identical: {same}")
+        if not same:
+            raise AssertionError(f"checkpoint via {fmt} not bit-identical")
+
+    xs, ys = tmx.nd.array(x, ctx=gpu), tmx.nd.array(y, ctx=gpu)
+    net.hybridize()
+    # (b) f32, then (d) its checkpoint in both formats
+    lane_run("vision_resnet50_f32", "float32", xs, ys)
+    roundtrip("npz", True)
+    roundtrip("dmlc", True)
+
+    # (c) bf16: cast (BatchNorm stays f32), multi-precision SGD
+    restart()
+    net.cast("bfloat16")
+    wrong = [k for k, p in params.items()
+             if p.data()._data.dtype != (torch.float32 if "batchnorm" in k
+                                         else torch.bfloat16)]
+    if wrong:
+        raise AssertionError(f"bf16 cast: dtypes of {wrong[:4]}")
+    lane_run("vision_resnet50_bf16", "bfloat16", xs.astype("bfloat16"), ys)
+    roundtrip("npz", True, "bfloat16")
+
+    counts = _counts(fa)
+    if any(counts.values()):
+        raise AssertionError(f"vision path launched flash kernels: {counts}")
+    for lane, r in results.items():
+        _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
+             f"{r['images_per_s']:.2f} images/s, "
+             f"{r['flops_per_step'] / 1e12:.4f} TFLOP/step, MFU "
+             f"{r['mfu']:.4f}, peak {r['peak_gib']:.2f} GiB, idle share "
+             f"{r['idle_share']:.3f}; device ms "
+             + ", ".join(f"{k} {t:.1f}" for k, t in r["families"].items())
+             + f" ({smi})")
+    return counts, results
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -1163,6 +1598,8 @@ def main(argv=None):
     train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
                                    fa, mx, args)
     gluon_counts, _ = _phase("gluon", gluon_phase, torch, fa, mx, args, smi)
+    vision_counts, _ = _phase("vision", vision_phase, torch, fa, mx, args,
+                              smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -1185,6 +1622,8 @@ def main(argv=None):
         + train_launches["flash_fwd_f32"],
         # the Gluon loop's timed steps, f32 and bf16 lanes
         "gluon_launches": sum(c["flash_fwd"] for c in gluon_counts.values()),
+        # the ResNet-50 vision phase has no attention
+        "vision_launches": vision_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -1240,6 +1679,8 @@ def main(argv=None):
                 "library_ms": t[pre + "library_ms"],
                 "library_events_ms": t[pre + "library_events_ms"],
                 "library_kernels": t[pre + "library_kernels"],
+                "vision_launches": vision_counts[
+                    f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

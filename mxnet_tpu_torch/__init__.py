@@ -2,7 +2,7 @@
 
 The JAX package ``mxnet_tpu`` is the reference; this package mirrors its
 module names (``kernels.flash_attention``, ``ops.contrib``, ``ops.nn``,
-``ops.elemwise``, ``gluon.model_zoo.{llama,bert}``, ``initializer``,
+``ops.elemwise``, ``gluon.model_zoo.{llama,bert,vision}``, ``initializer``,
 ``optimizer``, ``parallel``, ``serving.*``) so each counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
 
@@ -17,7 +17,10 @@ Slice 8 ports MXNet's imperative surface: ``mx.nd`` (NDArray over
 ``torch.Tensor``, ops generated from ``ops.registry``), ``mx.autograd``
 over torch autograd, and ``mx.gluon`` (Parameter, Block/HybridBlock over
 ``torch.nn.Module``, ``nn``, ``loss``, ``Trainer``), with the zoo BERT a
-Gluon HybridBlock.
+Gluon HybridBlock.  Slice 9 ports convolution, pooling and BatchNorm (ops
+that write back into their inputs), the conv and norm layers, the vision
+zoo's ResNets and the ``.params`` files (``nd.save``/``load``,
+``save_parameters``/``load_parameters``; ``dmlc_params``).
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,

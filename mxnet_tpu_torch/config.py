@@ -23,6 +23,11 @@ KNOWN_VARS = {
         "If 1, gelu defaults to the tanh approximation "
         "0.5x(1+tanh(sqrt(2/pi)(x+0.044715x^3))) instead of the exact erf "
         "form; an explicit approximate= argument always wins."),
+    "MXNET_PARAMS_FORMAT": (
+        "npz",
+        "Default mx.nd.save container: 'npz' (bfloat16 included) or 'dmlc' "
+        "(the reference's byte-compatible .params layout); load() "
+        "auto-detects both."),
     "MXNET_SERVING_BLOCK_TOKENS": (
         "16", "Paged-KV block size (token positions per pool block)."),
     "MXNET_SERVING_MAX_BATCH": (

@@ -1,9 +1,12 @@
 """Carries weights of a ``mxnet_tpu`` zoo model across to the port.
 
 The reference exports a Gluon net as ``{name: p.data().asnumpy()}`` over
-``net.collect_params()``.  The port's Gluon BERT is a Block with the
-reference's prefixes, so :func:`bert_from_gluon` loads by those names over
-its own ``collect_params()``.  The llama is a ``torch.nn`` module, so
+``net.collect_params()``.  The port's Gluon BERT and ResNets are Blocks
+with the reference's prefixes, so :func:`bert_from_gluon` and
+:func:`resnet_from_gluon` load by those names over their own
+``collect_params()`` (:func:`load_by_name`; a ResNet's BatchNorm running
+statistics are parameters, so they come along).  The llama is a
+``torch.nn`` module, so
 :func:`llama_from_gluon` maps the names of one built with ``prefix="llm_"``
 onto its parameters::
 
@@ -24,13 +27,14 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import initializer
 from .base import MXNetError
-from .context import context_of, resolve_device
+from .context import resolve_device
 from .gluon.model_zoo import bert as _bert
+from .gluon.model_zoo import vision as _vision
 from .gluon.model_zoo.llama import LLAMA_CONFIGS, _build
 
-__all__ = ["llama_from_gluon", "bert_from_gluon"]
+__all__ = ["llama_from_gluon", "bert_from_gluon", "resnet_from_gluon",
+           "load_by_name"]
 
 
 def _param_names(prefix, num_layers):
@@ -48,16 +52,17 @@ def _param_names(prefix, num_layers):
 
 
 def _check_names(params, shapes, what):
-    """Every name of ``shapes`` (name -> shape) in ``params`` (name ->
-    numpy) with that shape, and no other."""
+    """Every name of ``shapes`` (name -> shape, 0 for a dim not known yet)
+    in ``params`` (name -> numpy) with that shape, and no other."""
     extra = sorted(set(params) - set(shapes))
     missing = sorted(set(shapes) - set(params))
     if extra or missing:
         raise MXNetError(f"{what}: missing {missing}, unexpected {extra}")
     for name, shape in shapes.items():
-        if tuple(np.shape(params[name])) != tuple(shape):
-            raise MXNetError(f"{name}: shape {np.shape(params[name])} != "
-                             f"{tuple(shape)}")
+        got = tuple(np.shape(params[name]))
+        if len(got) != len(shape) or any(s not in (0, g)
+                                          for g, s in zip(got, shape)):
+            raise MXNetError(f"{name}: shape {got} != {tuple(shape)}")
 
 
 def _load(model, params, names, what):
@@ -110,12 +115,31 @@ def bert_from_gluon(params, prefix="bert_", config="bert_3_128_2",
                           units=U, hidden_size=H, num_heads=A,
                           max_length=int(pos.shape[0]), dropout=0.0,
                           prefix=prefix)
-    net.initialize(initializer.Zero(), ctx=context_of(resolve_device(device)))
+    return load_by_name(net, params, "bert_from_gluon", device, dtype)
+
+
+def load_by_name(net, params, what="load_by_name", device=None,
+                 dtype=torch.float32):
+    """Set every parameter of the Gluon ``net`` (not yet initialized, or
+    with deferred shapes) from ``params`` (the reference's ``collect_params``
+    name -> numpy array) as float32 on ``device``, then cast to ``dtype``.
+    Every name must be present in both with a matching shape."""
     own = net.collect_params()
-    _check_names(params, {k: p.shape for k, p in own.items()},
-                 "bert_from_gluon")
+    _check_names(params, {k: p.shape or () for k, p in own.items()}, what)
+    dev = resolve_device(device)
     for name, p in own.items():
-        p.set_data(np.asarray(params[name], np.float32))
+        p.set_data(torch.from_numpy(np.array(params[name], np.float32))
+                   .to(dev))
     if dtype != torch.float32:
         net.cast(dtype)
     return net
+
+
+def resnet_from_gluon(params, name="resnet50_v1", classes=1000,
+                      thumbnail=False, device=None, dtype=torch.float32):
+    """Build the port's zoo ResNet ``name`` (``get_model``'s names) holding
+    the reference net's weights and running statistics ``params`` (name ->
+    numpy array), loaded by name over ``collect_params()``; deferred
+    shapes take the file's."""
+    net = _vision.get_model(name, classes=classes, thumbnail=thumbnail)
+    return load_by_name(net, params, "resnet_from_gluon", device, dtype)

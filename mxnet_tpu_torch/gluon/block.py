@@ -24,7 +24,10 @@ across (``convert.py``).
 - tensors (``parallel.TrainStep``, or a hybridized parent): the tensor
   path, under torch's current grad mode.
 
-``export`` and ``SymbolBlock`` need ``symbol/`` and are not ported yet.
+``save_parameters``/``load_parameters`` write and read the reference's
+``.params`` files (``nd.save``) under the same structural names, so a net
+trained in either package loads in the other.  ``export`` and
+``SymbolBlock`` need ``symbol/`` and are not ported yet.
 """
 
 from __future__ import annotations
@@ -176,12 +179,43 @@ class Block(torch.nn.Module):
             p.cast(dtype)
 
     def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
-        raise MXNetError("Block.save_parameters is not yet ported to "
-                         "mxnet_tpu_torch")
+        """Write every parameter of this block and its children to
+        ``filename`` (``nd.save``) under its structural name
+        (``features.1.running_var``), as the reference does."""
+        params = self._collect_params_with_prefix()
+        nd.save(filename, {k: v.data() for k, v in params.items()})
 
-    def load_parameters(self, filename, *args, **kwargs):  # noqa: ARG002
-        raise MXNetError("Block.load_parameters is not yet ported to "
-                         "mxnet_tpu_torch")
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + k: v for k, v in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):  # noqa: ARG002
+        """Set every parameter from ``filename``, by structural name or by
+        full name (``p.name``), each cast to the parameter's dtype; an
+        uninitialized one takes the file's shape, on ``ctx`` (else the
+        current context).  A name missing from the file, or one in the
+        file that no parameter has, raises unless ``allow_missing`` /
+        ``ignore_extra``."""
+        loaded = nd.load(filename, ctx=ctx)
+        params = self._collect_params_with_prefix()
+        for name, p in params.items():
+            value = loaded.get(name, loaded.get(p.name))
+            if value is not None:
+                p.set_data(value)
+            elif not allow_missing:
+                raise MXNetError(f"Parameter {name} missing in {filename}")
+        if not ignore_extra:
+            known = set(params) | {p.name for p in params.values()} \
+                | set(self.collect_params().keys())
+            extra = [k for k in loaded if k not in known]
+            if extra:
+                raise MXNetError(f"{filename} has extra parameters {extra}")
 
     save_params = save_parameters
     load_params = load_parameters

@@ -1,8 +1,7 @@
 """gluon.nn basic layers — the port of
 ``mxnet_tpu/gluon/nn/basic_layers.py``: Sequential, HybridSequential,
-Dense, Dropout, LayerNorm, Embedding, Flatten, Lambda, HybridLambda and
-Activation.  BatchNorm, InstanceNorm and GroupNorm wait for ops that write
-back into their inputs (running statistics), which are not ported yet.
+Dense, Dropout, BatchNorm, InstanceNorm, LayerNorm, GroupNorm, Embedding,
+Flatten, Lambda, HybridLambda and Activation.
 """
 
 from __future__ import annotations
@@ -11,10 +10,12 @@ import math
 
 import numpy as np
 
+from ...base import torch_dtype
 from ..block import Block, HybridBlock
 
-__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "LayerNorm",
-           "Embedding", "Flatten", "Lambda", "HybridLambda", "Activation"]
+__all__ = ["Sequential", "HybridSequential", "Dense", "Dropout", "BatchNorm",
+           "InstanceNorm", "LayerNorm", "GroupNorm", "Embedding", "Flatten",
+           "Lambda", "HybridLambda", "Activation"]
 
 
 class _Stack:
@@ -112,6 +113,91 @@ class Dropout(HybridBlock):
         return f"Dropout(p = {self._rate}, axes={self._axes})"
 
 
+class BatchNorm(HybridBlock):
+    """The ``BatchNorm`` op over ``axis`` with learned gamma, beta and
+    moving statistics (``grad_req="null"``), which the op writes back while
+    training.  The layer's defaults are not the op's: eps 1e-5, and gamma
+    fixed at 1 only when ``scale`` is False."""
+
+    def __init__(self, axis=1, momentum=0.9, epsilon=1e-5, center=True,
+                 scale=True, use_global_stats=False, beta_initializer="zeros",
+                 gamma_initializer="ones",
+                 running_mean_initializer="zeros",
+                 running_variance_initializer="ones", in_channels=0,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._momentum = momentum
+        self._epsilon = epsilon
+        self._center = center
+        self._scale = scale
+        self._use_global_stats = use_global_stats
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True, differentiable=scale)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True, differentiable=center)
+        self.running_mean = self.params.get(
+            "running_mean", grad_req="null", shape=(in_channels,),
+            init=running_mean_initializer, allow_deferred_init=True,
+            differentiable=False)
+        self.running_var = self.params.get(
+            "running_var", grad_req="null", shape=(in_channels,),
+            init=running_variance_initializer, allow_deferred_init=True,
+            differentiable=False)
+
+    def infer_param_shapes(self, args):
+        c = args[0].shape[self._axis]
+        for p in (self.gamma, self.beta, self.running_mean, self.running_var):
+            p.shape_mismatch_update((c,))
+
+    def cast(self, dtype):
+        """Gamma, beta and the statistics stay float32 under a dtype
+        narrower than 4 bytes (the op normalizes such data in float32)."""
+        if torch_dtype(dtype).itemsize < 4:
+            dtype = np.float32
+        super().cast(dtype)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                           eps=self._epsilon, momentum=self._momentum,
+                           fix_gamma=not self._scale,
+                           use_global_stats=self._use_global_stats,
+                           axis=self._axis)
+
+
+class InstanceNorm(HybridBlock):
+    def __init__(self, axis=1, epsilon=1e-5, center=True, scale=False,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._axis = axis
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def infer_param_shapes(self, args):
+        c = args[0].shape[self._axis]
+        self.gamma.shape_mismatch_update((c,))
+        self.beta.shape_mismatch_update((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        if self._axis == 1:
+            return F.InstanceNorm(x, gamma, beta, eps=self._epsilon)
+        x = x.swapaxes(1, self._axis)
+        return F.InstanceNorm(x, gamma, beta,
+                              eps=self._epsilon).swapaxes(1, self._axis)
+
+
 class LayerNorm(HybridBlock):
     def __init__(self, axis=-1, epsilon=1e-5, center=True, scale=True,
                  beta_initializer="zeros", gamma_initializer="ones",
@@ -135,6 +221,32 @@ class LayerNorm(HybridBlock):
 
     def hybrid_forward(self, F, x, gamma, beta):
         return F.LayerNorm(x, gamma, beta, axis=self._axis,
+                           eps=self._epsilon)
+
+
+class GroupNorm(HybridBlock):
+    def __init__(self, num_groups=1, epsilon=1e-5, center=True, scale=True,
+                 beta_initializer="zeros", gamma_initializer="ones",
+                 in_channels=0, **kwargs):
+        super().__init__(**kwargs)
+        self._num_groups = num_groups
+        self._epsilon = epsilon
+        self.gamma = self.params.get(
+            "gamma", grad_req="write" if scale else "null",
+            shape=(in_channels,), init=gamma_initializer,
+            allow_deferred_init=True)
+        self.beta = self.params.get(
+            "beta", grad_req="write" if center else "null",
+            shape=(in_channels,), init=beta_initializer,
+            allow_deferred_init=True)
+
+    def infer_param_shapes(self, args):
+        c = args[0].shape[1]
+        self.gamma.shape_mismatch_update((c,))
+        self.beta.shape_mismatch_update((c,))
+
+    def hybrid_forward(self, F, x, gamma, beta):
+        return F.GroupNorm(x, gamma, beta, num_groups=self._num_groups,
                            eps=self._epsilon)
 
 

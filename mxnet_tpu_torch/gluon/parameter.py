@@ -23,7 +23,7 @@ import torch
 
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, context_of, current_context, resolve_device
-from ..ndarray.ndarray import NDArray
+from ..ndarray.ndarray import NDArray, load as nd_load, save as nd_save
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
@@ -201,16 +201,20 @@ class Parameter:
 
     def set_data(self, data):
         """Overwrite the value (cast to this parameter's dtype); an
-        uninitialized parameter takes its shape and tensor from ``data``."""
+        uninitialized parameter takes its shape and tensor from ``data``,
+        on the context it was initialized for, else on ``data``'s device
+        (numpy: the current context)."""
         if isinstance(data, NDArray):
             src = data._data
         elif isinstance(data, torch.Tensor):
             src = data
         else:
             src = torch.tensor(np.asarray(data))
+            if self._ctx is None:
+                self._ctx = current_context()
         if self._data is None:
             self.shape = tuple(src.shape)
-            self._ctx = self._ctx or current_context()
+            self._ctx = self._ctx or context_of(src.device)
             self._make(src.detach().to(resolve_device(self._ctx),
                                        torch_dtype(self.dtype), copy=True))
             return
@@ -327,13 +331,33 @@ class ParameterDict:
         out._params = {k: v for k, v in self.items() if pat.match(k)}
         return out
 
-    def save(self, filename, strip_prefix=""):  # noqa: ARG002
-        raise MXNetError("ParameterDict.save is not yet ported to "
-                         "mxnet_tpu_torch")
+    def save(self, filename, strip_prefix=""):
+        """Write every parameter to ``filename`` (``nd.save``) under its
+        name, less ``strip_prefix`` where it starts with it."""
+        arg = {}
+        for k, p in self.items():
+            key = k[len(strip_prefix):] if k.startswith(strip_prefix) else k
+            arg[key] = p.data()
+        nd_save(filename, arg)
 
-    def load(self, filename, *args, **kwargs):  # noqa: ARG002
-        raise MXNetError("ParameterDict.load is not yet ported to "
-                         "mxnet_tpu_torch")
+    def load(self, filename, ctx=None, allow_missing=False,
+             ignore_extra=False, restore_prefix=""):
+        """Set every parameter from ``filename``, whose names gain
+        ``restore_prefix``; missing and extra names raise unless
+        ``allow_missing`` / ``ignore_extra``."""
+        loaded = nd_load(filename, ctx=ctx)
+        if restore_prefix:
+            loaded = {restore_prefix + k: v for k, v in loaded.items()}
+        for k, p in self.items():
+            if k in loaded:
+                p.set_data(loaded[k])
+            elif not allow_missing:
+                raise MXNetError(f"Parameter {k} missing in file {filename}")
+        if not ignore_extra:
+            extra = set(loaded) - set(self.keys())
+            if extra:
+                raise MXNetError(f"File {filename} contains extra "
+                                 f"parameters: {sorted(extra)}")
 
     def __repr__(self):
         lines = "\n".join(f"  {v}" for v in self.values())

@@ -4,9 +4,10 @@ reference's dispatch on the parameter's name, and ``Zero``, ``One``,
 ``Constant``, ``Uniform``, ``Normal`` and ``Xavier``.
 
 ``Initializer.__call__(name, arr)`` fills the NDArray ``arr`` in place:
-names ending in ``bias`` or ``beta`` get zeros, ``gamma`` ones, and
-everything else (weights, BERT's ``position_weight``) the initializer's
-own draw, from the device's generator (``mx.random``).  Parity with the
+names ending in ``bias``, ``beta`` or ``running_mean`` get zeros,
+``gamma`` or ``running_var`` ones, and everything else (weights, BERT's
+``position_weight``) the initializer's own draw, from the device's
+generator (``mx.random``).  Parity with the
 reference's draws is distribution-level.
 
 :func:`init_weights` applies the same policy with Normal(0, std) to every
@@ -65,9 +66,9 @@ class Initializer:
             get(init_attr)._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith(("bias", "beta")):
+        if name.endswith(("bias", "beta", "running_mean", "moving_mean")):
             self._init_zero(desc, arr)
-        elif name.endswith("gamma"):
+        elif name.endswith(("gamma", "running_var", "moving_var")):
             self._init_one(desc, arr)
         else:
             self._init_weight(desc, arr)

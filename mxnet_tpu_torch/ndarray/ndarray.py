@@ -13,8 +13,8 @@ tensors are mutable and alias natively, so here:
   ``MXNetError`` at the write (torch would fail only later, at backward).
 
 A Python float or list becomes float32 (MXNet's ``mx_real_t``); a numpy
-array keeps its dtype, float64 included.  ``save``/``load`` are not ported
-yet.
+array keeps its dtype, float64 included.  ``save``/``load`` write and read
+the reference's two ``.params`` containers (``npz`` and ``dmlc``).
 """
 
 from __future__ import annotations
@@ -22,6 +22,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .. import config, dmlc_params
 from ..base import MXNetError, mx_real_t, numpy_dtype, torch_dtype
 from ..context import Context, context_of, current_context, resolve_device
 
@@ -526,9 +527,78 @@ def waitall():
         torch.cuda.synchronize()
 
 
-def save(fname, data, format=None):  # noqa: A002,ARG001
-    raise MXNetError("mx.nd.save is not yet ported to mxnet_tpu_torch")
+_SAVE_MAGIC = "mxnet_tpu.params.v1"
 
 
-def load(fname, ctx=None):  # noqa: ARG001
-    raise MXNetError("mx.nd.load is not yet ported to mxnet_tpu_torch")
+def _file_array(a):
+    """An NDArray's value as numpy for a params file; bfloat16, which numpy
+    lacks, as its raw bits in a 2-byte void, the bytes the reference's npz
+    holds for it."""
+    t = a._data.detach().to("cpu")
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("V2"))
+    return t.numpy()
+
+
+def _from_file(arr, ctx):
+    """A params file's numpy array as an NDArray on ``ctx``; a 2-byte void
+    is bfloat16 (the only dtype either package's npz stores that way)."""
+    if arr.dtype.kind == "V" and arr.dtype.itemsize == 2:
+        t = torch.from_numpy(np.ascontiguousarray(arr).view(np.int16))
+        return NDArray(t.view(torch.bfloat16).to(_device(ctx), copy=True))
+    return array(arr, ctx=ctx)
+
+
+def save(fname, data, format=None):  # noqa: A002 (the reference's keyword)
+    """Save an NDArray, a list or a dict of NDArrays to ``fname``.
+
+    ``format="npz"`` (the default, ``MXNET_PARAMS_FORMAT``) is the
+    reference's numpy container: a ``__magic__`` entry and ``name:<key>``
+    or ``idx:<i>`` entries, bfloat16 as raw 2-byte voids.  ``"dmlc"`` is
+    upstream MXNet's ``.params`` byte layout (``dmlc_params``), which has
+    no bfloat16.  :func:`load` tells the two apart."""
+    if format is None:
+        format = config.get("MXNET_PARAMS_FORMAT")
+    if isinstance(data, NDArray):
+        data = [data]
+    if isinstance(data, dict):
+        names, arrays = list(data), list(data.values())
+    elif isinstance(data, (list, tuple)):
+        names, arrays = None, list(data)
+    else:
+        raise MXNetError("save expects NDArray, list or dict of NDArrays")
+    arrays = [_file_array(a) for a in arrays]
+    if format == "dmlc":
+        with open(fname, "wb") as f:
+            f.write(dmlc_params.save_bytes(arrays, names))
+        return
+    if format != "npz":
+        raise MXNetError(f"unknown params format {format!r}: npz or dmlc")
+    payload = {"__magic__": np.frombuffer(_SAVE_MAGIC.encode(),
+                                          dtype=np.uint8)}
+    if names is None:
+        payload.update((f"idx:{i:08d}", a) for i, a in enumerate(arrays))
+    else:
+        payload.update(("name:" + k, a) for k, a in zip(names, arrays))
+    with open(fname, "wb") as f:
+        np.savez(f, **payload)
+
+
+def load(fname, ctx=None):
+    """Load what :func:`save` (or the reference's ``mx.nd.save``, or
+    upstream MXNet's ``.params`` writer) wrote: a dict by name, or a list,
+    on ``ctx``."""
+    with open(fname, "rb") as f:
+        head = f.read(8)
+    if dmlc_params.is_dmlc_params(head):
+        with open(fname, "rb") as f:
+            arrays, names = dmlc_params.load_bytes(f.read())
+        if names:
+            return {n: _from_file(a, ctx) for n, a in zip(names, arrays)}
+        return [_from_file(a, ctx) for a in arrays]
+    with np.load(fname, allow_pickle=False) as z:
+        keys = [k for k in z.files if k != "__magic__"]
+        if keys and keys[0].startswith("name:"):
+            return {k[len("name:"):]: _from_file(z[k], ctx)
+                    for k in sorted(keys)}
+        return [_from_file(z[k], ctx) for k in sorted(keys)]

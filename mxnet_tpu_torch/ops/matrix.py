@@ -1,9 +1,10 @@
 """Matrix, shape and indexing operators — the port of
 ``mxnet_tpu/ops/matrix.py``: ``dot``, ``batch_dot``, ``reshape`` with
 MXNet's special codes, ``transpose``, ``expand_dims``, ``slice_axis``,
-``concat``, ``take``, ``Embedding``, ``pick``, ``reshape_like`` and the few
-shape ops the NDArray methods use.  Float32 products run in full float32
-(the package turns TF32 off), as the reference's "highest" precision.
+``concat``, ``take``, ``Embedding``, ``pick``, ``reshape_like``, ``pad``
+and the few shape ops the NDArray methods use.  Float32 products run in
+full float32 (the package turns TF32 off), as the reference's "highest"
+precision.
 """
 
 from __future__ import annotations
@@ -191,3 +192,24 @@ def _pick(data, index, axis=-1, keepdims=False, mode="clip"):  # noqa: ARG001
     idx = index.long().clamp(0, data.shape[axis] - 1).unsqueeze(axis)
     picked = torch.gather(data, axis, idx)
     return picked if keepdims else picked.squeeze(axis)
+
+
+_PAD_MODES = {"constant": "constant", "edge": "replicate",
+              "reflect": "reflect"}
+
+
+@register("pad")
+def _pad(x, mode="constant", pad_width=(), constant_value=0.0):
+    """Pad each axis by ``pad_width`` = (lo0, hi0, lo1, hi1, ...) with a
+    constant, the edge value (``edge``) or the mirror image without the
+    edge (``reflect``).  Torch pads edge and reflect over at most the
+    trailing three axes of a tensor with one or two more, so those modes
+    name the axes from ``ndim - 2`` on (MXNet pads no others there)."""
+    pw = list(zip(pad_width[::2], pad_width[1::2]))
+    first = next((i for i, p in enumerate(pw) if any(p)), len(pw))
+    if mode != "constant":
+        first = min(first, max(x.ndim - 2, 1))
+    pads = [v for p in reversed(pw[first:]) for v in p]
+    if mode == "constant":
+        return F.pad(x, pads, value=constant_value)
+    return F.pad(x, pads, mode=_PAD_MODES[mode])

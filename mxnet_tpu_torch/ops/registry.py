@@ -10,9 +10,16 @@ autograd: :func:`invoke` runs an op with torch's grad mode on exactly when
 MXNet records it (``autograd.is_recording()`` and the op is
 differentiable), so nothing is taped outside ``autograd.record()``.
 
+An op that declares ``mutate_inputs`` (BatchNorm's moving statistics)
+returns the new values as extra outputs; dispatch writes each into its
+input's own tensor, in place and outside autograd, and only when the op
+returned a new tensor (an unchanged input comes back as itself), so a
+tensor that autograd saved is never written.  ``visible_outputs`` hides
+the extra outputs from the caller, in :func:`invoke` and in
+:data:`tensor_ops` alike.
+
 Not ported: the reference's per-op jit cache (eager torch has nothing to
-compile), its amp cast, monitor and cost-model hooks, and
-``mutate_inputs`` write-back (an op that declares it raises here).
+compile), its amp cast, monitor and cost-model hooks.
 """
 
 from __future__ import annotations
@@ -35,7 +42,9 @@ class Op:
     fn : the implementation, ``fn(*tensors, **attrs)``.
     num_outputs : static output count, or -1 (a variable-length tuple).
     differentiable : False for integer-valued ops: never recorded.
-    mutate_inputs : ``(out_idx, in_idx)`` write-backs; not ported yet.
+    mutate_inputs : ``(out_idx, in_idx)`` pairs: output ``out_idx`` is
+        written back into input ``in_idx``.
+    visible_outputs : how many leading outputs the caller sees (None: all).
     wrap_key : if set, dispatch passes the device's ``torch.Generator``
         under this keyword (the reference passes a fresh PRNG key).
     wrap_train : if set, dispatch passes ``autograd.is_training()`` under
@@ -43,15 +52,18 @@ class Op:
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable",
-                 "mutate_inputs", "wrap_key", "wrap_train", "doc")
+                 "mutate_inputs", "visible_outputs", "wrap_key", "wrap_train",
+                 "doc")
 
     def __init__(self, name, fn, num_outputs=1, differentiable=True,
-                 mutate_inputs=(), wrap_key=None, wrap_train=None, doc=None):
+                 mutate_inputs=(), visible_outputs=None, wrap_key=None,
+                 wrap_train=None, doc=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
         self.differentiable = differentiable
         self.mutate_inputs = tuple(mutate_inputs)
+        self.visible_outputs = visible_outputs
         self.wrap_key = wrap_key
         self.wrap_train = wrap_train
         self.doc = doc if doc is not None else fn.__doc__
@@ -116,6 +128,26 @@ def invoke_arrays(op, tensors, attrs, device=None):
     return op.fn(*tensors, **_with_implicit(op, attrs or {}, device))
 
 
+def _write_back(op, tensors, outs):
+    """Copy each ``mutate_inputs`` output into its input tensor (in place,
+    outside autograd) where the op returned a new value."""
+    with torch.no_grad():
+        for out_idx, in_idx in op.mutate_inputs:
+            if outs[out_idx] is not tensors[in_idx]:
+                tensors[in_idx].copy_(outs[out_idx])
+
+
+def _invoke_tensors(op, tensors, attrs):
+    """``F.<op>`` of a hybridized block: the op on tensors, its write-backs
+    done and only its visible outputs returned."""
+    outs = invoke_arrays(op, tensors, attrs)
+    _write_back(op, tensors, outs)
+    if op.visible_outputs is None:
+        return outs
+    return outs[0] if op.visible_outputs == 1 else \
+        outs[:op.visible_outputs]
+
+
 def invoke(op, inputs, attrs=None, out=None, ctx=None):
     """The ``Imperative::Invoke`` analog: run ``op`` on NDArray ``inputs``
     (recorded under ``autograd.record()``) and return NDArray output(s),
@@ -125,9 +157,6 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     from ..ndarray.ndarray import NDArray
     if isinstance(op, str):
         op = get(op)
-    if op.mutate_inputs:
-        raise MXNetError(f"op {op.name}: mutate_inputs (in-place write-back "
-                         f"of inputs) is not yet ported")
     tensors = [a._data if isinstance(a, NDArray) else a for a in inputs]
     device = next((t.device for t in tensors if isinstance(t, torch.Tensor)),
                   None)
@@ -137,8 +166,12 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     with torch.set_grad_enabled(recording):
         raw = invoke_arrays(op, tensors, attrs, device)
     outs = list(raw) if isinstance(raw, (tuple, list)) else [raw]
+    if op.mutate_inputs:
+        _write_back(op, tensors, outs)
     if recording:
         autograd._note_inputs(inputs)
+    if op.visible_outputs is not None and out is None:
+        outs = outs[:op.visible_outputs]
     if out is None:
         results = [NDArray(t) for t in outs]
     else:
@@ -148,7 +181,8 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
                              f"{len(results)} out= arrays")
         for dst, t in zip(results, outs):
             dst._assign(t)
-    if len(results) == 1 and op.num_outputs in (1, -1):
+    if len(results) == 1 and (op.num_outputs in (1, -1)
+                              or op.visible_outputs == 1):
         return results[0]
     return results
 
@@ -166,7 +200,10 @@ class _TensorNamespace:
         full = self._prefix + name
         op = _REGISTRY.get(full)
         if op is not None:
-            if op.wrap_key is None and op.wrap_train is None:
+            if op.mutate_inputs or op.visible_outputs is not None:
+                def fn(*tensors, _op=op, **attrs):
+                    return _invoke_tensors(_op, tensors, attrs)
+            elif op.wrap_key is None and op.wrap_train is None:
                 fn = op.fn
             else:
                 def fn(*tensors, _op=op, **attrs):

@@ -16,9 +16,15 @@ The reference traces the step into one XLA program; the port runs it
 eagerly, with the optimizer's update as ``torch._foreach_*`` math over all
 parameters at once.  As in the reference, every trainable parameter is
 updated each step, and one the loss does not reach gets a zero gradient.
+A Gluon net's parameters with ``grad_req="null"`` (BatchNorm's running
+statistics) are carried by the step: the forward writes them in place
+and the optimizer never touches them.  Deferred shapes (convolutions
+with ``in_channels=0``) are resolved before the first step by one
+forward under ``autograd.pause()`` (predict mode: the statistics stay).
 ``run(stacked_data, stacked_label)`` takes the steps along the leading
-axis and returns their losses as one tensor without synchronising each
-step (the reference scans the steps in one program; the port loops).
+axis, ``run(data, label, steps=K)`` takes K steps on one batch; both
+return the losses as one tensor without synchronising each step (the
+reference scans the steps in one program; the port loops).
 
 Meshes, sharding rules, data layouts, microbatching, rematerialisation and
 autoshard plans are not ported: asking for one raises ``MXNetError``.
@@ -31,7 +37,9 @@ import torch
 
 from . import autograd, optimizer as opt
 from .base import MXNetError
+from .context import resolve_device
 from .gluon.block import Block
+from .ndarray.ndarray import NDArray
 
 __all__ = ["TrainStep"]
 
@@ -42,6 +50,19 @@ def _mesh_size(mesh):
     if isinstance(mesh, (torch.device, str)):
         return 1
     return int(np.asarray(getattr(mesh, "devices", mesh), dtype=object).size)
+
+
+def _net_device(net):
+    """The device of ``net``'s parameters: where the first one with a value
+    lies (``net.to()`` moves them), else the context a deferred one was
+    initialized on."""
+    if not isinstance(net, Block):
+        return next(net.parameters()).device
+    params = list(net.collect_params().values())
+    for p in params:
+        if p._data is not None:
+            return p._data._data.device
+    return resolve_device(next(p._ctx for p in params if p._ctx is not None))
 
 
 class TrainStep:
@@ -79,22 +100,29 @@ class TrainStep:
 
     @property
     def device(self):
-        return self._trainable()[0].device
+        return self._params[0].device if self._params \
+            else _net_device(self.net)
 
-    def _resolve(self):
+    def _as_tensor(self, x):
+        if isinstance(x, NDArray):
+            x = x._data
+        return torch.as_tensor(x, device=self.device)
+
+    def _resolve(self, data):
+        if isinstance(self.net, Block) and any(
+                p._data is None for p in self.net.collect_params().values()):
+            with autograd.pause(), torch.no_grad():
+                self.net(data)
         self._params = self._trainable()
         self._states = [self.optimizer.create_state_multi_precision(i, p)
                         for i, p in enumerate(self._params)]
 
-    def _as_tensor(self, x):
-        return torch.as_tensor(x, device=self.device)
-
     def __call__(self, data, label):
         """Run one step; returns the scalar loss (a tensor on the device,
         not synchronised)."""
-        if self._params is None:
-            self._resolve()
         data, label = self._as_tensor(data), self._as_tensor(label)
+        if self._params is None:
+            self._resolve(data)
         for p in self._params:
             p.grad = None
         with autograd.train_mode():
@@ -107,8 +135,11 @@ class TrainStep:
             [p.grad for p in self._params], self._states)
         return loss.detach()
 
-    def run(self, data, label):
-        """Run one step per entry of the leading axis of ``data``/``label``
-        and return the (steps,) losses."""
+    def run(self, data, label, steps=None):
+        """Run one step per entry of the leading axis of ``data``/``label``,
+        or ``steps`` steps on the one batch ``data``/``label``; return the
+        (steps,) losses."""
         data, label = self._as_tensor(data), self._as_tensor(label)
+        if steps is not None:
+            return torch.stack([self(data, label) for _ in range(steps)])
         return torch.stack([self(d, l) for d, l in zip(data, label)])

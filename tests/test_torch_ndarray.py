@@ -1,12 +1,11 @@
 """The port's ``mx.nd`` held against the JAX package's, on the CPU: each
 case runs the same code, on the same numpy inputs made from a seed, through
 ``mxnet_tpu`` and ``mxnet_tpu_torch`` (``with mx.cpu():``) and compares the
-results.  Mirrors ``tests/test_ndarray.py`` except save/load, which the
-port does not have yet.
+results.  Mirrors ``tests/test_ndarray.py``.
 
-Tolerances: elementwise, shape and index ops exact (rtol 0, atol 0);
-reductions and products, which sum in another order, atol 1e-6 (inputs in
-[-1, 1], at most 60 terms).
+Tolerances: elementwise, shape and index ops and save/load exact (rtol 0,
+atol 0); reductions and products, which sum in another order, atol 1e-6
+(inputs in [-1, 1], at most 60 terms).
 """
 
 import numpy as np
@@ -222,11 +221,21 @@ def test_scalar_conversions():
             m.nd.array([1.0, 2.0]).asscalar()
 
 
-def test_save_load_raise_not_ported(tmp_path):
-    with pytest.raises(mx.MXNetError, match="not yet ported"):
-        mx.nd.save(str(tmp_path / "x.params"), {"w": mx.nd.ones((2,))})
-    with pytest.raises(mx.MXNetError, match="not yet ported"):
-        mx.nd.load(str(tmp_path / "x.params"))
+def test_save_load_roundtrip(tmp_path):
+    """``tests/test_ndarray.py::test_save_load_roundtrip`` through both
+    packages: a dict and a list, each package reading its own file."""
+    r = np.random.RandomState(3)
+    w, b = r.randn(3, 4).astype("float32"), r.randn(4).astype("float32")
+    for m in PKGS:
+        fname = str(tmp_path / f"{m.__name__}.params")
+        m.nd.save(fname, {"w": m.nd.array(w), "b": m.nd.array(b)})
+        loaded = m.nd.load(fname)
+        assert set(loaded) == {"w", "b"}
+        np.testing.assert_array_equal(loaded["w"].asnumpy(), w)
+        m.nd.save(fname, [m.nd.array([1.0]), m.nd.array([2.0, 3.0])])
+        back = m.nd.load(fname)
+        assert isinstance(back, list) and len(back) == 2
+        np.testing.assert_array_equal(back[1].asnumpy(), [2.0, 3.0])
 
 
 def test_wait_and_context():
