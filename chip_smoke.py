@@ -82,7 +82,31 @@ result line; each prints its seconds):
     ``load_parameters`` into a fresh net bit-identical in npz and dmlc
     (and bf16 in npz); no flash launch, no TF32 kernel in f32; step ms,
     images/s, FLOPs per step (counted from the layers), MFU, peak memory,
-    idle share and device time by kernel family.
+    idle share and device time by kernel family;
+11. loop — MXNet's training loop around the model: (a) every optimizer
+    of ``mx.optimizer`` with a schedule, 3 steps of the small bottleneck
+    ResNet on the card and on the CPU, f32 and bf16 (multi_precision: the
+    f32 masters held as f32, each bf16 weight its master rounded);
+    ``update_on_kvstore`` against the trainer's update and an explicit
+    store, bit for bit; ``save_states``/``load_states`` mid-run bit for
+    bit; a 4-worker DataLoader bit-identical to one process; (b)
+    resnet50_v1 one epoch (10 steps of 64 from 640 host images of ten
+    classes) through ``gluon.data.DataLoader(num_workers=4)`` with
+    RandomFlipLeftRight, ToTensor and Normalize, NAG with a MultiFactor
+    schedule, ``Trainer(kvstore="local")``, accuracy, top-5 and loss
+    metrics every batch, f32 and bf16, beside the vision phase's loop (SGD,
+    one pre-staged batch); the local store's reduction of ResNet-50's
+    gradients timed at 1, 2 and 4 replicas on the card; NAG at 0.025 in
+    f32 and bf16 through the Trainer and in bf16 through TrainStep, each
+    Trainer step held against a plain NAG, the loss curves printed; (d)
+    ``Estimator.fit`` of resnet18_v1 over 4 batches with a
+    CheckpointHandler, reloaded bit for bit; (c) BERT-base bf16 10
+    steps from a 2-worker DataLoader, LAMB with polynomial warmup-decay,
+    Loss and Accuracy of the argmax, beside the gluon phase's Adam loop;
+    losses falling, the schedules' rates, no loader fallback, no worker
+    left, 12 bf16 forward and 12 bf16 fused backward launches a BERT step;
+    step ms, images or samples/s, MFU, peak memory, idle share, ms in
+    next() and in the metrics' update.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -92,7 +116,9 @@ tensor-core kernels, launches of the bf16 lanes) and f32
 (``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes),
 the fused ones with the Gluon loop's launches in its dtype
 (``gluon_launches``), every entry with the vision phase's launches
-(``vision_launches``, 0: ResNet-50 has no attention);
+(``vision_launches``, 0: ResNet-50 has no attention) and the loop
+phase's BERT steps (``loop_launches``: the bf16 forward and fused
+backward; 0 elsewhere);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -120,7 +146,9 @@ Vision: each op card vs CPU 1e-5 of max |ref| (f32 sums in another
 order; 6.2e-7 seen on an H100); the small ResNet's outputs, loss and
 statistics 1e-4 of max |ref|; the ResNet-50 Gluon loop against
 ``TrainStep`` and the imperative steps TRAIN_TOL relative, under
-deterministic cuDNN (0 seen); checkpoints bit for bit.
+deterministic cuDNN (0 seen); checkpoints bit for bit.  Loop: the
+optimizers card vs CPU ``LOOP_ORACLE_TOL`` (below), the loader, the
+store and the states bit for bit.
 """
 
 from __future__ import annotations
@@ -130,6 +158,7 @@ import gc
 import json
 import math
 import os
+import random
 import re
 import statistics
 import subprocess
@@ -738,10 +767,13 @@ VISION_FAMILIES = (
     ("optimizer", ("foreach", "multi_tensor")))
 
 
-def _profile_step(torch, step_fn, label, families=FLASH_FAMILIES):
+def _profile_step(torch, step_fn, label, families=FLASH_FAMILIES, steps=1):
     """Device time of one step by kernel family (torch.profiler), against
-    the step's wall time; prints the top kernels."""
+    the step's wall time; prints the top kernels.  ``step_fn`` may run
+    ``steps`` steps: times are then per step, averaged over them."""
     wall, rows = _profiled(torch, step_fn)
+    wall /= steps
+    rows = [(ms / steps, n, key) for ms, n, key in rows]
     total = sum(r[0] for r in rows)
     fams = dict.fromkeys([f for f, _ in families] + ["other"], 0.0)
     for ms, _, key in rows:
@@ -749,8 +781,10 @@ def _profile_step(torch, step_fn, label, families=FLASH_FAMILIES):
         fam = next((f for f, words in families
                     if any(w in k for w in words)), "other")
         fams[fam] += ms
-    _log(f"profile {label}: one step wall {wall:.1f} ms, device busy "
-         f"{total:.1f} ms (idle share {max(0.0, 1 - total / wall):.3f}); "
+    _log(f"profile {label}: one step wall {wall:.1f} ms"
+         + (f" (mean of {steps})" if steps > 1 else "")
+         + f", device busy {total:.1f} ms (idle share "
+         f"{max(0.0, 1 - total / wall):.3f}); "
          + ", ".join(f"{k} {v:.1f} ms" for k, v in fams.items()))
     for ms, n, key in rows[:12]:
         _log(f"profile {label}:   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
@@ -1516,6 +1550,744 @@ def vision_phase(torch, fa, mx, args, smi):
     return counts, results
 
 
+# -- the loop phase: the Gluon training loop around the model ----------------
+
+# every optimizer of mx.optimizer, each with a schedule, for the small-ResNet
+# oracle (card vs CPU, 3 steps)
+LOOP_OPTIMIZERS = {
+    "sgd": {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+    "nag": {"learning_rate": 0.05, "momentum": 0.9, "wd": 1e-4},
+    "adam": {"learning_rate": 1e-3, "wd": 1e-4},
+    "adamw": {"learning_rate": 1e-3, "wd": 1e-2},
+    "lars": {"learning_rate": 0.5, "momentum": 0.9, "wd": 1e-4},
+    "rmsprop": {"learning_rate": 1e-3, "centered": True},
+    "ftrl": {"learning_rate": 0.1, "lamda1": 1e-4},
+    "signum": {"learning_rate": 1e-3, "momentum": 0.9},
+    "lamb": {"learning_rate": 1e-3, "wd": 0.01},
+    "adagrad": {"learning_rate": 0.01},
+    "adadelta": {"rho": 0.9},
+}
+# card vs CPU after 3 steps on the same gradients, max |err| / max |ref|
+# per parameter and over the losses.  f32: cuDNN and the CPU sum in other
+# orders (6.2e-7 per op, 2.4e-6 for the small ResNet's step, in the
+# vision oracle); 1e-5 for the losses and every parameter.  bf16: the
+# update is f32 math on each trained parameter's f32 value (the master of
+# a bf16 weight, BatchNorm's f32 gamma and beta themselves) fed the same
+# gradients, so those values are held to f32's 1e-5 (LOOP_MASTER_TOL), and
+# each bf16 weight must be its master rounded, bit for bit, on both
+# devices (card and CPU weights then differ by at most one bf16 ulp, where
+# the masters straddle a rounding boundary).  The losses and BatchNorm's
+# running statistics come from each device's own bf16 forward, which
+# rounds its products in other places: 1e-2, about two ulps (2^-8 of the
+# value) of the largest
+LOOP_ORACLE_TOL = {"float32": 1e-5, "bfloat16": 1e-2}
+LOOP_MASTER_TOL = 1e-5
+IMAGENET_MEAN, IMAGENET_STD = (0.485, 0.456, 0.406), (0.229, 0.224, 0.225)
+LOOP_IMAGES, LOOP_BERT_SAMPLES, LOOP_STEPS = 640, 320, 10
+# the loop phase's data has something to learn within one epoch of distinct
+# batches (random labels over 1000 classes do not: the loss cannot fall
+# below ln 1000 and wanders): images of ten of the 1000 classes whose
+# brightness grows with the class, and BERT asked for its own input tokens
+LOOP_CLASSES, LOOP_SHADE = 10, 12
+# LAMB moves each layer by lr times its norm per step: at 1e-4 the BERT
+# loss does not move in 10 steps; at 1e-2 it falls.  NAG at the vision
+# phase's 0.025 (the reference recipe's 0.1 per 256 images, which assumes
+# epochs of warmup) overshoots after a 3-step warmup on distinct batches:
+# the bf16 ResNet-50 loss rose far above its start on the card.  The loop
+# takes 0.005; the rate witness runs 0.025 in both dtypes, through the
+# Trainer and through TrainStep, each Trainer step held against a plain
+# NAG, so the loss curves at 0.025 are printed in every run
+LOOP_LAMB_LR = 1e-2
+LOOP_NAG = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
+LOOP_NAG_WITNESS_LR = 0.025
+LOOP_BERT = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
+             "batch": 32, "seq": 512, "vocab": 30522}    # bert_12_768_12
+
+
+def _small_resnet(tmx):
+    v = tmx.gluon.model_zoo.vision
+    return v.ResNetV1(v.BottleneckV1, [1, 1, 1, 1], [16, 64, 128, 256, 512],
+                      classes=10, prefix="oracle_")
+
+
+def _image_loader(tmx, x, y, num_workers, flip=True, B=VISION_BATCH):
+    """(b)'s loader: an ArrayDataset of host uint8 HWC images and labels,
+    RandomFlipLeftRight (unless ``flip`` is False), ToTensor, Normalize;
+    shuffled, last batch discarded."""
+    t = tmx.gluon.data.vision.transforms
+    ds = tmx.gluon.data.ArrayDataset(tmx.nd.array(x, ctx=tmx.cpu()),
+                                     tmx.nd.array(y, ctx=tmx.cpu()))
+    steps = [t.RandomFlipLeftRight()] if flip else []
+    ds = ds.transform_first(t.Compose(steps + [
+        t.ToTensor(), t.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD)]))
+    return tmx.gluon.data.DataLoader(ds, batch_size=B, shuffle=True,
+                                     last_batch="discard",
+                                     num_workers=num_workers, timeout=300)
+
+
+def loop_oracle(torch, tmx, x, y):
+    """(a) On the card against the CPU or against itself: every optimizer
+    with a schedule, 3 steps of the small bottleneck ResNet, f32 and bf16
+    (multi_precision); the store owning the update against the trainer
+    owning it; save_states / load_states mid-run; the worker loader
+    against one process."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon.data import dataloader
+    gpu, cpu, B = tmx.gpu(), tmx.cpu(), 4
+    rng = np.random.RandomState(41)
+    xs = rng.randn(B, 3, 64, 64).astype(np.float32)
+    ys = rng.randint(0, 10, B).astype(np.float32)
+    host = _small_resnet(tmx)
+    tmx.random.seed(42)
+    host.initialize(tmx.init.Xavier(), ctx=cpu)
+    with tmx.autograd.pause():
+        host(tmx.nd.array(xs, ctx=cpu))
+    start = {k: p.data().asnumpy() for k, p in host.collect_params().items()}
+    card = convert.load_by_name(_small_resnet(tmx), start, device="cuda")
+    nets = {gpu: card, cpu: host}
+    for net in nets.values():
+        net.hybridize()
+
+    def trainer(ctx, name, kw, dname, **tkw):
+        """A Trainer on ``ctx``'s net, reset to the start weights."""
+        for k, p in nets[ctx].collect_params().items():
+            p.set_data(start[k])
+        kw = dict(kw, lr_scheduler=tmx.lr_scheduler.FactorScheduler(
+            step=1, factor=0.7), multi_precision=dname == "bfloat16")
+        return tmx.gluon.Trainer(nets[ctx].collect_params(), name, kw,
+                                 **tkw), kw
+
+    def forward_backward(ctx, dname):
+        a = tmx.nd.array(xs, ctx=ctx).astype(dname)
+        with tmx.autograd.record():
+            loss = tmx.nd.softmax_cross_entropy(nets[ctx](a).astype(
+                "float32", copy=False), tmx.nd.array(ys, ctx=ctx)) / B
+        loss.backward()
+        return float(loss.asscalar())
+
+    def weights(ctx):
+        return {k: p.data()._data.detach().clone()
+                for k, p in nets[ctx].collect_params().items()}
+
+    def f32_values(ctx, tr):
+        """Each trained parameter's f32 value: its master where the weight
+        is bf16 (multi_precision), else the weight itself."""
+        out = {}
+        for i, (k, p) in enumerate(nets[ctx].collect_params().items()):
+            if p.grad_req != "null":
+                w = p.data()._data
+                out[k] = (tr._states[i][0] if w.dtype == torch.bfloat16
+                          else w).detach().clone()
+        return out
+
+    def pair(name, kw, dname):
+        """3 steps on both devices; each step the card's update takes the
+        CPU's gradients.  The devices' own gradients differ by rounding,
+        and where a gradient is near 0 (the bias of a convolution ahead of
+        a BatchNorm, a channel ReLU shuts) Adam-like updates scale that
+        difference up to steps of lr; with one gradient the updates must
+        agree."""
+        tr = {c: trainer(c, name, kw, dname)[0] for c in (cpu, gpu)}
+        host_p = nets[cpu].collect_params()
+        card_p = nets[gpu].collect_params()
+        losses = {cpu: [], gpu: []}
+        for _ in range(3):
+            for c in (cpu, gpu):
+                losses[c].append(forward_backward(c, dname))
+            with torch.no_grad():
+                for k, p in host_p.items():
+                    if p.grad_req != "null":
+                        card_p[k].grad()._data.copy_(p.grad()._data)
+            for c in (cpu, gpu):
+                tr[c].step(1)
+        return (losses, weights(gpu), weights(cpu), f32_values(gpu, tr[gpu]),
+                f32_values(cpu, tr[cpu]))
+
+    def worst(a, b, keys):
+        """(max |a - b| / max |b| over ``keys``, the key where it is)."""
+        return max((_rel_err(torch, a[k], b[k]), k) for k in keys)
+
+    def card_run(name, kw, dname, steps, save_at=None, **tkw):
+        tr, kw = trainer(gpu, name, kw, dname, **tkw)
+        for i in range(steps):
+            forward_backward(gpu, dname)
+            tr.step(1)
+            if i + 1 == save_at:
+                with tempfile.TemporaryDirectory() as d:
+                    f = os.path.join(d, "oracle.states")
+                    tr.save_states(f)
+                    tr = tmx.gluon.Trainer(nets[gpu].collect_params(), name,
+                                           kw, **tkw)
+                    tr.load_states(f)
+        return weights(gpu)
+
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for dname in ("float32", "bfloat16"):
+            if dname == "bfloat16":
+                for net in nets.values():
+                    net.cast("bfloat16")
+            tol = LOOP_ORACLE_TOL[dname]
+            for name, kw in LOOP_OPTIMIZERS.items():
+                losses, pc, ph, mc, mh = pair(name, kw, dname)
+                lc, lh = losses[gpu], losses[cpu]
+                el = _rel_err(torch, torch.tensor(lc), torch.tensor(lh))
+                if dname == "float32":
+                    ep, wk = worst(pc, ph, pc)
+                    ok = ep <= tol
+                    what = f"parameters {ep:.2e} ({wk}) (tol {tol})"
+                else:
+                    em, mk = worst(mc, mh, mc)
+                    ew, wk = worst(pc, ph, mc)
+                    es, sk = worst(pc, ph, [k for k in pc if k not in mc])
+                    rounded = all(torch.equal(w[k], m[k].to(w[k].dtype))
+                                  for w, m in ((pc, mc), (ph, mh))
+                                  for k in m if w[k].dtype != m[k].dtype)
+                    ok = em <= LOOP_MASTER_TOL and es <= tol and rounded
+                    what = (f"f32 masters and weights {em:.2e} ({mk}) (tol "
+                            f"{LOOP_MASTER_TOL}), trained weights {ew:.2e} "
+                            f"({wk}), each bf16 weight its master rounded: "
+                            f"{rounded}, running statistics {es:.2e} ({sk}) "
+                            f"(tol {tol})")
+                _log(f"oracle loop {name} {dname}: 3 steps card "
+                     f"{[round(v, 6) for v in lc]} cpu "
+                     f"{[round(v, 6) for v in lh]}, losses {el:.2e} (tol "
+                     f"{tol}), {what}, of max |ref|")
+                if not (el <= tol and ok):
+                    raise AssertionError(f"loop oracle {name} {dname}: "
+                                         f"losses {el}, {what}")
+            # no store (one replica), the store owning the update, and an
+            # explicit store reducing the one replica: the same bits
+            nag = LOOP_OPTIMIZERS["nag"]
+            plain = card_run("nag", nag, dname, 3, kvstore="local")
+            on_kv = card_run("nag", nag, dname, 3, kvstore="local",
+                             update_on_kvstore=True)
+            store = card_run("nag", nag, dname, 3,
+                             kvstore=tmx.kv.create("local"))
+            same = all(torch.equal(plain[k], on_kv[k])
+                       and torch.equal(plain[k], store[k]) for k in plain)
+            # a states file written after step 2 and read by a new
+            # Trainer: steps 3-4 as without it
+            lamb = LOOP_OPTIMIZERS["lamb"]
+            want = card_run("lamb", lamb, dname, 4)
+            got = card_run("lamb", lamb, dname, 4, save_at=2)
+            reload_same = all(torch.equal(want[k], got[k]) for k in want)
+            _log(f"oracle loop {dname}: no store / update_on_kvstore / an "
+                 f"explicit store, parameters bit-identical: {same}; "
+                 f"save_states/load_states after step 2 of 4 (lamb), "
+                 f"bit-identical: {reload_same}")
+            if not (same and reload_same):
+                raise AssertionError(f"loop oracle {dname}: kvstore {same}, "
+                                     f"states {reload_same}")
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+    # the worker loader against one process, transforms without the flip
+    before = dataloader.fallbacks
+    with_workers = _image_loader(tmx, x, y, 4, flip=False)
+    try:
+        np.random.seed(43)
+        got = [(a._data, b._data) for a, b in with_workers]
+    finally:
+        with_workers._shutdown_pool()
+    np.random.seed(43)
+    want = [(a._data, b._data) for a, b in _image_loader(tmx, x, y, 0,
+                                                         flip=False)]
+    same = len(got) == len(want) == len(x) // VISION_BATCH and all(
+        torch.equal(a, c) and torch.equal(b, d)
+        for (a, b), (c, d) in zip(got, want))
+    _log(f"oracle loop DataLoader: {len(got)} batches of {VISION_BATCH} with "
+         f"4 workers bit-identical to one process: {same}; fallbacks "
+         f"{dataloader.fallbacks - before}; batches on {got[0][0].device}")
+    if not same or dataloader.fallbacks != before \
+            or got[0][0].device != gpu.torch_device():
+        raise AssertionError("loop oracle: the worker loader differs")
+
+
+def _kvstore_times(torch, tmx, params):
+    """pushpull_list of every trained gradient through a local store, on
+    the card: one replica (the store's copies) and 2 and 4 replicas on the
+    same card (copies of the gradients; the reduction's tree_sum adds).
+    {replicas: median ms of 8}."""
+    grads = [p.grad() for p in params.values() if p.grad_req != "null"]
+    keys = list(range(len(grads)))
+    nbytes = sum(g._data.numel() * g._data.element_size() for g in grads)
+    times = {}
+    for n in (1, 2, 4):
+        kv = tmx.kv.create("local")
+        kv.init(keys, [g.copy() for g in grads])
+        vals = [[g.copy() for _ in range(n)] if n > 1 else g.copy()
+                for g in grads]
+        times[n] = statistics.median(_timed_ms(
+            tmx, lambda: kv.pushpull_list(keys, vals, vals), 10)[2:])
+        _log(f"kvstore local pushpull_list: {len(keys)} ResNet-50 gradients "
+             f"({nbytes / 1e6:.1f} MB), {n} replica(s) on the card, "
+             f"{times[n]:.3f} ms (median of 8)")
+        kv = vals = None
+    return times
+
+
+def _nag_witness(torch, tmx, mx, net, params, restart, batches, schedule, B):
+    """The loop's ResNet-50 from its start weights on ``batches`` (the
+    first epoch's, fetched once) with NAG at LOOP_NAG_WITNESS_LR and
+    ``schedule(lr)``: the Trainer in f32 and in bf16 (multi_precision),
+    then TrainStep in bf16.  After every Trainer step each trained
+    parameter's f32 value (a bf16 weight's master) is held against a plain
+    NAG (the reference's nag_mom_update, tensor by tensor) of an f32 copy
+    fed the same gradients, to LOOP_MASTER_TOL of its max |value|, and
+    each bf16 weight must be its master rounded.  Returns {run: losses};
+    the losses are not checked."""
+    lr, ops_nn = LOOP_NAG_WITNESS_LR, mx["nn"]
+    nag = dict(LOOP_NAG, learning_rate=lr)
+    plist = list(params.values())
+    trained = [i for i, p in enumerate(plist) if p.grad_req != "null"]
+    curves = {}
+    for dname in ("float32", "bfloat16"):
+        mp = dname == "bfloat16"
+        net.cast(dname)
+        restart()
+        trainer = tmx.gluon.Trainer(params, "nag", dict(
+            nag, lr_scheduler=schedule(lr), multi_precision=mp),
+            kvstore="local")
+        plain = [plist[i].data()._data.detach().float().clone()
+                 for i in trained]
+        moms = [torch.zeros_like(w) for w in plain]
+        rates = schedule(lr)
+        losses, err, rounded = [], 0.0, True
+        for k, (xb, yb) in enumerate(batches, 1):
+            _, loss = _loop_step(tmx, net, xb, yb, trainer, dname, B)
+            losses.append(float(loss.mean().asscalar()))
+            with torch.no_grad():
+                for j, i in enumerate(trained):
+                    p = plist[i]
+                    g = p.grad()._data.float() / B + nag["wd"] * p.wd_mult \
+                        * plain[j]
+                    moms[j].mul_(nag["momentum"]).add_(g)
+                    plain[j].sub_(rates(k) * p.lr_mult
+                                  * (g + nag["momentum"] * moms[j]))
+                    w = p.data()._data
+                    value = trainer._states[i][0] if w.dtype != torch.float32 \
+                        else w
+                    rounded &= torch.equal(w, value.to(w.dtype))
+                    err = max(err, float((value - plain[j]).abs().max()
+                                         / plain[j].abs().max()))
+        lane = f"nag_witness_{'bf16' if mp else 'f32'}_trainer"
+        curves[lane] = losses
+        _log(f"{lane}: NAG lr {lr}, losses {[round(v, 5) for v in losses]}; "
+             f"f32 values against a plain NAG on the same gradients "
+             f"{err:.2e} of max |value| (tol {LOOP_MASTER_TOL}), each bf16 "
+             f"weight its master rounded: {rounded}")
+        if not (err <= LOOP_MASTER_TOL and rounded):
+            raise AssertionError(f"{lane}: the NAG update is not the plain "
+                                 f"one: {err}, rounded {rounded}")
+        trainer = plain = moms = None
+    # TrainStep, bf16: the same data, schedule and multi_precision
+    restart()
+    net.cast("bfloat16")
+    opt = mx["optimizer"].NAG(multi_precision=True, lr_scheduler=schedule(lr),
+                              **nag)
+    step = mx["parallel"].TrainStep(
+        net, lambda out, lab: ops_nn.softmax_cross_entropy(
+            out.float(), lab) / B, opt)
+    losses = [float(step(xb._data.to(torch.bfloat16), yb._data))
+              for xb, yb in batches]
+    curves["nag_witness_bf16_trainstep"] = losses
+    _log(f"nag_witness_bf16_trainstep: NAG lr {lr}, losses "
+         f"{[round(v, 5) for v in losses]}")
+    return curves
+
+
+def _loop_step(tmx, net, x, y, trainer, dtype, B):
+    """record, forward, SoftmaxCrossEntropyLoss on f32 logits, backward,
+    Trainer.step(B), the device drained: (logits, per-sample losses)."""
+    if dtype != "float32":
+        x = x.astype(dtype)
+    with tmx.autograd.record():
+        out = net(x)
+        loss = tmx.gluon.loss.SoftmaxCrossEntropyLoss()(
+            out.astype("float32", copy=False), y)
+    loss.backward()
+    trainer.step(B)
+    tmx.nd.waitall()
+    return out, loss
+
+
+def _loop_epoch(tmx, it, step, update, steps, trainer, B):
+    """``steps`` iterations of the canonical loop: next(it), ``step(x, y)``
+    (forward, loss, backward, Trainer.step; the device drained), then
+    ``update(y, *step's outputs)`` (the metrics; returns the batch's loss
+    sum).  Per step: loss mean, wall ms, ms waiting in next(), ms of the
+    metrics' update (the host copies and numpy work) and the learning
+    rate the optimizer used."""
+    rec = {k: [] for k in ("losses", "step_ms", "wait_ms", "metric_ms",
+                           "lr")}
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        x, y = next(it)
+        t1 = time.perf_counter()
+        outs = step(x, y)
+        t2 = time.perf_counter()
+        total = update(y, *outs)
+        t3 = time.perf_counter()
+        rec["losses"].append(total / B)
+        rec["wait_ms"].append((t1 - t0) * 1e3)
+        rec["metric_ms"].append((t3 - t2) * 1e3)
+        rec["step_ms"].append((t3 - t0) * 1e3)
+        rec["lr"].append(trainer.learning_rate)
+    return rec
+
+
+def _loop_numbers(torch, rec, B, prof):
+    """The run's numbers.  The idle share sets the device time per step
+    (profiled) against the median step's wall time (not profiled): the
+    profiler's own host cost per op would stretch a host-bound step."""
+    window = slice(2, None)             # steps 3-10, as the other phases
+    med = statistics.median(rec["step_ms"][window])
+    return {"step_ms": med, "per_s": B / (med / 1e3),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "idle_share": max(0.0, 1 - prof["device_ms"] / med),
+            "wait_ms": statistics.mean(rec["wait_ms"][window]),
+            "first_wait_ms": rec["wait_ms"][0],
+            "metric_ms": statistics.mean(rec["metric_ms"][window])}
+
+
+def _check_run(lane, rec, want_lr):
+    _log(f"lane {lane}: losses {[round(v, 5) for v in rec['losses']]}; "
+         f"step ms {[round(v, 1) for v in rec['step_ms']]}; next() ms "
+         f"{[round(v, 1) for v in rec['wait_ms']]}; metric ms "
+         f"{[round(v, 2) for v in rec['metric_ms']]}; lr {rec['lr']}")
+    losses = rec["losses"]
+    if not all(np.isfinite(losses)) \
+            or not np.mean(losses[-3:]) < losses[0]:
+        raise AssertionError(f"{lane}: losses {losses} not finite, or the "
+                             f"last three steps' mean not below the first "
+                             f"step's loss")
+    if not np.allclose(rec["lr"], want_lr, rtol=1e-12, atol=0):
+        raise AssertionError(f"{lane}: rates {rec['lr']}, the schedule "
+                             f"{want_lr}")
+
+
+def _timed_ms(tmx, step, steps):
+    ms = []
+    for _ in range(steps):
+        t = time.perf_counter()
+        step()
+        tmx.nd.waitall()
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def loop_phase(torch, fa, mx, args, smi):
+    """The loop phase: (a) the oracle above; (b) resnet50_v1 (1000 classes,
+    Xavier from --seed, hybridized) trained one epoch (10 steps of 64) from
+    a DataLoader over 640 host uint8 images with 4 workers
+    (RandomFlipLeftRight, ToTensor, Normalize), NAG with a MultiFactor
+    schedule and warmup, Trainer(kvstore="local"), accuracy, top-5 and loss
+    metrics every batch; f32, then bf16 (net.cast, BatchNorm f32,
+    multi_precision); each beside the vision phase's loop (SGD, one
+    pre-staged batch) on the same weights; the store's reduction timed and
+    the rate witness (_nag_witness); (d) Estimator.fit on resnet18_v1
+    over 4 batches of (b)'s loader with a CheckpointHandler, the checkpoint
+    reloaded bit for bit; (c) BERT-base bf16 10 steps from a 2-worker
+    DataLoader, LAMB with a polynomial warmup-decay schedule, the loss and
+    the accuracy of the argmax, beside the gluon phase's Adam loop on one
+    batch.  The data is from --seed (LOOP_CLASSES, LOOP_SHADE; BERT
+    reconstructs its tokens); NAG runs at LOOP_NAG's rate, LAMB at
+    LOOP_LAMB_LR.  In every lane the last three steps' mean loss is below
+    the first step's, the rates are the schedules', the loader never falls
+    back and no worker outlives the phase; BERT launches 12 bf16 forward
+    and 12 bf16 fused backward kernels a step, ResNet none."""
+    import multiprocessing
+    from mxnet_tpu_torch.gluon.data import dataloader
+    tmx = mx["pkg"]
+    gpu, B, size, classes = tmx.gpu(), VISION_BATCH, VISION_SIZE, 1000
+    rng = np.random.RandomState(args.seed)
+    y = rng.randint(0, LOOP_CLASSES, LOOP_IMAGES)
+    x = (rng.randint(0, 256 - LOOP_SHADE * LOOP_CLASSES,
+                     (LOOP_IMAGES, size, size, 3))
+         + LOOP_SHADE * y[:, None, None, None]).astype(np.uint8)
+    loop_oracle(torch, tmx, x, y)
+    fallbacks0 = dataloader.fallbacks
+    results = {}
+
+    # (b) ResNet-50 through the DataLoader
+    gc.collect()
+    torch.cuda.empty_cache()
+    _reset_counts(fa)
+    loader = _image_loader(tmx, x, y, 4)
+    procs = list(loader._pool._pool)
+    net = tmx.gluon.model_zoo.get_model("resnet50_v1", classes=classes)
+    tmx.random.seed(args.seed)
+    net.initialize(tmx.init.Xavier(), ctx=gpu)
+    flops_step = 3 * B * _net_flops(torch, tmx, net, tmx.nd.array(
+        np.zeros((1, 3, size, size), np.float32), ctx=gpu))
+    net.hybridize()
+    params = net.collect_params()
+    start = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    np.random.seed(args.seed)
+    staged = next(iter(_image_loader(tmx, x, y, 0)))
+
+    def restart():
+        for k, p in params.items():
+            p.set_data(start[k])
+            p.data()._data.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    nag_kw = LOOP_NAG
+
+    def schedule(lr=nag_kw["learning_rate"]):
+        return tmx.lr_scheduler.MultiFactorScheduler(
+            step=[6, 8], factor=0.1, base_lr=lr, warmup_steps=3)
+
+    kv_ms = None
+    for dname in ("float32", "bfloat16"):
+        lane = f"loop_resnet50_{'f32' if dname == 'float32' else 'bf16'}"
+        mp = dname == "bfloat16"
+        restart()
+        if mp:
+            net.cast("bfloat16")
+        trainer = tmx.gluon.Trainer(params, "nag", dict(
+            nag_kw, lr_scheduler=schedule(), multi_precision=mp),
+            kvstore="local")
+        metrics = tmx.metric.create(["acc", tmx.metric.TopKAccuracy(5)])
+        loss_metric = tmx.metric.Loss()
+
+        def update(y_, out, loss):
+            before = loss_metric.sum_metric
+            metrics.update([y_], [out])
+            loss_metric.update(None, [loss])
+            return loss_metric.sum_metric - before
+
+        def step(x_, y_):
+            return _loop_step(tmx, net, x_, y_, trainer, dname, B)
+
+        np.random.seed(args.seed)
+        it = iter(loader)
+        rec = _loop_epoch(tmx, it, step, update, LOOP_STEPS, trainer, B)
+        _check_run(lane, rec, [schedule()(k)
+                               for k in range(1, LOOP_STEPS + 1)])
+        _log(f"lane {lane}: metrics {metrics.get_name_value()} "
+             f"{loss_metric.get_name_value()}")
+        np.random.seed(args.seed + 1)
+        it = iter(loader)
+        for _ in range(2):
+            step(*next(it))
+
+        def iterations(n=3):
+            for _ in range(n):
+                x_, y_ = next(it)
+                update(y_, *step(x_, y_))
+
+        prof = _profile_step(torch, iterations, lane, VISION_FAMILIES, 3)
+        r = results[lane] = _loop_numbers(torch, rec, B, prof)
+        r["mfu"] = flops_step / (r["step_ms"] / 1e3) / PEAK_FLOPS[dname]
+        if not mp:
+            kv_ms = _kvstore_times(torch, tmx, params)
+        trainer = it = None
+        # the vision phase's loop on the same weights: SGD, one batch
+        restart()
+        if mp:
+            net.cast("bfloat16")
+        sgd = tmx.gluon.Trainer(params, "sgd", dict(VISION_SGD,
+                                                    multi_precision=mp))
+        bx, by = staged[0].astype(dname), staged[1].astype("float32")
+        base = []
+        ms = _timed_ms(tmx, lambda: base.append(_vision_sgd_step(
+            tmx, net, bx, by, sgd, B)), LOOP_STEPS)
+        med = statistics.median(ms[2:])
+        results[lane + "_prestaged_sgd"] = {"step_ms": med,
+                                            "per_s": B / (med / 1e3)}
+        _log(f"lane {lane}: the vision phase's loop (SGD, one pre-staged "
+             f"batch) on the "
+             f"same weights, step ms {[round(v, 1) for v in ms]}, losses "
+             f"{[round(float(v.asscalar()), 5) for v in base]}")
+        sgd = base = None
+    # NAG at LOOP_NAG_WITNESS_LR on the loop's first ten batches, fetched once
+    np.random.seed(args.seed)
+    random.seed(args.seed)
+    it = iter(loader)
+    batches = [next(it) for _ in range(LOOP_STEPS)]
+    it = None
+    witness = _nag_witness(torch, tmx, mx, net, params, restart, batches,
+                           schedule, B)
+    batches = None
+    counts = _counts(fa)
+    if any(counts.values()):
+        raise AssertionError(f"the ResNet loop launched flash kernels: "
+                             f"{counts}")
+    # the share of next() that is the batch's host-to-card copy
+    host = np.ones((B, 3, size, size), np.float32)
+    copy_ms = statistics.median(_timed_ms(
+        tmx, lambda: torch.from_numpy(host).to(gpu.torch_device()), 10)[2:])
+    _log(f"host-to-card copy of one {host.nbytes / 1e6:.1f} MB f32 batch "
+         f"(pageable, as the loader's): {copy_ms:.2f} ms (median of 8)")
+    host = None
+
+    # (d) Estimator.fit on resnet18_v1 over 4 batches of the same loader
+    est_net = tmx.gluon.model_zoo.get_model("resnet18_v1", classes=classes)
+    est_net.initialize(tmx.init.Xavier(), ctx=gpu)
+    est_net.hybridize()
+    est_mod = tmx.gluon.contrib.estimator
+    est = est_mod.Estimator(
+        est_net, tmx.gluon.loss.SoftmaxCrossEntropyLoss(),
+        train_metrics=["acc"], trainer=tmx.gluon.Trainer(
+            est_net.collect_params(), "nag", dict(nag_kw)))
+    with tempfile.TemporaryDirectory() as d:
+        t = time.perf_counter()
+        est.fit(loader, epochs=1, batches=4, event_handlers=[
+            est_mod.CheckpointHandler(d, model_prefix="resnet18")])
+        fit_s = time.perf_counter() - t
+        fresh = tmx.gluon.model_zoo.get_model("resnet18_v1",
+                                              classes=classes)
+        fresh.load_parameters(os.path.join(d, "resnet18-epoch0.params"),
+                              ctx=gpu)
+        states = os.path.exists(os.path.join(d, "resnet18-epoch0.states"))
+    same = all(torch.equal(p.data()._data, q.data()._data)
+               for p, q in zip(est_net.collect_params().values(),
+                               fresh.collect_params().values()))
+    _log(f"estimator resnet18_v1: fit 4 batches in {fit_s:.1f} s, "
+         f"{est.train_loss_metric.get()} {est.train_metrics[0].get()}; "
+         f"checkpoint reloads bit for bit: {same}; trainer states saved: "
+         f"{states}")
+    if not (same and states):
+        raise AssertionError("estimator checkpoint does not reload")
+    loader._shutdown_pool()
+    net = est = est_net = fresh = loader = staged = params = start = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (c) BERT-base bf16 through a DataLoader, LAMB with warmup-decay
+    bert = tmx.gluon.model_zoo.bert
+    layers, units, Bb, L, vocab = (LOOP_BERT[k] for k in (
+        "layers", "units", "batch", "seq", "vocab"))
+    bnet = bert.BERTModel(vocab_size=vocab, num_layers=layers, units=units,
+                          hidden_size=LOOP_BERT["hidden"],
+                          num_heads=LOOP_BERT["heads"], max_length=L,
+                          dropout=0.0, prefix="bert_")
+    tmx.random.seed(args.seed)
+    bnet.initialize(tmx.init.Normal(0.02), ctx=gpu)
+    bparams = bnet.collect_params()
+    n_matmul = sum(p.numel() for n, p in bnet.named_parameters()
+                   if "word_embed" not in n and "position" not in n)
+    flops_tok = 6 * n_matmul + 12 * layers * units * L
+    bnet.hybridize()
+    bnet.cast("bfloat16")
+    bstart = {k: p.data()._data.detach().clone() for k, p in bparams.items()}
+    toks = rng.randint(0, vocab, (LOOP_BERT_SAMPLES, L))
+    bloader = tmx.gluon.data.DataLoader(
+        tmx.gluon.data.ArrayDataset(toks, toks), batch_size=Bb, shuffle=True,
+        last_batch="discard", num_workers=2, timeout=300)
+    procs += list(bloader._pool._pool)
+
+    def brestart():
+        for k, p in bparams.items():
+            p.set_data(bstart[k])
+            p.data()._data.grad = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+
+    def poly():
+        return tmx.lr_scheduler.PolyScheduler(max_update=LOOP_STEPS,
+                                              base_lr=LOOP_LAMB_LR, pwr=1,
+                                              warmup_steps=2)
+
+    brestart()
+    trainer = tmx.gluon.Trainer(bparams, "lamb", {
+        "learning_rate": LOOP_LAMB_LR, "wd": 0.01, "lr_scheduler": poly(),
+        "multi_precision": True}, kvstore="local")
+    lossf = tmx.gluon.loss.SoftmaxCELoss()
+    loss_m, acc_m = tmx.metric.Loss(), tmx.metric.Accuracy()
+
+    def bert_step(tb, lb):
+        with tmx.autograd.record():
+            logits = bnet(tb)[2]
+            loss = lossf(logits.astype("float32", copy=False), lb)
+        loss.backward()
+        trainer.step(Bb)
+        tmx.nd.waitall()
+        return logits, loss
+
+    def bert_update(lb, logits, loss):
+        before = loss_m.sum_metric
+        loss_m.update(None, [loss])
+        acc_m.update([lb], [logits.argmax(axis=-1)])
+        return loss_m.sum_metric - before
+
+    _reset_counts(fa)
+    np.random.seed(args.seed)
+    it = iter(bloader)
+    rec = _loop_epoch(tmx, it, bert_step, bert_update, LOOP_STEPS, trainer,
+                      Bb)
+    bert_counts = _counts(fa)
+    lane = "loop_bert_seq512"
+    _check_run(lane, rec, [poly()(k) for k in range(1, LOOP_STEPS + 1)])
+    _log(f"lane {lane}: {loss_m.get()} {acc_m.get()}; launches over "
+         f"{LOOP_STEPS} steps {bert_counts}")
+    want = {"flash_fwd": layers * LOOP_STEPS,
+            "flash_bwd_fused": layers * LOOP_STEPS}
+    if any(n != want.get(k, 0) for k, n in bert_counts.items()):
+        raise AssertionError(f"{lane}: launches {bert_counts}, want {want} "
+                             f"and no other")
+    np.random.seed(args.seed + 1)
+    it = iter(bloader)
+    for _ in range(2):
+        tb, lb = next(it)
+        bert_step(tb, lb)
+
+    def bert_iterations(n=3):
+        for _ in range(n):
+            tb_, lb_ = next(it)
+            bert_update(lb_, *bert_step(tb_, lb_))
+
+    prof = _profile_step(torch, bert_iterations, lane, FLASH_FAMILIES, 3)
+    r = results[lane] = _loop_numbers(torch, rec, Bb, prof)
+    r["mfu"] = r["per_s"] * L * flops_tok / PEAK_FLOPS["bfloat16"]
+    bloader._shutdown_pool()
+    it = trainer = None
+    # the gluon phase's loop on the same weights: Adam, one batch
+    brestart()
+    adam = tmx.gluon.Trainer(bparams, "adam", {"learning_rate": 1e-4,
+                                               "multi_precision": True})
+    _, ms = _gluon_steps(tmx, bnet, [tb], lb, LOOP_STEPS, adam)
+    med = statistics.median(ms[2:])
+    results[lane + "_prestaged_adam"] = {"step_ms": med,
+                                         "per_s": Bb / (med / 1e3)}
+    _log(f"lane {lane}: the gluon phase's loop (Adam, one pre-staged "
+         f"batch) on the "
+         f"same weights, step ms {[round(v, 1) for v in ms]}")
+    adam = bnet = bparams = bstart = tb = lb = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    alive = [p for p in procs if p.is_alive()]
+    if alive or multiprocessing.active_children():
+        raise AssertionError(f"DataLoader workers outlive their loaders: "
+                             f"{alive or multiprocessing.active_children()}")
+    if dataloader.fallbacks != fallbacks0:
+        raise AssertionError(f"the DataLoader fell back "
+                             f"{dataloader.fallbacks - fallbacks0} times")
+    for lane, r in results.items():
+        unit = "samples/s" if "bert" in lane else "images/s"
+        extra = "" if "idle_share" not in r else (
+            f", MFU {r['mfu']:.4f}, peak {r['peak_gib']:.2f} GiB, idle share "
+            f"{r['idle_share']:.3f}, next() {r['wait_ms']:.2f} ms (first "
+            f"{r['first_wait_ms']:.1f}), metric.update {r['metric_ms']:.2f} "
+            f"ms")
+        _log(f"train {lane}: step {r['step_ms']:.2f} ms, {r['per_s']:.2f} "
+             f"{unit}{extra} ({smi})")
+    _log("kvstore local pushpull_list (ResNet-50 gradients): "
+         + ", ".join(f"{n} replica{'s' if n > 1 else ''} {t:.3f} ms"
+                     for n, t in kv_ms.items()) + f" ({smi})")
+    for lane, losses in witness.items():
+        _log(f"rate witness {lane}: NAG lr {LOOP_NAG_WITNESS_LR}, losses "
+             f"{[round(v, 5) for v in losses]} ({smi})")
+    return bert_counts, results
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -1600,6 +2372,7 @@ def main(argv=None):
     gluon_counts, _ = _phase("gluon", gluon_phase, torch, fa, mx, args, smi)
     vision_counts, _ = _phase("vision", vision_phase, torch, fa, mx, args,
                               smi)
+    loop_counts, _ = _phase("loop", loop_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -1624,6 +2397,8 @@ def main(argv=None):
         "gluon_launches": sum(c["flash_fwd"] for c in gluon_counts.values()),
         # the ResNet-50 vision phase has no attention
         "vision_launches": vision_counts["flash_fwd"],
+        # the loop phase's timed steps: BERT bf16 (ResNet-50 launches none)
+        "loop_launches": loop_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -1680,6 +2455,8 @@ def main(argv=None):
                 "library_events_ms": t[pre + "library_events_ms"],
                 "library_kernels": t[pre + "library_kernels"],
                 "vision_launches": vision_counts[
+                    f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
+                "loop_launches": loop_counts[
                     f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
             })
             if kind_ == "fused":

@@ -20,7 +20,12 @@ over torch autograd, and ``mx.gluon`` (Parameter, Block/HybridBlock over
 Gluon HybridBlock.  Slice 9 ports convolution, pooling and BatchNorm (ops
 that write back into their inputs), the conv and norm layers, the vision
 zoo's ResNets and the ``.params`` files (``nd.save``/``load``,
-``save_parameters``/``load_parameters``; ``dmlc_params``).
+``save_parameters``/``load_parameters``; ``dmlc_params``).  Then the
+training loop around the model: ``gluon.data`` (datasets,
+samplers, ``DataLoader`` with worker processes, the array transforms),
+``metric``, ``lr_scheduler``, every optimizer of the reference with
+``Updater`` and the ``nd.*_update`` ops, the local kvstore (``kv``) with
+Parameters on several contexts, ``gluon.utils`` and the Estimator.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -49,4 +54,7 @@ from . import ndarray as nd  # noqa: E402,F401
 from . import autograd  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import initializer as init  # noqa: E402,F401
+from . import lr_scheduler, metric  # noqa: E402,F401
 from . import optimizer, gluon, parallel  # noqa: E402,F401
+from . import kvstore  # noqa: E402,F401
+from . import kvstore as kv  # noqa: E402,F401

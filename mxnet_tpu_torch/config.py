@@ -1,5 +1,5 @@
 """Environment knobs the port reads — its own small copy of the entries of
-``mxnet_tpu/config.py`` that the serving and training slices use (same
+``mxnet_tpu/config.py`` that the port reads (same
 names, same defaults, same typed accessors)."""
 
 from __future__ import annotations
@@ -10,6 +10,10 @@ __all__ = ["get", "get_int", "get_float", "KNOWN_VARS"]
 
 # name -> (default, help)
 KNOWN_VARS = {
+    "MXNET_DATALOADER_RETRIES": (
+        "2",
+        "Worker-pool batch failures a DataLoader absorbs by refetching in "
+        "its own process before it loads in one process for good."),
     "MXNET_FUSED_ATTENTION": (
         "1",
         "If 1 (default), attention at flash-eligible shapes runs the "
@@ -23,6 +27,10 @@ KNOWN_VARS = {
         "If 1, gelu defaults to the tanh approximation "
         "0.5x(1+tanh(sqrt(2/pi)(x+0.044715x^3))) instead of the exact erf "
         "form; an explicit approximate= argument always wins."),
+    "MXNET_KVSTORE_BUCKET_MB": (
+        "25",
+        "Gradient bucket size (MB) of the local kvstore's pushpull_list: "
+        "dense gradients reduce bucket by bucket; 0 reduces key by key."),
     "MXNET_PARAMS_FORMAT": (
         "npz",
         "Default mx.nd.save container: 'npz' (bfloat16 included) or 'dmlc' "

@@ -24,6 +24,10 @@ across (``convert.py``).
 - tensors (``parallel.TrainStep``, or a hybridized parent): the tensor
   path, under torch's current grad mode.
 
+A Parameter with replicas on several contexts gives each forward the
+replica on its input's context: the outermost block called with NDArrays
+names the context for the tensors its subtree runs on.
+
 ``save_parameters``/``load_parameters`` write and read the reference's
 ``.params`` files (``nd.save``) under the same structural names, so a net
 trained in either package loads in the other.  ``export`` and
@@ -48,6 +52,7 @@ from .parameter import (DeferredInitializationError, Parameter,
 __all__ = ["Block", "HybridBlock", "SymbolBlock"]
 
 _naming = threading.local()
+_forward_ctx = threading.local()    # .value: the context a subtree runs on
 
 
 def _prefix_counter(hint):
@@ -237,11 +242,11 @@ def _unwrap(x):
     return x._data if isinstance(x, NDArray) else x
 
 
-def _wrap(out):
+def _wrap(out, ctx=None):
     if isinstance(out, torch.Tensor):
-        return NDArray(out)
+        return NDArray(out, ctx)
     if isinstance(out, (tuple, list)):
-        return type(out)(_wrap(o) for o in out)
+        return type(out)(_wrap(o, ctx) for o in out)
     return out
 
 
@@ -271,25 +276,27 @@ class HybridBlock(Block):
                 f"{type(self).__name__} cannot infer shapes for deferred "
                 f"parameters {pending}; initialize them explicitly")
 
-    def _params_for(self, args):
-        """The registered parameters' values (NDArrays), finishing any
-        deferred initialization from the inputs' shapes first."""
+    def _params_for(self, args, ctx=None):
+        """The registered parameters' values (NDArrays) on ``ctx``,
+        finishing any deferred initialization from the inputs' shapes
+        first."""
         pending = [p for p in self._reg_params.values()
                    if p._data is None and p._deferred_init is not None]
         if pending:
             self.infer_param_shapes(args)
             for p in pending:
                 p._finish_deferred_init()
-        return {name: p.data() for name, p in self._reg_params.items()}
+        return {name: p.data(ctx) for name, p in self._reg_params.items()}
 
     def _forward_tensors(self, args, kwargs):
+        ctx = getattr(_forward_ctx, "value", None)
         params = {}
         for name, p in self._reg_params.items():
             if p._data is None:     # deferred, or an error to raise
                 params = {k: v._data
-                          for k, v in self._params_for(args).items()}
+                          for k, v in self._params_for(args, ctx).items()}
                 break
-            params[name] = p._data._data
+            params[name] = p._value(ctx)._data
         return self.hybrid_forward(tensor_ops, *args, **params, **kwargs)
 
     def forward(self, *args, **kwargs):
@@ -298,20 +305,27 @@ class HybridBlock(Block):
                 break
         else:
             return self._forward_tensors(args, kwargs)
+        ctx = a.ctx
         if not self._active:
-            return self.hybrid_forward(nd, *args, **self._params_for(args),
+            return self.hybrid_forward(nd, *args,
+                                       **self._params_for(args, ctx),
                                        **kwargs)
         recording = autograd.is_recording()
-        with torch.set_grad_enabled(recording):
-            out = self._forward_tensors(
-                [_unwrap(a) for a in args],
-                {k: _unwrap(v) for k, v in kwargs.items()})
+        prev = getattr(_forward_ctx, "value", None)
+        _forward_ctx.value = ctx
+        try:
+            with torch.set_grad_enabled(recording):
+                out = self._forward_tensors(
+                    [_unwrap(a) for a in args],
+                    {k: _unwrap(v) for k, v in kwargs.items()})
+        finally:
+            _forward_ctx.value = prev
         if recording:
             if self._all_params is None:
                 self._all_params = list(self.collect_params().values())
-            autograd._note_inputs([p._data for p in self._all_params
+            autograd._note_inputs([p._value(ctx) for p in self._all_params
                                    if p._data is not None])
-        return _wrap(out)
+        return _wrap(out, a._ctx)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError

@@ -1,0 +1,99 @@
+"""gluon.data datasets — the port of ``mxnet_tpu/gluon/data/dataset.py``:
+``Dataset`` (``transform``, ``transform_first``, ``filter``, ``take``),
+``SimpleDataset``, ``ArrayDataset`` and the lazy transform dataset.
+``RecordFileDataset`` needs RecordIO, which is not yet ported."""
+
+from __future__ import annotations
+
+from ...base import MXNetError
+
+__all__ = ["Dataset", "SimpleDataset", "ArrayDataset", "RecordFileDataset",
+           "_LazyTransformDataset"]
+
+
+class Dataset:
+    def __getitem__(self, idx):
+        raise NotImplementedError
+
+    def __len__(self):
+        raise NotImplementedError
+
+    def transform(self, fn, lazy=True):
+        trans = _LazyTransformDataset(self, fn)
+        if lazy:
+            return trans
+        return SimpleDataset([trans[i] for i in range(len(trans))])
+
+    def transform_first(self, fn, lazy=True):
+        return self.transform(_TransformFirstClosure(fn), lazy)
+
+    def filter(self, fn):
+        return SimpleDataset([self[i] for i in range(len(self))
+                              if fn(self[i])])
+
+    def take(self, count):
+        return SimpleDataset([self[i] for i in range(min(count, len(self)))])
+
+
+class _TransformFirstClosure:
+    def __init__(self, fn):
+        self._fn = fn
+
+    def __call__(self, x, *args):
+        if args:
+            return (self._fn(x),) + args
+        return self._fn(x)
+
+
+class SimpleDataset(Dataset):
+    def __init__(self, data):
+        self._data = data
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        return self._data[idx]
+
+
+class _LazyTransformDataset(Dataset):
+    def __init__(self, data, fn):
+        self._data = data
+        self._fn = fn
+
+    def __len__(self):
+        return len(self._data)
+
+    def __getitem__(self, idx):
+        item = self._data[idx]
+        if isinstance(item, tuple):
+            return self._fn(*item)
+        return self._fn(item)
+
+
+class ArrayDataset(Dataset):
+    def __init__(self, *args):
+        if not args:
+            raise MXNetError("ArrayDataset needs at least one array")
+        self._length = len(args[0])
+        self._data = []
+        for a in args:
+            if len(a) != self._length:
+                raise MXNetError("all arrays must have the same length")
+            self._data.append(a)
+
+    def __len__(self):
+        return self._length
+
+    def __getitem__(self, idx):
+        if len(self._data) == 1:
+            return self._data[0][idx]
+        return tuple(d[idx] for d in self._data)
+
+
+class RecordFileDataset(Dataset):
+    """A dataset over a RecordIO (.rec/.idx) pair: not yet ported."""
+
+    def __init__(self, filename):  # noqa: ARG002
+        raise MXNetError("RecordFileDataset needs recordio, which is not "
+                         "yet ported to mxnet_tpu_torch")

@@ -9,8 +9,12 @@ gradient buffer is a separate NDArray that ``autograd.backward`` fills
 (``grad_req`` ``write`` or ``add``).  Shapes with a 0 are deferred: the
 tensor is made, and registered with its blocks, at the first forward.
 
-One context per Parameter: the reference's per-device replicas (data
-parallelism over a context list) are not ported yet and raise.
+``initialize(ctx=[c0, c1, ...])`` makes one replica per context, each its
+own ``nn.Parameter`` with its own gradient buffer, all from the same
+initial values (data parallelism: ``gluon.utils.split_and_load`` gives each
+replica a slice of the batch and the Trainer reduces the gradients through
+a kvstore).  The replica on the first context is the one registered with
+the blocks; a Block's forward reads the replica of its input's context.
 """
 
 from __future__ import annotations
@@ -23,7 +27,8 @@ import torch
 
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, context_of, current_context, resolve_device
-from ..ndarray.ndarray import NDArray, load as nd_load, save as nd_save
+from ..ndarray.ndarray import (NDArray, _placed, load as nd_load,
+                               save as nd_save)
 
 __all__ = ["Parameter", "Constant", "ParameterDict",
            "DeferredInitializationError"]
@@ -33,17 +38,17 @@ class DeferredInitializationError(MXNetError):
     pass
 
 
-def _one_context(ctx):
+def _contexts(ctx):
+    """A list of Contexts from None (the current context), one context or
+    a list of them."""
     if ctx is None:
-        return current_context()
-    if isinstance(ctx, (list, tuple)):
-        if len(ctx) != 1:
-            raise MXNetError("a Parameter on more than one context (data "
-                             "parallel replicas) is not yet ported to "
-                             "mxnet_tpu_torch")
-        ctx = ctx[0]
-    return Context(ctx) if isinstance(ctx, Context) \
-        else context_of(resolve_device(ctx))
+        return [current_context()]
+    if not isinstance(ctx, (list, tuple)):
+        ctx = [ctx]
+    if not ctx:
+        raise MXNetError("an empty context list")
+    return [Context(c) if isinstance(c, Context)
+            else context_of(resolve_device(c)) for c in ctx]
 
 
 class Parameter:
@@ -64,7 +69,8 @@ class Parameter:
         self.stype = stype
         self.grad_stype = grad_stype
         self._data = None           # NDArray over a torch.nn.Parameter
-        self._ctx = None
+        self._data_list = None      # one such NDArray per context
+        self._ctx_list = None
         self._deferred_init = None
         self._owners = []           # (weakref to Block, attribute name)
 
@@ -81,6 +87,11 @@ class Parameter:
                 block._parameters[attr] = self._data._data
 
     # -- state ---------------------------------------------------------------
+    @property
+    def _ctx(self):
+        """The first context: where the registered replica lives."""
+        return self._ctx_list[0] if self._ctx_list else None
+
     @property
     def grad_req(self):
         return self._grad_req
@@ -107,7 +118,7 @@ class Parameter:
         from .. import initializer
         if self._data is not None and not force_reinit:
             return
-        self._ctx = _one_context(ctx)
+        self._ctx_list = _contexts(ctx)
         init = init if init is not None else self.init
         if default_init is None:
             default_init = initializer.Uniform()
@@ -121,9 +132,16 @@ class Parameter:
         self._finish_init(init, default_init)
 
     def _make(self, tensor):
-        """Take ``tensor`` (a fresh value) as the parameter's data."""
-        self._data = NDArray(torch.nn.Parameter(
-            tensor, requires_grad=self._grad_req != "null"))
+        """Take ``tensor`` (a fresh value on the first context) as the
+        parameter's data, and a copy of it on every other context."""
+        req = self._grad_req != "null"
+        self._data_list = [
+            _placed(torch.nn.Parameter(
+                tensor if j == 0 else
+                tensor.detach().to(resolve_device(c), copy=True),
+                requires_grad=req), c)
+            for j, c in enumerate(self._ctx_list)]
+        self._data = self._data_list[0]
         self._deferred_init = None
         self._init_grad()
         self._register()
@@ -139,11 +157,12 @@ class Parameter:
         self._make(data._data)
 
     def _init_grad(self):
-        d = self._data
-        d._data.requires_grad_(self._grad_req != "null")
-        d.grad_req = self._grad_req
-        d._grad = None if self._grad_req == "null" else \
-            NDArray(torch.zeros_like(d._data, requires_grad=False))
+        for d in self._data_list:
+            d._data.requires_grad_(self._grad_req != "null")
+            d.grad_req = self._grad_req
+            d._grad = None if self._grad_req == "null" else \
+                NDArray(torch.zeros_like(d._data, requires_grad=False),
+                        d._ctx)
 
     def _finish_deferred_init(self, in_shape=None):
         """Called by layers at the first forward once the input shape is
@@ -186,9 +205,28 @@ class Parameter:
         raise MXNetError(f"Parameter {self.name!r} has not been initialized. "
                          "Call .initialize() first")
 
-    def data(self, ctx=None):  # noqa: ARG002 (one context)
+    def _value(self, ctx):
+        """The replica on ``ctx`` (None: the first), unchecked."""
+        if ctx is None or len(self._data_list) == 1:
+            return self._data
+        return self._replica(ctx)
+
+    def _replica(self, ctx):
+        for c, d in zip(self._ctx_list, self._data_list):
+            if c == ctx:
+                return d
+        raise MXNetError(f"Parameter {self.name!r} was not initialized on "
+                         f"context {ctx}; it lives on {self._ctx_list}")
+
+    def data(self, ctx=None):
+        """The value on ``ctx``; None, or a Parameter on one context: the
+        first replica."""
         self._check_initialized()
-        return self._data
+        return self._value(ctx)
+
+    def list_data(self):
+        self._check_initialized()
+        return list(self._data_list)
 
     def grad(self, ctx=None):
         d = self.data(ctx)
@@ -196,8 +234,21 @@ class Parameter:
             raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
         return d._grad
 
+    def list_grad(self):
+        self._check_initialized()
+        if self._data._grad is None:
+            raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
+        return [d._grad for d in self._data_list]
+
     def list_ctx(self):
-        return [] if self._ctx is None else [self._ctx]
+        return list(self._ctx_list or [])
+
+    def reset_ctx(self, ctx):
+        """Move the value to the context(s) ``ctx``: one replica each."""
+        self._ctx_list = _contexts(ctx)
+        if self._data is not None:
+            self._make(self._data._data.detach().to(
+                resolve_device(self._ctx_list[0]), copy=True))
 
     def set_data(self, data):
         """Overwrite the value (cast to this parameter's dtype); an
@@ -210,28 +261,32 @@ class Parameter:
             src = data
         else:
             src = torch.tensor(np.asarray(data))
-            if self._ctx is None:
-                self._ctx = current_context()
+            if self._ctx_list is None:
+                self._ctx_list = [current_context()]
         if self._data is None:
             self.shape = tuple(src.shape)
-            self._ctx = self._ctx or context_of(src.device)
-            self._make(src.detach().to(resolve_device(self._ctx),
+            self._ctx_list = self._ctx_list or [context_of(src.device)]
+            self._make(src.detach().to(resolve_device(self._ctx_list[0]),
                                        torch_dtype(self.dtype), copy=True))
             return
-        self._data._set_data(src.detach())
+        for d in self._data_list:
+            d._set_data(src.detach())
 
     def zero_grad(self):
-        if self._data is not None and self._data._grad is not None:
-            with torch.no_grad():
-                self._data._grad._data.zero_()
+        if self._data is None:
+            return
+        with torch.no_grad():
+            for d in self._data_list:
+                if d._grad is not None:
+                    d._grad._data.zero_()
 
     def cast(self, dtype):
         """Cast the value to ``dtype`` in place (the same ``nn.Parameter``);
         the gradient buffer restarts at zero in the new dtype."""
         self.dtype = numpy_dtype(torch_dtype(dtype))
         if self._data is not None:
-            p = self._data._data
-            p.data = p.data.to(torch_dtype(dtype))
+            for d in self._data_list:
+                d._data.data = d._data.data.to(torch_dtype(dtype))
             self._init_grad()
 
     def __repr__(self):

@@ -1,28 +1,39 @@
-"""gluon.Trainer for one device — the port of
-``mxnet_tpu/gluon/trainer.py``.
+"""gluon.Trainer — the port of ``mxnet_tpu/gluon/trainer.py``.
 
-``Trainer(params, optimizer, optimizer_params)`` then, after
-``loss.backward()``, ``step(batch_size)``: the gradients are rescaled by
-1/batch_size, reduced (nothing to reduce on one device), and every
-parameter with ``grad_req != "null"`` is updated by one
-``Optimizer.update_multi`` call over all of them (``torch._foreach_*``).
-With ``multi_precision`` a bf16 parameter keeps an f32 master copy in the
-optimizer state (``optimizer.py``).
+``Trainer(params, optimizer, optimizer_params, kvstore, update_on_kvstore)``
+then, after ``loss.backward()``, ``step(batch_size)``: the gradients are
+rescaled by 1/batch_size, each parameter's gradients of every context are
+summed through the kvstore and written back into every replica, and every
+replica is updated by its own ``Updater`` (one ``update_multi`` over all
+parameters, ``torch._foreach_*``), so the replicas stay identical; each
+logical step advances the update counts (Adam's t, the schedule) once.
+With ``update_on_kvstore`` the store runs the optimizer on the summed
+gradient and ``pull`` hands every replica the updated weight.
 
-``kvstore`` may be None, ``"device"`` or ``"local"``; distributed stores,
-``update_on_kvstore`` and parameters on more than one context are not
-ported yet and raise.
+The store is skipped, as in the reference (``:99-140``), for a ``local``,
+``device`` or ``nccl`` name with one replica and the update on the
+trainer: the reduction is then the identity.  ``update_on_kvstore=None``
+means False, as in the reference (its documented divergence from MXNet
+1.x, which defaults it to True for local stores).  ``allreduce_grads()``
+and ``update()`` raise when the store owns the update; ``save_states``/
+``load_states`` go through the store then.  States files are the
+reference's pickled layout (``optimizer.Updater``), so a file written by
+either package's Trainer loads in the other.
+
+Not ported: gradient compression (``compression_params``) and the
+distributed stores; both raise.
 """
 
 from __future__ import annotations
 
-import torch
-
+from .. import kvstore as kvs
 from .. import optimizer as opt
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
+
+_SKIPPABLE = ("local", "device", "nccl")
 
 
 class Trainer:
@@ -37,28 +48,61 @@ class Trainer:
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
-        if kvstore not in (None, False, "device", "local"):
-            raise MXNetError(f"kvstore {kvstore!r} is not yet ported to "
-                             f"mxnet_tpu_torch (one device: None, 'device' "
-                             f"or 'local')")
-        if update_on_kvstore or compression_params:
-            raise MXNetError("update_on_kvstore and gradient compression "
-                             "are not yet ported to mxnet_tpu_torch")
+        if compression_params:
+            raise MXNetError("gradient compression is not yet ported to "
+                             "mxnet_tpu_torch")
+        if isinstance(kvstore, str) and kvstore.lower() not in _SKIPPABLE:
+            kvstore = kvs.create(kvstore)     # raises for dist_* names
         self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore_type = kvstore
+        self._kvstore = None
+        self._kv_initialized = False
+        self._update_on_kvstore = bool(update_on_kvstore)
+
+    def _init_optimizer(self, optimizer, optimizer_params):
+        param_dict = dict(enumerate(self._params))
         if isinstance(optimizer, opt.Optimizer):
             if set(optimizer_params) - {"rescale_grad"}:
                 raise MXNetError("optimizer_params must be None when "
                                  "optimizer is an Optimizer instance")
             self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
         else:
-            self._optimizer = opt.create(optimizer, **optimizer_params)
-        self._optimizer.set_lr_mult({i: p.lr_mult
-                                     for i, p in enumerate(self._params)})
-        self._optimizer.set_wd_mult({i: p.wd_mult
-                                     for i, p in enumerate(self._params)})
-        self._states = {}
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **optimizer_params)
+        self._updaters = [opt.get_updater(self._optimizer)]
+
+    def _n_ctx(self):
+        return max((len(p.list_ctx()) or 1 for p in self._params), default=1)
+
+    def _init_kvstore(self):
+        if self._kv_initialized:
+            return
+        n_ctx = self._n_ctx()     # replicas may appear at the first forward
+        while len(self._updaters) < n_ctx:
+            self._updaters.append(opt.get_updater(self._optimizer))
+        kvt = self._kvstore_type
+        if kvt is None or kvt is False:
+            if self._update_on_kvstore:
+                raise MXNetError("update_on_kvstore=True needs a kvstore")
+            self._kvstore = None
+        elif isinstance(kvt, str):
+            self._kvstore = None if n_ctx <= 1 and not \
+                self._update_on_kvstore else kvs.create(kvt)
+        else:
+            self._kvstore = kvt
+        if self._kvstore is not None:
+            for i, p in enumerate(self._params):
+                if p.grad_req != "null":
+                    self._kvstore.init(i, p.data())
+            if self._update_on_kvstore:
+                self._kvstore.set_optimizer(self._optimizer)
+        else:
+            self._update_on_kvstore = False
+        self._kv_initialized = True
 
     @property
     def learning_rate(self):
@@ -68,46 +112,89 @@ class Trainer:
     def optimizer(self):
         return self._optimizer
 
+    @property
+    def _states(self):
+        """The optimizer state of the first replica, by index."""
+        return self._updaters[0].states
+
     def set_learning_rate(self, lr):
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
         """Rescale the gradients by 1/batch_size, reduce them, update."""
+        self._init_kvstore()
         self._optimizer.rescale_grad = self._scale / batch_size
-        self.allreduce_grads()
-        self._update(ignore_stale_grad)
+        self._allreduce_grads()
+        if not self._update_on_kvstore:
+            self._update(ignore_stale_grad)
 
     def allreduce_grads(self):
-        """Sum each gradient over its contexts: one context, nothing to
-        do."""
+        """Sum each gradient over its contexts, into every replica."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("allreduce_grads() is invalid with "
+                             "update_on_kvstore=True")
+        self._allreduce_grads()
+
+    def _trained(self):
+        return [(i, p) for i, p in enumerate(self._params)
+                if p.grad_req != "null" and p._data is not None]
+
+    def _allreduce_grads(self):
+        if self._kvstore is None:
+            return
+        trained = self._trained()
+        if self._update_on_kvstore:
+            # the store updates on push; pull hands out the new weights
+            for i, p in trained:
+                grads, datas = p.list_grad(), p.list_data()
+                self._kvstore.push(i, grads if len(grads) > 1 else grads[0])
+                self._kvstore.pull(i, datas if len(datas) > 1 else datas[0])
+            return
+        keys = [i for i, _ in trained]
+        vals = [g if len(g) > 1 else g[0]
+                for g in (p.list_grad() for _, p in trained)]
+        self._kvstore.pushpull_list(keys, vals, vals)
 
     def update(self, batch_size, ignore_stale_grad=False):
         """The update of ``step`` without the reduction."""
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            raise MXNetError("update() is invalid with "
+                             "update_on_kvstore=True")
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
     def _update(self, ignore_stale_grad=False):  # noqa: ARG002
-        idx = [i for i, p in enumerate(self._params)
-               if p.grad_req != "null" and p._data is not None]
-        for i in idx:
-            if i not in self._states:
-                self._states[i] = self._optimizer \
-                    .create_state_multi_precision(i, self._params[i]._data
-                                                  ._data.detach())
-        self._optimizer.update_multi(
-            idx, [self._params[i]._data._data for i in idx],
-            [self._params[i]._data._grad._data for i in idx],
-            [self._states[i] for i in idx])
+        o = self._optimizer
+        trained = self._trained()
+        counts, num = dict(o._index_update_count), o.num_update
+        for j, upd in enumerate(self._updaters):
+            if j:       # every replica sees the same step count
+                o._index_update_count.clear()
+                o._index_update_count.update(counts)
+                o.num_update = num
+            idx = [i for i, p in trained if j < len(p._data_list)]
+            if idx:
+                upd.call_multi(
+                    idx, [self._params[i]._data_list[j]._grad for i in idx],
+                    [self._params[i]._data_list[j] for i in idx])
 
     def save_states(self, fname):
         """Write the optimizer state and update counts to ``fname``."""
-        o = self._optimizer
-        torch.save({"states": self._states,
-                    "index_update_count": o._index_update_count,
-                    "num_update": o.num_update}, fname)
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname)
+            return
+        with open(fname, "wb") as f:
+            f.write(self._updaters[0].get_states())
 
     def load_states(self, fname):
-        blob = torch.load(fname, weights_only=True)
-        self._states = blob["states"]
-        self._optimizer._index_update_count = blob["index_update_count"]
-        self._optimizer.num_update = blob["num_update"]
+        self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            return
+        with open(fname, "rb") as f:
+            data = f.read()
+        for u in self._updaters:
+            u.set_states(data)

@@ -37,15 +37,19 @@ def _invoke(name, inputs, attrs):
 
 class NDArray:
     """An n-dimensional array on a device: ``_data`` is its tensor,
-    ``_grad`` its gradient buffer once ``attach_grad`` ran."""
+    ``_grad`` its gradient buffer once ``attach_grad`` ran, ``_ctx`` the
+    context it was placed on when that says more than its tensor's device
+    (``cpu(1)``: torch has one host device, the reference's tests use
+    several host contexts as data-parallel replicas)."""
 
-    __slots__ = ("_data", "_grad", "grad_req", "__weakref__")
+    __slots__ = ("_data", "_grad", "grad_req", "_ctx", "__weakref__")
     __array_priority__ = 1000.0
 
-    def __init__(self, data):
+    def __init__(self, data, ctx=None):
         self._data = data
         self._grad = None
         self.grad_req = "null"
+        self._ctx = ctx
 
     # -- writes ---------------------------------------------------------------
     def _check_writable(self):
@@ -89,6 +93,8 @@ class NDArray:
 
     @property
     def ctx(self):
+        if self._ctx is not None:
+            return self._ctx
         return context_of(self._data.device)
 
     context = ctx
@@ -137,14 +143,15 @@ class NDArray:
         t = self._data if self._data.is_leaf else self._data.detach()
         self._data = t.requires_grad_(grad_req != "null")
         self.grad_req = grad_req
-        self._grad = NDArray(torch.zeros_like(t, requires_grad=False))
+        self._grad = NDArray(torch.zeros_like(t, requires_grad=False),
+                             self._ctx)
 
     def _accumulate_grad(self, g):
         if self._grad is None or self.grad_req == "null":
             return
         if g.grad_fn is not None:       # create_graph: keep g's graph
-            self._grad = NDArray(g) if self.grad_req == "write" \
-                else NDArray(self._grad._data + g)
+            self._grad = NDArray(g if self.grad_req == "write"
+                                 else self._grad._data + g, self._ctx)
         elif self.grad_req == "write":
             self._grad._set_data(g)
         else:
@@ -157,7 +164,7 @@ class NDArray:
                           train_mode=train_mode)
 
     def detach(self):
-        return NDArray(self._data.detach())
+        return NDArray(self._data.detach(), self._ctx)
 
     # -- device movement ------------------------------------------------------
     def as_in_context(self, ctx):
@@ -172,12 +179,12 @@ class NDArray:
             other._set_data(self._data.detach())
             return other
         if isinstance(other, Context):
-            return NDArray(self._data.detach().to(resolve_device(other),
-                                                  copy=True))
+            return _placed(self._data.detach().to(resolve_device(other),
+                                                  copy=True), other)
         raise MXNetError(f"copyto does not support type {type(other)}")
 
     def copy(self):
-        return NDArray(self._data.detach().clone())
+        return NDArray(self._data.detach().clone(), self._ctx)
 
     def astype(self, dtype, copy=True):
         if not copy and torch_dtype(dtype) == self._data.dtype:
@@ -295,7 +302,7 @@ class NDArray:
         from .. import autograd
         recording = autograd.is_recording()
         with torch.set_grad_enabled(recording):
-            out = NDArray(self._data[self._index(key)])
+            out = NDArray(self._data[self._index(key)], self._ctx)
         if recording:
             autograd._note_inputs([self])
         return out
@@ -465,23 +472,32 @@ def _device(ctx):
     return resolve_device(ctx if ctx is not None else current_context())
 
 
+def _placed(t, ctx):
+    """An NDArray over ``t`` that remembers ``ctx`` where the tensor's
+    device does not tell it (a host context other than ``cpu(0)``)."""
+    if ctx is None or not isinstance(ctx, Context) \
+            or ctx == context_of(t.device):
+        return NDArray(t)
+    return NDArray(t, ctx)
+
+
 def array(source_array, ctx=None, dtype=None):
     """An NDArray holding a copy of ``source_array`` on ``ctx`` (the current
     context when None: the CUDA card unless ``with mx.cpu():``)."""
     dev = _device(ctx)
     if isinstance(source_array, NDArray):
         src = source_array._data.detach()
-        return NDArray(src.to(dev, src.dtype if dtype is None
-                              else torch_dtype(dtype), copy=True))
+        return _placed(src.to(dev, src.dtype if dtype is None
+                              else torch_dtype(dtype), copy=True), ctx)
     src = np.asarray(source_array)
     if dtype is None:
         dtype = src.dtype if isinstance(source_array, np.ndarray) \
             else mx_real_t
     if torch_dtype(dtype) == torch.bfloat16:
-        return NDArray(torch.as_tensor(src.astype(np.float32), device=dev)
-                       .to(torch.bfloat16))
-    return NDArray(torch.as_tensor(src.astype(np.dtype(dtype), copy=True),
-                                   device=dev))
+        return _placed(torch.as_tensor(src.astype(np.float32), device=dev)
+                       .to(torch.bfloat16), ctx)
+    return _placed(torch.as_tensor(src.astype(np.dtype(dtype), copy=True),
+                                   device=dev), ctx)
 
 
 def _shape(shape):
@@ -489,13 +505,13 @@ def _shape(shape):
 
 
 def zeros(shape, ctx=None, dtype=None, **kwargs):  # noqa: ARG001
-    return NDArray(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
-                               device=_device(ctx)))
+    return _placed(torch.zeros(_shape(shape), dtype=torch_dtype(dtype),
+                               device=_device(ctx)), ctx)
 
 
 def ones(shape, ctx=None, dtype=None, **kwargs):  # noqa: ARG001
-    return NDArray(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+    return _placed(torch.ones(_shape(shape), dtype=torch_dtype(dtype),
+                              device=_device(ctx)), ctx)
 
 
 def empty(shape, ctx=None, dtype=None):
@@ -503,8 +519,8 @@ def empty(shape, ctx=None, dtype=None):
 
 
 def full(shape, val, ctx=None, dtype=None):
-    return NDArray(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
-                              device=_device(ctx)))
+    return _placed(torch.full(_shape(shape), val, dtype=torch_dtype(dtype),
+                              device=_device(ctx)), ctx)
 
 
 def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):

@@ -2,4 +2,4 @@
 (``ops/registry.py``); importing the package registers them all."""
 
 from . import registry  # noqa: F401
-from . import elemwise, reduce, matrix, nn, contrib  # noqa: F401
+from . import elemwise, reduce, matrix, nn, contrib, optimizer_ops  # noqa: F401

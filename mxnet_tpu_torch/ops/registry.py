@@ -173,7 +173,10 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     if op.visible_outputs is not None and out is None:
         outs = outs[:op.visible_outputs]
     if out is None:
-        results = [NDArray(t) for t in outs]
+        # a host replica's context label (cpu(1)) carries to the outputs
+        ctx = next((a._ctx for a in inputs
+                    if isinstance(a, NDArray) and a._ctx is not None), None)
+        results = [NDArray(t, ctx) for t in outs]
     else:
         results = list(out) if isinstance(out, (list, tuple)) else [out]
         if len(results) != len(outs):

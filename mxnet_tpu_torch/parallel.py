@@ -14,7 +14,8 @@ which runs on tensors (its hybridized path); or a plain ``torch.nn.Module``
 (the zoo llama), whose trainable parameters are those that require grad.
 The reference traces the step into one XLA program; the port runs it
 eagerly, with the optimizer's update as ``torch._foreach_*`` math over all
-parameters at once.  As in the reference, every trainable parameter is
+parameters at once.  ``optimizer`` is any optimizer of ``optimizer.py``,
+by name or as an object, multi-precision where it has it.  As in the reference, every trainable parameter is
 updated each step, and one the loss does not reach gets a zero gradient.
 A Gluon net's parameters with ``grad_req="null"`` (BatchNorm's running
 statistics) are carried by the step: the forward writes them in place
@@ -93,10 +94,18 @@ class TrainStep:
         self._states = None
 
     def _trainable(self):
+        """The trainable tensors; the optimizer learns their Parameters
+        (Gluon) or names (a torch module) by index, as the Trainer tells
+        it (LARS reads the names, lr_mult/wd_mult the Parameters)."""
         if isinstance(self.net, Block):
-            return [p.data()._data for p in self.net.collect_params().values()
-                    if p.grad_req != "null"]
-        return [p for p in self.net.parameters() if p.requires_grad]
+            params = [p for p in self.net.collect_params().values()
+                      if p.grad_req != "null"]
+            self.optimizer.param_dict = dict(enumerate(params))
+            return [p.data()._data for p in params]
+        named = [(n, p) for n, p in self.net.named_parameters()
+                 if p.requires_grad]
+        self.optimizer.idx2name = {i: n for i, (n, _) in enumerate(named)}
+        return [p for _, p in named]
 
     @property
     def device(self):

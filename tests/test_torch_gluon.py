@@ -403,10 +403,13 @@ def test_not_yet_ported_raise():
                  lambda: mx.gluon.SymbolBlock(lambda x: x),
                  lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
                                           kvstore="dist_sync"),
-                 lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
-                                          update_on_kvstore=True),
-                 lambda: mx.gluon.Parameter("w", shape=(2,)).initialize(
-                     ctx=[mx.cpu(0), mx.cpu(1)])):
+                 lambda: mx.gluon.Trainer(
+                     net.collect_params(), "sgd",
+                     compression_params={"type": "2bit"}),
+                 lambda: mx.kv.create("local").set_gradient_compression(
+                     {"type": "2bit"}),
+                 lambda: mx.gluon.data.RecordFileDataset("x.rec"),
+                 lambda: mx.gluon.data.vision.transforms.Resize(224)):
         with pytest.raises(mx.MXNetError, match="not yet ported"):
             call()
 
