@@ -106,7 +106,21 @@ result line; each prints its seconds):
     losses falling, the schedules' rates, no loader fallback, no worker
     left, 12 bf16 forward and 12 bf16 fused backward launches a BERT step;
     step ms, images or samples/s, MFU, peak memory, idle share, ms in
-    next() and in the metrics' update.
+    next() and in the metrics' update;
+12. nd — the rest of ``mx.nd``: (a) every op the port registers, the
+    samplers apart (``mxnet_tpu_torch/ops/sweep.py``: 268 ops under 309
+    names), on the card and on the CPU from the same numpy inputs,
+    outputs, dtypes and the gradients of the differentiable ops; (b) every
+    sampler on the card: one seed twice gives the same draws, two seeds
+    different ones; at 10^6 draws per parameter set the mean and variance
+    within 5 standard errors and a goodness-of-fit p-value (KS, or
+    chi-square for a discrete distribution) above 1e-3; (c)
+    ``contrib.masked_encdec_att`` (B 32, Lq 256, Lk 512, valid lengths in
+    [256, 512]) and ``contrib.multihead_attention`` (self length 512,
+    causal and not) at the zoo transformer's base widths (512 units, 8
+    heads) in f32 and bf16, forward and gradients, against the same op
+    with the flash call bound to its plain version on the card and against
+    the CPU; their device ms and the flash kernels' share.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -118,7 +132,9 @@ the fused ones with the Gluon loop's launches in its dtype
 (``gluon_launches``), every entry with the vision phase's launches
 (``vision_launches``, 0: ResNet-50 has no attention) and the loop
 phase's BERT steps (``loop_launches``: the bf16 forward and fused
-backward; 0 elsewhere);
+backward; 0 elsewhere) and the nd phase's attention ops (``nd_launches``:
+the forward and, in each dtype's row, the fused backward, which both
+shapes take; 0 on dq and dkv);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -148,7 +164,13 @@ statistics 1e-4 of max |ref|; the ResNet-50 Gluon loop against
 ``TrainStep`` and the imperative steps TRAIN_TOL relative, under
 deterministic cuDNN (0 seen); checkpoints bit for bit.  Loop: the
 optimizers card vs CPU ``LOOP_ORACLE_TOL`` (below), the loader, the
-store and the states bit for bit.
+store and the states bit for bit.  nd: each op card vs CPU 1e-5 of max
+|CPU| elementwise and 1e-4 for sums, products, linear algebra and
+attention (cuBLAS and cuSOLVER sum in another order), gradients 1e-4,
+decompositions by their invariants (reconstruction and orthogonality 1e-4
+of |A|, values 1e-4); the attention ops against their plain flash
+versions at the kernel phases' bounds, against the CPU f32 2e-5 out and
+1e-4 gradients, bf16 2^-6 of max |ref| (``ND_BF16_HOST_TOL``).
 """
 
 from __future__ import annotations
@@ -667,6 +689,14 @@ _COUNTERS = {"flash_fwd": "launches",
 
 def _counts(fa):
     return {k: getattr(fa, attr) for k, attr in _COUNTERS.items()}
+
+
+def _dtype_count(counts, kind, f32):
+    """Launches of backward entry point ``kind`` in f32 (``f32``) or in
+    bf16 (all launches less the f32 ones; the phases run no other
+    dtype)."""
+    n_f32 = counts[f"flash_bwd_{kind}_f32"]
+    return n_f32 if f32 else counts[f"flash_bwd_{kind}"] - n_f32
 
 
 def _reset_counts(fa):
@@ -2288,6 +2318,292 @@ def loop_phase(torch, fa, mx, args, smi):
     return bert_counts, results
 
 
+# -- nd: the rest of mx.nd ----------------------------------------------------
+
+ND_SAMPLER_DRAWS = 10 ** 6      # draws per parameter set of each sampler
+ND_TRANSFORMER = {"units": 512, "heads": 8, "batch": 32, "lq": 256,
+                  "lk": 512, "self_len": 512}   # zoo transformer.py:45
+ND_CPU_BATCH = 4                # batch rows the CPU recomputes
+# bf16 card vs CPU, of max |CPU|: 4 bf16 ulps at the largest value.  The
+# CPU's bf16 path rounds p, the output and each gradient step at other
+# points than the flash tiles (a dense softmax and bf16 autograd), so each
+# side sits about 2 ulps from the f32 result (7.1e-3 seen on an H100)
+ND_BF16_HOST_TOL = 2.0 ** -6
+
+
+def _nd_sweep(tmx, sweep):
+    """Every op the port registers (the samplers apart) on the card and on
+    the CPU from the same numpy inputs (``ops/sweep.py``): outputs and
+    dtypes, and for a differentiable op the gradients of sum(out * w),
+    within ``sweep.TOL`` of max |CPU| (1e-5 elementwise, 1e-4 for sums,
+    linear algebra and attention; gradients 1e-4), the decompositions by
+    their invariants.  Returns (ops compared, mismatches)."""
+    names = sweep.sweep_ops()
+    bad = []
+    for name in names:
+        arrays, attrs = sweep.op_inputs(name)
+        got, got_g = sweep.run(tmx, name, arrays, attrs, tmx.gpu())
+        want, want_g = sweep.run(tmx, name, arrays, attrs, tmx.cpu())
+        err, tol = sweep.close(name, got, want, arrays)
+        gerr = max((sweep.rel_err(g, w) for g, w in zip(got_g, want_g)),
+                   default=0.0) if len(got_g) == len(want_g) else math.inf
+        same_dtypes = [g.dtype for g in got] == [w.dtype for w in want]
+        if err > tol or gerr > sweep.TOL["reduction"] or not same_dtypes:
+            bad.append(name)
+            _log(f"nd sweep MISMATCH {name}: outputs {err:.3g} (bound "
+                 f"{tol:g}), gradients {gerr:.3g}, dtypes "
+                 f"{[str(g.dtype) for g in got]} vs "
+                 f"{[str(w.dtype) for w in want]}")
+    _log(f"nd sweep: {len(names)} ops compared card vs CPU (of "
+         f"{len(tmx.ops.registry.list_ops())} registered names, the "
+         f"{len(sweep.SAMPLERS)} samplers apart), {len(bad)} mismatches")
+    return len(names), bad
+
+
+def _nd_default_context(tmx):
+    """With no ctx, the samplers, mx.random, the creation ops and linalg
+    land on the card.  Returns the names that did not."""
+    nd = tmx.nd
+    outs = {"nd.random.uniform": nd.random.uniform(shape=(4,)),
+            "nd.random.randint": nd.random.randint(low=0, high=3,
+                                                   shape=(4,)),
+            "random.randn": tmx.random.randn(2, 2),
+            "random.normal": tmx.random.normal(shape=(3,)),
+            "nd.eye": nd.eye(N=3), "nd.linspace": nd.linspace(num=5),
+            "nd.linalg.gemm2": nd.linalg.gemm2(nd.ones((2, 2)),
+                                               nd.ones((2, 2)))}
+    return [k for k, v in outs.items() if v.context.device_type != "gpu"]
+
+
+def _nd_draw(tmx, name, arrays, attrs, ctx):
+    reg = tmx.ops.registry
+    out = reg.invoke(reg.get(name), [tmx.nd.array(a, ctx=ctx)
+                                     for a in arrays], dict(attrs), ctx=ctx)
+    out = out.asnumpy()
+    return out.argmax(-1) if name == "gumbel_softmax" else out
+
+
+def _nd_samplers(tmx, sweep):
+    """With no ctx, the samplers land on the card (_nd_default_context);
+    each sampler on the card: the same seed gives the same draws and
+    two seeds different ones (1000 draws); at ND_SAMPLER_DRAWS draws per
+    parameter set, f32, the sample mean and variance lie within 5
+    standard errors of the distribution's and the goodness-of-fit p-value
+    (KS, or chi-square for a discrete distribution) is above 1e-3.
+    ``shuffle`` permutes rows, reproducibly."""
+    gpu = tmx.gpu()
+    bad = [f"{n} not on the card" for n in _nd_default_context(tmx)]
+    for name, arrays, attrs, _ in sweep.sampler_cases(1000):
+        draws = []
+        for seed in (11, 11, 12):
+            tmx.random.seed(seed)
+            draws.append(_nd_draw(tmx, name, arrays, attrs, gpu))
+        if not np.array_equal(draws[0], draws[1]) \
+                or np.array_equal(draws[0], draws[2]):
+            bad.append(f"{name} seeding")
+    x = np.arange(4000, dtype=np.float32).reshape(1000, 4)
+    perms = []
+    for seed in (5, 5):
+        tmx.random.seed(seed)
+        perms.append(tmx.nd.shuffle(tmx.nd.array(x, ctx=gpu)).asnumpy())
+    if not np.array_equal(perms[0], perms[1]) \
+            or not np.array_equal(np.sort(perms[0][:, 0]), x[:, 0]) \
+            or np.array_equal(perms[0], x):
+        bad.append("shuffle")
+    tmx.random.seed(13)
+    for name, arrays, attrs, dists in sweep.sampler_cases(ND_SAMPLER_DRAWS):
+        t0 = time.perf_counter()
+        rows = _nd_draw(tmx, name, arrays, attrs, gpu).reshape(len(dists),
+                                                               -1)
+        t_draw = time.perf_counter() - t0
+        for row, dist in zip(rows, dists):
+            mz, vz, p = sweep.draw_stats(row, dist)
+            ok = abs(mz) < 5 and abs(vz) < 5 and p > 1e-3
+            _log(f"nd sampler {name} {dist[0]}{dist[1]}: {row.size} draws "
+                 f"({t_draw:.2f} s with the copy): mean z {mz:+.2f}, var z "
+                 f"{vz:+.2f}, fit p {p:.3g}" + ("" if ok else "  FAIL"))
+            if not ok:
+                bad.append(f"{name} {dist}")
+    return bad
+
+
+def _nd_attention_cases(rng):
+    """(label, op, numpy inputs, attrs) at the zoo transformer's base
+    widths: masked_encdec_att with valid lengths in [Lq, Lk], and
+    multihead_attention at self length, not causal and causal."""
+    t = ND_TRANSFORMER
+    E, B, L = t["units"], t["batch"], t["self_len"]
+
+    def arr(*shape):
+        return (rng.standard_normal(shape) * 0.5).astype(np.float32)
+
+    valid = rng.integers(t["lq"], t["lk"] + 1, B).astype(np.float32)
+    return [
+        (f"masked_encdec_att B={B} Lq={t['lq']} Lk={t['lk']} units={E} "
+         f"heads={t['heads']}", "contrib.masked_encdec_att",
+         [arr(t["lq"], B, E), arr(t["lk"], B, 2 * E), valid],
+         {"heads": t["heads"]}),
+        (f"multihead_attention B={B} L={L} units={E} heads={t['heads']}",
+         "contrib.multihead_attention", [arr(L, B, E) for _ in range(3)],
+         {"heads": t["heads"], "causal": False}),
+        (f"multihead_attention causal B={B} L={L} units={E} "
+         f"heads={t['heads']}", "contrib.multihead_attention",
+         [arr(L, B, E) for _ in range(3)],
+         {"heads": t["heads"], "causal": True}),
+    ]
+
+
+def _nd_inputs(tmx, arrays, ctx, dtype, batch=None):
+    """The (L, B, E) inputs in ``dtype`` with a gradient buffer, the
+    valid lengths (B,) in float32; ``batch`` keeps that many batch rows.
+    Returns (inputs, the ones with a gradient)."""
+    if batch is not None:
+        arrays = [a[:, :batch] if a.ndim == 3 else a[:batch]
+                  for a in arrays]
+    ins = [tmx.nd.array(a, ctx=ctx, dtype=dtype if a.ndim == 3 else None)
+           for a in arrays]
+    floats = [a for a in ins if a.ndim == 3]
+    for a in floats:
+        a.attach_grad()
+    return ins, floats
+
+
+def _nd_attention_run(torch, tmx, name, arrays, attrs, ctx, dtype,
+                      batch=None, flash_reference=False):
+    """(out, grads of sum(out * w) in the inputs' order) as float32 CPU
+    tensors; w is fixed for the full batch and cut with it."""
+    reg = tmx.ops.registry
+    L, B, E = arrays[0].shape
+    w = np.random.RandomState(1).standard_normal((L, B, E)) \
+        .astype(np.float32)[:, :batch]
+    ins, floats = _nd_inputs(tmx, arrays, ctx, dtype, batch)
+    with tmx.autograd.record():
+        out = reg.invoke(reg.get(name), ins,
+                         dict(attrs, flash_reference=flash_reference))
+        (out * tmx.nd.array(w, ctx=ctx, dtype=dtype)).sum().backward()
+    return [torch.from_numpy(out.asnumpy())] + \
+        [torch.from_numpy(a.grad.asnumpy()) for a in floats]
+
+
+def _nd_attention(torch, fa, tmx, args):
+    """(c) the contrib attention family at the transformer's base widths,
+    f32 and bf16, forward and gradients: each op against itself with the
+    flash call bound to its plain version on the card
+    (``flash_reference=True``), at the kernel phases' bounds (out: f32
+    2e-5 max abs error, bf16 2 ulps of max(|ref|, 2^-6); gradients f32
+    1e-4, bf16 5e-3 of max |ref|), and its first ND_CPU_BATCH batch rows
+    against the CPU (the dense cross path, or the plain flash versions at
+    self length): f32 2e-5 out and 1e-4 gradients, bf16 ND_BF16_HOST_TOL
+    of max |ref|.  Returns the flash launches of the kernel
+    runs (reset just before them, read just after), the cases and the
+    failures."""
+    gpu, cpu = tmx.gpu(), tmx.cpu()
+    cases = _nd_attention_cases(np.random.default_rng(args.seed))
+    dtypes = ("float32", "bfloat16")
+    _reset_counts(fa)
+    runs = {(d, c[0]): _nd_attention_run(torch, tmx, c[1], c[2], c[3], gpu,
+                                         d)
+            for d in dtypes for c in cases}
+    torch.cuda.synchronize()
+    launches = _counts(fa)
+    bad = []
+    for dname in dtypes:
+        for label, name, arrays, attrs in cases:
+            got = runs[(dname, label)]
+            plain = _nd_attention_run(torch, tmx, name, arrays, attrs, gpu,
+                                      dname, flash_reference=True)
+            host = _nd_attention_run(torch, tmx, name, arrays, attrs, cpu,
+                                     dname, batch=ND_CPU_BATCH)
+            if dname == "float32":
+                e_out = (got[0] - plain[0]).abs().max().item()
+                out_ok = e_out <= TOL["float32"][0]
+            else:                   # (L, B, E) as (B, 1, L, E), every row
+                g, p = (t.permute(1, 0, 2)[:, None] for t in (got[0],
+                                                             plain[0]))
+                e_out = _bf16_ulps(torch, g, p,
+                                   torch.ones(g.shape[0], g.shape[2]))
+                out_ok = e_out <= BF16_OUT_ULPS
+            e_grad = max(_rel_err(torch, g, r)
+                         for g, r in zip(got[1:], plain[1:]))
+            sub = [g[:, :ND_CPU_BATCH] for g in got]
+            e_host_out = (sub[0] - host[0]).abs().max().item() \
+                if dname == "float32" else _rel_err(torch, sub[0], host[0])
+            e_host_grad = max(_rel_err(torch, g, r)
+                              for g, r in zip(sub[1:], host[1:]))
+            if dname == "float32":
+                host_ok = e_host_out <= TOL["float32"][0] \
+                    and e_host_grad <= BWD_TOL["float32"]
+            else:
+                host_ok = max(e_host_out, e_host_grad) <= ND_BF16_HOST_TOL
+            ok = out_ok and e_grad <= BWD_TOL[dname] and host_ok
+            unit = "max abs" if dname == "float32" else "bf16 ulps"
+            _log(f"nd attention {label} {dname}: kernel vs plain out "
+                 f"{e_out:.3g} ({unit}), grads {e_grad:.3g} (rel); card vs "
+                 f"CPU (batch {ND_CPU_BATCH}) out {e_host_out:.3g}, grads "
+                 f"{e_host_grad:.3g}" + ("" if ok else "  FAIL"))
+            if not ok:
+                bad.append(f"{label} {dname}")
+    return launches, cases, bad
+
+
+def _nd_attention_times(torch, tmx, cases, smi):
+    """Device ms of one forward and backward of each case (its mean over
+    10 in one torch.profiler window), and the flash kernels' share."""
+    gpu = tmx.gpu()
+    reg = tmx.ops.registry
+    for dname in ("float32", "bfloat16"):
+        for label, name, arrays, attrs in cases:
+            ins, _ = _nd_inputs(tmx, arrays, gpu, dname)
+
+            def step():
+                with tmx.autograd.record():
+                    out = reg.invoke(reg.get(name), ins, dict(attrs))
+                out.backward()
+
+            for _ in range(3):
+                step()
+            iters = 10
+            _, rows = _profiled(torch, lambda: [step() for _ in
+                                                range(iters)])
+            total = sum(r[0] for r in rows) / iters
+            flash = sum(r[0] for r in rows if "flash_" in r[2]) / iters
+            _log(f"time nd {label} {dname}: forward+backward device "
+                 f"{total:.3f} ms, flash kernels {flash:.3f} ms (share "
+                 f"{flash / max(total, 1e-9):.3f}) ({smi})")
+
+
+def nd_phase(torch, fa, mx, args, smi):
+    """The nd phase: (a) the op sweep card vs CPU (_nd_sweep); (b) the
+    samplers on the card (_nd_samplers); (c) masked_encdec_att and
+    multihead_attention at the zoo transformer's base widths through the
+    flash kernels (_nd_attention), with their device times.  Fails on any
+    mismatch or failed check, or if the attention ops launched no flash
+    forward or backward kernel."""
+    from mxnet_tpu_torch.ops import sweep
+    tmx = mx["pkg"]
+    t0 = time.perf_counter()
+    n_ops, bad_ops = _nd_sweep(tmx, sweep)
+    t1 = time.perf_counter()
+    bad_draws = _nd_samplers(tmx, sweep)
+    t2 = time.perf_counter()
+    launches, cases, bad_att = _nd_attention(torch, fa, tmx, args)
+    t3 = time.perf_counter()
+    _nd_attention_times(torch, tmx, cases, smi)
+    _log(f"nd: sweep {t1 - t0:.1f} s, samplers {t2 - t1:.1f} s, attention "
+         f"{t3 - t2:.1f} s, times {time.perf_counter() - t3:.1f} s; flash "
+         f"launches " + ", ".join(f"{k} {v}" for k, v in launches.items()
+                                  if v))
+    want_bwd = "flash_bwd_fused" if fa.bwd_is_fused(
+        ND_TRANSFORMER["lq"], ND_TRANSFORMER["lk"]) else "flash_bwd_dq"
+    if not launches["flash_fwd"] or not launches[want_bwd]:
+        raise AssertionError(f"the attention ops launched no flash kernel: "
+                             f"{launches}")
+    if bad_ops or bad_draws or bad_att:
+        raise AssertionError(f"nd phase: op mismatches {bad_ops}, samplers "
+                             f"{bad_draws}, attention {bad_att}")
+    return launches, n_ops
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -2373,6 +2689,7 @@ def main(argv=None):
     vision_counts, _ = _phase("vision", vision_phase, torch, fa, mx, args,
                               smi)
     loop_counts, _ = _phase("loop", loop_phase, torch, fa, mx, args, smi)
+    nd_counts, _ = _phase("nd", nd_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -2399,6 +2716,8 @@ def main(argv=None):
         "vision_launches": vision_counts["flash_fwd"],
         # the loop phase's timed steps: BERT bf16 (ResNet-50 launches none)
         "loop_launches": loop_counts["flash_fwd"],
+        # the nd phase's attention ops, f32 and bf16
+        "nd_launches": nd_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -2458,6 +2777,7 @@ def main(argv=None):
                     f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
                 "loop_launches": loop_counts[
                     f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
+                "nd_launches": _dtype_count(nd_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

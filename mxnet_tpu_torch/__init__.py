@@ -25,7 +25,11 @@ training loop around the model: ``gluon.data`` (datasets,
 samplers, ``DataLoader`` with worker processes, the array transforms),
 ``metric``, ``lr_scheduler``, every optimizer of the reference with
 ``Updater`` and the ``nd.*_update`` ops, the local kvstore (``kv``) with
-Parameters on several contexts, ``gluon.utils`` and the Estimator.
+Parameters on several contexts, ``gluon.utils`` and the Estimator.  Then the rest of ``mx.nd``: the
+samplers (``mx.nd.random``, ``mx.random.uniform`` ...), ``mx.nd.linalg``,
+the legacy alias names, the remaining elementwise, reduction, matrix and
+nn ops, the loss heads, and the contrib attention family
+(``masked_encdec_att``, ``multihead_attention``) through the flash kernels.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -47,10 +51,19 @@ _torch.backends.cudnn.allow_tf32 = False
 from . import config  # noqa: E402,F401
 from .base import MXNetError  # noqa: E402,F401
 from .context import (Context, cpu, current_context, gpu,  # noqa: E402,F401
-                      resolve_device)
+                      num_gpus, resolve_device)
 from . import random  # noqa: E402,F401
 from . import ndarray  # noqa: E402,F401
 from . import ndarray as nd  # noqa: E402,F401
+from .ndarray import waitall  # noqa: E402,F401
+
+# the stateful-RNG shorthands: mx.random.seed(s); mx.random.uniform(...)
+random.uniform = nd.random.uniform
+random.normal = nd.random.normal
+random.randn = lambda *shape, **kw: nd.random.normal(shape=shape, **kw)
+random.randint = nd.random.randint
+random.multinomial = nd.random.multinomial
+random.shuffle = nd.shuffle
 from . import autograd  # noqa: E402,F401
 from . import initializer  # noqa: E402,F401
 from . import initializer as init  # noqa: E402,F401

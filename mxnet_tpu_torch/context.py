@@ -21,7 +21,7 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device",
-           "context_of"]
+           "context_of", "num_gpus"]
 
 
 class Context:
@@ -79,6 +79,11 @@ def gpu(device_id=0):
 def cpu(device_id=0):
     """The host (the id is kept for reference-API parity)."""
     return Context("cpu", device_id)
+
+
+def num_gpus():
+    """The number of CUDA cards this process sees."""
+    return torch.cuda.device_count()
 
 
 def current_context():

@@ -34,7 +34,8 @@ import torch
 
 from ..base import MXNetError
 
-__all__ = ["flash_attention", "flash_attention_reference",
+__all__ = ["flash_attention", "flash_attention_plain",
+           "flash_attention_reference",
            "flash_attention_backward_reference", "kv_tile",
            "uses_tensor_cores", "launches", "bwd_fused_launches",
            "bwd_dq_launches", "bwd_dkv_launches", "fwd_wide_bf16_launches",
@@ -515,3 +516,40 @@ def flash_attention(q, k, v, seg_q=None, seg_kv=None, causal=False,
     and dkv kernels."""
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
     return _FlashAttention.apply(q, k, v, seg_q, seg_kv, causal, sm_scale)
+
+
+class _FlashAttentionPlain(torch.autograd.Function):
+    """:class:`_FlashAttention` with both directions bound to their plain
+    versions on any device: the forward streams kv at the forward kernel's
+    tile (:func:`kv_tile`), the backward walks the blocks the kernels'
+    dispatch would (one tile when fused)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seg_q, seg_kv, causal, sm_scale):
+        out, lse = flash_attention_reference(
+            q, k, v, seg_q, seg_kv, causal, sm_scale,
+            block_k=kv_tile(q.dtype, q.shape[-1]))
+        ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
+        ctx.causal, ctx.sm_scale = causal, sm_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
+        Lq, Lk = q.shape[2], k.shape[2]
+        blocks = (None, None) if bwd_is_fused(Lq, Lk) else \
+            (_pick_block(Lq, BWD_BLOCK), _pick_block(Lk, BWD_BLOCK))
+        dq, dk, dv = flash_attention_backward_reference(
+            q, k, v, seg_q, seg_kv, out, lse, do, ctx.causal, ctx.sm_scale,
+            *blocks)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention_plain(q, k, v, seg_q=None, seg_kv=None, causal=False,
+                          sm_scale=1.0):
+    """:func:`flash_attention` computed by the plain versions of its
+    kernels on the tensors' own device, forward and backward: the twin the
+    kernels are held against, which callers select only explicitly."""
+    seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    return _FlashAttentionPlain.apply(q, k, v, seg_q, seg_kv, causal,
+                                      sm_scale)

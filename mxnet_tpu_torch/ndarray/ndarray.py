@@ -7,7 +7,9 @@ tensors are mutable and alias natively, so here:
 - in-place writes (``a[:] = v``, ``a += 1``, ``out=``) write into the same
   tensor, and every alias and basic-index view sees them;
 - basic indexing and ``reshape`` return views that write through;
-  advanced indexing copies;
+  advanced indexing copies, and so does a read through a negative step
+  (torch has no negative strides), while a write through one lands in
+  the array itself;
 - under ``autograd.record()`` ops are taped by torch autograd; an in-place
   write to an array that is the output of a recorded op raises
   ``MXNetError`` at the write (torch would fail only later, at backward).
@@ -21,13 +23,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.utils.dlpack
 
 from .. import config, dmlc_params
 from ..base import MXNetError, mx_real_t, numpy_dtype, torch_dtype
 from ..context import Context, context_of, current_context, resolve_device
 
 __all__ = ["NDArray", "array", "zeros", "ones", "full", "empty", "arange",
-           "concat", "waitall", "save", "load"]
+           "concat", "waitall", "save", "load", "from_numpy", "from_dlpack"]
 
 
 def _invoke(name, inputs, attrs):
@@ -102,6 +105,12 @@ class NDArray:
     @property
     def stype(self):
         return "default"
+
+    def tostype(self, stype):
+        """Only the dense storage type is ported."""
+        if stype != "default":
+            raise MXNetError(f"storage type {stype!r} is not supported")
+        return self
 
     @property
     def grad(self):
@@ -290,6 +299,8 @@ class NDArray:
 
     # -- indexing -------------------------------------------------------------
     def _index(self, key):
+        if isinstance(key, tuple):
+            return tuple(self._index(k) for k in key)
         if isinstance(key, NDArray):
             return key._data.long()
         if isinstance(key, (list, np.ndarray)):
@@ -298,11 +309,14 @@ class NDArray:
 
     def __getitem__(self, key):
         """Basic indexing gives a view that writes through; advanced
-        indexing (arrays, lists) a copy.  Recorded under record()."""
+        indexing (arrays, lists) and a negative step a copy.  Recorded
+        under record()."""
         from .. import autograd
+        from ..ops.matrix import basic_index
         recording = autograd.is_recording()
         with torch.set_grad_enabled(recording):
-            out = NDArray(self._data[self._index(key)], self._ctx)
+            out = NDArray(basic_index(self._data, self._index(key)),
+                          self._ctx)
         if recording:
             autograd._note_inputs([self])
         return out
@@ -314,8 +328,9 @@ class NDArray:
         elif isinstance(value, (np.ndarray, list)):
             value = torch.as_tensor(np.asarray(value),
                                     device=self._data.device)
+        from ..ops.matrix import basic_index
         with torch.no_grad():
-            self._data[self._index(key)] = value
+            basic_index(self._data, self._index(key), value)
 
     def __len__(self):
         if not self.shape:
@@ -370,6 +385,25 @@ class NDArray:
     def expand_dims(self, axis):
         return self._op1("expand_dims", axis=axis)
 
+    def squeeze(self, axis=None):
+        return self._op1("squeeze", axis=axis)
+
+    def broadcast_to(self, shape):
+        return self._op1("broadcast_to", shape=tuple(shape))
+
+    def broadcast_like(self, other):
+        return self.broadcast_to(other.shape)
+
+    def tile(self, reps):
+        return self._op1("tile", reps=(reps,) if isinstance(reps, int)
+                         else tuple(reps))
+
+    def repeat(self, repeats, axis=None):
+        return self._op1("repeat", repeats=repeats, axis=axis)
+
+    def flip(self, axis):
+        return self._op1("flip", axis=axis)
+
     def slice(self, begin, end, step=None):
         return self._op1("slice", begin=tuple(begin), end=tuple(end),
                          step=tuple(step) if step else None)
@@ -388,10 +422,10 @@ class NDArray:
         return self._op1("one_hot", depth=depth, on_value=on_value,
                          off_value=off_value)
 
-    def _reduce(self, opname, axis, keepdims):
+    def _reduce(self, opname, axis, keepdims, **attrs):
         if isinstance(axis, list):
             axis = tuple(axis)
-        return self._op1(opname, axis=axis, keepdims=keepdims)
+        return self._op1(opname, axis=axis, keepdims=keepdims, **attrs)
 
     def sum(self, axis=None, keepdims=False):
         return self._reduce("sum", axis, keepdims)
@@ -404,6 +438,12 @@ class NDArray:
 
     def min(self, axis=None, keepdims=False):
         return self._reduce("min", axis, keepdims)
+
+    def prod(self, axis=None, keepdims=False):
+        return self._reduce("prod", axis, keepdims)
+
+    def norm(self, ord=2, axis=None, keepdims=False):  # noqa: A002
+        return self._reduce("norm", axis, keepdims, ord=ord)
 
     def argmax(self, axis=None, keepdims=False):
         return self._op1("argmax", axis=axis, keepdims=keepdims)
@@ -462,6 +502,11 @@ class NDArray:
 
     def ones_like(self):
         return NDArray(torch.ones_like(self._data, requires_grad=False))
+
+    def to_dlpack_for_read(self):
+        return torch.utils.dlpack.to_dlpack(self._data.detach())
+
+    to_dlpack_for_write = to_dlpack_for_read
 
 
 # --------------------------------------------------------------------------
@@ -535,6 +580,17 @@ def arange(start, stop=None, step=1.0, repeat=1, ctx=None, dtype=None):
 
 def concat(*arrays, dim=1):
     return _invoke("concat", list(arrays), {"dim": dim})
+
+
+def from_numpy(a, zero_copy=False):  # noqa: ARG001
+    """An NDArray holding a copy of numpy ``a`` on the current context."""
+    return array(a)
+
+
+def from_dlpack(capsule):
+    """An NDArray over the tensor a DLPack capsule (or an object with
+    ``__dlpack__``) describes, on its device, without a copy."""
+    return NDArray(torch.utils.dlpack.from_dlpack(capsule))
 
 
 def waitall():

@@ -1,15 +1,21 @@
 """Neural-network operators — the port of ``mxnet_tpu/ops/nn.py``'s
 ``FullyConnected``, ``Convolution``, ``Deconvolution``, ``Pooling``,
-``Activation``, ``LeakyReLU``, ``softmax``, ``log_softmax``,
-``softmax_cross_entropy``, ``BatchNorm``, ``LayerNorm``, ``GroupNorm``,
-``InstanceNorm`` and ``Dropout``, as PyTorch library math (the reference
-leaves them to XLA): convolution, pooling and batch norm through
-``torch.nn.functional``, which runs cuDNN's or torch's CUDA kernels on the
-card.  Dense weights are (out, in) and convolution weights OIHW, as in the
-reference.
+``Activation``, ``LeakyReLU``, the softmax family, ``BatchNorm`` (and
+``BatchNormWithReLU``), ``LayerNorm``, ``GroupNorm``, ``InstanceNorm``,
+``L2Normalization``, ``LRN``, ``Dropout``, ``im2col``/``col2im`` and the
+loss heads (``SoftmaxOutput``, the three regression outputs,
+``center_loss``), as PyTorch library math (the reference leaves them to
+XLA): convolution, pooling and batch norm through ``torch.nn.functional``,
+which runs cuDNN's or torch's CUDA kernels on the card.  Dense weights are
+(out, in) and convolution weights OIHW, as in the reference.  A loss head's
+backward is MXNet's loss gradient, not the autodiff of its forward: each is
+a ``torch.autograd.Function`` that ignores the head gradient.  ``RNN`` is
+not ported yet.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -295,3 +301,219 @@ def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5,
 @register("InstanceNorm")
 def _instance_norm(data, gamma, beta, eps=1e-3):
     return F.instance_norm(data, weight=gamma, bias=beta, eps=eps)
+
+
+@register("BatchNormWithReLU", num_outputs=3, visible_outputs=1,
+          mutate_inputs=((1, 3), (2, 4)), wrap_train="_training")
+def _batch_norm_with_relu(data, gamma, beta, moving_mean, moving_var,
+                          **kwargs):
+    """BatchNorm, then ReLU; the same moving-statistics contract."""
+    out, mm, mv = _batch_norm(data, gamma, beta, moving_mean, moving_var,
+                              **kwargs)
+    return torch.relu(out), mm, mv
+
+
+# -- softmax family and normalizations ----------------------------------------
+
+@register("softmin")
+def _softmin(data, axis=-1, temperature=None, dtype=None):
+    from ..base import torch_dtype
+    x = -data
+    if temperature:
+        x = x / temperature
+    r = torch.softmax(x, dim=axis)
+    return r.to(torch_dtype(dtype)) if dtype else r
+
+
+@register("SoftmaxActivation")
+def _softmax_activation(data, mode="instance"):
+    """Softmax over axis 1 (``mode="channel"``) or over each sample's
+    flattened values."""
+    if mode == "channel":
+        return torch.softmax(data, dim=1)
+    return torch.softmax(data.reshape(data.shape[0], -1), dim=-1) \
+        .reshape(data.shape)
+
+
+@register("L2Normalization")
+def _l2_normalization(data, eps=1e-10, mode="instance"):
+    """``data / sqrt(sum(data^2) + eps)`` over each instance, the channel
+    axis or the spatial axes."""
+    red = {"instance": tuple(range(1, data.ndim)), "channel": (1,)}.get(
+        mode, tuple(range(2, data.ndim)))
+    return data / torch.sqrt(torch.sum(data * data, dim=red, keepdim=True)
+                             + eps)
+
+
+@register("LRN")
+def _lrn(data, alpha=1e-4, beta=0.75, knorm=2.0, nsize=5):
+    """Local response normalization across ``nsize`` channels."""
+    half = nsize // 2
+    sq = F.pad(data * data, (0, 0) * (data.ndim - 2) + (half, half))
+    acc = sum(sq[:, i:i + data.shape[1]] for i in range(nsize))
+    return data / torch.pow(knorm + alpha * acc / nsize, beta)
+
+
+# -- loss heads ---------------------------------------------------------------
+
+class _SoftmaxOutput(torch.autograd.Function):
+    """Forward softmax over the last axis; backward ``p - onehot(label)``
+    (label smoothing, ignore_label masking, normalization and grad_scale
+    as the reference), whatever the head gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, grad_scale, ignore_label, use_ignore,
+                normalization, smooth_alpha):
+        p = torch.softmax(data, dim=-1)
+        ctx.save_for_backward(p, label)
+        ctx.attrs = (grad_scale, ignore_label, use_ignore, normalization,
+                     smooth_alpha)
+        return p
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 (a loss head ignores it)
+        p, label = ctx.saved_tensors
+        grad_scale, ignore_label, use_ignore, normalization, smooth = \
+            ctx.attrs
+        oh = (label.long().unsqueeze(-1) == torch.arange(
+            p.shape[-1], device=p.device)).to(p.dtype)
+        if smooth:
+            oh = oh * (1 - smooth) + smooth / p.shape[-1]
+        grad = p - oh
+        keep = label != ignore_label
+        if use_ignore:
+            grad = grad * keep.to(p.dtype)[..., None]
+        if normalization == "batch":
+            grad = grad / p.shape[0]
+        elif normalization == "valid" and use_ignore:
+            grad = grad / keep.sum().clamp(min=1).to(p.dtype)
+        return (grad * grad_scale, None if not ctx.needs_input_grad[1]
+                else torch.zeros_like(label), None, None, None, None, None)
+
+
+@register("SoftmaxOutput")
+def _softmax_output(data, label, grad_scale=1.0, ignore_label=-1.0,
+                    multi_output=False, use_ignore=False,
+                    preserve_shape=False, normalization="null",
+                    out_grad=False, smooth_alpha=0.0):  # noqa: ARG001
+    """The legacy classifier head: softmax forward, MXNet's
+    ``p - onehot(label)`` backward (``_SoftmaxOutput``)."""
+    return _SoftmaxOutput.apply(data, label, grad_scale, ignore_label,
+                                use_ignore, normalization, smooth_alpha)
+
+
+class _RegressionOutput(torch.autograd.Function):
+    """Forward ``fwd(data)``; backward ``bwd(out, label) * grad_scale /
+    num_output`` (the per-sample output count), whatever the head
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, data, label, kind, grad_scale):
+        out = torch.sigmoid(data) if kind == "logistic" else data.clone()
+        ctx.save_for_backward(out, label)
+        ctx.kind, ctx.grad_scale = kind, grad_scale
+        return out
+
+    @staticmethod
+    def backward(ctx, g):  # noqa: ARG004 (a loss head ignores it)
+        out, label = ctx.saved_tensors
+        diff = out - label.reshape(out.shape).to(out.dtype)
+        grad = torch.sign(diff) if ctx.kind == "mae" else diff
+        num_output = max(out[0].numel(), 1) if out.ndim > 1 else 1
+        return (grad * (ctx.grad_scale / num_output),
+                None if not ctx.needs_input_grad[1]
+                else torch.zeros_like(label), None, None)
+
+
+def _regression_head(name, kind, doc):
+    def head(data, label, grad_scale=1.0):
+        return _RegressionOutput.apply(data, label, kind, grad_scale)
+    head.__doc__ = doc
+    register(name)(head)
+
+
+_regression_head("LinearRegressionOutput", "linear",
+                 "L2 head: identity forward, gradient out - label.")
+_regression_head("MAERegressionOutput", "mae",
+                 "L1 head: identity forward, gradient sign(out - label).")
+_regression_head("LogisticRegressionOutput", "logistic",
+                 "Sigmoid head: sigmoid forward, gradient out - label.")
+
+
+@register("center_loss", num_outputs=2, visible_outputs=1,
+          mutate_inputs=((1, 2),), wrap_train="_training")
+def _center_loss(data, label, center, grad_scale=1.0, alpha=0.1,
+                 _training=False):
+    """0.5 ||data_i - center[label_i]||^2 * grad_scale per sample; the
+    centers take no gradient and, while training, each moves toward its
+    class: c_j += alpha * sum(diff_j) / (1 + n_j), written back into
+    ``center`` by dispatch."""
+    li = label.long().reshape(-1)
+    c = center.detach()
+    diff = data - c[li]
+    loss = 0.5 * torch.sum(diff * diff, dim=1) * grad_scale
+    if not _training:
+        return loss, center
+    with torch.no_grad():
+        n = torch.zeros(center.shape[0], dtype=data.dtype,
+                        device=data.device).index_add_(
+            0, li, torch.ones_like(li, dtype=data.dtype))
+        s = torch.zeros_like(c).index_add_(0, li, diff.detach().to(c.dtype))
+        new_center = c + alpha * s / (1.0 + n)[:, None]
+    return loss, new_center.to(center.dtype)
+
+
+# -- im2col / col2im ----------------------------------------------------------
+
+def _patch_geometry(spatial, kernel, stride, dilate, pad):
+    n = len(kernel)
+    stride = _norm_tuple(stride, n, 1)
+    dilate = _norm_tuple(dilate, n, 1)
+    pad = _norm_tuple(pad, n, 0)
+    out = tuple((s + 2 * p - d * (k - 1) - 1) // st + 1
+                for s, k, st, d, p in zip(spatial, kernel, stride, dilate,
+                                          pad))
+    return stride, dilate, pad, out
+
+
+def _taps(kernel, stride, dilate, out):
+    """For each kernel offset (channel-major order: k1, k2, ...), the
+    strided window of the padded image it reads."""
+    import itertools
+    for offs in itertools.product(*(range(k) for k in kernel)):
+        yield tuple(slice(o * d, o * d + (n - 1) * st + 1, st)
+                    for o, d, n, st in zip(offs, dilate, out, stride))
+
+
+@register("im2col")
+def _im2col(data, kernel, stride=(), dilate=(), pad=()):
+    """Conv patches of NC(D)HW ``data`` as (N, C * prod(kernel), L)
+    columns, channel-major (c, k1, k2, ...), the reference's layout."""
+    kernel = tuple(kernel)
+    stride, dilate, pad, out = _patch_geometry(data.shape[2:], kernel,
+                                               stride, dilate, pad)
+    x = F.pad(data, [p for q in reversed(pad) for p in (q, q)])
+    cols = [x[(slice(None), slice(None)) + w]
+            for w in _taps(kernel, stride, dilate, out)]
+    n, c = data.shape[:2]
+    return torch.stack(cols, dim=2).reshape(n, -1, math.prod(out))
+
+
+@register("col2im")
+def _col2im(data, output_size, kernel, stride=(), dilate=(), pad=()):
+    """im2col's transpose: columns folded back into an image of
+    ``output_size``, overlapping patches added."""
+    kernel = tuple(kernel)
+    spatial = tuple(output_size)
+    stride, dilate, pad, out = _patch_geometry(spatial, kernel, stride,
+                                               dilate, pad)
+    n = data.shape[0]
+    c = data.shape[1] // math.prod(kernel)
+    cols = data.reshape((n, c, math.prod(kernel)) + out)
+    img = torch.zeros((n, c) + tuple(s + 2 * p for s, p in
+                                     zip(spatial, pad)),
+                      dtype=data.dtype, device=data.device)
+    for i, w in enumerate(_taps(kernel, stride, dilate, out)):
+        img[(slice(None), slice(None)) + w] += cols[:, :, i]
+    return img[(slice(None), slice(None))
+               + tuple(slice(p, p + s) for p, s in zip(pad, spatial))]

@@ -49,15 +49,19 @@ class Op:
         under this keyword (the reference passes a fresh PRNG key).
     wrap_train : if set, dispatch passes ``autograd.is_training()`` under
         this keyword unless the caller did.
+    wrap_device : if set, dispatch passes the ``torch.device`` the op runs
+        on under this keyword: an op without tensor inputs (``_zeros``,
+        ``eye``) creates its output there (the reference places it on the
+        current context).
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable",
                  "mutate_inputs", "visible_outputs", "wrap_key", "wrap_train",
-                 "doc")
+                 "wrap_device", "doc")
 
     def __init__(self, name, fn, num_outputs=1, differentiable=True,
                  mutate_inputs=(), visible_outputs=None, wrap_key=None,
-                 wrap_train=None, doc=None):
+                 wrap_train=None, wrap_device=None, doc=None):
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -66,6 +70,7 @@ class Op:
         self.visible_outputs = visible_outputs
         self.wrap_key = wrap_key
         self.wrap_train = wrap_train
+        self.wrap_device = wrap_device
         self.doc = doc if doc is not None else fn.__doc__
 
     def __repr__(self):
@@ -105,11 +110,16 @@ def list_ops():
 
 def _with_implicit(op, attrs, device):
     """``attrs`` plus what dispatch supplies: the device's generator under
-    ``wrap_key`` and the training flag under ``wrap_train``."""
-    if op.wrap_key is None and op.wrap_train is None:
+    ``wrap_key``, the training flag under ``wrap_train`` and the device
+    under ``wrap_device``."""
+    if op.wrap_key is None and op.wrap_train is None \
+            and op.wrap_device is None:
         return attrs
     from .. import autograd, random
+    from ..context import resolve_device
     attrs = dict(attrs)
+    if op.wrap_device is not None:
+        attrs[op.wrap_device] = resolve_device(device)
     if op.wrap_key is not None:
         attrs[op.wrap_key] = random.generator(device)
     if op.wrap_train is not None and op.wrap_train not in attrs:
@@ -206,7 +216,8 @@ class _TensorNamespace:
             if op.mutate_inputs or op.visible_outputs is not None:
                 def fn(*tensors, _op=op, **attrs):
                     return _invoke_tensors(_op, tensors, attrs)
-            elif op.wrap_key is None and op.wrap_train is None:
+            elif op.wrap_key is None and op.wrap_train is None \
+                    and op.wrap_device is None:
                 fn = op.fn
             else:
                 def fn(*tensors, _op=op, **attrs):

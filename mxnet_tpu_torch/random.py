@@ -7,7 +7,10 @@ keeps one explicit ``torch.Generator`` per device instead, which ops that
 draw (``Dropout``, the initializers) take from :func:`generator`.  Each
 device's stream is offset from the seed by a stable hash of the device, as
 the reference's per-device generators are.  Parity with the reference is
-distribution-level, not bitwise.
+distribution-level, not bitwise.  The package binds the shorthands
+``uniform``, ``normal``, ``randn``, ``randint``, ``multinomial`` and
+``shuffle`` here to the generated ``mx.nd.random`` functions (the
+samplers of ``ops/random_ops.py``), as the reference does.
 """
 
 from __future__ import annotations

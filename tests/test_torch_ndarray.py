@@ -313,3 +313,129 @@ def test_array_without_a_card_raises():
     assert seen["ctx"] == mx.gpu(0)
     assert len(seen.get("errors", [])) == 2
     assert all("no CUDA device" in e for e in seen["errors"])
+
+
+# -- negative steps, one_hot, flip and Embedding out of range ----------------
+
+@pytest.mark.parametrize("key", [
+    (slice(None, None, -1),),
+    (slice(None), slice(None, None, -2)),
+    (slice(3, 0, -2), 1),
+    (Ellipsis, slice(-1, None, -3)),
+    (None, slice(None, None, -1), slice(1, 4)),
+])
+def test_negative_step_read(key):
+    x = _rand(21, 4, 5)
+    _both(lambda m: m.nd.array(x)[key].asnumpy())
+
+
+@pytest.mark.parametrize("key,value", [
+    ((slice(None, None, -1),), 0.0),
+    ((slice(None), slice(None, None, -2)), "row"),
+    ((slice(3, 0, -2),), "block"),
+])
+def test_negative_step_write_reaches_the_base(key, value):
+    x = _rand(22, 4, 5)
+
+    def run(m):
+        a = m.nd.array(x)
+        view = a[1:]                      # an alias sees the write
+        shape = np.empty((4, 5))[key].shape
+        v = {"row": np.arange(shape[-1], dtype=np.float32),
+             "block": np.arange(np.prod(shape), dtype=np.float32)
+             .reshape(shape)}.get(value, value)
+        a[key] = m.nd.array(v) if isinstance(v, np.ndarray) else v
+        return [a.asnumpy(), view.asnumpy()]
+    out = _both(run)
+    want = x.copy()
+    want[key] = {"row": np.arange(3), "block": np.arange(10).reshape(2, 5)
+                 }.get(value, value)
+    np.testing.assert_array_equal(out[0], want)
+
+
+def test_positive_step_slice_still_writes_through():
+    a = mx.nd.array(_rand(23, 4, 5))
+    view = a[::2, 1:]
+    view[:] = 7.0
+    assert (a.asnumpy()[::2, 1:] == 7.0).all()
+
+
+def test_slice_op_negative_step():
+    x = _rand(24, 4, 5)
+    _both(lambda m: [
+        m.nd.slice(m.nd.array(x), begin=(None,), end=(None,),
+                   step=(-1,)).asnumpy(),
+        m.nd.slice(m.nd.array(x), begin=(3, 4), end=(0, None),
+                   step=(-2, -3)).asnumpy()])
+
+
+def test_one_hot_out_of_range_rows_are_off():
+    out = _both(lambda m: m.nd.one_hot(
+        m.nd.array(np.array([0, 3, -1, 5], np.float32)), depth=4,
+        on_value=2.0, off_value=-1.0).asnumpy())
+    np.testing.assert_array_equal(out[0][2:], -np.ones((2, 4)))
+
+
+def test_flip_without_axis_reverses_every_axis():
+    x = np.arange(12, dtype=np.float32).reshape(3, 4)
+    out = _both(lambda m: [m.nd.flip(m.nd.array(x)).asnumpy(),
+                           m.nd.reverse(m.nd.array(x)).asnumpy(),
+                           m.nd.array(x).flip(axis=None).asnumpy()])
+    np.testing.assert_array_equal(out[0], x[::-1, ::-1])
+
+
+def test_embedding_clips_out_of_range_indices():
+    """In-range rows agree with the reference; an index past either end
+    reads the nearest row (the reference's rows there are NaN)."""
+    w = _rand(25, 5, 3)
+    idx = np.array([0, 4, -2, 7, 2], np.float32)
+
+    def run(m):
+        return m.nd.Embedding(m.nd.array(idx), m.nd.array(w), input_dim=5,
+                              output_dim=3).asnumpy()
+    got, ref = run(mx), run(jmx)
+    inside = (idx >= 0) & (idx < 5)
+    np.testing.assert_array_equal(got[inside], ref[inside])
+    np.testing.assert_array_equal(got[~inside], w[[0, 4]])
+
+
+# -- the methods and functions this slice adds -------------------------------
+
+def test_new_methods():
+    x = np.abs(_rand(26, 2, 1, 3)) + 0.5
+    _both(lambda m: [
+        m.nd.array(x).squeeze().asnumpy(),
+        m.nd.array(x).squeeze(axis=1).asnumpy(),
+        m.nd.array(x).broadcast_to((2, 4, 3)).asnumpy(),
+        m.nd.array(x).broadcast_like(m.nd.zeros((2, 2, 3))).asnumpy(),
+        m.nd.array(x).tile((1, 2, 1)).asnumpy(),
+        m.nd.array(x).repeat(2, axis=2).asnumpy(),
+        m.nd.array(x).flip(axis=2).asnumpy(),
+        m.nd.array(x).prod(axis=2).asnumpy(),
+        m.nd.array(x).norm().asnumpy(),
+        m.nd.array(x).norm(ord=1, axis=[0, 2]).asnumpy()], atol=1e-6)
+
+
+def test_from_numpy_from_dlpack_waitall():
+    import torch
+    a = np.arange(6, dtype=np.float32).reshape(2, 3)
+    b = mx.nd.from_numpy(a)
+    a[0, 0] = 9.0                         # a copy, as the reference's
+    assert b.asnumpy()[0, 0] == 0.0
+    t = torch.arange(4.0)
+    c = mx.nd.from_dlpack(torch.utils.dlpack.to_dlpack(t))
+    t[0] = 5.0                            # no copy: the same memory
+    assert c.asnumpy()[0] == 5.0
+    d = mx.nd.from_dlpack(mx.nd.array(a).to_dlpack_for_read())
+    np.testing.assert_array_equal(d.asnumpy(), a)
+    mx.waitall()
+    mx.nd.waitall()
+    assert mx.num_gpus() == torch.cuda.device_count()
+
+
+def test_generated_namespaces():
+    for m in PKGS:
+        assert callable(m.nd.random.uniform) and callable(m.nd.random_uniform)
+        assert callable(m.nd.linalg.gemm2) and callable(m.nd.linalg_gemm2)
+        assert callable(m.nd.contrib.masked_encdec_att)
+        assert callable(m.random.randn) and callable(m.random.shuffle)
