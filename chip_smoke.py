@@ -82,7 +82,12 @@ result line; each prints its seconds):
     ``load_parameters`` into a fresh net bit-identical in npz and dmlc
     (and bf16 in npz); no flash launch, no TF32 kernel in f32; step ms,
     images/s, FLOPs per step (counted from the layers), MFU, peak memory,
-    idle share and device time by kernel family;
+    idle share and device time by kernel family; then one card step per
+    zoo family beyond the ResNets (alexnet, vgg16_bn, densenet121,
+    squeezenet1.1, inceptionv3 at 299, mobilenet1.0, mobilenetv2_1.0):
+    logits card vs CPU at batch 2 and the CPU parity tests' input size on
+    weights carried by name, then 3 SGD steps at batch 32 in f32 (losses
+    finite), step ms and images/s;
 11. loop — MXNet's training loop around the model: (a) every optimizer
     of ``mx.optimizer`` with a schedule, 3 steps of the small bottleneck
     ResNet on the card and on the CPU, f32 and bf16 (multi_precision: the
@@ -120,7 +125,23 @@ result line; each prints its seconds):
     causal and not) at the zoo transformer's base widths (512 units, 8
     heads) in f32 and bf16, forward and gradients, against the same op
     with the flash call bound to its plain version on the card and against
-    the CPU; their device ms and the flash kernels' share.
+    the CPU; their device ms and the flash kernels' share;
+13. rnn — ``gluon.rnn`` over the ``RNN`` op: (a) the op in its four
+    modes, uni- and bidirectional, 2 layers, T 35, N 32, I 256, H 512,
+    f32, on the card against the CPU (outputs, final states, the
+    gradients of data, flat parameters and states), each through cuDNN
+    (``aten::_cudnn_rnn`` in its profile; its kernels printed); (b)
+    ``ctc_loss`` and ``gluon.loss.CTCLoss`` card vs CPU, loss and
+    gradient; (c) a small tied LSTM LM (vocab 1000, 2 x 128, bptt 35,
+    batch 4, dropout 0) 3 SGD steps on both devices from the same weights
+    carried by name; (d) the word-level LM of MXNet's Gluon example at its
+    medium configuration (vocab 33278, WikiText-2's, on a synthetic
+    corpus; emsize = nhid = 650, 2 layers, dropout 0.5, tied; bptt 35,
+    batch 32, f32) trained 20 BPTT segments by the canonical loop (state
+    carried and detached, ``clip_global_norm``, ``Trainer("sgd", lr
+    20).step``): losses finite and falling, median step ms, tokens/s,
+    MFU, peak memory, idle share, device time by family and the LSTM
+    layer's own device ms.  No flash kernel launches.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -134,7 +155,8 @@ the fused ones with the Gluon loop's launches in its dtype
 phase's BERT steps (``loop_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the nd phase's attention ops (``nd_launches``:
 the forward and, in each dtype's row, the fused backward, which both
-shapes take; 0 on dq and dkv);
+shapes take; 0 on dq and dkv) and the rnn phase's (``rnn_launches``, 0:
+the LSTM LM has no attention);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -170,7 +192,11 @@ attention (cuBLAS and cuSOLVER sum in another order), gradients 1e-4,
 decompositions by their invariants (reconstruction and orthogonality 1e-4
 of |A|, values 1e-4); the attention ops against their plain flash
 versions at the kernel phases' bounds, against the CPU f32 2e-5 out and
-1e-4 gradients, bf16 2^-6 of max |ref| (``ND_BF16_HOST_TOL``).
+1e-4 gradients, bf16 2^-6 of max |ref| (``ND_BF16_HOST_TOL``).  Zoo
+(vision): logits card vs CPU 1e-4 of max |CPU|.  rnn: the RNN op card vs
+CPU 1e-4 of max |CPU| for outputs, states and gradients (``RNN_FWD_TOL``
+says why not 1e-5); CTC 1e-4 (its CUDA backward sums with atomics); the
+LM oracle's per-step losses TRAIN_TOL relative.
 """
 
 from __future__ import annotations
@@ -1566,6 +1592,11 @@ def vision_phase(torch, fa, mx, args, smi):
     lane_run("vision_resnet50_bf16", "bfloat16", xs.astype("bfloat16"), ys)
     roundtrip("npz", True, "bfloat16")
 
+    net = params = start = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    vision_zoo(torch, tmx, args)
+
     counts = _counts(fa)
     if any(counts.values()):
         raise AssertionError(f"vision path launched flash kernels: {counts}")
@@ -1578,6 +1609,74 @@ def vision_phase(torch, fa, mx, args, smi):
              + ", ".join(f"{k} {t:.1f}" for k, t in r["families"].items())
              + f" ({smi})")
     return counts, results
+
+
+# one card step per zoo family beyond the ResNets: (name, training size,
+# the size of the family's CPU parity test in tests/test_torch_zoo.py)
+VISION_ZOO = (("alexnet", 224, 224), ("vgg16_bn", 224, 32),
+              ("densenet121", 224, 224), ("squeezenet1.1", 224, 32),
+              ("inceptionv3", 299, 299), ("mobilenet1.0", 224, 32),
+              ("mobilenetv2_1.0", 224, 32))
+VISION_ZOO_BATCH, VISION_ZOO_STEPS = 32, 3
+
+
+def vision_zoo(torch, tmx, args):
+    """Each family of VISION_ZOO on the card: (a) built on the CPU at its
+    parity size (batch 2, Xavier), carried to the card by name, predict-
+    mode logits card vs CPU within VISION_NET_TOL of max |CPU|; (b) at
+    batch 32 and its training size, Xavier on the card, hybridized,
+    VISION_ZOO_STEPS SGD steps (VISION_SGD) on one batch in f32: losses
+    finite; step ms (median after the first) and images/s."""
+    from mxnet_tpu_torch import convert
+    v = tmx.gluon.model_zoo.vision
+    gpu, cpu, B = tmx.gpu(), tmx.cpu(), VISION_ZOO_BATCH
+    rng = np.random.RandomState(args.seed + 12)
+    results = {}
+    for name, size, test_size in VISION_ZOO:
+        host = v.get_model(name, classes=10, prefix="zoo_")
+        tmx.random.seed(args.seed)
+        host.initialize(tmx.init.Xavier(), ctx=cpu)
+        x2 = rng.randn(2, 3, test_size, test_size).astype(np.float32)
+        with tmx.autograd.predict_mode():
+            want = host(tmx.nd.array(x2, ctx=cpu))._data
+        card = convert.load_by_name(
+            v.get_model(name, classes=10, prefix="zoo_"),
+            {k: p.data().asnumpy() for k, p in
+             host.collect_params().items()}, device="cuda")
+        with tmx.autograd.predict_mode():
+            got = card(tmx.nd.array(x2, ctx=gpu))._data
+        err = _rel_err(torch, got, want)
+        host = card = None
+        net = v.get_model(name, classes=1000)
+        net.initialize(tmx.init.Xavier(), ctx=gpu)
+        net.hybridize()
+        xs = tmx.nd.array(rng.randn(B, 3, size, size).astype(np.float32),
+                          ctx=gpu)
+        ys = tmx.nd.array(rng.randint(0, 1000, B).astype(np.float32),
+                          ctx=gpu)
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", VISION_SGD)
+        losses, ms = [], []
+        for _ in range(VISION_ZOO_STEPS):
+            t = time.perf_counter()
+            losses.append(float(_vision_sgd_step(
+                tmx, net, xs, ys, trainer, B).asscalar()))
+            ms.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(ms[1:])
+        _log(f"vision zoo {name}: card vs CPU logits (batch 2, "
+             f"{test_size}x{test_size}) {err:.2e} (tol {VISION_NET_TOL}); "
+             f"batch {B} at {size}x{size} f32, {VISION_ZOO_STEPS} SGD "
+             f"steps: losses {[round(l, 5) for l in losses]}, step ms "
+             f"{[round(t, 1) for t in ms]}, median {med:.2f} ms, "
+             f"{B / (med / 1e3):.1f} images/s")
+        if not (err <= VISION_NET_TOL and np.isfinite(losses).all()):
+            raise AssertionError(f"vision zoo {name}: card vs CPU {err}, "
+                                 f"losses {losses}")
+        results[f"zoo_{name}"] = {"step_ms": med,
+                                  "images_per_s": B / (med / 1e3)}
+        net = trainer = xs = None
+        gc.collect()
+        torch.cuda.empty_cache()
+    return results
 
 
 # -- the loop phase: the Gluon training loop around the model ----------------
@@ -2604,6 +2703,399 @@ def nd_phase(torch, fa, mx, args, smi):
     return launches, n_ops
 
 
+# -- the rnn phase: gluon.rnn over the RNN op and the word-level LM -----------
+
+RNN_OP_SHAPE = {"T": 35, "N": 32, "I": 256, "H": 512, "layers": 2}
+# card vs CPU, max |err| / max |CPU|, outputs and final states: the nd
+# phase's bound for ops that sum (1e-4).  The recurrence carries each
+# step's f32 rounding into the next, and cuDNN sums in another order than
+# the CPU: on the same inputs one GRU case read 3.3e-7 in one H100 run and
+# 8.2e-6 in the next, too near 1e-5 for a bound
+RNN_FWD_TOL = 1e-4
+RNN_GRAD_TOL = 1e-4     # the same for the gradients
+CTC_TOL = 1e-4          # ctc_loss card vs CPU, loss and gradient (the CUDA
+                        # backward sums with atomics: not bit-stable)
+LM_ORACLE = {"vocab": 1000, "hidden": 128, "layers": 2, "bptt": 35,
+             "batch": 4, "steps": 3}
+# the medium configuration of MXNet's Gluon word-language-model example
+# (example/gluon/word_language_model/README.md: --tied --nhid 650 --emsize
+# 650 --dropout 0.5, 2 layers, bptt 35, batch 32, lr 20, clip 0.25) at
+# WikiText-2's vocabulary, on a synthetic corpus.  The summed loss's
+# gradient is clipped at clip * bptt * batch and Trainer.step takes bptt *
+# batch: the per-token mean's gradient clipped at 0.25, as the example's
+# recipe means.  With step(batch) the update is bptt = 35 times that, and
+# at lr 20 the loss rose from 10.41 to 106.8 in 6 steps on an H100
+LM_FULL = {"vocab": 33278, "hidden": 650, "layers": 2, "dropout": 0.5,
+           "bptt": 35, "batch": 32, "segments": 20, "lr": 20.0,
+           "clip": 0.25}
+RNN_FAMILIES = (("cudnn_rnn", ("rnn", "lstm", "gru", "persist")),
+                ("gemm", _GEMM_WORDS))
+
+
+def _lm_corpus(vocab, length, seed):
+    """examples/rnn/lstm_lm.py's synthetic corpus: each token is 7 times
+    the last plus one of 0-2, mod the vocabulary."""
+    rng = np.random.RandomState(seed)
+    data = np.zeros(length, np.int64)
+    steps = rng.randint(0, 3, length)
+    for i in range(1, length):
+        data[i] = (data[i - 1] * 7 + steps[i]) % vocab
+    return data
+
+
+def _lm_class(tmx):
+    """The Gluon word_language_model's RNNModel (LSTM, tied): dropout on
+    the embedding and on the LSTM's output, the decoder sharing the
+    embedding's weight."""
+    gluon = tmx.gluon
+
+    class RNNModel(gluon.Block):
+        def __init__(self, vocab, hidden, layers, dropout, **kwargs):
+            super().__init__(**kwargs)
+            with self.name_scope():
+                self.drop = gluon.nn.Dropout(dropout)
+                self.encoder = gluon.nn.Embedding(
+                    vocab, hidden, weight_initializer=tmx.init.Uniform(0.1))
+                self.rnn = gluon.rnn.LSTM(hidden, layers, dropout=dropout,
+                                          input_size=hidden)
+                self.decoder = gluon.nn.Dense(vocab, in_units=hidden,
+                                              params=self.encoder.params)
+            self.hidden = hidden
+
+        def forward(self, inputs, state):
+            emb = self.drop(self.encoder(inputs))
+            out, state = self.rnn(emb, state)
+            out = self.drop(out)
+            return self.decoder(out.reshape((-1, self.hidden))), state
+
+        def begin_state(self, *args, **kwargs):
+            return self.rnn.begin_state(*args, **kwargs)
+
+    return RNNModel
+
+
+def _lm_step(tmx, net, trainer, loss_fn, x, y, state, max_norm, tokens):
+    """One step of the example's loop: the state detached, SoftmaxCE
+    summed by backward, clip_global_norm, Trainer.step(tokens)."""
+    state = [s.detach() for s in state]
+    with tmx.autograd.record():
+        out, state = net(x, state)
+        loss = loss_fn(out, y.reshape((-1,)))
+    loss.backward()
+    tmx.gluon.utils.clip_global_norm(
+        [p.grad() for p in net.collect_params().values()], max_norm)
+    trainer.step(tokens)
+    return loss, state
+
+
+def _rnn_op_case(tmx, mode, bidirectional, ctx, arrays):
+    """The RNN op on ``ctx``: outputs (out, h, c) and the gradients of
+    sum(out * w) + sum(states) w.r.t. data, parameters and states."""
+    nd = tmx.nd
+    S = RNN_OP_SHAPE
+    ins = [nd.array(a, ctx=ctx) for a in arrays]
+    for a in ins:
+        a.attach_grad()
+    w = nd.array(np.cos(np.arange(arrays[0].shape[0] * arrays[0].shape[1]
+                                  * S["H"] * (2 if bidirectional else 1)))
+                 .astype(np.float32).reshape(arrays[0].shape[0],
+                                             arrays[0].shape[1], -1),
+                 ctx=ctx)
+    with tmx.autograd.record():
+        outs = nd.RNN(*ins, state_size=S["H"], num_layers=S["layers"],
+                      mode=mode, bidirectional=bidirectional,
+                      state_outputs=True)
+        head = (outs[0] * w).sum() + sum(o.sum() for o in outs[1:])
+    head.backward()
+    return [o._data for o in outs], [a.grad._data for a in ins]
+
+
+def _rnn_ops(torch, tmx, args):
+    """(a) The RNN op, each mode, uni- and bidirectional, 2 layers, at
+    RNN_OP_SHAPE in f32 on the card against the CPU; one profiled call per
+    mode must run through cuDNN (``aten::_cudnn_rnn``) and its kernels are
+    printed.  Returns {case: (fwd err, grad err, device ms)}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from mxnet_tpu_torch.ops.nn import rnn_infer
+    S = RNN_OP_SHAPE
+    rng = np.random.RandomState(args.seed + 13)
+    results = {}
+    for mode in ("lstm", "gru", "rnn_tanh", "rnn_relu"):
+        for bi in (False, True):
+            d = 2 if bi else 1
+            size = rnn_infer([(S["T"], S["N"], S["I"]), None], {
+                "mode": mode, "state_size": S["H"],
+                "num_layers": S["layers"], "bidirectional": bi})[1][0]
+            arrays = [rng.randn(S["T"], S["N"], S["I"]),
+                      rng.uniform(-1, 1, size) / np.sqrt(S["H"]),
+                      rng.randn(S["layers"] * d, S["N"], S["H"]) * 0.5]
+            if mode == "lstm":
+                arrays.append(rng.randn(S["layers"] * d, S["N"], S["H"])
+                              * 0.5)
+            arrays = [a.astype(np.float32) for a in arrays]
+            card, card_g = _rnn_op_case(tmx, mode, bi, tmx.gpu(), arrays)
+            host, host_g = _rnn_op_case(tmx, mode, bi, tmx.cpu(), arrays)
+            fwd = max(_rel_err(torch, c, h) for c, h in zip(card, host))
+            grad = max(_rel_err(torch, c, h)
+                       for c, h in zip(card_g, host_g))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                _rnn_op_case(tmx, mode, bi, tmx.gpu(), arrays)
+                torch.cuda.synchronize()
+            ops = {ev.key for ev in prof.key_averages()}
+            cuda = [ev for ev in prof.key_averages()
+                    if ev.device_type == DeviceType.CUDA
+                    and not ev.key.startswith(("Memcpy", "Memset"))]
+            kernels = sorted({ev.key[:80] for ev in cuda
+                              if any(w in ev.key.lower() for w in
+                                     ("rnn", "lstm", "gru", "persist"))})
+            dev_ms = sum(getattr(ev, "self_device_time_total",
+                                 getattr(ev, "self_cuda_time_total", 0))
+                         for ev in cuda) / 1e3
+            name = f"{mode}{'_bidirectional' if bi else ''}"
+            _log(f"rnn op {name} (T {S['T']}, N {S['N']}, I {S['I']}, H "
+                 f"{S['H']}, {S['layers']} layers, f32): card vs CPU "
+                 f"outputs/states {fwd:.2e} (tol {RNN_FWD_TOL}), gradients "
+                 f"{grad:.2e} (tol {RNN_GRAD_TOL}); forward+backward "
+                 f"device {dev_ms:.3f} ms; cuDNN: "
+                 f"{'aten::_cudnn_rnn' in ops}; kernels {kernels}")
+            if not (fwd <= RNN_FWD_TOL and grad <= RNN_GRAD_TOL):
+                raise AssertionError(f"RNN op {name}: card vs CPU {fwd}, "
+                                     f"gradients {grad}")
+            if "aten::_cudnn_rnn" not in ops or not kernels:
+                raise AssertionError(f"RNN op {name} did not run cuDNN's "
+                                     f"RNN kernels: {sorted(ops)[:20]}")
+            results[name] = (fwd, grad, dev_ms)
+    return results
+
+
+def _ctc_check(torch, tmx, args):
+    """(b) ctc_loss (blank 'first', with lengths) and gluon CTCLoss (NTC,
+    blank 'last', label lengths) on the card against the CPU: losses and
+    the gradients of the logits within CTC_TOL of max |CPU|."""
+    rng = np.random.RandomState(args.seed + 14)
+    T, N, C, L = 50, 32, 30, 20
+    data = rng.randn(T, N, C).astype(np.float32)
+    lab_len = rng.randint(5, L + 1, N)
+    dat_len = rng.randint(2 * L + 1, T + 1, N)
+    first = np.zeros((N, L), np.float32)
+    last = np.full((N, L), -1, np.float32)
+    for i, n in enumerate(lab_len):
+        first[i, :n] = rng.randint(1, C, n)
+        last[i, :n] = rng.randint(0, C - 1, n)
+
+    def op(ctx):
+        nd = tmx.nd
+        x = nd.array(data, ctx=ctx)
+        x.attach_grad()
+        with tmx.autograd.record():
+            loss = nd.ctc_loss(x, nd.array(first, ctx=ctx),
+                               nd.array(dat_len.astype(np.float32), ctx=ctx),
+                               nd.array(lab_len.astype(np.float32), ctx=ctx),
+                               use_data_lengths=True, use_label_lengths=True,
+                               blank_label="first")
+        loss.backward()
+        return loss._data, x.grad._data
+
+    def layer(ctx):
+        nd = tmx.nd
+        x = nd.array(data.transpose(1, 0, 2).copy(), ctx=ctx)
+        x.attach_grad()
+        fn = tmx.gluon.loss.CTCLoss()
+        with tmx.autograd.record():
+            loss = fn(x, nd.array(last, ctx=ctx), None,
+                      nd.array(lab_len.astype(np.float32), ctx=ctx))
+        loss.backward()
+        return loss._data, x.grad._data
+
+    for name, fn in (("ctc_loss op", op), ("gluon CTCLoss", layer)):
+        card, host = fn(tmx.gpu()), fn(tmx.cpu())
+        errs = [_rel_err(torch, c, h) for c, h in zip(card, host)]
+        _log(f"rnn {name} (T {T}, N {N}, C {C}, labels up to {L}): card vs "
+             f"CPU loss {errs[0]:.2e}, gradient {errs[1]:.2e} (tol "
+             f"{CTC_TOL}); mean loss {float(host[0].detach().mean()):.4f}")
+        if not (max(errs) <= CTC_TOL and bool(torch.isfinite(card[0]).all())):
+            raise AssertionError(f"{name}: card vs CPU {errs}")
+
+
+def _lm_oracle(torch, tmx, args):
+    """(c) The tied LM at LM_ORACLE (dropout 0) trains 3 steps on the card
+    and on the CPU from the same weights, carried by name: per-step losses
+    within TRAIN_TOL relative."""
+    from mxnet_tpu_torch import convert
+    c = LM_ORACLE
+    RNNModel = _lm_class(tmx)
+    corpus = _lm_corpus(c["vocab"], c["bptt"] * c["steps"] * c["batch"]
+                        + c["batch"], args.seed + 15)
+    batches = corpus.reshape(c["batch"], -1).T.astype(np.float32)
+    host = RNNModel(c["vocab"], c["hidden"], c["layers"], 0.0,
+                    prefix="lm_oracle_")
+    tmx.random.seed(args.seed + 16)
+    host.initialize(tmx.init.Xavier(), ctx=tmx.cpu())
+    card = convert.load_by_name(
+        RNNModel(c["vocab"], c["hidden"], c["layers"], 0.0,
+                 prefix="lm_oracle_"),
+        {k: p.data().asnumpy() for k, p in host.collect_params().items()},
+        device="cuda")
+    losses = {}
+    for ctx, net in ((tmx.gpu(), card), (tmx.cpu(), host)):
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd",
+                                    {"learning_rate": LM_FULL["lr"]})
+        loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+        state = net.begin_state(batch_size=c["batch"], ctx=ctx)
+        out = []
+        for i in range(c["steps"]):
+            b = c["bptt"]
+            x = tmx.nd.array(batches[i * b:(i + 1) * b], ctx=ctx)
+            y = tmx.nd.array(batches[i * b + 1:(i + 1) * b + 1], ctx=ctx)
+            loss, state = _lm_step(tmx, net, trainer, loss_fn, x, y, state,
+                                   LM_FULL["clip"] * b * c["batch"],
+                                   b * c["batch"])
+            out.append(float(loss.mean().asscalar()))
+        losses[ctx] = out
+    rel = _rel(losses[tmx.gpu()], losses[tmx.cpu()])
+    _log(f"rnn oracle tied LM (vocab {c['vocab']}, {c['layers']} x "
+         f"{c['hidden']}, bptt {c['bptt']}, batch {c['batch']}, dropout 0, "
+         f"SGD lr {LM_FULL['lr']}, clip): card losses "
+         f"{[round(v, 5) for v in losses[tmx.gpu()]]}, CPU "
+         f"{[round(v, 5) for v in losses[tmx.cpu()]]}, rel {rel:.2e} (tol "
+         f"{TRAIN_TOL})")
+    if not rel <= TRAIN_TOL:
+        raise AssertionError(f"LM oracle: card vs CPU rel {rel}")
+
+
+def _lm_flops(c):
+    """Forward FLOPs of one BPTT segment: the LSTM's 2 (4H H + 4H H) per
+    token and layer (every layer's input is H wide: emsize = nhid), and
+    the tied decoder's 2 H vocab per token."""
+    tokens, H = c["bptt"] * c["batch"], c["hidden"]
+    lstm = c["layers"] * tokens * 2 * (4 * H * H + 4 * H * H)
+    return lstm, tokens * 2 * H * c["vocab"]
+
+
+def _lm_full(torch, tmx, args, smi):
+    """(d) The tied LM at LM_FULL on the card: 20 BPTT segments, the state
+    carried and detached, clip_global_norm(0.25 bptt batch), SGD lr 20,
+    step(bptt batch); losses finite and falling (the mean of the last 5
+    below the first 5's); one Parameter for the tied weight; step ms,
+    tokens/s, MFU, peak memory, idle share and device time by family."""
+    c = LM_FULL
+    gpu = tmx.gpu()
+    RNNModel = _lm_class(tmx)
+    net = RNNModel(c["vocab"], c["hidden"], c["layers"], c["dropout"],
+                   prefix="lm_")
+    tmx.random.seed(args.seed + 17)
+    net.initialize(tmx.init.Xavier(), ctx=gpu)
+    params = net.collect_params()
+    n_values = sum(math.prod(p.shape) for p in params.values())
+    if net.decoder.weight is not net.encoder.weight:
+        raise AssertionError("the decoder is not tied to the embedding")
+    n_tok = c["bptt"] * c["segments"] * c["batch"] + c["batch"]
+    corpus = _lm_corpus(c["vocab"], n_tok, args.seed + 18)
+    batches = corpus.reshape(c["batch"], -1).T.astype(np.float32)
+    batches = tmx.nd.array(batches, ctx=gpu)
+    trainer = tmx.gluon.Trainer(params, "sgd", {"learning_rate": c["lr"]})
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    state = net.begin_state(batch_size=c["batch"], ctx=gpu)
+    b, max_norm = c["bptt"], c["clip"] * c["bptt"] * c["batch"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(c["segments"]):
+        x, y = batches[i * b:(i + 1) * b], batches[i * b + 1:(i + 1) * b + 1]
+        t = time.perf_counter()
+        loss, state = _lm_step(tmx, net, trainer, loss_fn, x, y, state,
+                               max_norm, b * c["batch"])
+        losses.append(float(loss.mean().asscalar()))
+        ms.append((time.perf_counter() - t) * 1e3)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lstm_f, dec_f = _lm_flops(c)
+    step_flops = 3 * (lstm_f + dec_f)
+    med = statistics.median(ms[2:])
+    tokens = b * c["batch"]
+    holder = {"state": state}
+
+    def one_step():
+        x, y = batches[:b], batches[1:b + 1]
+        _, holder["state"] = _lm_step(tmx, net, trainer, loss_fn, x, y,
+                                      holder["state"], max_norm,
+                                      b * c["batch"])
+
+    prof = _profile_step(torch, one_step, "rnn_lm_full", RNN_FAMILIES)
+    # the LSTM layer alone, forward and backward at the LM's shape
+    emb = tmx.nd.array(np.random.RandomState(args.seed).randn(
+        b, c["batch"], c["hidden"]).astype(np.float32), ctx=gpu)
+
+    def lstm_alone():
+        with tmx.autograd.record():
+            out, _ = net.rnn(emb, [s.detach() for s in holder["state"]])
+        out.backward()
+
+    lstm_ms, lstm_kernels = _device_ms(torch, lstm_alone, iters=5)
+    first, last = np.mean(losses[:5]), np.mean(losses[-5:])
+    _log(f"rnn lm full width: vocab {c['vocab']}, emsize = nhid = "
+         f"{c['hidden']}, {c['layers']} layers, dropout {c['dropout']}, "
+         f"tied, bptt {b}, batch {c['batch']}, f32; {len(params)} "
+         f"Parameters, {n_values} values; {(lstm_f + dec_f) / 1e9:.2f} "
+         f"GFLOP forward ({lstm_f / 1e9:.2f} LSTM, {dec_f / 1e9:.2f} "
+         f"decoder), {step_flops / 1e9:.2f} GFLOP per step")
+    _log(f"rnn lm full width: losses {[round(v, 4) for v in losses]}; "
+         f"step ms {[round(t, 2) for t in ms]}")
+    _log(f"rnn lm full width: median step {med:.2f} ms (steps 3-"
+         f"{c['segments']}), {tokens / (med / 1e3):.0f} tokens/s, MFU "
+         f"{step_flops / (med / 1e3) / PEAK_FLOPS['float32']:.4f} (f32 "
+         f"peak {PEAK_FLOPS['float32'] / 1e12:.0f} TFLOP/s), peak "
+         f"{peak:.2f} GiB; the LSTM alone (forward+backward, device) "
+         f"{lstm_ms:.3f} ms ({smi})")
+    _log(f"rnn lm full width: LSTM kernels {lstm_kernels[:8]}")
+    if not (np.isfinite(losses).all() and last < first):
+        raise AssertionError(f"full-width LM: losses {losses} not finite "
+                             f"and falling")
+    return {"step_ms": med, "tokens_per_s": tokens / (med / 1e3),
+            "mfu": step_flops / (med / 1e3) / PEAK_FLOPS["float32"],
+            # device time of one profiled step over the unprofiled median
+            # (the profiler's own host work inflates the profiled wall)
+            "peak_gib": peak, "idle_share": max(
+                0.0, 1 - prof["device_ms"] / med),
+            "families": prof["families"], "lstm_ms": lstm_ms,
+            "losses": losses}
+
+
+def rnn_phase(torch, fa, mx, args, smi):
+    """The rnn phase: (a) the RNN op card vs CPU through cuDNN; (b) CTC;
+    (c) the small LM oracle; (d) the full-width tied LM.  Fails on any
+    mismatch, on a non-cuDNN RNN, on a loss that is not finite and
+    falling, or if any flash kernel launched (the LM has no attention).
+    Returns the flash counts of the phase (all 0) and the LM's numbers."""
+    tmx = mx["pkg"]
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    _rnn_ops(torch, tmx, args)
+    t1 = time.perf_counter()
+    _ctc_check(torch, tmx, args)
+    _lm_oracle(torch, tmx, args)
+    t2 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    lm = _lm_full(torch, tmx, args, smi)
+    counts = _counts(fa)
+    _log(f"rnn: op checks {t1 - t0:.1f} s, ctc and oracle {t2 - t1:.1f} s, "
+         f"full-width LM {time.perf_counter() - t2:.1f} s; flash launches "
+         f"{sum(counts.values())}")
+    if any(counts.values()):
+        raise AssertionError(f"the rnn phase launched flash kernels: "
+                             f"{counts}")
+    _log(f"train rnn_lm_full: step {lm['step_ms']:.2f} ms, "
+         f"{lm['tokens_per_s']:.0f} tokens/s, MFU {lm['mfu']:.4f}, peak "
+         f"{lm['peak_gib']:.2f} GiB, idle share {lm['idle_share']:.3f}; "
+         f"device ms " + ", ".join(f"{k} {t:.2f}" for k, t in
+                                   lm["families"].items()) + f" ({smi})")
+    return counts, lm
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -2690,6 +3182,7 @@ def main(argv=None):
                               smi)
     loop_counts, _ = _phase("loop", loop_phase, torch, fa, mx, args, smi)
     nd_counts, _ = _phase("nd", nd_phase, torch, fa, mx, args, smi)
+    rnn_counts, _ = _phase("rnn", rnn_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -2718,6 +3211,8 @@ def main(argv=None):
         "loop_launches": loop_counts["flash_fwd"],
         # the nd phase's attention ops, f32 and bf16
         "nd_launches": nd_counts["flash_fwd"],
+        # the rnn phase: the LSTM LM has no attention
+        "rnn_launches": rnn_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -2778,6 +3273,7 @@ def main(argv=None):
                 "loop_launches": loop_counts[
                     f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
                 "nd_launches": _dtype_count(nd_counts, kind_, pre),
+                "rnn_launches": _dtype_count(rnn_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

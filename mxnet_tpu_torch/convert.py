@@ -5,7 +5,10 @@ The reference exports a Gluon net as ``{name: p.data().asnumpy()}`` over
 with the reference's prefixes, so :func:`bert_from_gluon` and
 :func:`resnet_from_gluon` load by those names over their own
 ``collect_params()`` (:func:`load_by_name`; a ResNet's BatchNorm running
-statistics are parameters, so they come along).  The llama is a
+statistics are parameters, so they come along).  The same function
+carries any Gluon net built alike in both packages: a ``gluon.rnn``
+layer's per-layer Parameters, or a tied language model, whose shared
+weight is one name of ``collect_params()``.  The llama is a
 ``torch.nn`` module, so
 :func:`llama_from_gluon` maps the names of one built with ``prefix="llm_"``
 onto its parameters::

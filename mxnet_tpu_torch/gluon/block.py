@@ -5,8 +5,15 @@ A Block is a ``torch.nn.Module``: a child Block assigned as an attribute
 or passed to ``register_child`` is also a torch submodule, and a
 Parameter assigned as an attribute has its ``nn.Parameter`` registered
 under that attribute's name once it has a value (``gluon/parameter.py``),
-so ``net.parameters()``, ``.to()``, forward hooks and ``apply`` are
-torch's.  Names follow the reference letter for letter: the thread-local
+so ``net.parameters()`` and ``.to()`` are torch's.  Forward hooks are
+MXNet's, not torch's: ``register_forward_pre_hook(hook)`` and
+``register_forward_hook(hook)`` call ``hook(block, args)`` and
+``hook(block, args, out)`` around ``forward`` and ignore what the hook
+returns, as the reference does (a torch hook's return value would replace
+the inputs or the output); each returns a handle whose ``remove()`` takes
+the hook off.  ``apply(fn)`` visits the children, then the block, and
+returns the block.  ``summary(*inputs)`` prints the reference's table.
+Names follow the reference letter for letter: the thread-local
 prefix counters and ``name_scope`` of ``_BlockScope`` give
 ``collect_params()`` the reference's keys, by which weights are carried
 across (``convert.py``).
@@ -38,8 +45,11 @@ from __future__ import annotations
 
 import re
 import threading
+from collections import OrderedDict
 
+import numpy as np
 import torch
+from torch.utils.hooks import RemovableHandle
 
 from .. import autograd
 from .. import ndarray as nd
@@ -117,6 +127,9 @@ class Block(torch.nn.Module):
         self._scope = _BlockScope(self)
         self._children = {}
         self._reg_params = {}
+        # MXNet's hook lists, apart from torch's _forward_hooks dicts
+        self._mx_forward_hooks = OrderedDict()
+        self._mx_forward_pre_hooks = OrderedDict()
 
     def _alias(self):
         return self.__class__.__name__.lower()
@@ -168,6 +181,35 @@ class Block(torch.nn.Module):
         self._children[name] = block
         self._modules[name] = block
 
+    def register_forward_pre_hook(self, hook):
+        """Call ``hook(block, args)`` before each forward; what it returns
+        is ignored."""
+        handle = RemovableHandle(self._mx_forward_pre_hooks)
+        self._mx_forward_pre_hooks[handle.id] = hook
+        return handle
+
+    def register_forward_hook(self, hook):
+        """Call ``hook(block, args, out)`` after each forward; what it
+        returns is ignored."""
+        handle = RemovableHandle(self._mx_forward_hooks)
+        self._mx_forward_hooks[handle.id] = hook
+        return handle
+
+    def apply(self, fn):
+        """``fn(block)`` on every child's subtree, then on this block."""
+        for child in self._children.values():
+            child.apply(fn)
+        fn(self)
+        return self
+
+    def __call__(self, *args, **kwargs):
+        for hook in tuple(self._mx_forward_pre_hooks.values()):
+            hook(self, args)
+        out = super().__call__(*args, **kwargs)
+        for hook in tuple(self._mx_forward_hooks.values()):
+            hook(self, args, out)
+        return out
+
     def initialize(self, init=None, ctx=None, verbose=False,
                    force_reinit=False):
         self.collect_params().initialize(init=init, ctx=ctx, verbose=verbose,
@@ -183,11 +225,17 @@ class Block(torch.nn.Module):
         for p in self.params.values():
             p.cast(dtype)
 
-    def save_parameters(self, filename, deduplicate=False):  # noqa: ARG002
+    def save_parameters(self, filename, deduplicate=False):
         """Write every parameter of this block and its children to
         ``filename`` (``nd.save``) under its structural name
-        (``features.1.running_var``), as the reference does."""
+        (``features.1.running_var``), as the reference does.  A Parameter
+        that several blocks share (tied weights) is written under each of
+        its names, or with ``deduplicate`` once, under its last (MXNet
+        1.6's rule; the reference ignores ``deduplicate``)."""
         params = self._collect_params_with_prefix()
+        if deduplicate:
+            last = {id(v): k for k, v in params.items()}
+            params = {k: v for k, v in params.items() if last[id(v)] == k}
         nd.save(filename, {k: v.data() for k, v in params.items()})
 
     def _collect_params_with_prefix(self, prefix=""):
@@ -206,14 +254,18 @@ class Block(torch.nn.Module):
         uninitialized one takes the file's shape, on ``ctx`` (else the
         current context).  A name missing from the file, or one in the
         file that no parameter has, raises unless ``allow_missing`` /
-        ``ignore_extra``."""
+        ``ignore_extra``; a shared Parameter needs one of its names."""
         loaded = nd.load(filename, ctx=ctx)
         params = self._collect_params_with_prefix()
+        names = {}
+        for name, p in params.items():
+            names.setdefault(id(p), []).append(name)
         for name, p in params.items():
             value = loaded.get(name, loaded.get(p.name))
             if value is not None:
                 p.set_data(value)
-            elif not allow_missing:
+            elif not allow_missing and not any(
+                    k in loaded for k in names[id(p)]):
                 raise MXNetError(f"Parameter {name} missing in {filename}")
         if not ignore_extra:
             known = set(params) | {p.name for p in params.values()} \
@@ -227,6 +279,49 @@ class Block(torch.nn.Module):
 
     def forward(self, *args, **kwargs):
         raise NotImplementedError
+
+    def summary(self, *inputs):
+        """Run ``inputs`` through the block and print one row per block
+        reached (its structural name, class, output shape and the size of
+        its own parameters), then the total, as the reference does."""
+        rows = []
+
+        def shape_of(out):
+            if isinstance(out, (NDArray, torch.Tensor)):
+                return tuple(out.shape)
+            return [tuple(o.shape) for o in out
+                    if isinstance(o, (NDArray, torch.Tensor))]
+
+        def hook_factory(bname):
+            def hook(b, inp, out):  # noqa: ARG001
+                n_params = sum(int(np.prod(p.shape))
+                               for p in b._reg_params.values()
+                               if p.shape is not None)
+                rows.append((bname, type(b).__name__, shape_of(out),
+                             n_params))
+            return hook
+
+        handles = []
+
+        def attach(b, bname):
+            handles.append(b.register_forward_hook(hook_factory(bname)))
+            for n, c in b._children.items():
+                attach(c, f"{bname}.{n}" if bname else n)
+
+        attach(self, "")
+        try:
+            self(*inputs)
+        finally:
+            for h in handles:
+                h.remove()
+        print(f"{'Layer':<40}{'Output Shape':<24}{'Params':<12}")
+        print("-" * 76)
+        total = 0
+        for bname, cls, shape, n in rows:
+            print(f"{bname + ' (' + cls + ')':<40}{str(shape):<24}{n:<12}")
+            total += n
+        print("-" * 76)
+        print(f"Total params (incl. shared): {total}")
 
     def __repr__(self):
         lines = []
@@ -265,6 +360,13 @@ class HybridBlock(Block):
         self._all_params = None
         super().hybridize(active, static_alloc=static_alloc,
                           static_shape=static_shape, **kwargs)
+
+    def infer_shape(self, *args):
+        """Resolve every deferred parameter shape of the subtree from the
+        NDArray inputs ``args`` by running the forward once, imperatively
+        (the reference's InferShape role)."""
+        ctx = next(a.ctx for a in args if isinstance(a, NDArray))
+        self.hybrid_forward(nd, *args, **self._params_for(args, ctx))
 
     def infer_param_shapes(self, args):
         """Layer-specific deferred-shape rule; layers with deferred
@@ -323,8 +425,13 @@ class HybridBlock(Block):
         if recording:
             if self._all_params is None:
                 self._all_params = list(self.collect_params().values())
-            autograd._note_inputs([p._value(ctx) for p in self._all_params
-                                   if p._data is not None])
+            # the inputs too: one with a gradient buffer (a hybridized loss's
+            # prediction) takes its gradient through the block
+            autograd._note_inputs(
+                [a for a in (*args, *kwargs.values())
+                 if isinstance(a, NDArray)]
+                + [p._value(ctx) for p in self._all_params
+                   if p._data is not None])
         return _wrap(out, a._ctx)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

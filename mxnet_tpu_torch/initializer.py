@@ -8,7 +8,12 @@ names ending in ``bias``, ``beta`` or ``running_mean`` get zeros,
 ``gamma`` or ``running_var`` ones, and everything else (weights, BERT's
 ``position_weight``) the initializer's own draw, from the device's
 generator (``mx.random``).  Parity with the
-reference's draws is distribution-level.
+reference's draws is distribution-level; ``Orthogonal``, ``MSRAPrelu``,
+``Bilinear``, ``LSTMBias`` and ``Mixed`` are the reference's too, the
+deterministic ones value for value.  One difference: the reference's
+``LSTMBias`` sets the forget gate only through ``_init_weight``, so on a
+parameter named ``*bias`` (where its dispatch takes ``_init_bias``) it
+gives zeros; the port's sets the forget gate there too.
 
 :func:`init_weights` applies the same policy with Normal(0, std) to every
 parameter of a ``torch.nn`` module, drawing from a caller's generator.
@@ -17,13 +22,16 @@ parameter of a ``torch.nn`` module, drawing from a caller's generator.
 from __future__ import annotations
 
 import math
+import re
 
+import numpy as np
 import torch
 
 from .base import MXNetError
 
 __all__ = ["Initializer", "InitDesc", "Zero", "One", "Constant", "Uniform",
-           "Normal", "Xavier", "register", "get", "init_weights"]
+           "Normal", "Orthogonal", "Xavier", "MSRAPrelu", "Bilinear",
+           "LSTMBias", "Mixed", "register", "get", "init_weights"]
 
 _REGISTRY = {}
 
@@ -66,12 +74,17 @@ class Initializer:
             get(init_attr)._init_weight(desc, arr)
             return
         name = desc.lower()
-        if name.endswith(("bias", "beta", "running_mean", "moving_mean")):
+        if name.endswith("bias"):
+            self._init_bias(desc, arr)
+        elif name.endswith(("beta", "running_mean", "moving_mean")):
             self._init_zero(desc, arr)
         elif name.endswith(("gamma", "running_var", "moving_var")):
             self._init_one(desc, arr)
         else:
             self._init_weight(desc, arr)
+
+    def _init_bias(self, desc, arr):
+        self._init_zero(desc, arr)
 
     def _init_zero(self, desc, arr):  # noqa: ARG002
         arr[:] = 0.0
@@ -140,6 +153,34 @@ class Normal(Initializer):
         self._rand(arr, sigma=self.sigma)
 
 
+@register
+class Orthogonal(Initializer):
+    """``scale`` times the orthonormal factor of the SVD of a
+    U(-1, 1) (``rand_type="uniform"``) or N(0, 1) draw of shape
+    (shape[0], prod(shape[1:])): its rows or its columns, whichever side is
+    shorter, are orthonormal."""
+
+    def __init__(self, scale=1.414, rand_type="uniform"):
+        super().__init__(scale=scale, rand_type=rand_type)
+        self.scale = scale
+        self.rand_type = rand_type
+
+    def _init_weight(self, desc, arr):
+        from . import random
+        nout = arr.shape[0]
+        nin = math.prod(arr.shape[1:])
+        dev = arr._data.device
+        gen = random.generator(dev)
+        tmp = torch.empty((nout, nin), dtype=torch.float32, device=dev)
+        if self.rand_type == "uniform":
+            tmp.uniform_(-1.0, 1.0, generator=gen)
+        else:
+            tmp.normal_(0.0, 1.0, generator=gen)
+        u, _, v = torch.linalg.svd(tmp, full_matrices=False)
+        q = u if tuple(u.shape) == (nout, nin) else v
+        arr[:] = (self.scale * q).reshape(arr.shape).to(arr._data.dtype)
+
+
 def _fan(shape, factor_type):
     hw = math.prod(shape[2:]) if len(shape) > 2 else 1
     fan_in = (shape[1] if len(shape) > 1 else shape[0]) * hw
@@ -167,9 +208,74 @@ class Xavier(Initializer):
             self._rand(arr, sigma=scale)
 
 
+@register
+class MSRAPrelu(Xavier):
+    """He et al.'s initialization for PReLU nets: N(0, 2 / ((1 + slope^2)
+    fan))."""
+
+    def __init__(self, factor_type="avg", slope=0.25):
+        super().__init__("gaussian", factor_type, 2.0 / (1 + slope ** 2))
+        self._kwargs = {"factor_type": factor_type, "slope": slope}
+
+
+@register
+class Bilinear(Initializer):
+    """The bilinear upsampling kernel over the last two axes of a
+    (C_out, C_in, k, k) deconvolution weight."""
+
+    def _init_weight(self, desc, arr):
+        shape = arr.shape
+        f = np.ceil(shape[3] / 2.0)
+        c = (2 * f - 1 - f % 2) / (2.0 * f)
+        i = np.arange(math.prod(shape))
+        x = i % shape[3]
+        y = (i // shape[3]) % shape[2]
+        weight = ((1 - np.abs(x / f - c)) * (1 - np.abs(y / f - c))) \
+            .astype(np.float32)
+        arr[:] = torch.from_numpy(weight.reshape(shape)).to(arr._data.device,
+                                                        arr._data.dtype)
+
+
+@register
+class LSTMBias(Initializer):
+    """Zeros, with ``forget_bias`` on the forget gate's slice [n, 2n) of
+    an LSTM bias of 4n entries (gates i, f, g, o)."""
+
+    def __init__(self, forget_bias=1.0):
+        super().__init__(forget_bias=forget_bias)
+        self.forget_bias = forget_bias
+
+    def _init_weight(self, desc, arr):
+        v = torch.zeros(arr.shape, dtype=torch.float32)
+        n = arr.shape[0] // 4
+        v[n:2 * n] = self.forget_bias
+        arr[:] = v.to(arr._data.device, arr._data.dtype)
+
+    _init_bias = _init_weight
+
+
+@register
+class Mixed(Initializer):
+    """The initializer of the first regex of ``patterns`` that matches the
+    parameter's name; a name that none matches raises."""
+
+    def __init__(self, patterns, initializers):
+        super().__init__()
+        self.map = [(re.compile(p), i) for p, i in zip(patterns, initializers)]
+
+    def __call__(self, desc, arr):
+        for pat, init in self.map:
+            if pat.match(desc):
+                init(desc, arr)
+                return
+        raise MXNetError(f"no initializer pattern matched {desc!r}; "
+                         "add a '.*' catch-all")
+
+
 # string aliases the reference accepts
 _REGISTRY["zeros"] = Zero
 _REGISTRY["ones"] = One
+_REGISTRY["msra_prelu"] = MSRAPrelu
 _REGISTRY["gaussian"] = Normal
 
 # name endings that are ones / zeros whatever the initializer draws

@@ -4,8 +4,14 @@ masked attention family (``_attend``, ``masked_selfatt``,
 unfused interleaved and multi-head score/value ops, and the small ops
 (``div_sqrt_dim``, ``arange_like``, ``index_array``,
 ``gradient_multiplier``, ``quadratic``, ``allclose``, ``hawkes_ll``,
-``fft``, ``ifft``, ``count_sketch``).  ``sp_att_qkv`` and the box ops are
-not ported yet.
+``fft``, ``ifft``, ``count_sketch``) and ``ctc_loss``.  ``sp_att_qkv``
+and the box ops are not ported yet.
+
+``ctc_loss`` is ``torch.nn.functional.ctc_loss`` over the log-softmax of
+the logits, one loss per sequence, with MXNet's conventions.  Where no
+alignment exists (a label longer than its input can hold) it gives
+``inf``; the reference (``optax.ctc_loss``) gives a large finite value
+near 1e5 there.
 
 ``_attend`` picks flash attention whenever ``_flash_eligible`` holds
 (seq >= MXNET_FLASH_MIN_SEQ, seq % 128 == 0, head_dim % 8 == 0), exactly
@@ -394,3 +400,28 @@ def _count_sketch(data, h, s, out_dim=16):
     oh = (idx[:, None] == torch.arange(out_dim, device=data.device)[None, :]) \
         .to(data.dtype)
     return (data * sign[None, :]) @ oh
+
+
+@register("ctc_loss")
+def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
+              use_data_lengths=False, use_label_lengths=False,
+              blank_label="first"):
+    """Connectionist temporal classification loss of (T, N, C) logits
+    against (N, L) labels, one value per sequence.  ``blank_label="first"``:
+    the blank is class 0 and a label of 0 pads; ``"last"``: the blank is
+    class C - 1 and -1 pads.  ``data_lengths`` / ``label_lengths`` (with
+    ``use_*_lengths``) give each sequence's lengths instead."""
+    T, N, C = data.shape
+    labels = label.long()
+    if use_data_lengths and data_lengths is not None:
+        in_len = data_lengths.long()
+    else:
+        in_len = torch.full((N,), T, dtype=torch.long, device=data.device)
+    if use_label_lengths and label_lengths is not None:
+        tgt_len = label_lengths.long()
+    else:
+        tgt_len = (labels != (0 if blank_label == "first" else -1)).sum(1)
+    blank = C - 1 if blank_label == "last" else 0
+    return torch.nn.functional.ctc_loss(
+        torch.log_softmax(data, dim=-1), labels.clamp(0, C - 1), in_len,
+        tgt_len, blank=blank, reduction="none")

@@ -9,8 +9,18 @@ XLA): convolution, pooling and batch norm through ``torch.nn.functional``,
 which runs cuDNN's or torch's CUDA kernels on the card.  Dense weights are
 (out, in) and convolution weights OIHW, as in the reference.  A loss head's
 backward is MXNet's loss gradient, not the autodiff of its forward: each is
-a ``torch.autograd.Function`` that ignores the head gradient.  ``RNN`` is
-not ported yet.
+a ``torch.autograd.Function`` that ignores the head gradient.
+
+``RNN`` (the fused multi-layer LSTM, GRU and Elman op) takes MXNet's flat
+parameter vector in the reference's packing (all weights layer-major,
+direction, i2h then h2h, then all biases in the same order), slices it
+into views and runs the stack through torch's RNN functions
+(``torch._VF.lstm``, ``gru``, ``rnn_tanh``, ``rnn_relu``): cuDNN's RNN
+kernels on the card, torch's own on the CPU.  Their gate orders are the
+reference's (LSTM i, f, g, o; GRU r, z, n with the h2h bias inside
+``r * (W_hn h + b_hn)``).  Dropout between layers draws its mask from the
+device's generator, so a stack that drops runs one library call per layer
+(cuDNN's own dropout would draw from torch's global generator).
 """
 
 from __future__ import annotations
@@ -20,10 +30,11 @@ import math
 import torch
 import torch.nn.functional as F
 
+from ..base import MXNetError
 from .elemwise import gelu
 from .registry import register
 
-__all__ = ["softmax_cross_entropy"]
+__all__ = ["softmax_cross_entropy", "rnn_infer"]
 
 
 @register("FullyConnected")
@@ -130,6 +141,127 @@ def _dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     keep = 1.0 - p
     mask = torch.rand(shape, generator=_generator, device=data.device) < keep
     return data * mask.to(data.dtype) / keep
+
+
+# -- fused RNN ------------------------------------------------------------------
+
+_RNN_GATES = {"rnn_relu": 1, "rnn_tanh": 1, "lstm": 4, "gru": 3}
+
+
+def rnn_infer(shapes, attrs):
+    """The reference's shape rule for ``RNN``'s inputs (data, parameters,
+    state, state_cell): from the (T, N, I) data shape, the flat parameter
+    vector's (size,) and the states' (layers * directions, N, H); a shape
+    already given (not None) is kept."""
+    data = shapes[0]
+    if data is None:
+        return shapes
+    mode = attrs.get("mode", "lstm")
+    H = attrs.get("state_size", 0)
+    L = attrs.get("num_layers", 1)
+    d = 2 if attrs.get("bidirectional", False) else 1
+    ng = _RNN_GATES[mode]
+    size = 0
+    for layer in range(L):
+        in_sz = data[2] if layer == 0 else H * d
+        size += d * (ng * H * in_sz + ng * H * H + 2 * ng * H)
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (size,)
+    for i in (2, 3):
+        if len(out) > i and out[i] is None:
+            out[i] = (L * d, data[1], H)
+    return out
+
+
+def _unpack_rnn_params(params, mode, num_layers, input_size, hidden, d):
+    """Views [layer][direction] = [w_i2h, w_h2h, b_i2h, b_h2h] of the flat
+    vector: all weights (layer-major, direction, i2h then h2h), then all
+    biases in the same order."""
+    ng = _RNN_GATES[mode]
+    layers, off = [], 0
+
+    def take(n, shape):
+        nonlocal off
+        v = params[off:off + n].view(shape)
+        off += n
+        return v
+
+    for layer in range(num_layers):
+        in_sz = input_size if layer == 0 else hidden * d
+        layers.append([[take(ng * hidden * in_sz, (ng * hidden, in_sz)),
+                        take(ng * hidden * hidden, (ng * hidden, hidden))]
+                       for _ in range(d)])
+    for layer in range(num_layers):
+        for dd in range(d):
+            layers[layer][dd] += [take(ng * hidden, (ng * hidden,)),
+                                  take(ng * hidden, (ng * hidden,))]
+    return layers
+
+
+@register("RNN", num_outputs=-1, wrap_key="_generator",
+          wrap_train="_training")
+def _rnn(data, parameters, state, state_cell=None, state_size=0,
+         num_layers=1, mode="lstm", bidirectional=False, p=0.0,
+         state_outputs=False, projection_size=None,
+         use_sequence_length=False, sequence_length=None,
+         lstm_state_clip_min=None, lstm_state_clip_max=None,
+         lstm_state_clip_nan=False, _generator=None, _training=False):
+    """Fused multi-layer RNN over (T, N, I) data, states (layers *
+    directions, N, H): the output (T, N, directions * H), and with
+    ``state_outputs`` the final h (and c for an LSTM).  The reference
+    accepts ``projection_size``, sequence lengths and the LSTM state clip
+    and ignores them; the port raises on a value other than the default."""
+    if projection_size is not None or use_sequence_length \
+            or sequence_length is not None \
+            or lstm_state_clip_min is not None \
+            or lstm_state_clip_max is not None or lstm_state_clip_nan:
+        raise MXNetError(
+            "RNN: projection_size, use_sequence_length/sequence_length and "
+            "lstm_state_clip_* are not supported")
+    if mode not in _RNN_GATES:
+        raise MXNetError(f"RNN: unknown mode {mode!r}")
+    T, N, I = data.shape
+    H, d = state_size, 2 if bidirectional else 1
+    want = rnn_infer([tuple(data.shape), None], {
+        "mode": mode, "state_size": H, "num_layers": num_layers,
+        "bidirectional": bidirectional})[1]
+    if tuple(parameters.shape) != want:
+        raise MXNetError(f"RNN: parameters of shape "
+                         f"{tuple(parameters.shape)}, expected {want}")
+    layers = _unpack_rnn_params(parameters, mode, num_layers, I, H, d)
+    fn = getattr(torch._VF, mode)       # lstm, gru, rnn_tanh, rnn_relu
+    lstm = mode == "lstm"
+    drop = p > 0 and _training
+    # the library's backward needs its training-mode forward
+    train = torch.is_grad_enabled()
+    # without inter-layer dropout the stack is one call; with it, one per
+    # layer and the mask drawn in between
+    groups = [range(num_layers)] if not drop else \
+        [range(k, k + 1) for k in range(num_layers)]
+    out, h_n, c_n = data, [], []
+    for group in groups:
+        lo, hi = group[0] * d, (group[-1] + 1) * d
+        weights = [w for k in group for per_dir in layers[k]
+                   for w in per_dir]
+        hx = (state[lo:hi], state_cell[lo:hi]) if lstm else state[lo:hi]
+        res = fn(out.contiguous(), hx, weights, True, len(group), 0.0,
+                 train, bidirectional, False)
+        out = res[0]
+        h_n.append(res[1])
+        if lstm:
+            c_n.append(res[2])
+        if drop and group[0] < num_layers - 1:
+            keep = 1.0 - p
+            mask = torch.rand(out.shape, generator=_generator,
+                              device=out.device) < keep
+            out = out * mask.to(out.dtype) / keep
+    if not state_outputs:
+        return out
+    results = [out, torch.cat(h_n, 0)]
+    if lstm:
+        results.append(torch.cat(c_n, 0))
+    return results
 
 
 # -- convolution --------------------------------------------------------------

@@ -21,6 +21,7 @@ from __future__ import annotations
 import numpy as np
 
 from . import registry
+from .nn import rnn_infer
 
 __all__ = ["SAMPLERS", "DECOMPOSITIONS", "TOL", "sweep_ops",
            "op_inputs", "tol_class", "run", "close", "rel_err",
@@ -43,11 +44,12 @@ _SUMMING = frozenset([
     "norm", "moments", "cumsum", "cumprod", "dot", "batch_dot", "matmul",
     "khatri_rao", "einsum", "FullyConnected", "Convolution", "Deconvolution",
     "Pooling", "BatchNorm", "BatchNormWithReLU", "LayerNorm", "GroupNorm",
-    "InstanceNorm", "L2Normalization", "LRN", "softmax", "log_softmax",
+    "InstanceNorm", "L2Normalization", "LRN", "RNN", "softmax",
+    "log_softmax",
     "softmin", "SoftmaxActivation", "Softmax", "softmax_cross_entropy",
     "center_loss", "col2im", "contrib.fft", "contrib.ifft",
     "contrib.count_sketch", "contrib.hawkes_ll", "UpSampling",
-    "scatter_nd", "index_add", "ElementWiseSum", "histogram",
+    "scatter_nd", "index_add", "ElementWiseSum", "histogram", "ctc_loss",
     "lamb_full_update", "lamb_update_phase1", "lamb_update_phase2",
     "lars_update"])
 TOL = {"elementwise": 1e-5, "reduction": 1e-4}
@@ -111,6 +113,9 @@ def _spec(r):
     zeroed = t(4, 5)
     zeroed[:, 1] = 0
     bn = [t(2, 3, 4, 4), pos(3), t(3), t(3) * f32(0.1), pos(3)]
+    rnn_attrs = {"state_size": 6, "num_layers": 2, "mode": "lstm",
+                 "bidirectional": True, "state_outputs": True}
+    rnn_size = rnn_infer([(5, 3, 4), None], rnn_attrs)[1][0]
     return {
         "Activation": lambda: ([t(4, 5)], {"act_type": "tanh"}),
         "BatchNorm": lambda: (bn, {"fix_gamma": False}),
@@ -148,6 +153,8 @@ def _spec(r):
         "Pooling": lambda: ([t(2, 3, 6, 6)], {"kernel": (2, 2),
                                               "stride": (2, 2),
                                               "pool_type": "avg"}),
+        "RNN": lambda: ([t(5, 3, 4), t(rnn_size) * f32(0.3), t(4, 3, 6),
+                         t(4, 3, 6)], rnn_attrs),
         "Reshape": lambda: ([x], {"shape": (5, -1)}),
         "SVMOutput": lambda: ([x, lab], {"margin": 1.0}),
         "SequenceLast": lambda: ([t(5, 4, 3), lens],
@@ -270,6 +277,9 @@ def _spec(r):
         "contrib.multihead_attention_valatt": lambda: (
             [pos(4, 4, 5), t(5, 2, 8)], {"heads": 2}),
         "contrib.quadratic": lambda: ([x], {"a": 1.0, "b": -2.0, "c": 0.5}),
+        "ctc_loss": lambda: ([t(12, 4, 6), np.array(
+            [[1, 2, 2, 0], [3, 0, 0, 0], [5, 4, 3, 2], [1, 1, 1, 0]],
+            np.int32)], {"blank_label": "first"}),
         "cumprod": lambda: ([x], {"axis": 1}),
         "cumsum": lambda: ([x], {"axis": 0}),
         "depth_to_space": lambda: ([t(1, 8, 2, 2)], {"block_size": 2}),

@@ -397,9 +397,7 @@ def test_not_yet_ported_raise():
     net = _mlp(mx)
     net.initialize()
     net(mx.nd.ones((1, 10)))
-    for call in (lambda: mx.gluon.model_zoo.get_model("vgg16"),
-                 lambda: mx.gluon.model_zoo.get_model("mobilenet1.0"),
-                 lambda: net.export("x"),
+    for call in (lambda: net.export("x"),
                  lambda: mx.gluon.SymbolBlock(lambda x: x),
                  lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
                                           kvstore="dist_sync"),

@@ -542,8 +542,9 @@ def test_get_model_errors():
         vision.get_model("resnet51_v1")
     with pytest.raises(mx.MXNetError, match="pretrained"):
         vision.get_model("resnet18_v1", pretrained=True)
-    with pytest.raises(mx.MXNetError, match="not yet ported"):
-        vision.get_model("densenet121")
+    with pytest.raises(mx.MXNetError, match="pretrained"):
+        vision.get_model("densenet121", pretrained=True)
+    assert type(vision.get_model("densenet121")).__name__ == "DenseNet"
     with pytest.raises(mx.MXNetError, match="invalid resnet depth"):
         vision.get_resnet(1, 20)
 
