@@ -36,10 +36,14 @@ result line; each prints its seconds):
     events around the call, and the sum of its device kernels in one
     ``torch.profiler`` window (the number the ``library_ms`` column takes),
     with the names of those kernels;
- 5. serving oracle — llama_small served on the card (prefill 256: the
-    flash kernel) must be token-identical to greedy full re-encode;
- 6. serve — llama3_8b at full width (32 layers, vocab 128256, f32, random
-    weights from a seeded generator on the card) behind ``ServingEngine(
+ 5. serving oracle — the Gluon llama_small (``llama_model`` +
+    ``initialize`` on the card) served on the card (prefill 256: the flash
+    kernel) must be token-identical to greedy full re-encode, and its
+    ``save_parameters`` / ``load_parameters`` round trip bit for bit;
+ 6. serve — the Gluon llama3_8b at full width (32 layers, vocab 128256,
+    f32, random weights drawn on the card by ``initialize``, no gradient
+    buffers; the peak memory may grow by the weights alone) behind
+    ``ServingEngine(
     max_batch=8, block_tokens=16, max_seq=2048, prefill_tokens=1024)``
     answers 8 requests of 100-1000 prompt tokens, 16 new tokens each; the
     forward kernel's counter must grow by >= layers per prefill; one
@@ -141,7 +145,36 @@ result line; each prints its seconds):
     carried and detached, ``clip_global_norm``, ``Trainer("sgd", lr
     20).step``): losses finite and falling, median step ms, tokens/s,
     MFU, peak memory, idle share, device time by family and the LSTM
-    layer's own device ms.  No flash kernel launches.
+    layer's own device ms.  No flash kernel launches;
+14. det — (a) YOLOv3-DarkNet53 (``yolo3_darknet53(classes=80)``) at 416,
+    batch 8 (GluonCV train_yolo3.py's --data-shape 416, one GPU's share of
+    its batch 64 over 8), SGD lr 0.001, momentum 0.9, wd 5e-4,
+    ``step(batch)``, targets from the host ``YOLOV3TargetGenerator`` for
+    1-20 random boxes an image padded to 50, 10 steps on one batch in f32
+    and in bf16 (BatchNorm f32, multi-precision SGD): losses finite and
+    falling, step ms, images/s, MFU (FLOPs counted from the layers, 3x the
+    forward), peak memory, idle share, device ms by family; the f32 net's
+    outputs and loss on one image card vs CPU on the same weights, and
+    ``yolo3_decode`` (topk 100, conf 0.1, nms 0.45) of the batch card vs
+    CPU; (b) SSD300's multibox path (MXNet example/ssd, vgg16_reduced at
+    300: 8,732 anchors from MultiBoxPrior, MultiBoxTarget with hard
+    negatives 3:1, MultiBoxDetection nms 0.45, nms_topk 400) at batch 32
+    and 21 classes card vs CPU, each op timed; (c) Proposal (Faster
+    R-CNN's RPN, 6000 -> 300 at 0.7 on (1, 18, 38, 50)), ROIPooling 7x7
+    and roi_align 14x14 on 300 rois of (1, 1024, 38, 50), R-FCN's
+    PSROIPooling (21 classes, 7x7), DeformableConvolution 3x3 512 -> 512
+    on (1, 512, 38, 50), FlowNetC's Correlation (kernel 1, displacement
+    20, stride2 2, pad 20, on (8, 256, 48, 64)) and SpatialTransformer on
+    (32, 3, 224, 224): forward and gradients card vs CPU (ROIPooling and
+    roi_align on the first ``DET_CPU_ROIS`` rois, Correlation on the
+    first image: both devices run the slice), device and wall ms of the
+    full shape.  No flash kernel launches;
+15. moe — ``gluon.contrib.SparseMoE`` at google/switch-base-8's widths
+    (768, 3072, 8 experts, capacity factor 1.25; GELU, see ``MOE``) on 16 x
+    512 tokens with a router skewed by the inputs' mean (tokens dropped at
+    capacity), k = 1 and k = 2, f32: forward and backward card vs CPU on
+    the same weights, aux losses and dropped tokens equal; device ms and
+    peak memory.  No flash kernel launches.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -156,7 +189,8 @@ phase's BERT steps (``loop_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the nd phase's attention ops (``nd_launches``:
 the forward and, in each dtype's row, the fused backward, which both
 shapes take; 0 on dq and dkv) and the rnn phase's (``rnn_launches``, 0:
-the LSTM LM has no attention);
+the LSTM LM has no attention) and the det and moe phases'
+(``det_launches``, ``moe_launches``: 0, no attention);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -196,7 +230,12 @@ versions at the kernel phases' bounds, against the CPU f32 2e-5 out and
 (vision): logits card vs CPU 1e-4 of max |CPU|.  rnn: the RNN op card vs
 CPU 1e-4 of max |CPU| for outputs, states and gradients (``RNN_FWD_TOL``
 says why not 1e-5); CTC 1e-4 (its CUDA backward sums with atomics); the
-LM oracle's per-step losses TRAIN_TOL relative.
+LM oracle's per-step losses TRAIN_TOL relative.  det: YOLO's raw
+outputs card vs CPU 1e-4 of max |CPU| and its loss 1e-5 relative (f32
+convolutions sum in another order), decoded rows and the SSD targets' and
+detections' classes equal, their coordinates 1e-5, the ops 1e-4 of max
+|CPU| (``DET_OP_TOL``: the ops that sum, and gradients that scatter-add);
+moe: outputs and gradients 1e-5 of max |CPU|.
 """
 
 from __future__ import annotations
@@ -570,13 +609,33 @@ def bwd_kernel_phase(torch, fa):
     return errors, worst, timings
 
 
-def oracle_phase(torch, llama, serving):
+def _llama_init(tmx, std):
+    """The zoo llama's random weights: Normal(0, std) matrices, ones for
+    the norms."""
+    return tmx.init.Mixed([".*norm_weight", ".*"],
+                          [tmx.init.One(), tmx.init.Normal(std)])
+
+
+def _llama_net(tmx, llama, name, vocab, ctx, seed, std=0.02, train=True):
+    """The Gluon zoo llama ``name`` initialized on ``ctx`` from ``seed``
+    (the device's generator: no host copy); without ``train`` it has no
+    gradient buffers (serving)."""
+    net = llama.llama_model(name, vocab_size=vocab, prefix="llm_")
+    if not train:
+        net.collect_params().setattr("grad_req", "null")
+    tmx.random.seed(seed)
+    net.initialize(_llama_init(tmx, std), ctx=ctx)
+    return net
+
+
+def oracle_phase(torch, tmx, llama, serving):
     """Paged serving on the card == greedy full re-encode (token identity,
     the reference's serving oracle); prefill and re-encode run at L=256,
-    so both go through the flash kernel."""
-    gen = torch.Generator(device="cuda").manual_seed(7)
-    net = llama.llama_model("llama_small", vocab_size=101, device="cuda",
-                            generator=gen, init_std=0.05)
+    so both go through the flash kernel.  Then the net's
+    ``save_parameters`` / ``load_parameters`` round trip into a fresh
+    llama on the card, bit for bit."""
+    net = _llama_net(tmx, llama, "llama_small", 101, tmx.gpu(), 7, 0.05,
+                     train=False)
     P = 256
     eng = serving.ServingEngine(net, eos_id=-1, max_batch=4, block_tokens=16,
                                 max_seq=P, prefill_tokens=P)
@@ -598,24 +657,43 @@ def oracle_phase(torch, llama, serving):
                 raise AssertionError(
                     f"served tokens {got} != re-encode {want} for a "
                     f"{len(p)}-token prompt")
-    _log(f"oracle llama_small: {len(prompts)} requests token-identical to "
-         f"greedy re-encode")
+    with tempfile.TemporaryDirectory() as d:
+        f = os.path.join(d, "llama_small.params")
+        net.save_parameters(f)
+        back = llama.llama_model("llama_small", vocab_size=101,
+                                 prefix="other_")
+        back.load_parameters(f, ctx=tmx.gpu())
+    a, b = net.collect_params().values(), back.collect_params().values()
+    if not all(torch.equal(x.data()._data, y.data()._data)
+               for x, y in zip(a, b)):
+        raise AssertionError("llama_small did not reload bit for bit")
+    _log(f"oracle llama_small (Gluon llama): {len(prompts)} requests "
+         f"token-identical to greedy re-encode; save_parameters / "
+         f"load_parameters of {len(a)} parameters bit for bit")
 
 
-def serve_phase(torch, fa, llama, serving, args):
+def serve_phase(torch, fa, tmx, llama, serving, args):
     vocab = 128256
-    gen = torch.Generator(device="cuda").manual_seed(args.seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    net = llama.llama_model("llama3_8b", vocab_size=vocab, device="cuda",
-                            generator=gen, init_std=0.02)
+    net = _llama_net(tmx, llama, "llama3_8b", vocab, tmx.gpu(), args.seed,
+                     train=False)
     torch.cuda.synchronize()
     layers = len(net.blocks)
     n_params = sum(p.numel() for p in net.parameters())
     if {p.dtype for p in net.parameters()} != {torch.float32}:
         raise AssertionError("llama3_8b serving is meant to run in f32")
-    _log(f"serve: llama3_8b layers={layers} params={n_params} "
-         f"({n_params * 4 / 1e9:.2f} GB f32) built in "
-         f"{time.perf_counter() - t0:.1f} s")
+    grown = torch.cuda.max_memory_allocated() - before
+    _log(f"serve: llama3_8b (Gluon llama, initialize on the card) "
+         f"layers={layers} params={n_params} ({n_params * 4 / 1e9:.2f} GB "
+         f"f32) built in {time.perf_counter() - t0:.1f} s; peak memory "
+         f"grew {grown / 2**30:.2f} GiB")
+    if grown > n_params * 4 + 2**30:
+        raise AssertionError("initialize made a second copy of the weights "
+                             f"({grown} bytes for {n_params * 4})")
     eng = serving.ServingEngine(net, eos_id=-1, max_batch=8, block_tokens=16,
                                 max_seq=2048, prefill_tokens=1024)
     ad = eng.adapter
@@ -736,18 +814,18 @@ def train_oracle_phase(torch, fa, mx):
     losses agree to TRAIN_TOL relative.  bert_3_128_2 at seq 512 runs the
     fused backward, llama_small at seq 1024 (causal) the dq + dkv pair."""
     import copy
-    bert, llama = mx["bert"], mx["llama"]
+    bert, llama, tmx = mx["bert"], mx["llama"], mx["pkg"]
     cases = [
-        ("bert_3_128_2 seq 512", lambda g: bert.bert_model(
+        ("bert_3_128_2 seq 512", lambda: bert.bert_model(
             "bert_3_128_2", vocab_size=1000, max_length=512, dropout=0.0,
-            device="cpu", generator=g), _bert_loss(mx["nn"]), 4, 512,
-         "flash_bwd_fused"),
-        ("llama_small seq 1024", lambda g: llama.llama_model(
-            "llama_small", vocab_size=1000, device="cpu", generator=g),
+            device="cpu", generator=torch.Generator().manual_seed(11)),
+         _bert_loss(mx["nn"]), 4, 512, "flash_bwd_fused"),
+        ("llama_small seq 1024", lambda: _llama_net(
+            tmx, llama, "llama_small", 1000, tmx.cpu(), 11),
          _llama_loss(mx["nn"]), 2, 1024, "flash_bwd_dq"),
     ]
     for label, build, loss_fn, B, L, kernel in cases:
-        cpu_net = build(torch.Generator().manual_seed(11))
+        cpu_net = build()
         card_net = copy.deepcopy(cpu_net).to("cuda")
         rng = np.random.RandomState(12)
         toks = rng.randint(0, 1000, (3, B, L))
@@ -908,12 +986,14 @@ def train_lane_phase(torch, fa, mx, args):
             want = {"flash_fwd" + sfx: layers, "flash_bwd_fused" + sfx: layers}
         else:
             layers, units, B, L, vocab = 8, 2048, 4, 2048, 8192
-            with torch.device("meta"):
-                net = llama.LlamaModel(vocab_size=vocab, num_layers=layers,
-                                       units=units, hidden=5504, heads=16,
-                                       kv_heads=8, dtype=dtype)
-            net = net.to_empty(device="cuda")
-            net.init_weights(gen, 0.02)
+            tmx = mx["pkg"]
+            net = llama.LlamaModel(vocab_size=vocab, num_layers=layers,
+                                   units=units, hidden=5504, heads=16,
+                                   kv_heads=8, prefix="llm_")
+            if not f32:
+                net.cast(dname)         # before initialize: drawn in bf16
+            tmx.random.seed(args.seed)
+            net.initialize(_llama_init(tmx, 0.02), ctx=tmx.gpu())
             loss_fn = _llama_loss(mx["nn"])
             n_matmul = sum(p.numel() for n, p in net.named_parameters()
                            if not n.startswith("embed"))
@@ -3096,6 +3176,515 @@ def rnn_phase(torch, fa, mx, args, smi):
     return counts, lm
 
 
+# -- the det phase: YOLOv3 at full width, the SSD heads, the vision ops -------
+
+DET_YOLO = {"size": 416, "batch": 8, "classes": 80, "steps": 10,
+            "max_boxes": 50}
+# GluonCV train_yolo3.py's defaults
+DET_SGD = {"learning_rate": 0.001, "momentum": 0.9, "wd": 5e-4}
+DET_OUT_TOL = 1e-4      # raw outputs card vs CPU, of max |CPU| (f32 sums)
+DET_LOSS_TOL = 1e-5     # the loss card vs CPU, relative
+DET_OP_TOL = 1e-4       # the vision ops card vs CPU, of max |CPU|
+DET_BOX_TOL = 1e-5      # decoded and target coordinates card vs CPU
+DET_CPU_ROIS = 32       # rois the CPU recomputes for ROIPooling, roi_align
+# MXNet example/ssd symbol/symbol_factory.py, vgg16_reduced at 300
+SSD300 = {"maps": (38, 19, 10, 5, 3, 1),
+          "sizes": ((.1, .141), (.2, .272), (.37, .447), (.54, .619),
+                    (.71, .79), (.88, .961)),
+          "ratios": ((1, 2, .5), (1, 2, .5, 3, 1 / 3), (1, 2, .5, 3, 1 / 3),
+                     (1, 2, .5, 3, 1 / 3), (1, 2, .5), (1, 2, .5)),
+          "steps": tuple(v / 300 for v in (8, 16, 32, 64, 100, 300)),
+          "batch": 32, "classes": 21}
+
+
+def _det_labels(rng, B, classes, max_boxes):
+    """B images of 1-20 random corner boxes in [0, 1], [cls, x0, y0, x1,
+    y1] rows padded to ``max_boxes`` with -1."""
+    out = np.full((B, max_boxes, 5), -1.0, np.float32)
+    for b in range(B):
+        n = rng.randint(1, 21)
+        x0, y0 = rng.uniform(0, 0.8, n), rng.uniform(0, 0.8, n)
+        x1 = x0 + rng.uniform(0.05, 1.0, n) * (1 - x0)
+        y1 = y0 + rng.uniform(0.05, 1.0, n) * (1 - y0)
+        out[b, :n] = np.stack([rng.randint(0, classes, n), x0, y0, x1, y1],
+                              1)
+    return out
+
+
+def _in_fresh_thread(fn):
+    """fn() in a new thread: the Gluon prefix counters start at 0, so a
+    net built there is named as another built the same way."""
+    import threading
+    out = []
+    t = threading.Thread(target=lambda: out.append(fn()))
+    t.start()
+    t.join()
+    return out[0]
+
+
+def _det_yolo(torch, tmx, args, smi):
+    """YOLOv3-DarkNet53 (80 classes, the full backbone and three heads) at
+    416, batch 8, SGD (GluonCV's defaults), targets from the host
+    generator, DET_YOLO["steps"] steps on one batch, f32 then bf16
+    (BatchNorm f32, multi-precision SGD): losses finite and falling; the
+    f32 net's outputs and loss on one image card vs CPU on the same
+    weights; ``yolo3_decode`` on the trained batch card vs CPU.  Returns
+    the lanes' numbers."""
+    yolo = tmx.gluon.model_zoo.yolo
+    c = DET_YOLO
+    B, size, classes = c["batch"], c["size"], c["classes"]
+    gpu = tmx.gpu()
+    rng = np.random.RandomState(args.seed)
+    x = rng.randn(B, 3, size, size).astype(np.float32)
+    labels = _det_labels(rng, B, classes, c["max_boxes"])
+    t0 = time.perf_counter()
+    tgt = yolo.YOLOV3TargetGenerator(classes, input_size=size)(labels)
+    gen_ms = (time.perf_counter() - t0) * 1e3
+    loss_fn = yolo.YOLOV3Loss()
+    results = {}
+    for dname in ("float32", "bfloat16"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        net = _in_fresh_thread(lambda: yolo.yolo3_darknet53(classes=classes))
+        tmx.random.seed(args.seed)
+        net.initialize(tmx.init.Xavier(), ctx=gpu)
+        xs = tmx.nd.array(x, ctx=gpu)
+        flops = _net_flops(torch, tmx, net, tmx.nd.array(x[:1], ctx=gpu))
+        flops_step = 3 * B * flops
+        if dname == "bfloat16":
+            net.cast("bfloat16")
+            xs = xs.astype("bfloat16")
+            if not all(p.data()._data.dtype == torch.float32
+                       for k, p in net.collect_params().items()
+                       if "batchnorm" in k):
+                raise AssertionError("YOLO bf16: BatchNorm is not float32")
+        net.hybridize()
+        targets = [[tmx.nd.array(t, ctx=gpu) for t in s] for s in tgt]
+        trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", dict(
+            DET_SGD, multi_precision=dname == "bfloat16"))
+
+        def step():
+            with tmx.autograd.record():
+                preds = [p.astype("float32", copy=False) for p in net(xs)]
+                loss = loss_fn(tmx.nd, preds, targets)
+            loss.backward()
+            trainer.step(B)         # train_yolo3.py's step(batch_size)
+            return loss
+
+        losses, ms = [], []
+        for _ in range(c["steps"]):
+            t = time.perf_counter()
+            losses.append(step())
+            tmx.nd.waitall()
+            ms.append((time.perf_counter() - t) * 1e3)
+        losses = [float(v.asscalar()) for v in losses]
+        prof = _profile_step(torch, step, f"yolo3 {dname}",
+                             families=VISION_FAMILIES)
+        med = statistics.median(ms[2:])
+        r = {"step_ms": med, "images_per_s": B / (med / 1e3),
+             "gflop_forward_per_image": flops / 1e9,
+             "mfu": flops_step / (med / 1e3) / PEAK_FLOPS[dname],
+             "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+             "idle_share": max(0.0, 1 - prof["device_ms"] / prof["wall_ms"]),
+             "families": prof["families"], "losses": losses}
+        results[dname] = r
+        _log(f"det yolo3_darknet53 {dname}: losses "
+             f"{[round(v, 3) for v in losses]}; step ms "
+             f"{[round(v, 1) for v in ms]}; median (steps 3-{c['steps']}) "
+             f"{med:.2f} ms, {r['images_per_s']:.2f} images/s, "
+             f"{flops / 1e9:.4f} GFLOP forward per image, MFU "
+             f"{r['mfu']:.4f}, peak {r['peak_gib']:.2f} GiB, idle share "
+             f"{r['idle_share']:.3f}; device ms "
+             + ", ".join(f"{k} {v:.2f}" for k, v in prof["families"].items())
+             + f" ({smi})")
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError(f"YOLO {dname}: losses {losses} not finite "
+                                 f"and falling")
+        if dname == "float32":
+            _det_yolo_oracle(torch, tmx, yolo, net, x, tgt, loss_fn)
+        net = trainer = targets = xs = None
+    _log(f"det: the host target generator took {gen_ms:.1f} ms for the "
+         f"batch")
+    return results
+
+
+def _det_yolo_oracle(torch, tmx, yolo, net, x, tgt, loss_fn):
+    """The trained f32 net card vs CPU: one image's raw outputs and loss
+    (the training forward), on a CPU net carried the card's weights and
+    statistics by name; then ``yolo3_decode`` (topk 100, conf 0.1, nms
+    0.45) of the whole batch's predict-mode outputs on the card and of the
+    same outputs on the CPU."""
+    from mxnet_tpu_torch import convert
+    gpu, cpu = tmx.gpu(), tmx.cpu()
+    params = {k: p.data().asnumpy() for k, p in net.collect_params().items()}
+    cpu_net = convert.load_by_name(
+        _in_fresh_thread(lambda: yolo.yolo3_darknet53(
+            classes=DET_YOLO["classes"])), params, "yolo oracle", "cpu")
+    cpu_net.hybridize()
+    one = [[t[:1] for t in s] for s in tgt]
+    outs = []
+    for n, ctx in ((net, gpu), (cpu_net, cpu)):
+        with tmx.autograd.record():     # BatchNorm on the batch's statistics
+            preds = n(tmx.nd.array(x[:1], ctx=ctx))
+            loss = loss_fn(tmx.nd, preds, [[tmx.nd.array(t, ctx=ctx)
+                                            for t in s] for s in one])
+        outs.append(([p.asnumpy() for p in preds], float(loss.asscalar())))
+    (card, card_loss), (host, host_loss) = outs
+    err = max(float(np.abs(a - b).max() / np.abs(b).max())
+              for a, b in zip(card, host))
+    lerr = abs(card_loss - host_loss) / abs(host_loss)
+    _log(f"det yolo oracle: raw outputs card vs CPU {err:.3e} of max |CPU| "
+         f"(tol {DET_OUT_TOL}), loss {card_loss:.6f} vs {host_loss:.6f} "
+         f"({lerr:.3e} relative, tol {DET_LOSS_TOL})")
+    if not err <= DET_OUT_TOL or not lerr <= DET_LOSS_TOL:
+        raise AssertionError("YOLO card vs CPU disagree")
+    preds = net(tmx.nd.array(x, ctx=gpu))
+    tmx.nd.waitall()
+    t = time.perf_counter()
+    size = DET_YOLO["size"]
+    det = yolo.yolo3_decode(preds, input_size=size, topk=100)
+    det_np = det.asnumpy()
+    card_ms = (time.perf_counter() - t) * 1e3
+    t = time.perf_counter()
+    want = yolo.yolo3_decode([p.as_in_context(cpu) for p in preds],
+                             input_size=size, topk=100).asnumpy()
+    cpu_ms = (time.perf_counter() - t) * 1e3
+    kept = (det_np[..., 0] >= 0).sum(1)
+    same = np.array_equal(det_np[..., 0], want[..., 0]) and \
+        np.abs(det_np - want).max() <= DET_BOX_TOL
+    _log(f"det yolo3_decode: {det_np.shape}, rows kept per image "
+         f"{kept.tolist()}; card {card_ms:.2f} ms (wall, the NMS included) "
+         f"vs CPU {cpu_ms:.2f} ms; card == CPU: {same}")
+    if not same or kept.sum() == 0:
+        raise AssertionError("yolo3_decode: the card's rows are not the "
+                             "CPU's")
+
+
+def _det_time(torch, fn, iters=5):
+    """(device ms, wall ms) per call of fn: the profiler's kernel time
+    over ``iters`` calls, and the median wall time with a sync."""
+    dev, _ = _device_ms(torch, fn, iters)
+    wall = []
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall.append((time.perf_counter() - t) * 1e3)
+    return dev, statistics.median(wall)
+
+
+def _det_op(torch, tmx, sweep, label, name, arrays, attrs, smi,
+            cpu_arrays=None, exact=False):
+    """One op at a published shape: forward (and, when differentiable, the
+    gradients of sum(out * w)) on the card and on the CPU from the same
+    numpy inputs (``cpu_arrays``, a slice both devices run, where the CPU
+    would take too long), within DET_OP_TOL of max |CPU| (``exact``:
+    equal); then the card's forward + backward at the full shape timed.
+    Returns the error."""
+    ca = arrays if cpu_arrays is None else cpu_arrays
+    got, got_g = sweep.run(tmx, name, ca, attrs, tmx.gpu())
+    want, want_g = sweep.run(tmx, name, ca, attrs, tmx.cpu())
+    errs = [sweep.rel_err(g, w) for g, w in zip(got + got_g, want + want_g)]
+    err = max(errs) if len(got_g) == len(want_g) else math.inf
+    if exact:
+        same = all(np.array_equal(g, w) for g, w in zip(got, want))
+        err = 0.0 if same else math.inf
+    op = tmx.ops.registry.get(name)
+    ins = [tmx.nd.array(a, ctx=tmx.gpu(), dtype=a.dtype) for a in arrays]
+    grad = op.differentiable
+    if grad:
+        for i, a in enumerate(arrays):
+            if a.dtype.kind == "f":
+                ins[i].attach_grad()
+
+    def fwd_bwd():
+        if not grad:
+            return tmx.ops.registry.invoke(op, ins, dict(attrs))
+        with tmx.autograd.record():
+            out = tmx.ops.registry.invoke(op, ins, dict(attrs))
+            outs = out if isinstance(out, list) else [out]
+            head = sum(o.sum() for o in outs)
+        head.backward()
+        return head
+
+    dev, wall = _det_time(torch, fwd_bwd)
+    shapes = [tuple(a.shape) for a in arrays]
+    _log(f"det op {label} {name} {shapes}: card vs CPU "
+         f"{'equal' if exact and err == 0 else f'{err:.3e}'}"
+         f"{' (on a slice)' if cpu_arrays is not None else ''}; "
+         f"{'forward + backward' if grad else 'forward'} device "
+         f"{dev:.3f} ms, wall {wall:.3f} ms ({smi})")
+    if not err <= DET_OP_TOL:
+        raise AssertionError(f"det op {label}: card vs CPU {err}")
+    return err
+
+
+def _ssd_anchors(tmx, ctx):
+    """SSD300's 8,732 anchors: MultiBoxPrior over the six feature maps."""
+    c = SSD300
+    outs = []
+    for fm, sz, ra, st in zip(c["maps"], c["sizes"], c["ratios"],
+                              c["steps"]):
+        feat = tmx.nd.zeros((1, 1, fm, fm), ctx=ctx)
+        outs.append(tmx.nd.contrib.MultiBoxPrior(feat, sizes=sz, ratios=ra,
+                                                 steps=(st, st)))
+    return tmx.nd.concat(*outs, dim=1)
+
+
+def _det_ssd(torch, tmx, args, smi):
+    """SSD300's multibox path (MXNet example/ssd, vgg16_reduced at 300):
+    the anchors, MultiBoxTarget (hard negatives 3:1) and MultiBoxDetection
+    (nms 0.45, nms_topk 400) at batch 32 and 21 classes on the card and on
+    the CPU: class targets, masks and detection rows equal, loc targets
+    within DET_BOX_TOL; device and wall ms of each op."""
+    c = SSD300
+    rng = np.random.RandomState(args.seed + 1)
+    anchors = {ctx: _ssd_anchors(tmx, ctx) for ctx in (tmx.gpu(), tmx.cpu())}
+    A = anchors[tmx.cpu()].shape[1]
+    if A != 8732 or not np.array_equal(anchors[tmx.gpu()].asnumpy(),
+                                       anchors[tmx.cpu()].asnumpy()):
+        raise AssertionError(f"SSD300 anchors: {A}, or card != CPU")
+    B, K = c["batch"], c["classes"]
+    labels = _det_labels(rng, B, K - 1, 20)
+    cls_pred = rng.rand(B, K, A).astype(np.float32)
+    logits = rng.randn(B, K, A).astype(np.float32) * 2
+    prob = np.exp(logits) / np.exp(logits).sum(1, keepdims=True)
+    loc_pred = (rng.randn(B, A * 4) * 0.1).astype(np.float32)
+    res = {}
+    for ctx in (tmx.gpu(), tmx.cpu()):
+        nd = lambda a: tmx.nd.array(a, ctx=ctx)  # noqa: E731
+        anc = anchors[ctx]
+
+        def target(anc=anc, nd=nd):
+            return tmx.nd.contrib.MultiBoxTarget(
+                anc, nd(labels), nd(cls_pred), negative_mining_ratio=3.0)
+
+        def detect(anc=anc, nd=nd):
+            return tmx.nd.contrib.MultiBoxDetection(
+                nd(prob), nd(loc_pred), anc, nms_threshold=0.45,
+                nms_topk=400)
+
+        res[ctx] = ([o.asnumpy() for o in target()], detect().asnumpy())
+        if ctx == tmx.gpu():
+            t_target = _det_time(torch, target)
+            t_detect = _det_time(torch, detect)
+    (tg, dg), (tc, dc) = res[tmx.gpu()], res[tmx.cpu()]
+    loc_err = float(np.abs(tg[0] - tc[0]).max())
+    ok = (loc_err <= DET_BOX_TOL and np.array_equal(tg[1], tc[1])
+          and np.array_equal(tg[2], tc[2])
+          and np.array_equal(dg[..., 0], dc[..., 0])
+          and float(np.abs(dg - dc).max()) <= DET_BOX_TOL)
+    _log(f"det ssd300: {A} anchors, batch {B}, {K} classes; MultiBoxTarget "
+         f"positives {int((tg[2] > 0).sum())}, hard negatives "
+         f"{int((tg[2] == 0).sum())}, loc card vs CPU {loc_err:.3e}, device "
+         f"{t_target[0]:.3f} ms, wall {t_target[1]:.3f} ms; "
+         f"MultiBoxDetection rows kept {int((dg[..., 0] >= 0).sum())}, "
+         f"device {t_detect[0]:.3f} ms, wall {t_detect[1]:.3f} ms (the NMS "
+         f"on the card); card == CPU: {ok} ({smi})")
+    if not ok:
+        raise AssertionError("SSD300 multibox: card != CPU")
+
+
+def _det_ops(torch, tmx, args, smi):
+    """The other detection and sampling ops at their published shapes,
+    card vs CPU (``_det_op``)."""
+    from mxnet_tpu_torch.ops import sweep
+    rng = np.random.RandomState(args.seed + 2)
+    f32 = np.float32
+
+    def rois(n, h, w):
+        x0, y0 = rng.uniform(0, w - 64, n), rng.uniform(0, h - 64, n)
+        x1 = x0 + rng.uniform(32, 400, n)
+        y1 = y0 + rng.uniform(32, 300, n)
+        return np.stack([np.zeros(n), x0, y0, np.minimum(x1, w - 1),
+                         np.minimum(y1, h - 1)], 1).astype(f32)
+
+    # Faster R-CNN's RPN on a 600 x 800 image: stride 16, 9 anchors
+    A = 9
+    cls = rng.rand(1, 2 * A, 38, 50).astype(f32)
+    _det_op(torch, tmx, sweep, "Faster R-CNN RPN", "contrib.Proposal",
+            [cls, (rng.randn(1, 4 * A, 38, 50) * 0.2).astype(f32),
+             np.array([[600, 800, 1.0]], f32)],
+            {"scales": (8, 16, 32), "ratios": (0.5, 1, 2),
+             "feature_stride": 16, "rpn_pre_nms_top_n": 6000,
+             "rpn_post_nms_top_n": 300, "threshold": 0.7,
+             "output_score": True}, smi)
+    feat = rng.randn(1, 1024, 38, 50).astype(f32)
+    r300 = rois(300, 600, 800)
+    for name, pooled in (("ROIPooling", (7, 7)),
+                         ("contrib.roi_align", (14, 14))):
+        _det_op(torch, tmx, sweep, "Faster R-CNN C4 head", name,
+                [feat, r300], {"pooled_size": pooled,
+                               "spatial_scale": 1 / 16}, smi,
+                cpu_arrays=[feat, r300[:DET_CPU_ROIS]])
+    _det_op(torch, tmx, sweep, "R-FCN 21 classes", "contrib.PSROIPooling",
+            [rng.randn(1, 21 * 49, 38, 50).astype(f32), r300],
+            {"spatial_scale": 1 / 16, "output_dim": 21, "pooled_size": 7,
+             "group_size": 7}, smi)
+    _det_op(torch, tmx, sweep, "Deformable ConvNets",
+            "contrib.DeformableConvolution",
+            [rng.randn(1, 512, 38, 50).astype(f32),
+             (rng.randn(1, 18, 38, 50) * 2).astype(f32),
+             (rng.randn(512, 512, 3, 3) * 0.02).astype(f32),
+             np.zeros(512, f32)],
+            {"kernel": (3, 3), "pad": (1, 1), "num_filter": 512}, smi)
+    d1 = rng.randn(8, 256, 48, 64).astype(f32)
+    d2 = rng.randn(8, 256, 48, 64).astype(f32)
+    _det_op(torch, tmx, sweep, "FlowNetC", "Correlation", [d1, d2],
+            {"kernel_size": 1, "max_displacement": 20, "stride1": 1,
+             "stride2": 2, "pad_size": 20}, smi,
+            cpu_arrays=[d1[:1], d2[:1]])
+    theta = np.tile(np.array([[0.9, 0.1, 0.05, -0.1, 0.9, -0.05]], f32),
+                    (32, 1)) + (rng.randn(32, 6) * 0.05).astype(f32)
+    _det_op(torch, tmx, sweep, "STN", "SpatialTransformer",
+            [rng.randn(32, 3, 224, 224).astype(f32), theta],
+            {"target_shape": (224, 224)}, smi)
+
+
+def det_phase(torch, fa, mx, args, smi):
+    """The det phase: YOLOv3 trains (_det_yolo), the SSD300 multibox path
+    (_det_ssd), the vision ops at their published shapes (_det_ops).  No
+    flash kernel launches (none of it has attention).  Returns the flash
+    counts of the phase and YOLO's numbers."""
+    tmx = mx["pkg"]
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    yolo = _det_yolo(torch, tmx, args, smi)
+    t1 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    _det_ssd(torch, tmx, args, smi)
+    t2 = time.perf_counter()
+    _det_ops(torch, tmx, args, smi)
+    counts = _counts(fa)
+    _log(f"det: yolo {t1 - t0:.1f} s, ssd {t2 - t1:.1f} s, ops "
+         f"{time.perf_counter() - t2:.1f} s; flash launches "
+         f"{sum(counts.values())}")
+    if any(counts.values()):
+        raise AssertionError(f"the det phase launched flash kernels: "
+                             f"{counts}")
+    return counts, yolo
+
+
+# -- the moe phase: SparseMoE at Switch-Base-8's widths ------------------------
+
+# google/switch-base-8: d_model 768, d_ff 3072, 8 experts, top-1, capacity
+# factor 1.25; 16 sequences of 512 tokens.  The layer's default GELU, not
+# Switch's ReLU: with ReLU the f32 pre-activations within rounding of 0
+# fall on either side of the kink on each device, and the first expert
+# layer's gradients differed by 3.5e-2 of max |CPU| on an H100 (the
+# outputs and other gradients by <= 1.5e-6)
+MOE = {"units": 768, "hidden": 3072, "experts": 8, "capacity_factor": 1.25,
+       "activation": "gelu", "batch": 16, "seq": 512}
+MOE_TOL = 1e-5          # outputs and gradients card vs CPU, of max |CPU|
+
+
+def _moe_dropped(torch, x, gate_w, E, k, C):
+    """Token choices dropped at capacity: the layer's routing replayed."""
+    probs = torch.softmax(x @ gate_w, -1)
+    topi = torch.topk(probs, k, dim=-1).indices
+    count = torch.zeros(E, device=x.device)
+    dropped = 0
+    for j in range(k):
+        oh = torch.nn.functional.one_hot(topi[:, j], E).float()
+        pos = torch.cumsum(oh, 0) - oh + count
+        count = count + oh.sum(0)
+        dropped += int(((pos * oh).sum(-1) >= C).sum())
+    return dropped
+
+
+def moe_phase(torch, fa, mx, args, smi):
+    """SparseMoE at Switch-Base-8's widths on 8192 tokens, k = 1 (Switch)
+    and k = 2 (GShard), f32, hybridized: forward + backward of sum(y w) +
+    aux on the card and on the CPU on the same weights: outputs and the
+    gradients of every parameter and of the input within MOE_TOL of max
+    |CPU|, aux losses equal (MOE_TOL relative), dropped-token counts
+    equal; device ms and peak memory."""
+    tmx = mx["pkg"]
+    from mxnet_tpu_torch.gluon.contrib import SparseMoE
+    c = MOE
+    rng = np.random.RandomState(args.seed + 3)
+    N = c["batch"] * c["seq"]
+    # a shared offset skews the router, so that some experts overflow
+    x = (rng.randn(c["batch"], c["seq"], c["units"]) + 0.3) \
+        .astype(np.float32)
+    head = rng.randn(*x.shape).astype(np.float32)
+    _reset_counts(fa)
+    for k in (1, 2):
+        def build():
+            return SparseMoE(c["units"], c["hidden"], c["experts"],
+                             num_experts_per_token=k,
+                             capacity_factor=c["capacity_factor"],
+                             activation=c["activation"])
+        nets = {}
+        for ctx in (tmx.gpu(), tmx.cpu()):
+            nets[ctx] = _in_fresh_thread(build)
+        tmx.random.seed(args.seed)
+        nets[tmx.gpu()].initialize(tmx.init.Xavier(), ctx=tmx.gpu())
+        for name, p in nets[tmx.gpu()].collect_params().items():
+            nets[tmx.cpu()].collect_params()[name].set_data(
+                p.data().as_in_context(tmx.cpu()))
+        C = nets[tmx.gpu()].capacity(N)
+        res = {}
+        for ctx, net in nets.items():
+            net.hybridize()
+            xs = tmx.nd.array(x, ctx=ctx)
+            xs.attach_grad()
+            w = tmx.nd.array(head, ctx=ctx)
+
+            def run(net=net, xs=xs, w=w):
+                with tmx.autograd.record():
+                    y, aux = net(xs)
+                    loss = (y * w).sum() + aux
+                loss.backward()
+                return y, aux
+
+            if ctx == tmx.gpu():
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            y, aux = run()
+            gate = net.gate_weight.data()._data
+            res[ctx] = {
+                "y": y.asnumpy(), "aux": float(aux.asscalar()),
+                "grads": {"x": xs.grad.asnumpy(), **{
+                    n.split("_", 1)[1]: p.grad().asnumpy()
+                    for n, p in net.collect_params().items()}},
+                "dropped": _moe_dropped(
+                    torch, xs._data.reshape(N, -1), gate, c["experts"], k,
+                    C)}
+            if ctx == tmx.gpu():
+                peak = torch.cuda.max_memory_allocated() / 2**30
+                dev, wall = _det_time(torch, run)
+        g, h = res[tmx.gpu()], res[tmx.cpu()]
+        errs = {n: float(np.abs(a - h["grads"][n]).max()
+                         / np.abs(h["grads"][n]).max())
+                for n, a in g["grads"].items()}
+        errs["y"] = float(np.abs(g["y"] - h["y"]).max()
+                          / np.abs(h["y"]).max())
+        err = max(errs.values())
+        aux_err = abs(g["aux"] - h["aux"]) / abs(h["aux"])
+        _log(f"moe switch-base-8 k={k}: {N} tokens, capacity {C} a expert, "
+             f"dispatch {N * c['experts'] * C * 4 / 1e6:.0f} MB f32; "
+             f"dropped {g['dropped']} (CPU {h['dropped']}); aux "
+             f"{g['aux']:.6f} (CPU {h['aux']:.6f}); outputs and gradients "
+             f"card vs CPU {err:.3e} of max |CPU| (tol {MOE_TOL}; "
+             + ", ".join(f"{n} {e:.2e}" for n, e in errs.items())
+             + "); forward "
+             f"+ backward device {dev:.3f} ms, wall {wall:.3f} ms, peak "
+             f"{peak:.2f} GiB ({smi})")
+        if not err <= MOE_TOL or not aux_err <= MOE_TOL \
+                or g["dropped"] != h["dropped"]:
+            raise AssertionError(f"SparseMoE k={k}: card != CPU")
+    counts = _counts(fa)
+    if any(counts.values()):
+        raise AssertionError(f"the moe phase launched flash kernels: "
+                             f"{counts}")
+    return counts
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -3171,9 +3760,9 @@ def main(argv=None):
                                            torch, fa)
     bwd_errors, _, bwd_times = _phase("backward kernels", bwd_kernel_phase,
                                       torch, fa)
-    _phase("serving oracle", oracle_phase, torch, llama, serving)
-    serve_counts = _phase("serve", serve_phase, torch, fa, llama, serving,
-                          args)
+    _phase("serving oracle", oracle_phase, torch, mx["pkg"], llama, serving)
+    serve_counts = _phase("serve", serve_phase, torch, fa, mx["pkg"], llama,
+                          serving, args)
     _phase("train oracle", train_oracle_phase, torch, fa, mx)
     train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
                                    fa, mx, args)
@@ -3183,6 +3772,8 @@ def main(argv=None):
     loop_counts, _ = _phase("loop", loop_phase, torch, fa, mx, args, smi)
     nd_counts, _ = _phase("nd", nd_phase, torch, fa, mx, args, smi)
     rnn_counts, _ = _phase("rnn", rnn_phase, torch, fa, mx, args, smi)
+    det_counts, _ = _phase("det", det_phase, torch, fa, mx, args, smi)
+    moe_counts = _phase("moe", moe_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -3213,6 +3804,9 @@ def main(argv=None):
         "nd_launches": nd_counts["flash_fwd"],
         # the rnn phase: the LSTM LM has no attention
         "rnn_launches": rnn_counts["flash_fwd"],
+        # the det and moe phases: YOLO, the SSD heads, MoE: no attention
+        "det_launches": det_counts["flash_fwd"],
+        "moe_launches": moe_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -3274,6 +3868,8 @@ def main(argv=None):
                     f"flash_bwd_{kind_}" + ("_f32" if pre else "")],
                 "nd_launches": _dtype_count(nd_counts, kind_, pre),
                 "rnn_launches": _dtype_count(rnn_counts, kind_, pre),
+                "det_launches": _dtype_count(det_counts, kind_, pre),
+                "moe_launches": _dtype_count(moe_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

@@ -2,7 +2,8 @@
 
 The JAX package ``mxnet_tpu`` is the reference; this package mirrors its
 module names (``kernels.flash_attention``, ``ops.contrib``, ``ops.nn``,
-``ops.elemwise``, ``gluon.model_zoo.{llama,bert,vision}``, ``initializer``,
+``ops.elemwise``, ``gluon.model_zoo.{llama,bert,vision,yolo}``,
+``initializer``,
 ``optimizer``, ``parallel``, ``serving.*``) so each counterpart is easy to
 find.  It imports ``torch`` and never ``jax`` or ``mxnet_tpu``.
 
@@ -30,6 +31,12 @@ samplers (``mx.nd.random``, ``mx.random.uniform`` ...), ``mx.nd.linalg``,
 the legacy alias names, the remaining elementwise, reduction, matrix and
 nn ops, the loss heads, and the contrib attention family
 (``masked_encdec_att``, ``multihead_attention``) through the flash kernels.
+Then ``gluon.rnn``, the remaining losses and the vision zoo, and the
+detection surface: the sampling, ROI, correlation and SSD/RPN ops of
+``ops.vision`` and the box ops (NMS on the device), YOLOv3
+(``gluon.model_zoo.yolo``), ``gluon.contrib`` (``SparseMoE``,
+``Concurrent``, ``Identity``, ``SyncBatchNorm``), and the llama as Gluon
+blocks.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,

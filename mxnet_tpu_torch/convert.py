@@ -8,19 +8,11 @@ with the reference's prefixes, so :func:`bert_from_gluon` and
 statistics are parameters, so they come along).  The same function
 carries any Gluon net built alike in both packages: a ``gluon.rnn``
 layer's per-layer Parameters, or a tied language model, whose shared
-weight is one name of ``collect_params()``.  The llama is a
-``torch.nn`` module, so
-:func:`llama_from_gluon` maps the names of one built with ``prefix="llm_"``
-onto its parameters::
+weight is one name of ``collect_params()``.  The llama is a Gluon block
+too: :func:`llama_from_gluon` builds the zoo llama under the reference
+net's prefix and loads by name.
 
-    llm_tok_weight                          -> embed.weight
-    llm_layer{i}_{q,k,v,o}_weight           -> blocks.{i}.{q,k,v,o}_proj.weight
-    llm_layer{i}_{gate,up,down}_weight      -> blocks.{i}.{gate,up,down}.weight
-    llm_layer{i}_{attn,mlp}_norm_weight     -> blocks.{i}.{attn,mlp}_norm.weight
-    llm_final_norm_weight                   -> norm.weight
-    llm_lm_head_weight                      -> lm_head.weight
-
-Either way every expected name must be present with the expected shape,
+Every expected name must be present with the expected shape,
 and no other name may be left over.  Dense weights are (out, in) on both
 sides, so nothing is transposed.
 """
@@ -34,24 +26,10 @@ from .base import MXNetError
 from .context import resolve_device
 from .gluon.model_zoo import bert as _bert
 from .gluon.model_zoo import vision as _vision
-from .gluon.model_zoo.llama import LLAMA_CONFIGS, _build
+from .gluon.model_zoo import llama as _llama
 
 __all__ = ["llama_from_gluon", "bert_from_gluon", "resnet_from_gluon",
            "load_by_name"]
-
-
-def _param_names(prefix, num_layers):
-    """Gluon name -> port parameter name for a llama of ``num_layers``."""
-    names = {f"{prefix}tok_weight": "embed.weight",
-             f"{prefix}final_norm_weight": "norm.weight",
-             f"{prefix}lm_head_weight": "lm_head.weight"}
-    for i in range(num_layers):
-        g, t = f"{prefix}layer{i}_", f"blocks.{i}."
-        for w in ("q", "k", "v", "o"):
-            names[f"{g}{w}_weight"] = f"{t}{w}_proj.weight"
-        for w in ("gate", "up", "down", "attn_norm", "mlp_norm"):
-            names[f"{g}{w}_weight"] = f"{t}{w}.weight"
-    return names
 
 
 def _check_names(params, shapes, what):
@@ -68,18 +46,6 @@ def _check_names(params, shapes, what):
             raise MXNetError(f"{name}: shape {got} != {tuple(shape)}")
 
 
-def _load(model, params, names, what):
-    """Copy ``params`` (Gluon name -> numpy) into ``model`` by ``names``
-    (Gluon name -> port name)."""
-    own = dict(model.named_parameters())
-    _check_names(params, {g: own[t].shape for g, t in names.items()}, what)
-    with torch.no_grad():
-        for gname, tname in names.items():
-            own[tname].copy_(torch.tensor(np.asarray(params[gname],
-                                                     np.float32)))
-    return model
-
-
 def _required(params, name):
     arr = params.get(name)
     if arr is None:
@@ -89,18 +55,17 @@ def _required(params, name):
 
 def llama_from_gluon(params, prefix="llm_", config="llama_tiny", device=None,
                      dtype=torch.float32):
-    """Build the port's ``LlamaModel`` for zoo ``config`` holding the
-    reference net's weights ``params`` (name -> numpy array).  Every
-    expected name must be present with the expected shape, and no other
-    name may be left over."""
-    if config not in LLAMA_CONFIGS:
+    """Build the port's Gluon zoo llama ``config`` under ``prefix``
+    holding the reference net's weights ``params`` (name -> numpy array),
+    loaded by name over ``collect_params()``."""
+    if config not in _llama.LLAMA_CONFIGS:
         raise MXNetError(
             f"unknown llama config {config!r}; options "
-            f"{sorted(LLAMA_CONFIGS)}")
+            f"{sorted(_llama.LLAMA_CONFIGS)}")
     tok = _required(params, f"{prefix}tok_weight")
-    model = _build(config, int(tok.shape[0]), resolve_device(device), dtype)
-    return _load(model, params, _param_names(prefix, LLAMA_CONFIGS[config][0]),
-                 "llama_from_gluon")
+    net = _llama.llama_model(config, vocab_size=int(tok.shape[0]),
+                             prefix=prefix)
+    return load_by_name(net, params, "llama_from_gluon", device, dtype)
 
 
 def bert_from_gluon(params, prefix="bert_", config="bert_3_128_2",

@@ -1,8 +1,17 @@
-"""Model zoo of the port: the Gluon BERT (``bert``), the vision zoo's
-ResNets (``vision``) and the llama family (``llama``, ``torch.nn`` modules
-so far)."""
+"""Model zoo of the port: the Gluon BERT (``bert``), the vision zoo
+(``vision``), the llama family (``llama``) and YOLOv3 (``yolo``), all
+Gluon blocks named as the reference names them."""
 
 from . import vision  # noqa: F401
+
+
+def __getattr__(name):
+    import importlib
+    if name in ("bert", "llama", "yolo"):
+        mod = importlib.import_module(f".{name}", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 def get_model(name, **kwargs):

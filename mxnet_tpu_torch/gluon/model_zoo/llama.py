@@ -1,26 +1,39 @@
-"""Llama-style decoder LLM as ``torch.nn.Module``s — the port of
-``mxnet_tpu/gluon/model_zoo/llama.py``.
+"""Llama-style decoder LLM as Gluon HybridBlocks — the port of
+``mxnet_tpu/gluon/model_zoo/llama.py`` (``RMSNorm``, ``LlamaBlock``,
+``LlamaModel``, ``llama_model``) with the reference's prefixes, so
+``collect_params()`` gives the reference's names (``tok_``, ``layer{i}_``,
+``q_`` ... ``down_``, ``attn_norm_``, ``mlp_norm_``, ``final_norm_``,
+``lm_head_``) and weights carry across by name (``convert.py``).
 
 Architecture (Llama 3 family): pre-RMSNorm decoder blocks, rotary position
 embeddings, grouped-query attention (kv_heads < heads), SwiGLU MLP, untied
-LM head, causal masking.  Attention runs through the port's
-``ops.contrib.masked_att_qkv`` like the reference's Gluon forward, so a
-flash-eligible sequence takes the flash forward kernel on the card.
-Dense weights are (out_features, in_features), as in the reference.
+LM head, causal masking.  Attention runs through
+``F.contrib.masked_att_qkv`` like the reference's, so a flash-eligible
+sequence takes the flash kernels on the card.  Dense weights are
+(out_features, in_features), as in the reference.
+
+A net is built without values; ``initialize(init, ctx=...)`` allocates
+each Parameter on ``ctx`` and fills it there from that device's generator
+(``mx.random``), so an 8B llama on the card makes no host copy.  Serving
+needs no gradient buffers: set ``grad_req`` to ``"null"`` first
+(``net.collect_params().setattr("grad_req", "null")``).  Not ported:
+``attn_impl`` other than ``"fused"`` (ring and Ulysses attention over a
+sequence-parallel mesh) and ``remat`` / ``MXNET_BACKWARD_DO_MIRROR``;
+both raise.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
-import torch.nn.functional as F
 
+from ... import config
 from ...base import MXNetError
-from ...context import resolve_device
-from ...initializer import init_weights
-from ...ops.contrib import masked_att_qkv
+from ...ndarray.ndarray import NDArray
+from ..block import HybridBlock
+from ..nn import Dense, Embedding
 
-__all__ = ["LlamaModel", "llama_model", "LLAMA_CONFIGS"]
+__all__ = ["RMSNorm", "LlamaBlock", "LlamaModel", "llama_model",
+           "LLAMA_CONFIGS"]
 
 # name -> (layers, units, hidden, heads, kv_heads)
 LLAMA_CONFIGS = {
@@ -30,20 +43,21 @@ LLAMA_CONFIGS = {
 }
 
 
-class RMSNorm(nn.Module):
+class RMSNorm(HybridBlock):
     """Root-mean-square norm (no mean subtraction, no bias), in f32."""
 
-    def __init__(self, units, eps=1e-5, device=None, dtype=torch.float32):
-        super().__init__()
-        self.eps = eps
-        self.weight = nn.Parameter(torch.ones(units, device=device,
-                                              dtype=dtype))
+    def __init__(self, units, eps=1e-5, **kwargs):
+        super().__init__(**kwargs)
+        self._eps = eps
+        with self.name_scope():
+            self.weight = self.params.get("weight", shape=(units,),
+                                          init="ones")
 
-    def forward(self, x):
-        xf = x.float()
-        var = (xf * xf).mean(dim=-1, keepdim=True)
-        out = xf * torch.rsqrt(var + self.eps)
-        return (out * self.weight.float()).to(x.dtype)
+    def hybrid_forward(self, F, x, weight):
+        xf = F.cast(x, dtype="float32")
+        var = F.mean(xf * xf, axis=-1, keepdims=True)
+        out = xf * F.rsqrt(var + self._eps)
+        return F.cast(out * F.cast(weight, dtype="float32"), dtype=x.dtype)
 
 
 def _rope_angles(pos, half, base):
@@ -53,126 +67,128 @@ def _rope_angles(pos, half, base):
     return pos.float()[:, None] * inv[None, :]
 
 
-def _rotate(x, ang):
-    """Rotate the two halves of x's last dim by ``ang`` (broadcast against
-    x[..., :half])."""
-    half = x.shape[-1] // 2
-    cos = torch.cos(ang).to(x.dtype)
-    sin = torch.sin(ang).to(x.dtype)
-    x1, x2 = x[..., :half], x[..., half:]
-    return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-
-
-def _rope(x, base=500000.0):
-    """Rotary embeddings over the last dim; x: (B, H, L, D)."""
+def _rope(F, x, base=500000.0):
+    """Rotary embeddings over the last dim of x (B, H, L, D), a tensor
+    (``F`` the tensor ops) or an NDArray (``F`` = ``mx.nd``): the cos and
+    sin tables are constants of the shape, the rotation ``F``'s ops."""
     L, D = x.shape[2], x.shape[3]
-    return _rotate(x, _rope_angles(torch.arange(L, device=x.device),
-                                   D // 2, base))
+    half = D // 2
+    t = x._data if isinstance(x, NDArray) else x
+    ang = _rope_angles(torch.arange(L, device=t.device), half, base)
+    cos, sin = torch.cos(ang).to(t.dtype), torch.sin(ang).to(t.dtype)
+    if isinstance(x, NDArray):
+        cos, sin = NDArray(cos, x._ctx), NDArray(sin, x._ctx)
+    return _rotate(F, x, cos, sin)
 
 
-def _linear(units_in, units_out, device, dtype):
-    return nn.Linear(units_in, units_out, bias=False, device=device,
-                     dtype=dtype)
+def _rotate(F, x, cos, sin):
+    """Rotate the two halves of x's last dim by the angles whose ``cos``
+    and ``sin`` broadcast against x[..., :half]."""
+    D = x.shape[-1]
+    x1 = F.slice_axis(x, axis=-1, begin=0, end=D // 2)
+    x2 = F.slice_axis(x, axis=-1, begin=D // 2, end=D)
+    return F.concat(x1 * cos - x2 * sin, x1 * sin + x2 * cos, dim=-1)
 
 
-class LlamaBlock(nn.Module):
-    def __init__(self, units, hidden, heads, kv_heads, device=None,
-                 dtype=torch.float32):
-        super().__init__()
+class LlamaBlock(HybridBlock):
+    """One pre-norm decoder block; ``sp_axis`` names the mesh axis of ring
+    and Ulysses attention, which are not ported (``attn_impl`` must be
+    ``"fused"``)."""
+
+    def __init__(self, units, hidden, heads, kv_heads, attn_impl="fused",
+                 sp_axis="sp", **kwargs):  # noqa: ARG002
+        super().__init__(**kwargs)
         if units % heads or heads % kv_heads:
             raise MXNetError("units % heads and heads % kv_heads must be 0")
-        self.units = units
-        self.heads = heads
-        self.kv_heads = kv_heads
-        self.head_dim = units // heads
-        self.hidden = hidden
-        kvw = self.head_dim * kv_heads
-        self.q_proj = _linear(units, units, device, dtype)
-        self.k_proj = _linear(units, kvw, device, dtype)
-        self.v_proj = _linear(units, kvw, device, dtype)
-        self.o_proj = _linear(units, units, device, dtype)
-        self.gate = _linear(units, hidden, device, dtype)
-        self.up = _linear(units, hidden, device, dtype)
-        self.down = _linear(hidden, units, device, dtype)
-        self.attn_norm = RMSNorm(units, device=device, dtype=dtype)
-        self.mlp_norm = RMSNorm(units, device=device, dtype=dtype)
+        if attn_impl != "fused":
+            raise MXNetError(
+                f"attn_impl {attn_impl!r}: ring and Ulysses attention over "
+                "a sequence-parallel mesh are not yet ported; use 'fused'")
+        self._units = units
+        self._heads = heads
+        self._kv = kv_heads
+        self._hd = units // heads
+        with self.name_scope():
+            self.q_proj = Dense(units, flatten=False, use_bias=False,
+                                in_units=units, prefix="q_")
+            self.k_proj = Dense(self._hd * kv_heads, flatten=False,
+                                use_bias=False, in_units=units, prefix="k_")
+            self.v_proj = Dense(self._hd * kv_heads, flatten=False,
+                                use_bias=False, in_units=units, prefix="v_")
+            self.o_proj = Dense(units, flatten=False, use_bias=False,
+                                in_units=units, prefix="o_")
+            self.gate = Dense(hidden, flatten=False, use_bias=False,
+                              in_units=units, prefix="gate_")
+            self.up = Dense(hidden, flatten=False, use_bias=False,
+                            in_units=units, prefix="up_")
+            self.down = Dense(units, flatten=False, use_bias=False,
+                              in_units=hidden, prefix="down_")
+            self.attn_norm = RMSNorm(units, prefix="attn_norm_")
+            self.mlp_norm = RMSNorm(units, prefix="mlp_norm_")
 
-    def forward(self, x):
+    def _heads_of(self, F, x, n):
+        """(B, L, n hd) -> (B, n, L, hd)."""
+        return F.transpose(F.reshape(x, shape=(0, 0, n, self._hd)),
+                           axes=(0, 2, 1, 3))
+
+    def hybrid_forward(self, F, x):
         # x: (B, L, C) batch-major
-        B, L, _ = x.shape
         h = self.attn_norm(x)
-        q = self.q_proj(h).reshape(B, L, self.heads, self.head_dim) \
-            .transpose(1, 2)                                # (B, H, L, D)
-        k = self.k_proj(h).reshape(B, L, self.kv_heads, self.head_dim) \
-            .transpose(1, 2)
-        v = self.v_proj(h).reshape(B, L, self.kv_heads, self.head_dim) \
-            .transpose(1, 2)
-        q = _rope(q)
-        k = _rope(k)
-        ctx_vec = masked_att_qkv(q, k, v, None,
-                                 num_kv_groups=self.heads // self.kv_heads,
-                                 causal=True)
-        attn = self.o_proj(ctx_vec.transpose(1, 2).reshape(B, L, self.units))
+        q = _rope(F, self._heads_of(F, self.q_proj(h), self._heads))
+        k = _rope(F, self._heads_of(F, self.k_proj(h), self._kv))
+        v = self._heads_of(F, self.v_proj(h), self._kv)
+        ctx_vec = F.contrib.masked_att_qkv(
+            q, k, v, None, num_kv_groups=self._heads // self._kv,
+            causal=True)                                   # (B, H, L, D)
+        attn = self.o_proj(F.reshape(F.transpose(ctx_vec, axes=(0, 2, 1, 3)),
+                                     shape=(0, 0, self._units)))
         x = x + attn
         h = self.mlp_norm(x)
         return x + self.down(F.silu(self.gate(h)) * self.up(h))
 
 
-class LlamaModel(nn.Module):
+class LlamaModel(HybridBlock):
+    """Token embedding, ``num_layers`` decoder blocks, the final norm and
+    the LM head: ``forward(tokens (B, L))`` -> logits (B, L, vocab).
+    ``remat`` (None: ``MXNET_BACKWARD_DO_MIRROR``) must be off: activation
+    recomputation is not yet ported."""
+
     def __init__(self, vocab_size=128256, num_layers=2, units=64,
-                 hidden=172, heads=4, kv_heads=2, device=None,
-                 dtype=torch.float32):
-        """Widths as keywords, as ``bench.py``'s llama lane builds the
-        reference (``LlamaModel(vocab_size=, num_layers=, units=, hidden=,
-        heads=, kv_heads=)``).  Parameters are trainable, as in the
-        reference; serving runs under ``torch.inference_mode``."""
-        super().__init__()
-        self.units = units
-        self.embed = nn.Embedding(vocab_size, units, device=device,
-                                  dtype=dtype)
-        self.blocks = nn.ModuleList(
-            LlamaBlock(units, hidden, heads, kv_heads, device=device,
-                       dtype=dtype)
-            for _ in range(num_layers))
-        self.norm = RMSNorm(units, device=device, dtype=dtype)
-        self.lm_head = _linear(units, vocab_size, device, dtype)
+                 hidden=172, heads=4, kv_heads=2, attn_impl="fused",
+                 sp_axis="sp", remat=None, **kwargs):
+        super().__init__(**kwargs)
+        if remat is None:
+            remat = bool(config.get_int("MXNET_BACKWARD_DO_MIRROR", 0))
+        if remat:
+            raise MXNetError("LlamaModel: remat (MXNET_BACKWARD_DO_MIRROR) "
+                             "is not yet ported")
+        self._units = units
+        with self.name_scope():
+            self.embed = Embedding(vocab_size, units, prefix="tok_")
+            self.blocks = []
+            for i in range(num_layers):
+                blk = LlamaBlock(units, hidden, heads, kv_heads,
+                                 attn_impl=attn_impl, sp_axis=sp_axis,
+                                 prefix=f"layer{i}_")
+                self.register_child(blk, f"layer{i}")
+                self.blocks.append(blk)
+            self.norm = RMSNorm(units, prefix="final_norm_")
+            self.lm_head = Dense(vocab_size, flatten=False, use_bias=False,
+                                 in_units=units, prefix="lm_head_")
 
-    @property
-    def device(self):
-        return self.embed.weight.device
-
-    def init_weights(self, generator=None, std=0.02):
-        """Normal(0, std) for every matrix, ones for the norms — drawn from
-        ``generator`` (which must live on the parameters' device)."""
-        return init_weights(self, generator, std)
-
-    def forward(self, tokens):
-        # tokens: (B, L) integer -> logits (B, L, vocab)
-        x = self.embed(tokens.long())
+    def hybrid_forward(self, F, tokens):
+        x = self.embed(tokens)
         for blk in self.blocks:
             x = blk(x)
         return self.lm_head(self.norm(x))
 
 
-def _build(name, vocab_size, device, dtype):
+def llama_model(name="llama_tiny", vocab_size=32000, **kwargs):
+    """The zoo llama ``name`` (``LLAMA_CONFIGS``), not yet initialized;
+    ``kwargs`` go to ``LlamaModel`` (``prefix``, ``attn_impl``, ...)."""
     if name not in LLAMA_CONFIGS:
         raise MXNetError(
             f"unknown llama config {name!r}; options {sorted(LLAMA_CONFIGS)}")
     L, U, H, A, KV = LLAMA_CONFIGS[name]
-    # parameters are allocated uninitialised on the target device (no
-    # default init pass over 8B weights); callers fill them
-    with torch.device("meta"):
-        model = LlamaModel(vocab_size=vocab_size, num_layers=L, units=U,
-                           hidden=H, heads=A, kv_heads=KV, dtype=dtype)
-    return model.to_empty(device=device)
-
-
-def llama_model(name="llama_tiny", vocab_size=32000, device=None,
-                dtype=torch.float32, generator=None, init_std=0.02):
-    """A zoo llama with random weights: Normal(0, ``init_std``) matrices
-    from ``generator`` (seeded by the caller; it must live on ``device``).
-    ``device=None`` is the current context's device (the CUDA card unless
-    ``with mx.cpu():``)."""
-    model = _build(name, vocab_size, resolve_device(device), dtype)
-    model.init_weights(generator, init_std)
-    return model
+    return LlamaModel(vocab_size=vocab_size, num_layers=L, units=U,
+                      hidden=H, heads=A, kv_heads=KV, **kwargs)

@@ -55,7 +55,7 @@ class Parameter:
     def __init__(self, name, grad_req="write", shape=None, dtype=np.float32,
                  lr_mult=1.0, wd_mult=1.0, init=None,
                  allow_deferred_init=False, differentiable=True,
-                 stype="default", grad_stype="default"):
+                 stype="default", grad_stype="default", sharding=None):
         self.name = name
         self._grad_req = grad_req if differentiable else "null"
         if isinstance(shape, int):
@@ -68,6 +68,9 @@ class Parameter:
         self.allow_deferred_init = allow_deferred_init
         self.stype = stype
         self.grad_stype = grad_stype
+        # a layout hint (a mesh axis per dim, as gluon.contrib.SparseMoE
+        # sets); recorded, read by nothing until multi-GPU parallelism
+        self.sharding = sharding
         self._data = None           # NDArray over a torch.nn.Parameter
         self._data_list = None      # one such NDArray per context
         self._ctx_list = None
@@ -378,6 +381,12 @@ class ParameterDict:
     def zero_grad(self):
         for p in self.values():
             p.zero_grad()
+
+    def setattr(self, name, value):
+        """Set attribute ``name`` of every parameter (``grad_req``,
+        ``lr_mult``, ...)."""
+        for p in self.values():
+            setattr(p, name, value)
 
     def select(self, pattern):
         """The parameters whose names match the regex ``pattern``."""

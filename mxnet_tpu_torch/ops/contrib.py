@@ -4,8 +4,14 @@ masked attention family (``_attend``, ``masked_selfatt``,
 unfused interleaved and multi-head score/value ops, and the small ops
 (``div_sqrt_dim``, ``arange_like``, ``index_array``,
 ``gradient_multiplier``, ``quadratic``, ``allclose``, ``hawkes_ll``,
-``fft``, ``ifft``, ``count_sketch``) and ``ctc_loss``.  ``sp_att_qkv``
-and the box ops are not ported yet.
+``fft``, ``ifft``, ``count_sketch``), ``ctc_loss`` and the box ops
+``box_iou`` and ``box_nms``.  ``sp_att_qkv`` is not ported yet.
+
+``box_nms`` (and the detection ops of ``vision.py``) suppress on the
+tensors' device: ``greedy_nms`` builds the suppression matrix in blocks
+and resolves the greedy order by matrix-vector sweeps, with one host check
+a sweep and none a candidate (the reference runs a numpy loop on the
+host).
 
 ``ctc_loss`` is ``torch.nn.functional.ctc_loss`` over the log-softmax of
 the logits, one loss per sequence, with MXNet's conventions.  Where no
@@ -334,6 +340,128 @@ class _GradientMultiplier(torch.autograd.Function):
 @register("contrib.gradient_multiplier")
 def _gradient_multiplier(data, scalar=1.0):
     return _GradientMultiplier.apply(data, scalar)
+
+
+def _corner(b):
+    """(x, y, w, h) center boxes -> (x0, y0, x1, y1) corners."""
+    x, y, w, h = b.unbind(-1)
+    return torch.stack([x - w / 2, y - h / 2, x + w / 2, y + h / 2], -1)
+
+
+@register("contrib.box_iou", differentiable=False)
+def _box_iou(lhs, rhs, format="corner"):
+    """IoU of every box of ``lhs`` (..., N, 4) with every box of ``rhs``
+    (..., M, 4): (..., N, M), over the union plus 1e-12."""
+    if format == "center":
+        lhs, rhs = _corner(lhs), _corner(rhs)
+    l, r = lhs[..., :, None, :], rhs[..., None, :, :]
+    wh = (torch.minimum(l[..., 2:], r[..., 2:])
+          - torch.maximum(l[..., :2], r[..., :2])).clamp(min=0)
+    inter = wh[..., 0] * wh[..., 1]
+    area_l = (l[..., 2] - l[..., 0]) * (l[..., 3] - l[..., 1])
+    area_r = (r[..., 2] - r[..., 0]) * (r[..., 3] - r[..., 1])
+    return inter / (area_l + area_r - inter + 1e-12)
+
+
+# IoU entries of one block of the suppression matrix
+_NMS_BLOCK_ELEMS = 1 << 24
+
+
+def greedy_nms(boxes, valid, thresh, iou_fn, classes=None):
+    """Greedy non-maximum suppression on the boxes' device.
+
+    ``boxes`` (B, K, 4) are candidates in rank order (best first),
+    ``valid`` (B, K) marks the real ones; candidate k is kept iff it is
+    valid and no kept candidate ranked before it has ``iou_fn`` IoU above
+    ``thresh`` with it (and, with ``classes`` (B, K), the same class).
+    Returns ``keep`` (B, K) bool.
+
+    The candidates go in blocks of rows of the suppression matrix (at most
+    ``_NMS_BLOCK_ELEMS`` IoU entries a block).  A block first drops what
+    the kept candidates of earlier blocks suppress, then resolves the
+    greedy order inside itself by the fixed point keep = alive & not
+    (keep @ S), S the block's strictly upper-triangular suppression
+    matrix: a Jacobi sweep from keep = alive settles one more rank each
+    sweep at least, and its fixed point is the greedy result.  Each sweep
+    is one batched matrix-vector product on the device and one host check
+    of convergence (sweeps = the depth of the longest suppression chain
+    plus one, not one per candidate)."""
+    B, K = valid.shape
+    keep = torch.zeros_like(valid)
+    step = max(1, min(K, _NMS_BLOCK_ELEMS // max(B * K, 1)))
+    mm = torch.float16 if boxes.is_cuda else torch.float32
+
+    def hits(lo, hi, s, e):
+        """(B, hi - lo, e - s): candidates [lo, hi) suppress [s, e)."""
+        h = iou_fn(boxes[:, lo:hi], boxes[:, s:e]) > thresh
+        if classes is not None:
+            h &= classes[:, lo:hi, None] == classes[:, None, s:e]
+        return h
+
+    for s in range(0, K, step):
+        e = min(K, s + step)
+        alive = valid[:, s:e]
+        if s:
+            alive = alive & ~(hits(0, s, s, e) & keep[:, :s, None]).any(1)
+        inner = hits(s, e, s, e).to(mm).triu(1)
+        x = alive
+        while True:
+            sup = torch.bmm(x.to(mm)[:, None, :], inner)[:, 0] > 0
+            nxt = alive & ~sup
+            if torch.equal(nxt, x):
+                break
+            x = nxt
+        keep[:, s:e] = x
+    return keep
+
+
+def compact_rows(rows, keep, n_out, fill=-1.0):
+    """The kept ``rows`` (B, K, W) of each batch entry, in order, at the
+    top of a (B, n_out, W) array of ``fill`` (at most n_out of them)."""
+    B, K, W = rows.shape
+    pos = torch.cumsum(keep.to(torch.int64), 1) - 1
+    dest = torch.where(keep & (pos < n_out), pos, n_out)
+    out = torch.full((B, n_out + 1, W), fill, dtype=rows.dtype,
+                     device=rows.device)
+    out.scatter_(1, dest[..., None].expand(B, K, W), rows)
+    return out[:, :n_out]
+
+
+@register("contrib.box_nms", differentiable=False)
+def _box_nms(data, overlap_thresh=0.5, valid_thresh=0.0, topk=-1,
+             coord_start=2, score_index=1, id_index=-1, background_id=-1,
+             force_suppress=False, in_format="corner", out_format="corner"):
+    """Greedy NMS over the rows of ``data`` (..., M, W): rows with a score
+    above ``valid_thresh``, best first, the first ``topk`` of them (all if
+    <= 0); a kept row suppresses every later one whose corner box
+    overlaps it by more than ``overlap_thresh`` (with ``id_index`` >= 0
+    and not ``force_suppress``: only rows of its class).  The kept rows
+    come first, in score order, the rest are -1.  Ties in score keep the
+    rows' order.  The reference ignores ``background_id``, ``in_format``
+    and ``out_format``; the port raises on a value other than the
+    default."""
+    if background_id != -1 or in_format != "corner" \
+            or out_format != "corner":
+        raise MXNetError(
+            "contrib.box_nms: background_id, in_format and out_format are "
+            "ignored by the reference; only their defaults (-1, 'corner', "
+            "'corner') are supported")
+    shape = data.shape
+    x = data.reshape(-1, shape[-2], shape[-1])
+    B, M, W = x.shape
+    scores = x[..., score_index]
+    valid = scores > valid_thresh
+    order = torch.sort(torch.where(valid, scores, float("-inf")), dim=1,
+                       descending=True, stable=True).indices
+    K = M if topk <= 0 else min(int(topk), M)
+    order = order[:, :K]
+    rows = torch.gather(x, 1, order[..., None].expand(B, K, W))
+    classes = rows[..., id_index] if id_index >= 0 and not force_suppress \
+        else None
+    keep = greedy_nms(rows[..., coord_start:coord_start + 4],
+                      torch.gather(valid, 1, order), overlap_thresh,
+                      _box_iou, classes)
+    return compact_rows(rows, keep, M).reshape(shape)
 
 
 @register("contrib.quadratic")

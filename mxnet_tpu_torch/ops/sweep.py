@@ -49,6 +49,7 @@ _SUMMING = frozenset([
     "softmin", "SoftmaxActivation", "Softmax", "softmax_cross_entropy",
     "center_loss", "col2im", "contrib.fft", "contrib.ifft",
     "contrib.count_sketch", "contrib.hawkes_ll", "UpSampling",
+    "Correlation", "GridGenerator",
     "scatter_nd", "index_add", "ElementWiseSum", "histogram", "ctc_loss",
     "lamb_full_update", "lamb_update_phase1", "lamb_update_phase2",
     "lars_update"])
@@ -170,6 +171,81 @@ def _spec(r):
         "SwapAxis": lambda: ([t(2, 3, 4)], {"dim1": 0, "dim2": 2}),
         "UpSampling": lambda: ([t(1, 2, 3, 3)], {"scale": 2,
                                                  "sample_type": "nearest"}),
+        # the detection and sampling ops: boxes in corner form, rois rows
+        # [batch, x0, y0, x1, y1] in pixels, sample points inside and
+        # across the image edge
+        "GridGenerator": lambda: ([f(1.0, 0.1, 0.05, -0.1, 0.9, -0.05)
+                                   .reshape(1, 6)],
+                                  {"transform_type": "affine",
+                                   "target_shape": (4, 5)}),
+        "BilinearSampler": lambda: ([t(2, 3, 5, 6),
+                                     (r.rand(2, 2, 4, 4) * 2.4 - 1.2)
+                                     .astype(f32)], {}),
+        "SpatialTransformer": lambda: (
+            [t(1, 2, 6, 6), f(1.0, 0.1, 0.0, -0.1, 1.0, 0.0).reshape(1, 6)],
+            {"target_shape": (4, 4), "transform_type": "affine",
+             "sampler_type": "bilinear"}),
+        "ROIPooling": lambda: ([t(2, 3, 8, 8),
+                                f(0, 1, 1, 6, 5, 1, 0, 2, 3, 7,
+                                  0, 2, 2, 3, 3).reshape(3, 5)],
+                               {"pooled_size": (2, 2),
+                                "spatial_scale": 1.0}),
+        "contrib.roi_align": lambda: ([t(1, 2, 8, 8),
+                                      f(0, 1, 1, 5, 5, 0, 2, 0, 7, 6)
+                                      .reshape(2, 5)],
+                                     {"pooled_size": (2, 2),
+                                      "spatial_scale": 1.0}),
+        "contrib.PSROIPooling": lambda: ([t(1, 8, 8, 8),
+                                          f(0, 1, 1, 6, 6).reshape(1, 5)],
+                                         {"output_dim": 2, "pooled_size": 2,
+                                          "group_size": 2}),
+        "Correlation": lambda: ([t(1, 2, 6, 6), t(1, 2, 6, 6)],
+                                {"kernel_size": 1, "max_displacement": 1,
+                                 "stride1": 1, "stride2": 1,
+                                 "pad_size": 1}),
+        "contrib.DeformableConvolution": lambda: (
+            [t(1, 2, 6, 6), t(1, 18, 6, 6) * f32(0.3), t(3, 2, 3, 3),
+             t(3)], {"kernel": (3, 3), "num_filter": 3, "pad": (1, 1)}),
+        "contrib.box_iou": lambda: ([f(0.1, 0.1, 0.5, 0.5, 0.3, 0.3, 0.9,
+                                       0.8, 0.0, 0.2, 0.4, 0.9)
+                                     .reshape(3, 4),
+                                     f(0.2, 0.2, 0.6, 0.6, 0.5, 0.1, 0.8,
+                                       0.7).reshape(2, 4)], {}),
+        "contrib.box_nms": lambda: ([np.concatenate(
+            [r.randint(0, 2, (2, 6, 1)), r.rand(2, 6, 1),
+             np.sort(r.rand(2, 6, 2, 2) * [[0.5], [0.5]] + [[0], [0.4]],
+                     axis=2).reshape(2, 6, 4)], -1).astype(f32)],
+            {"overlap_thresh": 0.3, "valid_thresh": 0.1, "id_index": 0}),
+        "contrib.MultiBoxPrior": lambda: ([t(1, 3, 4, 4)],
+                                          {"sizes": (0.5, 0.25),
+                                           "ratios": (1.0, 2.0)}),
+        "contrib.MultiBoxTarget": lambda: (
+            [f(0.1, 0.1, 0.4, 0.4, 0.3, 0.3, 0.8, 0.8, 0.5, 0.1, 0.9, 0.6,
+               0.0, 0.5, 0.5, 1.0).reshape(1, 4, 4),
+             f(0.0, 0.12, 0.12, 0.38, 0.42, 1.0, 0.3, 0.3, 0.8, 0.75,
+               -1, -1, -1, -1, -1).reshape(1, 3, 5),
+             np.abs(t(1, 3, 4))],
+            {"negative_mining_ratio": 3.0}),
+        "contrib.MultiBoxDetection": lambda: (
+            [r.rand(1, 3, 4).astype(f32), t(1, 16) * f32(0.1),
+             f(0.1, 0.1, 0.4, 0.4, 0.3, 0.3, 0.8, 0.8, 0.5, 0.1, 0.9, 0.6,
+               0.0, 0.5, 0.5, 1.0).reshape(1, 4, 4)], {}),
+        "contrib.Proposal": lambda: (
+            [r.rand(1, 8, 4, 4).astype(f32), t(1, 16, 4, 4) * f32(0.1),
+             f(64.0, 64.0, 1.0).reshape(1, 3)],
+            {"scales": (8, 16), "ratios": (0.5, 1.0),
+             "rpn_pre_nms_top_n": 12, "rpn_post_nms_top_n": 4,
+             "rpn_min_size": 1}),
+        "contrib.MultiProposal": lambda: (
+            [r.rand(2, 8, 4, 4).astype(f32), t(2, 16, 4, 4) * f32(0.1),
+             f(64.0, 64.0, 1.0, 48.0, 56.0, 1.0).reshape(2, 3)],
+            {"scales": (8, 16), "ratios": (0.5, 1.0),
+             "rpn_pre_nms_top_n": 12, "rpn_post_nms_top_n": 4,
+             "rpn_min_size": 1, "output_score": True}),
+        "contrib.AdaptiveAvgPooling2D": lambda: ([t(2, 3, 7, 5)],
+                                                 {"output_size": (3, 2)}),
+        "contrib.BilinearResize2D": lambda: ([t(2, 3, 4, 5)],
+                                             {"height": 7, "width": 3}),
         "_arange": lambda: ([], {"start": 1, "stop": 7, "step": 1.5}),
         "_full": lambda: ([], {"shape": (2, 3), "value": 2.5}),
         "_ones": lambda: ([], {"shape": (2, 3)}),

@@ -12,9 +12,12 @@ Three layers, as in ``mxnet_tpu.serving``:
 
 Quick start::
 
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import serving
     from mxnet_tpu_torch.gluon.model_zoo import llama
-    net = llama.llama_model("llama_tiny", vocab_size=256,
-                            generator=torch.Generator("cuda").manual_seed(0))
+    net = llama.llama_model("llama_tiny", vocab_size=256)
+    net.collect_params().setattr("grad_req", "null")   # no gradient buffers
+    net.initialize(mx.init.Normal(0.02), ctx=mx.gpu())
     eng = serving.ServingEngine(net, eos_id=2)
     tokens = eng.generate([[1, 17, 93]], max_new_tokens=32)[0]
 

@@ -2,7 +2,8 @@
 zoo model — the port of ``mxnet_tpu/serving/models.py`` (llama only).
 
 The adapter owns the device half of one engine's state — the weights of an
-initialised ``LlamaModel`` and the per-layer paged K/V pools — and exposes
+initialised Gluon ``LlamaModel`` (its Parameters' values, read once) and
+the per-layer paged K/V pools — and exposes
 numpy-in/numpy-out operations to the scheduler:
 
 - ``prefill(slot, prompt, table_row)`` — one sequence enters: its prompt's
@@ -31,6 +32,7 @@ from ..base import MXNetError
 from ..gluon.model_zoo import llama
 from ..kernels import paged_attention as _pa
 from ..ops.contrib import _attend
+from ..ops.registry import tensor_ops
 
 __all__ = ["LlamaServingAdapter", "make_adapter"]
 
@@ -43,13 +45,16 @@ def _rms(x, w, eps):
     return (out * w.float()).to(x.dtype)
 
 
-_rope_full = llama._rope      # prefill: positions 0..L-1
+def _rope_full(x, base):
+    """llama._rope of a (B, H, P, D) prefill: positions 0..P-1."""
+    return llama._rope(tensor_ops, x, base)
 
 
 def _rope_at(x, pos, base):
     """llama._rope on (B, H, 1, D) at per-sequence positions ``pos`` (B,)."""
-    ang = llama._rope_angles(pos, x.shape[3] // 2, base)     # (B, half)
-    return llama._rotate(x, ang[:, None, None, :])
+    ang = llama._rope_angles(pos, x.shape[3] // 2, base)[:, None, None, :]
+    return llama._rotate(tensor_ops, x, torch.cos(ang).to(x.dtype),
+                         torch.sin(ang).to(x.dtype))
 
 
 def _heads(x, n, hd):
@@ -62,6 +67,11 @@ def _merge(x):
     """(B, n, L, hd) -> (B, L, n*hd)."""
     B, n, L, hd = x.shape
     return x.transpose(1, 2).reshape(B, L, n * hd)
+
+
+def _w(param):
+    """A Gluon Parameter's value as a tensor outside autograd."""
+    return param.data()._data.detach()
 
 
 LlamaCfg = namedtuple("LlamaCfg", [
@@ -159,25 +169,25 @@ class LlamaServingAdapter:
             raise MXNetError("LlamaServingAdapter wants a LlamaModel")
         self.prefill_tokens = int(prefill_tokens)
         self.eos_id = int(eos_id)
-        self.device = model.device
         blk0 = model.blocks[0]
         self.cfg = LlamaCfg(
-            layers=len(model.blocks), units=model.units,
-            heads=blk0.heads, kv_heads=blk0.kv_heads,
-            head_dim=blk0.head_dim, eps=model.norm.eps, rope_base=500000.0)
+            layers=len(model.blocks), units=model._units,
+            heads=blk0._heads, kv_heads=blk0._kv, head_dim=blk0._hd,
+            eps=model.norm._eps, rope_base=500000.0)
         self.weights = LlamaW(
-            embed=model.embed.weight.detach(),
+            embed=_w(model.embed.weight),
             blocks=tuple(
                 LlamaBlockW(
-                    attn_norm=b.attn_norm.weight.detach(),
-                    q=b.q_proj.weight.detach(), k=b.k_proj.weight.detach(),
-                    v=b.v_proj.weight.detach(), o=b.o_proj.weight.detach(),
-                    mlp_norm=b.mlp_norm.weight.detach(),
-                    gate=b.gate.weight.detach(), up=b.up.weight.detach(),
-                    down=b.down.weight.detach())
+                    attn_norm=_w(b.attn_norm.weight),
+                    q=_w(b.q_proj.weight), k=_w(b.k_proj.weight),
+                    v=_w(b.v_proj.weight), o=_w(b.o_proj.weight),
+                    mlp_norm=_w(b.mlp_norm.weight),
+                    gate=_w(b.gate.weight), up=_w(b.up.weight),
+                    down=_w(b.down.weight))
                 for b in model.blocks),
-            norm=model.norm.weight.detach(),
-            lm_head=model.lm_head.weight.detach())
+            norm=_w(model.norm.weight),
+            lm_head=_w(model.lm_head.weight))
+        self.device = self.weights.embed.device
         self._kv = None
         self._all_valid = None
 

@@ -101,8 +101,8 @@ def test_bert_init_policy_and_trainable():
 def test_llama_parameters_trainable():
     """The zoo llama's parameters are trainable, as the reference's are
     (serving runs under ``torch.inference_mode`` and needs no freezing)."""
-    net = tllama.llama_model("llama_tiny", vocab_size=50, device="cpu",
-                             generator=torch.Generator().manual_seed(1))
+    net = tllama.llama_model("llama_tiny", vocab_size=50)
+    net.initialize(ctx=tmx.cpu())
     params = list(net.named_parameters())
     assert params
     for name, p in params:

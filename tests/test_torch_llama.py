@@ -1,5 +1,6 @@
-"""The port's llama (``nn.Module``s) held against the JAX package's Gluon
-llama on the same weights, carried across with ``convert.llama_from_gluon``.
+"""The port's Gluon llama held against the JAX package's on the same
+weights, carried across by name (``convert.llama_from_gluon``) or by the
+reference's ``.params`` file (``load_parameters``).
 
 Logits are compared in f32 at 2e-5 absolute (logits are O(1); the two
 frameworks sum matmuls in another order).
@@ -12,6 +13,7 @@ import mxnet_tpu as mx
 from mxnet_tpu.gluon.model_zoo import llama as jllama
 import torch
 
+import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import llama as tllama
@@ -88,14 +90,95 @@ def test_gqa_uses_repeat_interleave_order():
     assert out[0, :, 0, 0].tolist() == [0.0, 0.0, 1.0, 1.0]
 
 
+def _norms_one(std):
+    return tmx.init.Mixed([".*norm_weight", ".*"],
+                          [tmx.init.One(), tmx.init.Normal(std)])
+
+
 def test_model_init_is_seeded_and_needs_a_device():
-    a = tllama.llama_model("llama_tiny", vocab_size=50, device="cpu",
-                           generator=torch.Generator().manual_seed(1))
-    b = tllama.llama_model("llama_tiny", vocab_size=50, device="cpu",
-                           generator=torch.Generator().manual_seed(1))
-    for pa, pb in zip(a.parameters(), b.parameters()):
-        assert torch.equal(pa, pb)
-    assert torch.all(a.norm.weight == 1.0)
+    """``initialize`` fills the Gluon llama on the given context from that
+    device's generator: one seed gives one net, the norms stay ones under a
+    Mixed initializer, and with no card the default context raises."""
+    def build():
+        tmx.random.seed(1)
+        net = tllama.llama_model("llama_tiny", vocab_size=50)
+        net.initialize(_norms_one(0.02), ctx=tmx.cpu())
+        return net
+
+    a, b = build(), build()
+    pa, pb = a.collect_params(), b.collect_params()
+    assert len(pa) == len(pb) == 2 + 2 * 9 + 1
+    for (na, x), (nb, y) in zip(pa.items(), pb.items()):
+        assert na.split("_", 1)[1] == nb.split("_", 1)[1]
+        assert torch.equal(x.data()._data, y.data()._data), na
+    assert torch.all(a.norm.weight.data()._data == 1.0)
+    assert a.embed.weight.data()._data.std() > 0.01
     if not torch.cuda.is_available():
         with pytest.raises(MXNetError, match="no CUDA device"):
-            tllama.llama_model("llama_tiny", vocab_size=50)
+            tllama.llama_model("llama_tiny", vocab_size=50).initialize()
+
+
+def test_load_parameters_of_the_reference_file(tmp_path):
+    """A ``.params`` file the JAX llama saved (its structural names) loads
+    into the port's llama, built under another prefix; logits as by
+    name."""
+    net = _jax_net("llama_tiny", 101, 8)
+    f = str(tmp_path / "llama.params")
+    net.save_parameters(f)
+    port = tllama.llama_model("llama_tiny", vocab_size=101, prefix="other_")
+    port.load_parameters(f, ctx=tmx.cpu())
+    by_name = convert.llama_from_gluon(_export(net), "llm_", "llama_tiny",
+                                       device="cpu")
+    toks = np.random.RandomState(9).randint(0, 101, (2, 12)) \
+        .astype(np.int32)
+    want = net(mx.nd.array(toks)).asnumpy()
+    for p in (port, by_name):
+        got = p(tmx.nd.array(toks, ctx=tmx.cpu())).asnumpy()
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+
+
+def test_save_load_round_trip_is_bit_exact(tmp_path):
+    tmx.random.seed(3)
+    a = tllama.llama_model("llama_tiny", vocab_size=50)
+    a.initialize(_norms_one(0.05), ctx=tmx.cpu())
+    f = str(tmp_path / "a.params")
+    a.save_parameters(f)
+    b = tllama.llama_model("llama_tiny", vocab_size=50)
+    b.load_parameters(f, ctx=tmx.cpu())
+    for x, y in zip(a.collect_params().values(),
+                    b.collect_params().values()):
+        assert torch.equal(x.data()._data, y.data()._data)
+
+
+@pytest.mark.parametrize("kwargs,match", [
+    ({"attn_impl": "ring"}, "attn_impl"),
+    ({"attn_impl": "ulysses"}, "attn_impl"),
+    ({"remat": True}, "remat")])
+def test_unported_options_raise(kwargs, match):
+    with pytest.raises(MXNetError, match=match):
+        tllama.llama_model("llama_tiny", vocab_size=50, **kwargs)
+
+
+def test_backward_do_mirror_raises(monkeypatch):
+    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
+    with pytest.raises(MXNetError, match="MXNET_BACKWARD_DO_MIRROR"):
+        tllama.llama_model("llama_tiny", vocab_size=50)
+
+
+def test_hybridized_and_imperative_forward_agree():
+    """The tensor path (hybridized) and the NDArray path (every op through
+    the registry) give the same logits, and the imperative path records
+    gradients for every parameter."""
+    tmx.random.seed(4)
+    net = tllama.llama_model("llama_tiny", vocab_size=50)
+    net.initialize(_norms_one(0.05), ctx=tmx.cpu())
+    x = tmx.nd.array(np.random.RandomState(2).randint(0, 50, (2, 8)),
+                     ctx=tmx.cpu())
+    with tmx.autograd.record():
+        want = net(x)
+        want.sum().backward()
+    grads = [p.grad().asnumpy() for p in net.collect_params().values()]
+    assert all(np.abs(g).sum() > 0 for g in grads)
+    net.hybridize()
+    np.testing.assert_allclose(net(x).asnumpy(), want.asnumpy(), rtol=0,
+                               atol=1e-6)

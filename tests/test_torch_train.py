@@ -3,9 +3,9 @@ MXNet's Adam update, the first step's gradients, and ``TrainStep`` loss
 trajectories, on the same weights (carried across with ``convert``) and
 the same batches.
 
-The BERT is the port's Gluon Block (``TrainStep`` takes it through
-``collect_params()``; the padded case wraps it in a plain ``nn.Module``),
-the llama a ``torch.nn`` module.
+The BERT and the llama are the port's Gluon Blocks (``TrainStep`` takes
+them through ``collect_params()``; the padded case wraps the BERT in a
+plain ``nn.Module``).
 
 Tolerances: Adam weights 1e-6 relative (the same formula, other rounding
 of the folded scalars); gradients 1e-4 of each parameter's max |grad| (the
@@ -89,11 +89,9 @@ def _build(case, seed=3):
     if case.startswith("bert"):
         net = jbert.bert_model("bert_3_128_2", vocab_size=VOCAB["bert"],
                                max_length=L, dropout=0.0, prefix="bert_")
-        names = None
     else:
         net = jllama.llama_model("llama_tiny", vocab_size=VOCAB["llama"],
                                  prefix="llm_")
-        names = convert._param_names("llm_", 2)
     # weights from numpy (Zero() then set_data is cheaper than tracing a
     # Normal draw per shape), by the initializer's by-name policy
     net.initialize(mx.initializer.Zero())
@@ -110,15 +108,13 @@ def _build(case, seed=3):
     if case.startswith("bert"):
         port = convert.bert_from_gluon(params, "bert_", "bert_3_128_2",
                                        device="cpu")
-        gluon_params = port.collect_params()
     else:
         port = convert.llama_from_gluon(params, "llm_", "llama_tiny",
                                         device="cpu")
+    gluon_params = port.collect_params()
     if case == "bert_padded":
         net, port = _WithLength(net, VALID), _TorchWithLength(port, VALID)
-    if names is None:
-        return net, port, _torch_names(port, gluon_params)
-    return net, port, {t: g for g, t in names.items()}
+    return net, port, _torch_names(port, gluon_params)
 
 
 def _batches(case, steps):
