@@ -174,7 +174,34 @@ result line; each prints its seconds):
     512 tokens with a router skewed by the inputs' mean (tokens dropped at
     capacity), k = 1 and k = 2, f32: forward and backward card vs CPU on
     the same weights, aux losses and dropped tokens equal; device ms and
-    peak memory.  No flash kernel launches.
+    peak memory.  No flash kernel launches;
+16. image — the port's data input: (a) an ImageNet-shaped ``.rec`` (MXNet's
+    example/image-classification recipe: im2rec at shorter side 480, JPEG
+    quality 95) of 1280 synthetic images of 100 classes, aspects 4:3,
+    3:4, 3:2 and 1:1, written by ``recordio.pack_img`` through the port's
+    JPEG encoder in parallel threads: size, KiB a record, seconds; (b)
+    ``ImageRecordIter`` (224, batch 64, shuffle, random crop and mirror,
+    the recipe's mean and std, ``ctx=cpu``) images/s at 1, 2, 4 and
+    ``os.cpu_count()`` threads and at ``resize=256``, N threads
+    bit-identical to 1, a decoded crop against ``imdecode`` + crop +
+    normalize (1 raw unit / std), ``os.cpu_count()`` and ``/dev/shm``;
+    (c) ``resnet50_v1`` (100 classes, Xavier) trained 20 steps from the
+    ``.rec`` (``preprocess_threads=cpu_count``, ``ctx`` the card), SGD
+    momentum 0.9, wd 1e-4 at lr 0.005 after a 3-step warmup (see
+    IMAGE_SGD), in f32 and in bf16: losses falling,
+    median step ms, images/s, MFU, ms in ``next()``, idle share and the
+    same step on one pre-staged batch; (d) ``ImageRecordDataset`` with
+    GluonCV's ImageNet train transforms through ``DataLoader(num_workers=
+    cpu_count)`` (images/s), and ``DecodedImageRecordDataset`` through the
+    decode-pool path, bit-identical to ``num_workers=0`` and to
+    ``ImageRecordIter``; (e) LeNet (MXNet's symbols/lenet.py in
+    ``gluon.nn``) one epoch on a synthetic learnable MNIST in idx-ubyte
+    (60000 + 10000) through ``vision.MNIST`` and a 4-worker DataLoader,
+    SGD lr 0.05 (train_mnist.py's), momentum 0.9: ms a step, samples/s,
+    test accuracy > 0.9;
+    (f) ``imresize`` of a 375x500 image, all five codes, at (224, 224) and
+    (341, 256) on the card against the CPU (within 1), device ms.  No
+    flash kernel launches.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -189,8 +216,9 @@ phase's BERT steps (``loop_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the nd phase's attention ops (``nd_launches``:
 the forward and, in each dtype's row, the fused backward, which both
 shapes take; 0 on dq and dkv) and the rnn phase's (``rnn_launches``, 0:
-the LSTM LM has no attention) and the det and moe phases'
-(``det_launches``, ``moe_launches``: 0, no attention);
+the LSTM LM has no attention) and the det, moe and image phases'
+(``det_launches``, ``moe_launches``, ``image_launches``: 0, no
+attention);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -235,7 +263,11 @@ outputs card vs CPU 1e-4 of max |CPU| and its loss 1e-5 relative (f32
 convolutions sum in another order), decoded rows and the SSD targets' and
 detections' classes equal, their coordinates 1e-5, the ops 1e-4 of max
 |CPU| (``DET_OP_TOL``: the ops that sum, and gradients that scatter-add);
-moe: outputs and gradients 1e-5 of max |CPU|.
+moe: outputs and gradients 1e-5 of max |CPU|.  image: the N-thread
+decode and the decode-pool loader bit for bit; a decoded crop 1 raw unit
+/ std of imdecode + crop + normalize (the lanes multiply by 1/std or
+divide by std); imresize card vs CPU 1 (float32 sums in another order
+round across .5).
 """
 
 from __future__ import annotations
@@ -3568,7 +3600,7 @@ def det_phase(torch, fa, mx, args, smi):
     return counts, yolo
 
 
-# -- the moe phase: SparseMoE at Switch-Base-8's widths ------------------------
+# -- the moe phase: SparseMoE at Switch-Base-8's widths -----------------------
 
 # google/switch-base-8: d_model 768, d_ff 3072, 8 experts, top-1, capacity
 # factor 1.25; 16 sequences of 512 tokens.  The layer's default GELU, not
@@ -3685,6 +3717,540 @@ def moe_phase(torch, fa, mx, args, smi):
     return counts
 
 
+# -- the image phase: RecordIO, the codec, ImageRecordIter, the datasets ------
+
+# MXNet's example/image-classification ImageNet recipe packs with
+# tools/im2rec.py at shorter side 480, JPEG quality 95 (ImageNet records
+# are ~100-200 KB); here 1280 synthetic images of 100 classes from --seed
+IMAGE_RECS, IMAGE_SHORT, IMAGE_QUALITY, IMAGE_CLASSES = 1280, 480, 95, 100
+IMAGE_ASPECTS = ((4, 3), (3, 4), (3, 2), (1, 1))
+IMAGE_BATCH, IMAGE_SIZE = 64, 224
+# ImageRecordIter's mean/std in raw RGB units (the recipe's)
+IMAGE_RGB_MEAN = (123.68, 116.779, 103.939)
+IMAGE_RGB_STD = (58.393, 57.12, 57.375)
+# the recipe's SGD (momentum 0.9, wd 1e-4), at the loop phase's rate and
+# warmup (LOOP_NAG): from Xavier weights on distinct batches the recipe's
+# lr 0.1 raised the loss 5.9 -> 31.1 in 3 steps (batch 16, 96 px) and its
+# 0.1 per 256 images (0.025) 5.5 -> 11.9 in 10 (batch 32), where 0.005
+# after a 3-step warmup took it 5.59 -> 4.33-4.82 in 12 (batch 64, 224 px;
+# CPU runs of this phase's code)
+IMAGE_SGD = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
+IMAGE_WARMUP = 3
+IMAGE_STEPS = 20            # one epoch of the .rec at batch 64
+IMAGE_RATE_BATCHES = 4      # batches timed per decode-throughput reading
+LENET_TRAIN, LENET_TEST, LENET_BATCH = 60000, 10000, 100
+# MXNet's example/image-classification/train_mnist.py rate (0.05) with
+# momentum 0.9: at 0.1 one epoch from Xavier weights diverged on one of
+# three sample orders (loss 2.32 -> 53.85, test accuracy 0.10; a CPU run
+# of this phase's code) and on the card (2.30 -> 95.16)
+LENET_SGD = {"learning_rate": 0.05, "momentum": 0.9}
+
+
+def _photo(seed, idx):
+    """(BGR uint8 image, label) of record ``idx``: shorter side 480 at an
+    aspect from IMAGE_ASPECTS; a smooth random field, a colour cast and
+    stripes whose colour, angle and frequency the class sets, and grain,
+    so that it compresses like a photo and a net can learn the class."""
+    rng = np.random.default_rng([seed, idx])
+    label = int(rng.integers(IMAGE_CLASSES))
+    aw, ah = IMAGE_ASPECTS[int(rng.integers(len(IMAGE_ASPECTS)))]
+    h, w = (IMAGE_SHORT, IMAGE_SHORT * aw // ah) if aw >= ah \
+        else (IMAGE_SHORT * ah // aw, IMAGE_SHORT)
+    y = np.arange(h, dtype=np.float32)[:, None]
+    x = np.arange(w, dtype=np.float32)[None, :]
+    theta = np.pi * (label % 10) / 10
+    freq = 2 * np.pi * (2 + label // 10) / 160
+    stripes = np.cos(freq * (x * np.cos(theta) + y * np.sin(theta))
+                     + rng.uniform(0, 2 * np.pi))
+    smooth = np.cos(x * rng.uniform(0.005, 0.03) + rng.uniform(0, 6)) \
+        * np.cos(y * rng.uniform(0.005, 0.03) + rng.uniform(0, 6))
+    colour = np.random.default_rng([seed, 10**6 + label]) \
+        .uniform(-1, 1, 3).astype(np.float32)
+    img = (128 + 60 * colour + 30 * stripes[..., None] * colour
+           + 30 * smooth[..., None] * rng.uniform(-1, 1, 3)
+           + rng.standard_normal((h, w, 3), dtype=np.float32) * 6)
+    return np.clip(img, 0, 255).astype(np.uint8), label
+
+
+def _write_imagenet_rec(tmx, root, seed):
+    """The .rec/.idx of IMAGE_RECS records, encoded in parallel threads
+    (the codec's encode runs without the GIL); (rec path, seconds,
+    bytes)."""
+    from concurrent.futures import ThreadPoolExecutor
+    rio = tmx.recordio
+    rec, idx = os.path.join(root, "train.rec"), os.path.join(root,
+                                                             "train.idx")
+
+    def encode(i):
+        img, label = _photo(seed, i)
+        return rio.pack_img(rio.IRHeader(0, float(label), i, 0), img,
+                            quality=IMAGE_QUALITY, img_fmt=".jpg")
+
+    t0 = time.perf_counter()
+    w = rio.MXIndexedRecordIO(idx, rec, "w")
+    with ThreadPoolExecutor(os.cpu_count()) as pool:
+        for i, body in enumerate(pool.map(encode, range(IMAGE_RECS))):
+            w.write_idx(i, body)
+    w.close()
+    return rec, time.perf_counter() - t0, os.path.getsize(rec)
+
+
+def _record_iter(tmx, rec, threads, ctx, seed, resize=-1, shuffle=True):
+    m, s = IMAGE_RGB_MEAN, IMAGE_RGB_STD
+    return tmx.io.ImageRecordIter(
+        path_imgrec=rec, data_shape=(3, IMAGE_SIZE, IMAGE_SIZE),
+        batch_size=IMAGE_BATCH, shuffle=shuffle, rand_crop=True,
+        rand_mirror=True, mean_r=m[0], mean_g=m[1], mean_b=m[2],
+        std_r=s[0], std_g=s[1], std_b=s[2], resize=resize,
+        preprocess_threads=threads, seed=seed, ctx=ctx)
+
+
+def _decode_rate(tmx, rec, threads, seed, resize=-1):
+    """ImageRecordIter on the host: the first batch (the pool's start-up
+    with it) timed apart, then images/s over IMAGE_RATE_BATCHES batches;
+    returns (images/s, first-batch s, the batches as numpy)."""
+    it = _record_iter(tmx, rec, threads, tmx.cpu(), seed, resize)
+    try:
+        t0 = time.perf_counter()
+        batches = [next(it)]
+        t1 = time.perf_counter()
+        batches += [next(it) for _ in range(IMAGE_RATE_BATCHES)]
+        t2 = time.perf_counter()
+    finally:
+        it.close()
+    rate = IMAGE_RATE_BATCHES * IMAGE_BATCH / (t2 - t1)
+    return rate, t1 - t0, [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                           for b in batches]
+
+
+def _check_decoded_crop(tmx, rec, seed, batches):
+    """Record 0 of the first batch against imdecode + crop + mirror +
+    normalize at the draws the reference's native lane makes: max |err|
+    in raw units (must be <= 1)."""
+    from mxnet_tpu_torch.io.io import _mix_seed
+    reader = tmx.recordio.MXIndexedRecordIO(rec[:-4] + ".idx", rec, "r")
+    order = np.arange(IMAGE_RECS)
+    eseed = _mix_seed(seed, 0)
+    np.random.RandomState(eseed).shuffle(order)
+    _, buf = tmx.recordio.unpack(reader.read_idx(int(order[0])))
+    reader.close()
+    with tmx.cpu():
+        img = tmx.image.imdecode(buf).asnumpy().astype(np.float32)
+    rng = np.random.RandomState(_mix_seed(eseed, 0))
+    ih, iw = img.shape[:2]
+    x0 = rng.randint(0, iw - IMAGE_SIZE + 1)
+    y0 = rng.randint(0, ih - IMAGE_SIZE + 1)
+    crop = img[y0:y0 + IMAGE_SIZE, x0:x0 + IMAGE_SIZE]
+    if rng.rand() < 0.5:
+        crop = crop[:, ::-1]
+    want = ((crop - np.float32(IMAGE_RGB_MEAN))
+            / np.float32(IMAGE_RGB_STD)).transpose(2, 0, 1)
+    err = np.abs(batches[0][0][0] - want) \
+        * np.float32(IMAGE_RGB_STD).reshape(3, 1, 1)
+    return float(err.max())
+
+
+def _image_train(torch, tmx, rec, args, smi):
+    """resnet50_v1 (100 classes, Xavier from --seed, hybridized) trained
+    IMAGE_STEPS steps from ImageRecordIter(preprocess_threads=cpu_count,
+    ctx=gpu) with SGD IMAGE_SGD after IMAGE_WARMUP warmup steps, in f32
+    and then bf16 (net.cast, BatchNorm f32, multi-precision) from the same
+    weights; losses must fall.  The same step on one pre-staged batch in
+    the same run says how far the decode holds the card back."""
+    gpu, B = tmx.gpu(), IMAGE_BATCH
+    net = tmx.gluon.model_zoo.get_model("resnet50_v1",
+                                        classes=IMAGE_CLASSES)
+    tmx.random.seed(args.seed)
+    net.initialize(tmx.init.Xavier(), ctx=gpu)
+    flops_img = _net_flops(torch, tmx, net, tmx.nd.zeros(
+        (1, 3, IMAGE_SIZE, IMAGE_SIZE), ctx=gpu))
+    flops_step = 3 * B * flops_img
+    net.hybridize()
+    params = net.collect_params()
+    start = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    results = {}
+    for dname in ("float32", "bfloat16"):
+        for k, p in params.items():
+            p.set_data(start[k])
+            p.data()._data.grad = None
+        if dname == "bfloat16":
+            net.cast("bfloat16")
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        trainer = tmx.gluon.Trainer(params, "sgd", dict(
+            IMAGE_SGD, multi_precision=dname == "bfloat16",
+            lr_scheduler=tmx.lr_scheduler.FactorScheduler(
+                step=10**6, base_lr=IMAGE_SGD["learning_rate"],
+                warmup_steps=IMAGE_WARMUP, warmup_begin_lr=0.0)))
+        it = _record_iter(tmx, rec, os.cpu_count(), gpu, args.seed)
+        try:
+            rec_ = {"losses": [], "step_ms": [], "wait_ms": []}
+            for _ in range(IMAGE_STEPS):
+                t0 = time.perf_counter()
+                batch = next(it)
+                t1 = time.perf_counter()
+                _, loss = _loop_step(tmx, net, batch.data[0],
+                                     batch.label[0], trainer, dname, B)
+                t2 = time.perf_counter()
+                rec_["losses"].append(float(loss.mean().asscalar()))
+                rec_["wait_ms"].append((t1 - t0) * 1e3)
+                rec_["step_ms"].append((t2 - t0) * 1e3)
+            it.reset()
+
+            def iterations(n=3):
+                for _ in range(n):
+                    b = next(it)
+                    _loop_step(tmx, net, b.data[0], b.label[0], trainer,
+                               dname, B)
+
+            next(it)
+            prof = _profile_step(torch, iterations, f"image_resnet50_"
+                                 f"{dname}", VISION_FAMILIES, 3)
+            staged = next(it)
+        finally:
+            it.close()
+        x, y = staged.data[0], staged.label[0]
+        staged_ms = _timed_ms(tmx, lambda: _loop_step(
+            tmx, net, x, y, trainer, dname, B), 8)[2:]
+        losses = rec_["losses"]
+        lane = f"image_resnet50_{dname}"
+        _log(f"lane {lane}: losses {[round(v, 4) for v in losses]}; step "
+             f"ms {[round(v, 1) for v in rec_['step_ms']]}; next() ms "
+             f"{[round(v, 1) for v in rec_['wait_ms']]}")
+        if not all(np.isfinite(losses)) \
+                or not np.mean(losses[-5:]) < losses[0]:
+            raise AssertionError(f"{lane}: losses {losses} not finite, or "
+                                 f"the last five steps' mean not below "
+                                 f"the first step's loss")
+        med = statistics.median(rec_["step_ms"][2:])
+        staged_med = statistics.median(staged_ms)
+        r = results[lane] = {
+            "step_ms": med, "images_per_s": B / (med / 1e3),
+            "mfu": flops_step / (med / 1e3) / PEAK_FLOPS[dname],
+            "wait_ms": statistics.mean(rec_["wait_ms"][2:]),
+            "first_wait_ms": rec_["wait_ms"][0],
+            "idle_share": max(0.0, 1 - prof["device_ms"] / med),
+            "staged_ms": staged_med,
+            "staged_mfu": flops_step / (staged_med / 1e3) / PEAK_FLOPS[dname],
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        _log(f"image resnet50_v1 {dname} from the .rec: step "
+             f"{r['step_ms']:.2f} ms (median of steps 3-{IMAGE_STEPS}), "
+             f"{r['images_per_s']:.1f} images/s, MFU {r['mfu']:.4f} "
+             f"({flops_img / 1e9:.4f} GFLOP forward an image, 3x to train), "
+             f"next() {r['wait_ms']:.2f} ms (first {r['first_wait_ms']:.1f} "
+             f"ms, the pool's start-up with it), idle share "
+             f"{r['idle_share']:.3f}; the same step on one pre-staged batch "
+             f"{staged_med:.2f} ms (MFU {r['staged_mfu']:.4f}); peak "
+             f"{r['peak_gib']:.2f} GiB ({smi})")
+        trainer = None
+    return results
+
+
+def _gluon_transform_loader(torch, tmx, rec, smi):
+    """ImageRecordDataset with GluonCV's ImageNet train transforms through
+    DataLoader(num_workers=cpu_count), one epoch: images/s; no worker
+    batch may fall back to this process."""
+    t = tmx.gluon.data.vision.transforms
+    d = tmx.gluon.data
+    n_workers, B = os.cpu_count(), IMAGE_BATCH
+    ds = d.vision.ImageRecordDataset(rec).transform_first(t.Compose([
+        t.RandomResizedCrop(IMAGE_SIZE), t.RandomFlipLeftRight(),
+        t.RandomColorJitter(0.4, 0.4, 0.4), t.RandomLighting(0.1),
+        t.ToTensor(), t.Normalize(mean=IMAGENET_MEAN, std=IMAGENET_STD)]))
+    before = d.dataloader.fallbacks
+    loader = d.DataLoader(ds, batch_size=B, shuffle=True,
+                          last_batch="discard", num_workers=n_workers,
+                          timeout=60)
+    try:
+        it = iter(loader)
+        t0 = time.perf_counter()
+        x, y = next(it)
+        t1 = time.perf_counter()
+        n = 0
+        for x, y in it:
+            n += 1
+        t2 = time.perf_counter()
+    finally:
+        loader._shutdown_pool()
+    if tuple(x.shape) != (B, 3, IMAGE_SIZE, IMAGE_SIZE) \
+            or not bool(torch.isfinite(x._data).all()) \
+            or d.dataloader.fallbacks != before:
+        raise AssertionError(f"Gluon transform loader: batch {x.shape}, "
+                             f"{d.dataloader.fallbacks - before} fallbacks")
+    rate = n * B / (t2 - t1)
+    _log(f"image gluon ImageRecordDataset + RandomResizedCrop, flip, "
+         f"ColorJitter(0.4, 0.4, 0.4), Lighting(0.1), ToTensor, Normalize, "
+         f"DataLoader(num_workers={n_workers}): {rate:.1f} images/s over "
+         f"batches 2-{n + 1} of the epoch (first batch {t1 - t0:.2f} s) "
+         f"({smi})")
+    return rate
+
+
+def _decode_pool_loader(tmx, rec, seed, smi):
+    """DecodedImageRecordDataset through the DataLoader's decode-pool path
+    (cpu_count workers): bit-identical to num_workers=0 and to
+    ImageRecordIter(shuffle=False) on the same seed; images/s."""
+    from mxnet_tpu_torch.io.io import _mix_seed
+    d = tmx.gluon.data
+    n_workers, B = os.cpu_count(), IMAGE_BATCH
+    n = 4 * B
+    m, s = IMAGE_RGB_MEAN, IMAGE_RGB_STD
+    dds = d.vision.DecodedImageRecordDataset(
+        rec, (3, IMAGE_SIZE, IMAGE_SIZE), rand_crop=True, rand_mirror=True,
+        mean=m, std=s, seed=_mix_seed(seed, 0))
+    sampler = d.SequentialSampler(n)
+
+    def epoch(workers):
+        ld = d.DataLoader(dds, batch_size=B, sampler=sampler,
+                          num_workers=workers, timeout=60)
+        try:
+            t0 = time.perf_counter()
+            out = [(a.asnumpy(), b.asnumpy()) for a, b in ld]
+            return out, time.perf_counter() - t0, ld._use_decode_pool
+        finally:
+            ld._shutdown_pool()
+
+    one, t_one, _ = epoch(0)
+    pooled, t_pool, used = epoch(n_workers)
+    if not used:
+        raise AssertionError("DataLoader did not take the decode-pool path")
+    it = _record_iter(tmx, rec, 1, tmx.cpu(), seed, shuffle=False)
+    try:
+        via_iter = [(b.data[0].asnumpy(), b.label[0].asnumpy())
+                    for b, _ in zip(it, range(n // B))]
+    finally:
+        it.close()
+    same = all(np.array_equal(a[0], b[0]) and np.array_equal(a[1], b[1])
+               and np.array_equal(a[0], c[0]) and np.array_equal(a[1], c[1])
+               for a, b, c in zip(one, pooled, via_iter))
+    _log(f"image gluon DecodedImageRecordDataset, decode-pool DataLoader("
+         f"num_workers={n_workers}): {n / t_pool:.1f} images/s over {n} "
+         f"images with the pool's start-up ({n / t_one:.1f} with "
+         f"num_workers=0); batches bit-identical to num_workers=0 and to "
+         f"ImageRecordIter on the same seed: {same} ({smi})")
+    if not same or len(one) != n // B:
+        raise AssertionError("the decode-pool loader is not bit-identical")
+    return n / t_pool
+
+
+def _write_mnist(root, seed):
+    """A learnable MNIST in idx-ubyte: each class a fixed random stroke
+    pattern (smoothed), shifted by up to 3 pixels, with noise."""
+    rng = np.random.default_rng(seed)
+    protos = rng.random((10, 20, 20)) < 0.18
+    k = np.ones(3, np.float32) / 3
+    protos = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 1,
+                                 protos.astype(np.float32))
+    protos = np.apply_along_axis(lambda r: np.convolve(r, k, "same"), 2,
+                                 protos)
+    protos /= protos.max(axis=(1, 2), keepdims=True)
+    for prefix, n in (("train", LENET_TRAIN), ("t10k", LENET_TEST)):
+        labels = rng.integers(0, 10, n).astype(np.uint8)
+        imgs = np.zeros((n, 28, 28), np.float32)
+        dx, dy = rng.integers(0, 9, n), rng.integers(0, 9, n)
+        for i in range(n):
+            imgs[i, dy[i]:dy[i] + 20, dx[i]:dx[i] + 20] = protos[labels[i]]
+        imgs = imgs * 255 * rng.uniform(0.6, 1.0, (n, 1, 1)) \
+            + rng.normal(0, 20, imgs.shape)
+        imgs = np.clip(imgs, 0, 255).astype(np.uint8)
+        with open(os.path.join(root, f"{prefix}-images-idx3-ubyte"),
+                  "wb") as f:
+            f.write(np.array([2051, n, 28, 28], ">u4").tobytes()
+                    + imgs.tobytes())
+        with open(os.path.join(root, f"{prefix}-labels-idx1-ubyte"),
+                  "wb") as f:
+            f.write(np.array([2049, n], ">u4").tobytes() + labels.tobytes())
+
+
+def _lenet(tmx):
+    """MXNet's example/image-classification/symbols/lenet.py in gluon.nn."""
+    nn = tmx.gluon.nn
+    net = nn.HybridSequential(prefix="lenet_")
+    with net.name_scope():
+        net.add(nn.Conv2D(20, 5, activation="tanh"),
+                nn.MaxPool2D(2, 2),
+                nn.Conv2D(50, 5, activation="tanh"),
+                nn.MaxPool2D(2, 2),
+                nn.Flatten(),
+                nn.Dense(500, activation="tanh"),
+                nn.Dense(10))
+    return net
+
+
+def _lenet_mnist(torch, tmx, root, args, smi):
+    """LeNet one epoch on the synthetic MNIST: MNIST(root).transform_first(
+    ToTensor()), DataLoader(batch 100, 4 workers), SGD LENET_SGD; test
+    accuracy must exceed 0.9."""
+    _write_mnist(root, args.seed)
+    v, gpu = tmx.gluon.data.vision, tmx.gpu()
+    train = v.MNIST(root).transform_first(v.transforms.ToTensor())
+    test = v.MNIST(root, train=False).transform_first(
+        v.transforms.ToTensor())
+    net = _lenet(tmx)
+    tmx.random.seed(args.seed)
+    net.initialize(tmx.init.Xavier(), ctx=gpu)
+    net.hybridize()
+    trainer = tmx.gluon.Trainer(net.collect_params(), "sgd", LENET_SGD)
+    loss_fn = tmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    dl = tmx.gluon.data.dataloader
+    before = dl.fallbacks
+    np.random.seed(args.seed)           # the sampler's order
+    loader = tmx.gluon.data.DataLoader(train, batch_size=LENET_BATCH,
+                                       shuffle=True, num_workers=4,
+                                       timeout=60)
+    ms, losses = [], []
+    try:
+        t0 = time.perf_counter()
+        last = t0
+        for x, y in loader:
+            with tmx.autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(LENET_BATCH)
+            losses.append(loss)
+            now = time.perf_counter()
+            ms.append((now - last) * 1e3)
+            last = now
+        tmx.nd.waitall()
+        wall = time.perf_counter() - t0
+    finally:
+        loader._shutdown_pool()
+    first, final = float(losses[0].mean().asscalar()), \
+        float(losses[-1].mean().asscalar())
+    correct = total = 0
+    test_loader = tmx.gluon.data.DataLoader(test, batch_size=1000,
+                                            num_workers=4, timeout=60)
+    try:
+        for x, y in test_loader:
+            pred = net(x).argmax(axis=1)
+            correct += int((pred == y.astype("float32")).sum().asscalar())
+            total += x.shape[0]
+    finally:
+        test_loader._shutdown_pool()
+    acc = correct / total
+    med = statistics.median(ms[5:])
+    _log(f"image lenet mnist: {len(ms)} steps of {LENET_BATCH} "
+         f"({LENET_TRAIN} synthetic images, DataLoader 4 workers): step "
+         f"{med:.3f} ms (median), {LENET_TRAIN / wall:.1f} samples/s over "
+         f"the epoch ({wall:.2f} s); loss {first:.4f} -> {final:.4f}; test "
+         f"accuracy {acc:.4f} over {total} ({smi})")
+    if not acc > 0.9 or dl.fallbacks != before:
+        raise AssertionError(f"LeNet test accuracy {acc} <= 0.9, or "
+                             f"{dl.fallbacks - before} loader fallbacks")
+    return {"step_ms": med, "samples_per_s": LENET_TRAIN / wall,
+            "accuracy": acc}
+
+
+def _imresize_card(torch, tmx, seed, smi):
+    """imresize of a 375x500 uint8 image for all five interp codes at
+    (224, 224) and (341, 256) on the card against the same call on the
+    CPU: within 1; device ms of each."""
+    rng = np.random.RandomState(seed)
+    yy, xx = np.mgrid[0:375, 0:500]
+    img = np.clip(np.stack([128 + 100 * np.sin(xx / 9.0 + k)
+                            * np.cos(yy / 13.0) for k in range(3)], -1)
+                  + rng.randn(375, 500, 3) * 20, 0, 255).astype(np.uint8)
+    src_gpu = tmx.nd.array(img, ctx=tmx.gpu())
+    src_cpu = tmx.nd.array(img, ctx=tmx.cpu())
+    worst = 0
+    for w, h in ((224, 224), (341, 256)):
+        for interp in range(5):
+            got = tmx.image.imresize(src_gpu, w, h, interp)
+            want = tmx.image.imresize(src_cpu, w, h, interp)
+            err = int(np.abs(got.asnumpy().astype(int)
+                             - want.asnumpy()).max())
+            worst = max(worst, err)
+            dev, _ = _device_ms(torch, lambda: tmx.image.imresize(
+                src_gpu, w, h, interp), iters=10)
+            _log(f"image imresize 375x500 -> {w}x{h} interp {interp}: card "
+                 f"vs CPU max |diff| {err}, device {dev:.4f} ms ({smi})")
+    if worst > 1:
+        raise AssertionError(f"imresize card vs CPU differs by {worst}")
+
+
+def image_phase(torch, fa, mx, args, smi):
+    """The image phase (the port's data input on the card's machine):
+    (1) an ImageNet-shaped .rec written by the port (recordio.pack_img
+    through the port's JPEG encoder); (2) the forked-worker loaders:
+    ImageRecordDataset with GluonCV's transforms, and LeNet on a
+    synthetic MNIST; (3) ImageRecordIter's decode rate at 1, 2, 4 and
+    cpu_count threads and on the resize lane, N threads bit-identical to
+    1, a decoded crop against imdecode + crop + normalize; (4) resnet50_v1
+    trained from the .rec in f32 and bf16, and the decode-pool DataLoader;
+    (5) imresize on the card.  No flash kernel launches."""
+    tmx = mx["pkg"]
+    from mxnet_tpu_torch.io import pipeline
+    _reset_counts(fa)
+    root = tempfile.mkdtemp(prefix="mx_image_")
+    try:
+        shm = pipeline.shm_free_bytes()
+        slab = (int(os.environ.get("MXNET_IO_PREFETCH", "2")) + 1) \
+            * IMAGE_BATCH * (3 * IMAGE_SIZE * IMAGE_SIZE * 4 + 4)
+        _log(f"image host: os.cpu_count() {os.cpu_count()}, /dev/shm free "
+             f"{shm / 2**20:.1f} MiB (a pipeline's slabs at batch "
+             f"{IMAGE_BATCH}: {slab / 2**20:.1f} MiB)")
+        t0 = time.perf_counter()
+        rec, enc_s, size = _write_imagenet_rec(tmx, root, args.seed)
+        _log(f"image .rec: {IMAGE_RECS} records (shorter side "
+             f"{IMAGE_SHORT}, JPEG q{IMAGE_QUALITY}, 4:2:0, encoded by the "
+             f"port in {os.cpu_count()} threads) in {enc_s:.2f} s: "
+             f"{size / 2**20:.1f} MiB, {size / IMAGE_RECS / 1024:.1f} KiB a "
+             f"record")
+        # the forked-worker loaders first, before any decode pool
+        t1 = time.perf_counter()
+        gl_rate = _gluon_transform_loader(torch, tmx, rec, smi)
+        lenet = _lenet_mnist(torch, tmx, root, args, smi)
+        t2 = time.perf_counter()
+        rates = {}
+        base = None
+        for threads in sorted({1, 2, 4, os.cpu_count()}):
+            rate, first, batches = _decode_rate(tmx, rec, threads,
+                                                args.seed)
+            rates[threads] = rate
+            if base is None:
+                base = batches
+                crop_err = _check_decoded_crop(tmx, rec, args.seed, batches)
+            same = all(np.array_equal(a[0], b[0])
+                       and np.array_equal(a[1], b[1])
+                       for a, b in zip(base, batches))
+            _log(f"image ImageRecordIter decode {threads} thread(s): "
+                 f"{rate:.1f} images/s ({rate / threads:.1f} a thread; "
+                 f"first batch {first:.2f} s), batches bit-identical to 1 "
+                 f"thread: {same} ({smi})")
+            if not same:
+                raise AssertionError(f"{threads} threads: batches differ")
+        rate, first, _ = _decode_rate(tmx, rec, os.cpu_count(), args.seed,
+                                      resize=256)
+        rates["resize256"] = rate
+        _log(f"image ImageRecordIter resize=256 (decode, shorter-side "
+             f"resize, crop) {os.cpu_count()} threads: {rate:.1f} images/s "
+             f"(first batch {first:.2f} s) ({smi})")
+        _log(f"image decoded crop vs imdecode + crop + normalize: max "
+             f"{crop_err:.2e} raw units (bound 1)")
+        if not crop_err <= 1.0:
+            raise AssertionError(f"decoded crop off by {crop_err} units")
+        t3 = time.perf_counter()
+        train = _image_train(torch, tmx, rec, args, smi)
+        pool_rate = _decode_pool_loader(tmx, rec, args.seed, smi)
+        t4 = time.perf_counter()
+        _imresize_card(torch, tmx, args.seed, smi)
+        t5 = time.perf_counter()
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    counts = _counts(fa)
+    _log(f"image: .rec {t1 - t0:.1f} s, gluon loader and lenet "
+         f"{t2 - t1:.1f} s, decode rates {t3 - t2:.1f} s, resnet50 and the "
+         f"decode-pool loader {t4 - t3:.1f} s, imresize {t5 - t4:.1f} s; "
+         f"flash launches {sum(counts.values())}")
+    if any(counts.values()):
+        raise AssertionError(f"the image phase launched flash kernels: "
+                             f"{counts}")
+    return counts, {"decode": rates, "train": train, "gluon": gl_rate,
+                    "decode_pool": pool_rate, "lenet": lenet}
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -3711,6 +4277,110 @@ def _phase(label, fn, *a):
     r = fn(*a)
     _log(f"phase {label}: {time.perf_counter() - t0:.1f} s")
     return r
+
+
+PR_SET_CHILD_SUBREAPER = 36
+
+
+def _become_subreaper():
+    """Make this process the subreaper of everything it starts, so that a
+    process whose parent ends first (a fork server's worker) is still a
+    descendant that ``_stop_processes`` finds.  False where there is no
+    prctl (not Linux)."""
+    try:
+        import ctypes
+        libc = ctypes.CDLL(None, use_errno=True)
+        return libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0
+    except (OSError, AttributeError):
+        return False
+
+
+def _descendants():
+    """{pid: (parent pid, state letter, command)} of every descendant of
+    this process, zombies included, from /proc."""
+    procs = {}
+    for d in os.listdir("/proc"):
+        if not d.isdigit():
+            continue
+        try:
+            with open(f"/proc/{d}/stat") as f:
+                stat = f.read()
+        except OSError:
+            continue
+        # the command may hold spaces and parentheses: split after the last
+        head, rest = stat[:stat.rindex(")")], stat[stat.rindex(")") + 2:]
+        fields = rest.split()
+        procs[int(d)] = (int(fields[1]), fields[0], head[head.index("(") + 1:])
+    out, frontier = {}, [os.getpid()]
+    while frontier:
+        p = frontier.pop()
+        for c, info in procs.items():
+            if info[0] == p and c not in out:
+                out[c] = info
+                frontier.append(c)
+    return out
+
+
+def _stop_processes(grace_s=30.0):
+    """Stop and reap every process this run started: multiprocessing's
+    children; its fork server and resource tracker, which end when this
+    process closes its pipe to them (each ``_stop`` closes it and waits);
+    then any descendant still running, with SIGTERM and then SIGKILL.
+    Returns {pid: command} of the processes that had to be signalled;
+    raises if one is still there after that."""
+    import multiprocessing as mp
+    import signal
+    import threading
+    gc.collect()        # close iterators and loaders no longer referenced
+    for p in mp.active_children():
+        p.terminate()
+    for p in mp.active_children():
+        p.join(grace_s)
+    for mod, attr in (("multiprocessing.forkserver", "_forkserver"),
+                      ("multiprocessing.resource_tracker",
+                       "_resource_tracker")):
+        stop = getattr(getattr(sys.modules.get(mod), attr, None), "_stop",
+                       None)
+        if stop is None:
+            continue
+
+        def quiet(stop=stop):
+            try:
+                stop()
+            except Exception:  # noqa: BLE001 (the sweep below ends it)
+                pass
+        t = threading.Thread(target=quiet, daemon=True)
+        t.start()
+        t.join(grace_s)
+    signalled = {}
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        live = {p: i for p, i in _descendants().items() if i[1] != "Z"}
+        if not live:
+            break
+        signalled.update((p, i[2]) for p, i in live.items())
+        for pid in live:
+            try:
+                os.kill(pid, sig)
+            except ProcessLookupError:
+                pass
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline and any(
+                i[1] != "Z" for i in _descendants().values()):
+            time.sleep(0.05)
+    deadline = time.monotonic() + grace_s
+    while (left := _descendants()) and time.monotonic() < deadline:
+        # a zombie whose parent is this process (its own child, or an
+        # orphan handed to it as subreaper) is reaped here
+        for pid, (ppid, state, _) in left.items():
+            if ppid == os.getpid() and state == "Z":
+                try:
+                    os.waitpid(pid, os.WNOHANG)
+                except ChildProcessError:
+                    pass
+        time.sleep(0.05)
+    if left:
+        raise AssertionError(f"processes outlive the run: {left}")
+    return signalled
 
 
 def main(argv=None):
@@ -3774,6 +4444,7 @@ def main(argv=None):
     rnn_counts, _ = _phase("rnn", rnn_phase, torch, fa, mx, args, smi)
     det_counts, _ = _phase("det", det_phase, torch, fa, mx, args, smi)
     moe_counts = _phase("moe", moe_phase, torch, fa, mx, args, smi)
+    image_counts, _ = _phase("image", image_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -3807,6 +4478,8 @@ def main(argv=None):
         # the det and moe phases: YOLO, the SSD heads, MoE: no attention
         "det_launches": det_counts["flash_fwd"],
         "moe_launches": moe_counts["flash_fwd"],
+        # the image phase: ResNet-50 and LeNet from the .rec and MNIST
+        "image_launches": image_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -3870,6 +4543,7 @@ def main(argv=None):
                 "rnn_launches": _dtype_count(rnn_counts, kind_, pre),
                 "det_launches": _dtype_count(det_counts, kind_, pre),
                 "moe_launches": _dtype_count(moe_counts, kind_, pre),
+                "image_launches": _dtype_count(image_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \
@@ -3878,6 +4552,10 @@ def main(argv=None):
         _log(f"train {lane}: step {r['step_ms']:.2f} ms, "
              f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "
              f"{r['peak_gib']:.2f} GiB ({smi})")
+    signalled = _stop_processes()
+    _log(f"processes: the fork server and resource tracker stopped; "
+         f"{len(signalled)} other process(es) had to be signalled"
+         + (f": {signalled}" if signalled else ""))
     _log(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -3887,4 +4565,10 @@ def main(argv=None):
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    _become_subreaper()
+    try:
+        rc = main()
+    finally:
+        # on a failed phase too; a no-op after main's own call
+        _stop_processes()
+    sys.exit(rc)

@@ -37,6 +37,12 @@ detection surface: the sampling, ROI, correlation and SSD/RPN ops of
 (``gluon.model_zoo.yolo``), ``gluon.contrib`` (``SparseMoE``,
 ``Concurrent``, ``Identity``, ``SyncBatchNorm``), and the llama as Gluon
 blocks.
+Then data input: ``recordio`` (with the RecordIO scanner in C++), an
+image codec in the repo (``codec``: baseline JPEG decode and encode in
+C++, ``src/image_codec.cc``, and PNG), ``image`` (``imdecode``,
+``imresize``, the augmenters, ``ImageIter``, ``ImageDetIter``), ``io``
+(``NDArrayIter`` ... ``ImageRecordIter`` with the shared-memory decode
+pool) and the vision datasets.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -78,3 +84,4 @@ from . import lr_scheduler, metric  # noqa: E402,F401
 from . import optimizer, gluon, parallel  # noqa: E402,F401
 from . import kvstore  # noqa: E402,F401
 from . import kvstore as kv  # noqa: E402,F401
+from . import recordio, image, io  # noqa: E402,F401

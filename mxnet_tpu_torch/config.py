@@ -14,6 +14,23 @@ KNOWN_VARS = {
         "2",
         "Worker-pool batch failures a DataLoader absorbs by refetching in "
         "its own process before it loads in one process for good."),
+    "MXNET_IO_POOL": (
+        "1",
+        "If 1 (default), ImageRecordIter(preprocess_threads>1) and a "
+        "DataLoader with workers over a decode-aware dataset run the "
+        "shared-memory decode pipeline; 0 keeps the per-batch pools."),
+    "MXNET_IO_PREFETCH": (
+        "2",
+        "Batches the decode pipeline keeps in flight ahead of the "
+        "consumer (shared-memory slabs: this + 1)."),
+    "MXNET_IO_CHUNK": (
+        "0",
+        "Records per decode-pool task; 0 = one task wave per batch across "
+        "the workers."),
+    "MXNET_IO_TIMEOUT_S": (
+        "60",
+        "Seconds a decode chunk may take before its worker counts as hung "
+        "and the pool is killed and rebuilt."),
     "MXNET_FUSED_ATTENTION": (
         "1",
         "If 1 (default), attention at flash-eligible shapes runs the "

@@ -15,6 +15,11 @@ card and the transforms are Blocks over NDArrays.  So each worker starts
 with ``cpu(0)`` as its default context, no autograd recording and one
 torch thread, and hands back numpy only.
 
+A loader left mid-epoch lets the batches already issued arrive (within
+``timeout``) before it terminates its pool: ``Pool.terminate()`` stops
+reading results while a worker may be blocked writing a large batch,
+holding the result queue's lock that ``terminate`` then waits for.
+
 A worker batch that fails or does not arrive within ``timeout`` seconds is
 fetched again in this process; after ``MXNET_DATALOADER_RETRIES`` such
 failures the pool is shut down and the loader loads in this process from
@@ -29,14 +34,25 @@ forked worker inherits, as in the reference.
 ``pin_memory`` and ``pin_device_id`` are accepted and ignored, as in the
 reference: every batch takes the same pageable host-to-device copy.
 
-Not ported: the reference's decode-pool path for decode-aware datasets
-(it waits for the image-decode slice) and its telemetry and fault
-injection hooks.
+A decode-aware dataset (one with ``_decode_plan``, such as
+``vision.DecodedImageRecordDataset``) with workers, the default
+``batchify_fn`` and ``MXNET_IO_POOL`` not 0 skips the forked pool and
+runs the shared-memory decode pipeline (``io.pipeline``) instead: its
+forkserver workers decode straight into shared slabs ahead of the
+consumer, with batches bit-identical to ``num_workers=0``.  A nested
+iteration of the same loader decodes in this process.  A pipeline error
+past the pipeline's own ladder finishes the epoch in this process from
+the same seeds (adding one to ``fallbacks``); after
+``MXNET_DATALOADER_RETRIES`` such errors the loader loads in this process
+for good.
+
+Not ported: the reference's telemetry and fault injection hooks.
 """
 
 from __future__ import annotations
 
 import multiprocessing as mp
+import time
 import warnings
 
 import numpy as np
@@ -128,7 +144,15 @@ class DataLoader:
         self._prefetch = max(0, prefetch or 2 * self._num_workers)
         self._max_pool_failures = config.get_int("MXNET_DATALOADER_RETRIES", 2)
         self._pool = None
-        if self._num_workers > 0:
+        self._io_pipeline = None
+        self._io_pipeline_slots = 0
+        self._io_pipeline_busy = False
+        self._decode_pool_failures = 0
+        self._use_decode_pool = (
+            self._num_workers > 0 and batchify_fn is None
+            and hasattr(dataset, "_decode_plan")
+            and config.get_int("MXNET_IO_POOL", 1) != 0)
+        if self._num_workers > 0 and not self._use_decode_pool:
             self._pool = mp.get_context("fork").Pool(
                 self._num_workers, initializer=_worker_init,
                 initargs=(dataset,))
@@ -143,6 +167,9 @@ class DataLoader:
         return _to_context(torch.from_numpy(batch))
 
     def __iter__(self):
+        if self._use_decode_pool:
+            yield from self._iter_decode_pool()
+            return
         if self._pool is None:
             for batch_idx in self._batch_sampler:
                 yield self._materialize(batch_idx)
@@ -154,7 +181,9 @@ class DataLoader:
         ``timeout`` seconds, a failed batch is refetched here, and after
         MXNET_DATALOADER_RETRIES failures the pool is given up."""
         global fallbacks
-        results = []            # (batch indices, AsyncResult)
+        # (batch indices, AsyncResult); kept on the loader so that a
+        # shutdown mid-epoch can let the batches in flight finish
+        results = self._in_flight = []
         it = iter(self._batch_sampler)
         failures = 0
 
@@ -196,10 +225,75 @@ class DataLoader:
                     yield self._materialize(batch_idx)
                 return
 
+    def _iter_decode_pool(self):
+        """The shared-memory decode pipeline's path: the epoch's batch
+        plan goes to one ``PooledDecodePipeline`` (kept across epochs)."""
+        global fallbacks
+        from ...io.pipeline import PooledDecodePipeline
+        if self._io_pipeline_busy:
+            # the pipeline is one ordered stream: a nested iteration
+            # decodes here (same seeds, same bytes)
+            for b in self._batch_sampler:
+                yield self._materialize(list(b))
+            return
+        self._io_pipeline_busy = True
+        try:
+            rec, cfg, keys, seed_fn = self._dataset._decode_plan()
+            batches = [list(b) for b in self._batch_sampler]
+            if not batches:
+                return
+            slots = max(len(b) for b in batches)
+            if self._io_pipeline is None or self._io_pipeline_slots < slots:
+                if self._io_pipeline is not None:
+                    self._io_pipeline.close()
+                self._io_pipeline = PooledDecodePipeline(
+                    rec, cfg, workers=self._num_workers, slots=slots)
+                self._io_pipeline_slots = slots
+            pipe = self._io_pipeline
+            pipe.drain()
+            pipe.begin([([keys[i] for i in b], [seed_fn(i) for i in b])
+                        for b in batches])
+            for bi in range(len(batches)):
+                try:
+                    imgs, labels = pipe.next_batch()
+                    out = (_to_context(torch.from_numpy(imgs)),
+                           _to_context(torch.from_numpy(labels)))
+                except Exception as exc:  # noqa: BLE001 (ladder)
+                    self._decode_pool_failures += 1
+                    fallbacks += 1
+                    pipe.drain()
+                    permanent = \
+                        self._decode_pool_failures > self._max_pool_failures
+                    if permanent:
+                        self._use_decode_pool = False
+                        self._shutdown_pool()
+                    warnings.warn(
+                        f"DataLoader decode pipeline failed ({exc!r}); "
+                        + ("loading in one process from now on" if permanent
+                           else "finishing this epoch in-process"),
+                        stacklevel=2)
+                    for bj in range(bi, len(batches)):
+                        yield self._materialize(batches[bj])
+                    return
+                yield out
+        finally:
+            self._io_pipeline_busy = False
+
     def _shutdown_pool(self):
         pool, self._pool = getattr(self, "_pool", None), None
         if pool is not None:
+            # batches still in flight finish first (within ``timeout``):
+            # Pool.terminate() stops reading results, then waits for the
+            # result pipe's lock, which a worker writing a large batch
+            # holds while it blocks on the unread pipe
+            deadline = time.monotonic() + self._timeout
+            for _, r in getattr(self, "_in_flight", ()):
+                r.wait(max(0.0, deadline - time.monotonic()))
+            self._in_flight = []
             pool.terminate()
+        pipe, self._io_pipeline = getattr(self, "_io_pipeline", None), None
+        if pipe is not None:
+            pipe.close()
 
     def __len__(self):
         return len(self._batch_sampler)

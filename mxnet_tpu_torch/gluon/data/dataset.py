@@ -1,9 +1,11 @@
 """gluon.data datasets — the port of ``mxnet_tpu/gluon/data/dataset.py``:
 ``Dataset`` (``transform``, ``transform_first``, ``filter``, ``take``),
-``SimpleDataset``, ``ArrayDataset`` and the lazy transform dataset.
-``RecordFileDataset`` needs RecordIO, which is not yet ported."""
+``SimpleDataset``, ``ArrayDataset``, the lazy transform dataset and
+``RecordFileDataset`` over a RecordIO pack."""
 
 from __future__ import annotations
+
+import os
 
 from ...base import MXNetError
 
@@ -92,8 +94,16 @@ class ArrayDataset(Dataset):
 
 
 class RecordFileDataset(Dataset):
-    """A dataset over a RecordIO (.rec/.idx) pair: not yet ported."""
+    """The raw records of a RecordIO (.rec/.idx) pair, in .idx order."""
 
-    def __init__(self, filename):  # noqa: ARG002
-        raise MXNetError("RecordFileDataset needs recordio, which is not "
-                         "yet ported to mxnet_tpu_torch")
+    def __init__(self, filename):
+        from ... import recordio
+        self._filename = filename
+        idx_file = os.path.splitext(filename)[0] + ".idx"
+        self._record = recordio.MXIndexedRecordIO(idx_file, filename, "r")
+
+    def __getitem__(self, idx):
+        return self._record.read_idx(self._record.keys[idx])
+
+    def __len__(self):
+        return len(self._record.keys)

@@ -1,15 +1,14 @@
 """gluon.data.vision.transforms — the port of
-``mxnet_tpu/gluon/data/vision/transforms.py``, the transforms that need no
-image library: Compose, Cast, ToTensor, Normalize, the random flips, the
-random colour jitters (brightness, contrast, saturation, hue, and all of
-them in a random order), RandomLighting and RandomGray.
+``mxnet_tpu/gluon/data/vision/transforms.py``: Compose, Cast, ToTensor,
+Normalize, Resize, CenterCrop, RandomResizedCrop (over ``image``'s
+resize and crops), the random flips, the random colour jitters
+(brightness, contrast, saturation, hue, and all of them in a random
+order), RandomLighting and RandomGray.
 
 They run on NDArrays on the input's own context (a DataLoader worker's
 samples are on the host).  The random ones draw from Python's ``random``
 module (RandomLighting from numpy's), as the reference does, so the same
-seeds give both packages the same choices.  Resize, CenterCrop and
-RandomResizedCrop need the image-decode slice (the reference's
-``image.py``, on cv2) and raise.
+seeds give both packages the same choices.
 """
 
 from __future__ import annotations
@@ -18,7 +17,6 @@ import random as _pyrandom
 
 import numpy as _np
 
-from ....base import MXNetError
 from .... import ndarray as nd
 from ....ndarray.ndarray import NDArray
 from ...block import Block, HybridBlock
@@ -79,23 +77,56 @@ class Normalize(HybridBlock):
                                _const(self._std, x))
 
 
-class _NeedsImage(Block):
-    def __init__(self, *args, **kwargs):  # noqa: ARG002
-        raise MXNetError(f"{type(self).__name__} needs the image-decode "
-                         "slice (image.py), which is not yet ported to "
-                         "mxnet_tpu_torch")
+class Resize(Block):
+    """Resize an HxWxC image to ``size`` ((w, h), or an int: a square, or
+    the shorter side with ``keep_ratio``)."""
+
+    def __init__(self, size, keep_ratio=False, interpolation=1):
+        super().__init__()
+        self._size = size
+        self._keep = keep_ratio
+        self._interpolation = interpolation
+
+    def forward(self, x):
+        from .... import image
+        if isinstance(self._size, int):
+            if self._keep:
+                h, w = x.shape[0], x.shape[1]
+                if w < h:
+                    size = (self._size, int(h * self._size / w))
+                else:
+                    size = (int(w * self._size / h), self._size)
+            else:
+                size = (self._size, self._size)
+        else:
+            size = self._size
+        return image.imresize(x, size[0], size[1], self._interpolation)
 
 
-class Resize(_NeedsImage):
-    pass
+class CenterCrop(Block):
+    def __init__(self, size, interpolation=1):
+        super().__init__()
+        self._size = (size, size) if isinstance(size, int) else size
+        self._interpolation = interpolation
+
+    def forward(self, x):
+        from .... import image
+        return image.center_crop(x, self._size, self._interpolation)[0]
 
 
-class CenterCrop(_NeedsImage):
-    pass
+class RandomResizedCrop(Block):
+    def __init__(self, size, scale=(0.08, 1.0), ratio=(3 / 4, 4 / 3),
+                 interpolation=1):
+        super().__init__()
+        self._size = (size, size) if isinstance(size, int) else size
+        self._scale = scale
+        self._ratio = ratio
+        self._interpolation = interpolation
 
-
-class RandomResizedCrop(_NeedsImage):
-    pass
+    def forward(self, x):
+        from .... import image
+        return image.random_size_crop(x, self._size, self._scale,
+                                      self._ratio, self._interpolation)[0]
 
 
 class _RandomFlip(Block):

@@ -128,9 +128,17 @@ def test_default_batchify_stacks_numpy_samples():
         assert batch[1].asnumpy().tolist() == [0, 1, 2]
 
 
-def test_record_file_dataset_waits_for_recordio():
-    with pytest.raises(mx.MXNetError, match="not yet ported"):
-        mx.gluon.data.RecordFileDataset("train.rec")
+def test_record_file_dataset_waits_for_recordio(tmp_path):
+    """RecordFileDataset (once waiting for recordio) reads the records a
+    reference writer packed, in .idx order, as the reference does."""
+    rec, idx = str(tmp_path / "d.rec"), str(tmp_path / "d.idx")
+    w = jmx.recordio.MXIndexedRecordIO(idx, rec, "w")
+    for i in (3, 1, 2):
+        w.write_idx(i, bytes([i]) * (i + 5))
+    w.close()
+    got, want = (m.gluon.data.RecordFileDataset(rec) for m in (mx, jmx))
+    assert len(got) == len(want) == 3
+    assert [got[i] for i in range(3)] == [want[i] for i in range(3)]
 
 
 # -- transforms ---------------------------------------------------------------
@@ -172,11 +180,20 @@ def test_transform_matches_reference(name):
 
 
 def test_image_library_transforms_wait_for_the_decode_slice():
-    t = mx.gluon.data.vision.transforms
-    for make in (lambda: t.Resize(224), lambda: t.CenterCrop(224),
-                 lambda: t.RandomResizedCrop(224)):
-        with pytest.raises(mx.MXNetError, match="not yet ported"):
-            make()
+    """Resize, CenterCrop and RandomResizedCrop (once waiting for the
+    decode slice) on a uint8 image: within 1 of the reference's cv2
+    resize, under the same Python seed."""
+    img = np.random.RandomState(4).randint(0, 256, (37, 50, 3)) \
+        .astype(np.uint8)
+    out = {}
+    for m in (jmx, mx):
+        t = m.gluon.data.vision.transforms
+        random.seed(2)
+        out[m] = [fn(m.nd.array(img)).asnumpy() for fn in (
+            t.Resize(24), t.CenterCrop(20), t.RandomResizedCrop(16))]
+    for a, b in zip(out[mx], out[jmx]):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        assert np.abs(a.astype(int) - b).max() <= 1
 
 
 # -- the port's DataLoader with worker processes ------------------------------
@@ -270,4 +287,40 @@ def test_failed_worker_batches_are_refetched_then_the_pool_given_up():
     # two refetches (MXNET_DATALOADER_RETRIES = 2), then one switch to a
     # single process for good
     assert tdl.fallbacks - before == 3
+    assert loader._pool is None and not any(p.is_alive() for p in procs)
+
+
+class _Slow:
+    """Items that take a while, so that batches are still in flight."""
+
+    def __len__(self):
+        return 40
+
+    def __getitem__(self, i):
+        import time
+        time.sleep(0.01)
+        return np.full((2,), i, np.float32)
+
+
+def test_shutdown_mid_epoch_lets_batches_in_flight_finish(monkeypatch):
+    """A loader left mid-epoch shuts down after its batches in flight have
+    arrived: Pool.terminate() with a worker still writing a large batch
+    waits forever on the result pipe's lock (eight workers of 38.5 MB
+    batches, on the CPU and on the card's machine)."""
+    loader = mx.gluon.data.DataLoader(_Slow(), batch_size=4, num_workers=2,
+                                      timeout=60)
+    procs = _pool_processes(loader)
+    pool = loader._pool
+    pending, seen = [], []
+    real = pool.terminate
+    monkeypatch.setattr(pool, "terminate", lambda: (
+        seen.append([r.ready() for _, r in pending]), real()))
+    try:
+        it = iter(loader)
+        assert next(it).asnumpy()[:, 0].tolist() == [0, 1, 2, 3]
+        pending.extend(loader._in_flight)   # prefetched batches outstanding
+        assert pending and not all(r.ready() for _, r in pending)
+    finally:
+        loader._shutdown_pool()
+    assert len(seen) == 1 and all(seen[0])
     assert loader._pool is None and not any(p.is_alive() for p in procs)
