@@ -43,6 +43,10 @@ C++, ``src/image_codec.cc``, and PNG), ``image`` (``imdecode``,
 ``imresize``, the augmenters, ``ImageIter``, ``ImageDetIter``), ``io``
 (``NDArrayIter`` ... ``ImageRecordIter`` with the shared-memory decode
 pool) and the vision datasets.
+Then the rest of ``parallel.TrainStep`` (microbatching, rematerialisation
+through ``gluon.utils.remat_call``, one CUDA graph per step signature),
+``amp`` (the reference's cast lists at the dispatch chokepoint) and the
+transformer-base MT model (``gluon.model_zoo.transformer``).
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -85,3 +89,4 @@ from . import optimizer, gluon, parallel  # noqa: E402,F401
 from . import kvstore  # noqa: E402,F401
 from . import kvstore as kv  # noqa: E402,F401
 from . import recordio, image, io  # noqa: E402,F401
+from . import amp  # noqa: E402,F401

@@ -53,6 +53,23 @@ KNOWN_VARS = {
         "Default mx.nd.save container: 'npz' (bfloat16 included) or 'dmlc' "
         "(the reference's byte-compatible .params layout); load() "
         "auto-detects both."),
+    "MXNET_MICROBATCH": (
+        "1",
+        "Default of parallel.TrainStep(n_micro=): the batch splits into "
+        "this many slices whose gradients accumulate in a fixed order "
+        "before ONE optimizer update. 1 (default) keeps the single-pass "
+        "step, bit for bit."),
+    "MXNET_REMAT": (
+        "0",
+        "Default of parallel.TrainStep(remat=): if 1, the net's forward "
+        "runs under gluon.utils.remat_call, so its activations are "
+        "recomputed during backward instead of kept (memory for compute; "
+        "single-output nets only)."),
+    "MXNET_BACKWARD_DO_MIRROR": (
+        "0",
+        "If 1, LlamaModel(remat=None) recomputes each decoder block's "
+        "activations during backward (remat_call per block) instead of "
+        "keeping them (MXNet's mirror memory/compute trade)."),
     "MXNET_SERVING_BLOCK_TOKENS": (
         "16", "Paged-KV block size (token positions per pool block)."),
     "MXNET_SERVING_MAX_BATCH": (

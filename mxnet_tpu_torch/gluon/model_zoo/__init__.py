@@ -1,13 +1,14 @@
 """Model zoo of the port: the Gluon BERT (``bert``), the vision zoo
-(``vision``), the llama family (``llama``) and YOLOv3 (``yolo``), all
-Gluon blocks named as the reference names them."""
+(``vision``), the llama family (``llama``), YOLOv3 (``yolo``) and the
+transformer-base MT model (``transformer``), all Gluon blocks named as the
+reference names them."""
 
 from . import vision  # noqa: F401
 
 
 def __getattr__(name):
     import importlib
-    if name in ("bert", "llama", "yolo"):
+    if name in ("bert", "llama", "transformer", "yolo"):
         mod = importlib.import_module(f".{name}", __name__)
         globals()[name] = mod
         return mod

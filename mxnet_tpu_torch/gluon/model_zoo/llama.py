@@ -16,10 +16,11 @@ A net is built without values; ``initialize(init, ctx=...)`` allocates
 each Parameter on ``ctx`` and fills it there from that device's generator
 (``mx.random``), so an 8B llama on the card makes no host copy.  Serving
 needs no gradient buffers: set ``grad_req`` to ``"null"`` first
-(``net.collect_params().setattr("grad_req", "null")``).  Not ported:
-``attn_impl`` other than ``"fused"`` (ring and Ulysses attention over a
-sequence-parallel mesh) and ``remat`` / ``MXNET_BACKWARD_DO_MIRROR``;
-both raise.
+(``net.collect_params().setattr("grad_req", "null")``).  ``remat`` (None:
+``MXNET_BACKWARD_DO_MIRROR``) recomputes each decoder block's activations
+in the backward (``gluon.utils.remat_call`` per block while recording).
+Not ported: ``attn_impl`` other than ``"fused"`` (ring and Ulysses
+attention over a sequence-parallel mesh); it raises.
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ...base import MXNetError
 from ...ndarray.ndarray import NDArray
 from ..block import HybridBlock
 from ..nn import Dense, Embedding
+from ..utils import remat_call
 
 __all__ = ["RMSNorm", "LlamaBlock", "LlamaModel", "llama_model",
            "LLAMA_CONFIGS"]
@@ -150,8 +152,8 @@ class LlamaBlock(HybridBlock):
 class LlamaModel(HybridBlock):
     """Token embedding, ``num_layers`` decoder blocks, the final norm and
     the LM head: ``forward(tokens (B, L))`` -> logits (B, L, vocab).
-    ``remat`` (None: ``MXNET_BACKWARD_DO_MIRROR``) must be off: activation
-    recomputation is not yet ported."""
+    ``remat`` (None: ``MXNET_BACKWARD_DO_MIRROR``) recomputes each block's
+    activations in the backward instead of keeping them."""
 
     def __init__(self, vocab_size=128256, num_layers=2, units=64,
                  hidden=172, heads=4, kv_heads=2, attn_impl="fused",
@@ -159,9 +161,7 @@ class LlamaModel(HybridBlock):
         super().__init__(**kwargs)
         if remat is None:
             remat = bool(config.get_int("MXNET_BACKWARD_DO_MIRROR", 0))
-        if remat:
-            raise MXNetError("LlamaModel: remat (MXNET_BACKWARD_DO_MIRROR) "
-                             "is not yet ported")
+        self._remat = bool(remat)
         self._units = units
         with self.name_scope():
             self.embed = Embedding(vocab_size, units, prefix="tok_")
@@ -179,7 +179,8 @@ class LlamaModel(HybridBlock):
     def hybrid_forward(self, F, tokens):
         x = self.embed(tokens)
         for blk in self.blocks:
-            x = blk(x)
+            # remat_call recomputes only while recording; else blk(x)
+            x = remat_call(blk, x) if self._remat else blk(x)
         return self.lm_head(self.norm(x))
 
 

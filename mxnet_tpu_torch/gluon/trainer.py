@@ -121,9 +121,31 @@ class Trainer:
         self._optimizer.set_learning_rate(lr)
 
     def step(self, batch_size, ignore_stale_grad=False):
-        """Rescale the gradients by 1/batch_size, reduce them, update."""
+        """Rescale the gradients by 1/batch_size, reduce them, update.
+
+        With ``amp.init_trainer`` attached, the rescale also divides by the
+        loss scale (unless ``amp.unscale`` did already), and a step whose
+        gradients hold a non-finite value updates nothing while the
+        dynamic scaler backs off (the reference's amp hand-off)."""
         self._init_kvstore()
-        self._optimizer.rescale_grad = self._scale / batch_size
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is None:
+            self._optimizer.rescale_grad = self._scale / batch_size
+        else:
+            base = self._amp_original_scale
+            scale = base / batch_size
+            if not getattr(self, "_amp_grads_unscaled", False):
+                scale /= scaler.loss_scale
+            self._amp_grads_unscaled = False
+            # checked before any update: with update_on_kvstore the store
+            # updates inside the reduction
+            grads = [g for p in self._params if p.grad_req != "null"
+                     and p._data is not None for g in p.list_grad()]
+            overflow = scaler.has_overflow(grads)
+            self._scale = base
+            if overflow:
+                return
+            self._optimizer.rescale_grad = scale
         self._allreduce_grads()
         if not self._update_on_kvstore:
             self._update(ignore_stale_grad)

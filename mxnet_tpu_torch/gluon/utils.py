@@ -1,9 +1,7 @@
 """gluon.utils — the port of ``mxnet_tpu/gluon/utils.py``: ``split_data``,
-``split_and_load``, ``clip_global_norm``, ``check_sha1`` and ``download``
-(which only finds a file already on disk: nothing here fetches).
-
-Not ported: ``remat_call`` (rematerialisation, with ``TrainStep``'s
-``remat``)."""
+``split_and_load``, ``clip_global_norm``, ``check_sha1``, ``download``
+(which only finds a file already on disk: nothing here fetches) and
+``remat_call`` (activation rematerialisation)."""
 
 from __future__ import annotations
 
@@ -13,12 +11,15 @@ import os
 import warnings
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
+from .. import autograd
 from ..base import MXNetError
 from ..ndarray.ndarray import NDArray, array
 
 __all__ = ["split_data", "split_and_load", "clip_global_norm", "check_sha1",
-           "download"]
+           "download", "remat_call"]
 
 
 def split_data(data, num_slice, batch_axis=0, even_split=True):
@@ -83,3 +84,87 @@ def download(url, path=None, overwrite=False, sha1_hash=None,
         return fname
     raise MXNetError(f"cannot download {url}: mxnet_tpu_torch fetches "
                      f"nothing, and {fname} is not on disk")
+
+
+def _keep_draws(ctx, func, *args, **kwargs):  # noqa: ARG001
+    """Checkpoint policy: keep what an op that draws random numbers
+    returned (Dropout's uniforms), recompute everything else."""
+    if torch.Tag.nondeterministic_seeded in func.tags:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _block_tensors(block):
+    """Every tensor of ``block`` (a Gluon Block: its parameters' values on
+    every context; a torch module: its parameters and buffers)."""
+    from .block import Block
+    if isinstance(block, Block):
+        return [d._data for p in block.collect_params().values()
+                if p._data is not None for d in p._data_list]
+    return list(block.parameters()) + list(block.buffers())
+
+
+def remat_call(block, *inputs):
+    """``block(*inputs)`` with activation rematerialisation: the block's
+    inner activations are not kept for backward but recomputed from its
+    inputs during the gradient pass (``torch.utils.checkpoint``,
+    non-reentrant).  MXNet's ``MXNET_BACKWARD_DO_MIRROR`` trade: about one
+    more forward of compute for activation memory of O(1) per wrapped
+    block.
+
+    ``inputs`` are NDArrays (the block runs on their tensors and its
+    parameters become variables of the ``autograd.record`` session, as a
+    hybridized block's do) or tensors (inside a hybridized parent or
+    ``parallel.TrainStep``).  Outside recording (``autograd.record`` for
+    NDArrays, torch's grad mode for tensors) it is ``block(*inputs)``.
+    Ops that draw random numbers (Dropout) keep their draws from the
+    forward and the recompute draws nothing, so its masks are the
+    forward's: a generator cannot be rewound inside a captured CUDA graph.
+    Raises ``MXNetError`` for a block with several outputs and for one
+    that writes its own state in the forward (BatchNorm's running
+    statistics in training), whose write the recompute would repeat."""
+    from .block import Block, HybridBlock, _forward_ctx
+    nd_in = next((a for a in inputs if isinstance(a, NDArray)), None)
+    recording = autograd.is_recording() if nd_in is not None \
+        else torch.is_grad_enabled()
+    if not recording:
+        return block(*inputs)
+    ctx = nd_in.ctx if nd_in is not None \
+        else getattr(_forward_ctx, "value", None)
+    tensor_path = not isinstance(block, Block) or \
+        isinstance(block, HybridBlock)
+    train = autograd.is_training()
+    state = _block_tensors(block)
+    versions = [t._version for t in state]
+
+    def run(*tensors):
+        prev = (getattr(_forward_ctx, "value", None),
+                autograd.set_recording(True), autograd.set_training(train))
+        _forward_ctx.value = ctx
+        try:
+            out = block(*tensors) if tensor_path else \
+                block(*[NDArray(t, ctx) for t in tensors])
+        finally:
+            _forward_ctx.value = prev[0]
+            autograd.set_recording(prev[1])
+            autograd.set_training(prev[2])
+        if isinstance(out, (list, tuple)):
+            raise MXNetError("remat_call supports single-output blocks")
+        return out._data if isinstance(out, NDArray) else out
+
+    tensors = [a._data if isinstance(a, NDArray) else a for a in inputs]
+    out = checkpoint(
+        run, *tensors, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: create_selective_checkpoint_contexts(_keep_draws))
+    if any(t._version != v for t, v in zip(state, versions)):
+        raise MXNetError(
+            "remat_call: the block writes its own state in the forward "
+            "(BatchNorm's running statistics?); the recompute would write "
+            "it again: wrap only blocks without such writes")
+    if nd_in is None:
+        return out
+    autograd._note_inputs(
+        [a for a in inputs if isinstance(a, NDArray)]
+        + ([d for p in block.collect_params().values() if p._data is not None
+            for d in p._data_list] if isinstance(block, Block) else []))
+    return NDArray(out, nd_in._ctx)

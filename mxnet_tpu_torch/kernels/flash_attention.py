@@ -68,6 +68,14 @@ fwd_f32_launches = 0
 bwd_fused_f32_launches = 0
 bwd_dq_f32_launches = 0
 bwd_dkv_f32_launches = 0
+# the names of the counters above; a replayed CUDA graph runs no Python, so
+# parallel.TrainStep adds the counts its capture saw on each replay
+COUNTERS = ("launches", "bwd_fused_launches", "bwd_dq_launches",
+            "bwd_dkv_launches", "fwd_wide_bf16_launches",
+            "bwd_fused_wide_bf16_launches", "bwd_dq_wide_bf16_launches",
+            "bwd_dkv_wide_bf16_launches", "fwd_f32_launches",
+            "bwd_fused_f32_launches", "bwd_dq_f32_launches",
+            "bwd_dkv_f32_launches")
 # sequence block of the reference's dispatch (_bwd's block_q = block_k):
 # the fused backward runs iff each side is one such block
 BWD_BLOCK = 512

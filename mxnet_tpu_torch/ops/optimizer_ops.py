@@ -13,6 +13,16 @@ that differ per parameter (learning rate, weight decay, the step count)
 come as lists with one entry per tensor.  The norms of LARS and LAMB are
 ``torch._foreach_norm`` on the device, never a host read per tensor.
 
+The scalars that change from step to step (each tensor's learning rate,
+the step count ``t`` of LAMB's bias correction, ``rescale_grad``) may be
+Python numbers or 0-d tensors on the device (``parallel.TrainStep``
+writes them there before each step, so a captured CUDA graph reads the
+step's values); no formula reads such a tensor back to the host.  Tensors
+that share one such scalar object are scaled by one ``_foreach_*`` call
+(its 0-d tensor overload), so a rate shared by every parameter costs what
+a Python number does.  The rest (weight decay, momentum, betas, epsilon,
+clipping) are Python numbers.
+
 The formulas, with g = clip(rescale_grad * grad, +-clip_gradient):
 
 - sgd: w -= lr (g + wd w); with momentum m = momentum m - lr (g + wd w),
@@ -39,6 +49,9 @@ from .registry import register
 
 def _prep(grads, rescale_grad, clip_gradient):
     """clip(rescale_grad * grad, +-clip_gradient), as new tensors."""
+    if isinstance(rescale_grad, torch.Tensor):
+        # the 0-d overload runs as one kernel only in the tensors' dtype
+        rescale_grad = rescale_grad.to(grads[0].dtype)
     g = torch._foreach_mul(grads, rescale_grad)
     if clip_gradient is not None and clip_gradient >= 0:
         torch._foreach_clamp_min_(g, -clip_gradient)
@@ -52,8 +65,56 @@ def _add_wd(g, weights, wds):
         torch._foreach_add_(g, torch._foreach_mul(weights, wds))
 
 
+def _per_scalar(fn, scalars, *others):
+    """[fn(s, *o)] over the per-tensor ``scalars`` (and Python ``others``),
+    computed once per distinct device scalar and its others, so tensors
+    that shared a scalar share the result."""
+    memo, out = {}, []
+    for s, *o in zip(scalars, *others):
+        if not isinstance(s, torch.Tensor):
+            out.append(fn(s, *o))
+            continue
+        key = (id(s), *o)
+        if key not in memo:
+            memo[key] = fn(s, *o)
+        out.append(memo[key])
+    return out
+
+
 def _neg(xs):
-    return [-x for x in xs]
+    return _per_scalar(lambda x: -x, xs)
+
+
+def _by_scalar(op, xs, scalars):
+    """``op(xs, scalars)`` for a ``torch._foreach_*`` binary op: Python
+    numbers in one scalar-list call; device scalars one call per distinct
+    scalar over the tensors that share it, the scalar cast to their dtype
+    (as a Python number is: torch's 0-d overload is one kernel only in the
+    tensors' dtype, else one per tensor).  Returns the out-of-place op's
+    results in ``xs``' order."""
+    if not isinstance(scalars[0], torch.Tensor):
+        return op(xs, scalars)
+    groups = {}
+    for pos, sc in enumerate(scalars):
+        groups.setdefault(id(sc), (sc, []))[1].append(pos)
+    out = [None] * len(xs)
+    for sc, pos in groups.values():
+        res = op([xs[p] for p in pos], sc.to(xs[pos[0]].dtype))
+        for p, r in zip(pos, res or ()):
+            out[p] = r
+    return out
+
+
+def _addcdiv_(xs, num, den, scales):
+    """xs += scale * num / den per tensor.  With device-tensor scales it
+    divides, scales and adds: ``_foreach_addcdiv_``'s tensor overload would
+    read the scales back to the host."""
+    if isinstance(scales[0], torch.Tensor):
+        q = torch._foreach_div(num, den)
+        _by_scalar(torch._foreach_mul_, q, scales)
+        torch._foreach_add_(xs, q)
+    else:
+        torch._foreach_addcdiv_(xs, num, den, scales)
 
 
 # -- the formulas: in place over lists of tensors ---------------------------
@@ -63,7 +124,7 @@ def sgd(weights, grads, moms, lrs, wds, momentum=0.0, rescale_grad=1.0,
     """SGD, with momentum when ``moms`` is a list."""
     g = _prep(grads, rescale_grad, clip_gradient)
     _add_wd(g, weights, wds)
-    torch._foreach_mul_(g, _neg(lrs))
+    _by_scalar(torch._foreach_mul_, g, _neg(lrs))
     if moms is None:
         torch._foreach_add_(weights, g)
         return
@@ -79,7 +140,7 @@ def nag(weights, grads, moms, lrs, wds, momentum=0.0, rescale_grad=1.0,
     torch._foreach_mul_(moms, momentum)
     torch._foreach_add_(moms, g)
     torch._foreach_add_(g, torch._foreach_mul(moms, momentum))
-    torch._foreach_mul_(g, _neg(lrs))
+    _by_scalar(torch._foreach_mul_, g, _neg(lrs))
     torch._foreach_add_(weights, g)
 
 
@@ -94,7 +155,7 @@ def adam(weights, grads, means, variances, lrs, wds, beta1=0.9, beta2=0.999,
     del g
     denom = torch._foreach_sqrt(variances)
     torch._foreach_add_(denom, epsilon)
-    torch._foreach_addcdiv_(weights, means, denom, _neg(lrs))
+    _addcdiv_(weights, means, denom, _neg(lrs))
 
 
 def adamw(weights, grads, means, variances, lrs, wds, beta1=0.9,
@@ -109,7 +170,7 @@ def adamw(weights, grads, means, variances, lrs, wds, beta1=0.9,
     denom = torch._foreach_sqrt(variances)
     torch._foreach_add_(denom, epsilon)
     step = torch._foreach_div(means, denom)
-    torch._foreach_mul_(step, lrs)
+    _by_scalar(torch._foreach_mul_, step, lrs)
     _add_wd(step, weights, wds)
     torch._foreach_add_(weights, step, alpha=-eta)
 
@@ -128,7 +189,7 @@ def rmsprop(weights, grads, ns, lrs, wds, gamma1=0.9, epsilon=1e-8,
     torch._foreach_addcmul_(ns, g, g, value=1.0 - gamma1)
     denom = torch._foreach_add(ns, epsilon)
     torch._foreach_sqrt_(denom)
-    torch._foreach_addcdiv_(weights, g, denom, _neg(lrs))
+    _addcdiv_(weights, g, denom, _neg(lrs))
     _clip_weights(weights, clip_weights)
 
 
@@ -145,7 +206,7 @@ def rmspropalex(weights, grads, ns, g_avgs, deltas, lrs, wds, gamma1=0.9,
     torch._foreach_add_(denom, epsilon)
     torch._foreach_sqrt_(denom)
     torch._foreach_mul_(deltas, gamma2)
-    torch._foreach_addcdiv_(deltas, g, denom, _neg(lrs))
+    _addcdiv_(deltas, g, denom, _neg(lrs))
     torch._foreach_add_(weights, deltas)
     _clip_weights(weights, clip_weights)
 
@@ -157,7 +218,7 @@ def ftrl(weights, grads, zs, ns, lrs, wds, lamda1=0.01, beta=1.0,
     torch._foreach_addcmul_(ns, g, g)
     sqrt_new = torch._foreach_sqrt(ns)
     sigma = torch._foreach_sub(sqrt_new, sqrt_old)
-    torch._foreach_div_(sigma, lrs)
+    _by_scalar(torch._foreach_div_, sigma, lrs)
     torch._foreach_add_(zs, g)
     torch._foreach_addcmul_(zs, sigma, weights, value=-1.0)
     # w = 0 where |z| <= lamda1, else -(z - sign(z) l1) / ((beta +
@@ -175,16 +236,18 @@ def signum(weights, grads, moms, lrs, wds, momentum=0.0, wd_lh=0.0,
     if moms is None:
         s = torch._foreach_sign(g)
         _add_wd(s, weights, wds)
-        torch._foreach_mul_(s, _neg(lrs))
+        _by_scalar(torch._foreach_mul_, s, _neg(lrs))
         torch._foreach_add_(weights, s)
         return
     torch._foreach_mul_(moms, momentum)
     torch._foreach_add_(moms, g, alpha=-(1.0 - momentum))
     s = torch._foreach_sign(moms)
-    torch._foreach_mul_(s, lrs)
-    decay = torch._foreach_mul(weights, [lr * wd for lr, wd in zip(lrs, wds)])
+    _by_scalar(torch._foreach_mul_, s, lrs)
+    decay = _by_scalar(torch._foreach_mul, weights,
+                       _per_scalar(lambda lr, wd: lr * wd, lrs, wds))
     if wd_lh:
-        torch._foreach_mul_(weights, [1.0 - lr * wd_lh for lr in lrs])
+        _by_scalar(torch._foreach_mul_, weights,
+                   _per_scalar(lambda lr: 1.0 - lr * wd_lh, lrs))
     torch._foreach_add_(weights, s)
     torch._foreach_sub_(weights, decay)
 
@@ -201,8 +264,10 @@ def lamb_phase1(weights, grads, means, variances, wds, ts, beta1=0.9,
     torch._foreach_addcmul_(variances, g, g, value=1.0 - beta2)
     del g
     if bias_correction:
-        step = torch._foreach_div(means, [1.0 - beta1 ** t for t in ts])
-        denom = torch._foreach_div(variances, [1.0 - beta2 ** t for t in ts])
+        step = _by_scalar(torch._foreach_div, means,
+                          _per_scalar(lambda t: 1.0 - beta1 ** t, ts))
+        denom = _by_scalar(torch._foreach_div, variances,
+                           _per_scalar(lambda t: 1.0 - beta2 ** t, ts))
     else:
         step = [m.clone() for m in means]
         denom = [v.clone() for v in variances]
@@ -230,7 +295,7 @@ def lamb_phase2(weights, steps, r1s, r2s, lrs, lower_bound=-1.0,
         r1 = r1.clamp(max=upper_bound)
     ratio = _trust_ratio(r1, r2).to(weights[0].dtype)
     torch._foreach_mul_(steps, list(ratio.unbind()))
-    torch._foreach_mul_(steps, _neg(lrs))
+    _by_scalar(torch._foreach_mul_, steps, _neg(lrs))
     torch._foreach_add_(weights, steps)
 
 
@@ -252,7 +317,7 @@ def adagrad(weights, grads, histories, lrs, wds, epsilon=1e-7,
     torch._foreach_sqrt_(denom)
     torch._foreach_div_(g, denom)
     _add_wd(g, weights, wds)
-    torch._foreach_mul_(g, _neg(lrs))
+    _by_scalar(torch._foreach_mul_, g, _neg(lrs))
     torch._foreach_add_(weights, g)
 
 
@@ -289,7 +354,7 @@ def lars(weights, grads, moms, lrs, wds, momentum=0.9, eta=0.001,
                         eta * (wn / torch.stack(denom)), torch.ones_like(wn))
     _add_wd(g, weights, wds)
     torch._foreach_mul_(g, list(trust.to(g[0].dtype).unbind()))
-    torch._foreach_mul_(g, lrs)
+    _by_scalar(torch._foreach_mul_, g, lrs)
     torch._foreach_mul_(moms, momentum)
     torch._foreach_add_(moms, g)
     torch._foreach_sub_(weights, moms)

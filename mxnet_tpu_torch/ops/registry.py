@@ -18,8 +18,14 @@ tensor that autograd saved is never written.  ``visible_outputs`` hides
 the extra outputs from the caller, in :func:`invoke` and in
 :data:`tensor_ops` alike.
 
+A cast hook (``amp.init`` installs one) sees every op's tensor inputs at
+this one chokepoint, in :func:`invoke_arrays` and in :data:`tensor_ops`
+alike, and returns them cast (``set_dispatch_cast_hook``); each change of
+the hook bumps :func:`dispatch_epoch`, by which a captured training step
+knows its graphs baked the old casts.
+
 Not ported: the reference's per-op jit cache (eager torch has nothing to
-compile), its amp cast, monitor and cost-model hooks.
+compile), its monitor and cost-model hooks.
 """
 
 from __future__ import annotations
@@ -29,9 +35,27 @@ import torch
 from ..base import MXNetError
 
 __all__ = ["Op", "register", "get", "alias", "list_ops", "invoke",
-           "invoke_arrays", "tensor_ops"]
+           "invoke_arrays", "tensor_ops", "set_dispatch_cast_hook",
+           "dispatch_epoch"]
 
 _REGISTRY: dict = {}
+# fn(op_name, tensors) -> tensors, applied before every op (amp); the epoch
+# counts its changes
+_cast_hook = None
+_dispatch_epoch = 0
+
+
+def set_dispatch_cast_hook(fn):
+    """Install ``fn(op_name, tensors) -> tensors`` (None: none) before
+    every op, and bump the dispatch epoch."""
+    global _cast_hook, _dispatch_epoch
+    _cast_hook = fn
+    _dispatch_epoch += 1
+    tensor_ops._forget()
+
+
+def dispatch_epoch():
+    return _dispatch_epoch
 
 
 class Op:
@@ -135,6 +159,8 @@ def invoke_arrays(op, tensors, attrs, device=None):
     if device is None:
         device = next((t.device for t in tensors
                        if isinstance(t, torch.Tensor)), None)
+    if _cast_hook is not None:
+        tensors = _cast_hook(op.name, list(tensors))
     return op.fn(*tensors, **_with_implicit(op, attrs or {}, device))
 
 
@@ -209,6 +235,11 @@ class _TensorNamespace:
     def __init__(self, prefix=""):
         self._prefix = prefix
 
+    def _forget(self):
+        """Drop the callables looked up so far (a new cast hook)."""
+        for name in [k for k in vars(self) if k != "_prefix"]:
+            delattr(self, name)
+
     def __getattr__(self, name):
         full = self._prefix + name
         op = _REGISTRY.get(full)
@@ -219,6 +250,10 @@ class _TensorNamespace:
             elif op.wrap_key is None and op.wrap_train is None \
                     and op.wrap_device is None:
                 fn = op.fn
+                if _cast_hook is not None:
+                    def fn(*tensors, _op=op, _hook=_cast_hook, **attrs):
+                        return _op.fn(*_hook(_op.name, list(tensors)),
+                                      **attrs)
             else:
                 def fn(*tensors, _op=op, **attrs):
                     return invoke_arrays(_op, tensors, attrs)

@@ -22,7 +22,12 @@ With ``multi_precision`` a bf16/fp16 weight keeps an f32 master copy: its
 state is ``(master, state of the master)``, the gradient is cast to f32,
 and after the update the weight is the master rounded to its dtype.
 Weights, gradients and states are ``torch.Tensor``s (an NDArray is taken
-by its tensor); updates are in place.
+by its tensor); updates are in place.  The per-step scalars (the rates,
+the update count ``t``, ``rescale_grad``) may be 0-d device tensors
+instead of Python numbers: ``parallel.TrainStep`` swaps ``_get_lr``,
+``_index_update_count`` and ``rescale_grad`` for such tensors while it
+runs an update, as the reference swaps traced values in, and keeps the
+host's bookkeeping (counts, schedules) itself.
 """
 
 from __future__ import annotations
@@ -296,9 +301,13 @@ class Adam(Optimizer):
     def _step(self, indices, weights, grads, states):
         b1, b2 = self.beta1, self.beta2
         lrs, wds, kw = self._hyper(indices)
-        for k, i in enumerate(indices):      # bias correction folded in
-            t = self._index_update_count[i]
-            lrs[k] *= math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t)
+        ts = [self._index_update_count[i] for i in indices]
+        if isinstance(ts[0], torch.Tensor):  # one device count: one factor
+            corr = torch.sqrt(1.0 - b2 ** ts[0]) / (1.0 - b1 ** ts[0])
+            lrs = F._per_scalar(lambda lr: lr * corr, lrs)
+        else:                                # bias correction folded in
+            lrs = [lr * (math.sqrt(1.0 - b2 ** t) / (1.0 - b1 ** t))
+                   for lr, t in zip(lrs, ts)]
         F.adam(weights, grads, _part(states, 0), _part(states, 1), lrs, wds,
                b1, b2, self.epsilon, **kw)
 

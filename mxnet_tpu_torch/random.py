@@ -11,6 +11,15 @@ distribution-level, not bitwise.  The package binds the shorthands
 ``uniform``, ``normal``, ``randn``, ``randint``, ``multinomial`` and
 ``shuffle`` here to the generated ``mx.nd.random`` functions (the
 samplers of ``ops/random_ops.py``), as the reference does.
+
+Two helpers serve code that must replay draws: :func:`get_state` /
+:func:`set_state` save and restore a device's generator (two runs from one
+state draw the same masks), and :func:`register_with_graph` registers the
+generators with a CUDA graph being captured, so that each replay of the
+graph advances them and draws new numbers instead of repeating the
+captured ones.  A generator cannot be rewound while a capture is under way
+(torch refuses to read or clone its state then): ``get_state`` raises
+``MXNetError`` there.
 """
 
 from __future__ import annotations
@@ -21,9 +30,11 @@ import zlib
 import numpy as np
 import torch
 
+from .base import MXNetError
 from .context import Context, context_of, resolve_device
 
-__all__ = ["seed", "generator"]
+__all__ = ["seed", "generator", "get_state", "set_state",
+           "register_with_graph"]
 
 _state = threading.local()
 _DEFAULT_SEED = 0
@@ -67,3 +78,36 @@ def seed(seed_state, ctx="all"):
         gen = torch.Generator(device=ctx.torch_device())
         gen.manual_seed(int(seed_state) + _offset(ctx))
         gens[ctx] = gen
+
+
+def _capturing(gen):
+    return gen.device.type == "cuda" and \
+        torch.cuda.is_current_stream_capturing()
+
+
+def get_state(ctx=None):
+    """A copy of the state of ``ctx``'s generator (see :func:`generator`),
+    for :func:`set_state`."""
+    gen = generator(ctx)
+    if _capturing(gen):
+        raise MXNetError("random.get_state: a generator cannot be saved "
+                         "while a CUDA graph is being captured")
+    return gen.get_state()
+
+
+def set_state(state, ctx=None):
+    """Put ``ctx``'s generator back to ``state`` (from :func:`get_state`):
+    the draws that follow repeat those that followed the save."""
+    gen = generator(ctx)
+    if _capturing(gen):
+        raise MXNetError("random.set_state: a generator cannot be restored "
+                         "while a CUDA graph is being captured")
+    gen.set_state(state)
+
+
+def register_with_graph(graph, device):
+    """Register ``device``'s generator with ``graph`` (a
+    ``torch.cuda.CUDAGraph`` about to be captured): every replay then
+    draws the numbers that follow the previous replay's, as eager calls
+    would, instead of the captured ones again."""
+    graph.register_generator_state(generator(device))

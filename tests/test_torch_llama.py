@@ -153,16 +153,21 @@ def test_save_load_round_trip_is_bit_exact(tmp_path):
 @pytest.mark.parametrize("kwargs,match", [
     ({"attn_impl": "ring"}, "attn_impl"),
     ({"attn_impl": "ulysses"}, "attn_impl"),
-    ({"remat": True}, "remat")])
+    ({"remat": True, "attn_impl": "ring"}, "attn_impl")])
 def test_unported_options_raise(kwargs, match):
     with pytest.raises(MXNetError, match=match):
         tllama.llama_model("llama_tiny", vocab_size=50, **kwargs)
 
 
 def test_backward_do_mirror_raises(monkeypatch):
+    """MXNET_BACKWARD_DO_MIRROR no longer raises: it is remat's default,
+    and an explicit ``remat`` wins over it."""
     monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "1")
-    with pytest.raises(MXNetError, match="MXNET_BACKWARD_DO_MIRROR"):
-        tllama.llama_model("llama_tiny", vocab_size=50)
+    assert tllama.llama_model("llama_tiny", vocab_size=50)._remat
+    assert not tllama.llama_model("llama_tiny", vocab_size=50,
+                                  remat=False)._remat
+    monkeypatch.setenv("MXNET_BACKWARD_DO_MIRROR", "0")
+    assert not tllama.llama_model("llama_tiny", vocab_size=50)._remat
 
 
 def test_hybridized_and_imperative_forward_agree():

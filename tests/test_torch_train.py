@@ -226,7 +226,8 @@ def test_trainstep_losses_match_jax(case):
 
 
 @pytest.mark.parametrize("kw,match", [
-    (dict(n_micro=2), "n_micro"), (dict(remat=True), "remat"),
+    (dict(n_micro=0), "n_micro"),
+    (dict(mesh=np.empty((2, 2), object)), "more than one device"),
     (dict(partition_rules=[("x", ())]), "partition_rules"),
     (dict(data_spec=("dp",)), "data_spec"), (dict(plan=object()), "plan"),
     (dict(mesh=["cpu", "cpu"]), "more than one device")])
