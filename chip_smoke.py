@@ -223,7 +223,36 @@ result line; each prints its seconds):
     test accuracy > 0.9;
     (f) ``imresize`` of a 375x500 image, all five codes, at (224, 224) and
     (341, 256) on the card against the CPU (within 1), device ms.  No
-    flash kernel launches.
+    flash kernel launches;
+18. util — the training utilities as a user's script drives them, on
+    BERT-base at bench.py's bert_seq512 width (vocab 30522, batch 32, seq
+    512, bf16, multi-precision Adam at 1e-4, dropout 0; attention on the
+    flash forward and the fused backward), see ``util_phase``: (a) 3
+    steps with ``MXNET_OPTIMIZER_FUSED=1`` and 3 with 0 from the same
+    weights on the same gradients: weights bitwise equal, median step ms
+    of both, ``optimizer_fusion.exec_builds()`` after steps 1 and 3; (b)
+    ``Trainer(kvstore=mx.kv.create("local"), compression_params={"type":
+    "2bit", "threshold": 0.5})``: one step's packed codes and residuals
+    on the card equal to the same gradients compressed on the CPU, step
+    ms against the uncompressed store, and one step of each under
+    torch.profiler (wall, device busy, kernels); (c) 8 uninterrupted
+    steps, then ``checkpoint.auto_resume(save_every=2)`` whose step
+    raises once at step 5, then a run that sends itself SIGTERM during
+    step 3 and a fresh net and trainer resumed from its directory: every
+    curve equal to the uninterrupted one bit for bit (each step replays
+    the uninterrupted run's gradient after its own backward: the fused
+    backward's dq sums by atomics), save and restore ms and one step's
+    bytes on disk, the directories deleted; (d) ``Monitor(1,
+    ".*FullyConnected.*")`` over two eager steps (finite stats), nothing after ``uninstall``, in a captured
+    CUDA graph or in a captured ``TrainStep``; (e) ``Speedometer`` fed
+    ``BatchEndParam`` within 5 % of the phase's own samples/s; (f)
+    ``engine.waitall()``, NaiveEngine raising an asynchronous CUDA error
+    at the op that caused it and the default engine at the next read (a
+    child process each), ``runtime.Features()``; (g)
+    ``test_utils.check_consistency`` over ``[gpu(0), cpu(0)]`` on
+    FullyConnected, LayerNorm and dot with a bf16 first input; (h) a
+    ``CustomOp`` with a backward on the card against the CPU's gradient,
+    which ``check_numeric_gradient`` holds.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -242,7 +271,8 @@ the LSTM LM has no attention) and the det, moe and image phases'
 (``det_launches``, ``moe_launches``, ``image_launches``: 0, no
 attention) and the mt phase's timed steps (``mt_launches``: the forward
 of both dtypes; each backward row the fused launches of its dtype, 0 on
-dq and dkv);
+dq and dkv) and the util phase's BERT-base steps (``util_launches``: the
+bf16 forward and fused backward; 0 elsewhere);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -1093,7 +1123,8 @@ def _profile_step(torch, step_fn, label, families=FLASH_FAMILIES, steps=1):
     for ms, n, key in rows[:12]:
         _log(f"profile {label}:   {ms:9.3f} ms  x{n:<4d} {key[:100]}")
     return {"wall_ms": wall, "device_ms": total, "families": fams,
-            "kernels": [r[2] for r in rows]}
+            "kernels": [r[2] for r in rows],
+            "launches": sum(r[1] for r in rows) / steps}
 
 
 # bench.py's training lanes (:529-535) and the dtype each runs in; the f32
@@ -4816,6 +4847,644 @@ def image_phase(torch, fa, mx, args, smi):
                     "decode_pool": pool_rate, "lenet": lenet}
 
 
+# -- the util phase: the training utilities on BERT-base ---------------------
+
+# bench.py's bert_seq512 lane (:529-531) at full width: vocab 30522, batch
+# 32, seq 512, bf16 with multi-precision Adam; dropout 0 (the checkpoints
+# carry no random generator, as the reference's do not)
+UTIL = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
+        "vocab": 30522, "batch": 32, "len": 512, "lr": 1e-4,
+        "fused_steps": 3, "curve_steps": 8, "fault_at": 5, "sigterm_at": 3,
+        "compress": {"type": "2bit", "threshold": 0.5}}
+SPEEDOMETER_TOL = 0.05     # its samples/s against the phase's own clock
+TURN_STEPS = 5             # timed steps a turn (after one to warm up)
+
+# the child that shows where an asynchronous CUDA error surfaces: an
+# out-of-range gather asserts on the device; NaiveEngine synchronizes after
+# the op (the error raises there), the default engine at the next read
+_NAIVE_CHILD = r"""
+import sys
+import mxnet_tpu_torch as mx
+from mxnet_tpu_torch import engine
+from mxnet_tpu_torch.ops import registry
+
+@registry.register("smoke_gather")
+def _gather(x, i):
+    return x[i]
+
+engine.set_engine_type(sys.argv[1])
+x = mx.nd.ones((4,), ctx=mx.gpu())
+i = mx.nd.array([7], ctx=mx.gpu(), dtype="int64")
+try:
+    y = registry.invoke("smoke_gather", [x, i])
+except RuntimeError as e:
+    print("raised at the op:", str(e).splitlines()[0])
+    sys.exit(0)
+try:
+    y.asnumpy()
+except RuntimeError as e:
+    print("raised at the read:", str(e).splitlines()[0])
+    sys.exit(0)
+print("no error")
+sys.exit(1)
+"""
+
+
+def _util_net(torch, tmx, seed):
+    """BERT-base as Gluon blocks on the card, hybridized, bf16."""
+    bert = tmx.gluon.model_zoo.bert
+    u = UTIL
+    net = bert.BERTModel(vocab_size=u["vocab"], num_layers=u["layers"],
+                         units=u["units"], hidden_size=u["hidden"],
+                         num_heads=u["heads"], max_length=u["len"],
+                         dropout=0.0, prefix="bert_")
+    tmx.random.seed(seed)
+    net.initialize(tmx.init.Normal(0.02), ctx=tmx.gpu())
+    net.hybridize()
+    net.cast("bfloat16")
+    return net
+
+
+class _UtilRun:
+    """The BERT-base steps of the util phase: one net, its start weights,
+    one batch; ``step`` runs record, SoftmaxCELoss, backward, then
+    optionally records the gradients or replaces them by recorded ones
+    (the fused backward's dq sums by atomics, so two backward passes of
+    one step differ in the last bits: replaying a run's gradients makes a
+    resumed run comparable bit for bit), and Trainer.step."""
+
+    def __init__(self, torch, tmx, net, toks, labs):
+        self.torch, self.tmx, self.net = torch, tmx, net
+        self.params = net.collect_params()
+        self.start = {k: p.data()._data.detach().clone()
+                      for k, p in self.params.items()}
+        self.inputs, self.labels = _gluon_inputs(tmx, tmx.gpu(), toks, labs)
+        self.loss_fn = tmx.gluon.loss.SoftmaxCELoss()
+
+    def restart(self, net=None):
+        """The start weights in ``net`` (default this run's), no grads."""
+        params = self.params if net is None else net.collect_params()
+        for k, p in params.items():
+            p.set_data(self.start[k])
+            p.data()._data.grad = None
+
+    def trainer(self, net=None, **kw):
+        net = self.net if net is None else net
+        return self.tmx.gluon.Trainer(
+            net.collect_params(), "adam",
+            {"learning_rate": UTIL["lr"], "multi_precision": True}, **kw)
+
+    def grads(self, net=None):
+        net = self.net if net is None else net
+        return [p.list_grad()[0]._data for p in net.collect_params().values()
+                if p.grad_req != "null"]
+
+    def step(self, trainer, net=None, record=None, replay=None, before=None):
+        """One step; returns (loss, wall ms)."""
+        tmx, net = self.tmx, (self.net if net is None else net)
+        t = time.perf_counter()
+        with tmx.autograd.record():
+            logits = net(*self.inputs)[2].astype("float32", copy=False)
+            loss = self.loss_fn(logits, self.labels)
+        loss.backward()
+        if record is not None:
+            record.append([g.clone() for g in self.grads(net)])
+        if replay is not None:
+            self.torch._foreach_copy_(self.grads(net), replay)
+        if before is not None:
+            before()
+        trainer.step(self.labels.shape[0])
+        value = float(loss.mean().asscalar())
+        tmx.nd.waitall()
+        return value, (time.perf_counter() - t) * 1e3
+
+    def weights(self, net=None):
+        net = self.net if net is None else net
+        return [p.data()._data.detach().clone()
+                for p in net.collect_params().values()]
+
+
+def _same_bits(torch, a, b):
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _util_fused(torch, tmx, run):
+    """Three steps with MXNET_OPTIMIZER_FUSED=1, then three with 0 from the
+    same weights on the first run's gradients: the weights must be
+    bitwise equal.  Returns the numbers to print."""
+    fus = tmx.optimizer_fusion
+    out, grads, weights = {}, [], {}
+    for fused in ("1", "0"):
+        os.environ["MXNET_OPTIMIZER_FUSED"] = fused
+        fus.reset()             # the signatures of earlier phases' BERT
+        run.restart()
+        trainer = run.trainer()
+        builds, ms, losses = [fus.exec_builds()], [], []
+        for i in range(UTIL["fused_steps"]):
+            loss, t = run.step(trainer, record=grads if fused == "1"
+                               else None,
+                               replay=None if fused == "1" else grads[i])
+            losses.append(loss)
+            ms.append(t)
+            builds.append(fus.exec_builds())
+        if (trainer._fused_kind() is not None) != (fused == "1"):
+            raise AssertionError(f"fused={fused}: the trainer's route is "
+                                 f"{trainer._fused_kind()}")
+        weights[fused] = run.weights()
+        out[fused] = {"ms": statistics.median(ms), "step_ms": ms,
+                      "losses": losses,
+                      "exec_builds": [builds[1] - builds[0],
+                                      builds[3] - builds[0]]}
+    if not _same_bits(torch, weights["1"], weights["0"]):
+        raise AssertionError("fused and per-parameter Adam disagree")
+    # step ms in turns (fused, per-parameter, per-parameter, fused), each
+    # turn a fresh trainer, one step to warm up and TURN_STEPS timed
+    turns = {"1": [], "0": []}
+    for fused in ("1", "0", "0", "1"):
+        os.environ["MXNET_OPTIMIZER_FUSED"] = fused
+        run.restart()
+        trainer = run.trainer()
+        run.step(trainer)
+        turns[fused] += [run.step(trainer)[1] for _ in range(TURN_STEPS)]
+    os.environ["MXNET_OPTIMIZER_FUSED"] = "1"
+    b1, b3 = out["1"]["exec_builds"]
+    if b1 != 1 or b3 != 1 or out["0"]["exec_builds"] != [0, 0]:
+        raise AssertionError(f"exec_builds not flat: {out}")
+    _log(f"util fused: {len(weights['1'])} parameters in one update; "
+         f"weights bitwise equal after {UTIL['fused_steps']} steps; "
+         f"losses {out['1']['losses']} and {out['0']['losses']}; exec_builds "
+         f"after step 1 and 3: {b1}, {b3} (per-parameter: "
+         f"{out['0']['exec_builds']}); step ms of those runs: fused "
+         f"{[round(x, 1) for x in out['1']['step_ms']]}, per-parameter "
+         f"{[round(x, 1) for x in out['0']['step_ms']]}")
+    ms = {k: statistics.median(v) for k, v in turns.items()}
+    _log(f"util fused: in turns, median of {len(turns['1'])} steps each: "
+         f"fused {ms['1']:.2f} ms, per-parameter {ms['0']:.2f} ms")
+    return {"fused_ms": ms["1"], "per_param_ms": ms["0"]}
+
+
+def _util_compression(torch, tmx, run):
+    """Trainer(kvstore=local, compression_params=2bit 0.5): one step's
+    packed codes and residuals on the card against the same gradient
+    compressed on the CPU (equal bytes); step ms against the uncompressed
+    store in the same call."""
+    from mxnet_tpu_torch.kvstore.compression import GradientCompression
+    ms = {False: [], True: []}
+    checked = False
+    for compressed in (False, True, True, False):       # in turns
+        run.restart()
+        kw = {"compression_params": UTIL["compress"]} if compressed else {}
+        trainer = run.trainer(kvstore=tmx.kv.create("local"), **kw)
+        times, seen = [], {}
+        run.step(trainer)                     # the store is made here
+        for i in range(TURN_STEPS):
+            check = compressed and i == 0 and not checked
+            if check:
+                gc_ = trainer._kvstore._compression
+                spy_of = gc_.compress
+
+                def spy(key, slot, grad, _f=spy_of):
+                    packed, shape, dtype = _f(key, slot, grad)
+                    seen[key] = packed
+                    return packed, shape, dtype
+                gc_.compress = spy
+                host = {}
+
+                def before():
+                    for k, p in enumerate(trainer._params):
+                        if p.grad_req != "null":
+                            host[k] = (
+                                p.list_grad()[0]._data.to("cpu", copy=True),
+                                gc_._residuals[(k, 0)].to("cpu", copy=True))
+            _, t = run.step(trainer, before=before if check else None)
+            times.append(t)
+            if check:
+                gc_.compress = spy_of
+                cpu = GradientCompression(UTIL["compress"])
+                n_bytes = 0
+                for k, (g, res) in host.items():
+                    cpu._residuals[(k, 0)] = res
+                    packed, _, _ = cpu.compress(k, 0, g)
+                    if not torch.equal(packed, seen[k].cpu()) or \
+                            not torch.equal(cpu._residuals[(k, 0)],
+                                            gc_._residuals[(k, 0)].cpu()):
+                        raise AssertionError(f"compression of key {k}: the "
+                                             "card and the CPU differ")
+                    n_bytes += packed.numel()
+                checked = True
+                _log(f"util compression: {len(host)} keys, {n_bytes} packed "
+                     f"bytes, codes and residuals equal to the CPU's")
+        ms[compressed] += times
+        if compressed != (trainer._kvstore._compression is not None):
+            raise AssertionError("the store's compression is not as asked")
+    med = {k: statistics.median(v) for k, v in ms.items()}
+    _log(f"util compression: in turns, median of {len(ms[True])} steps "
+         f"each: {med[True]:.2f} ms compressed against {med[False]:.2f} ms "
+         f"uncompressed (the same store)")
+    # where the compressed step's extra time goes: one step of each traced
+    trace = {}
+    for compressed in (False, True):
+        run.restart()
+        kw = {"compression_params": UTIL["compress"]} if compressed else {}
+        trainer = run.trainer(kvstore=tmx.kv.create("local"), **kw)
+        run.step(trainer)
+        trace[compressed] = _profile_step(
+            torch, lambda tr=trainer: run.step(tr),
+            "util " + ("compressed" if compressed else "uncompressed"),
+            families=FLASH_FAMILIES + (("optimizer",
+                                        ("foreach", "multi_tensor")),))
+    extra = {k: trace[True][k] - trace[False][k]
+             for k in ("wall_ms", "device_ms", "launches")}
+    _log(f"util compression trace: the compressed step against the "
+         f"uncompressed one: wall +{extra['wall_ms']:.2f} ms, device busy "
+         f"+{extra['device_ms']:.2f} ms, kernels +{extra['launches']:.0f} "
+         f"({extra['launches'] / len(host):.1f} a key)")
+    return {"compressed_ms": med[True], "uncompressed_ms": med[False],
+            "compressed_device_ms": trace[True]["device_ms"],
+            "uncompressed_device_ms": trace[False]["device_ms"],
+            "compressed_kernels": trace[True]["launches"],
+            "uncompressed_kernels": trace[False]["launches"]}
+
+
+def _dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
+
+
+def _util_resume(torch, tmx, run, root):
+    """8 uninterrupted steps (their gradients recorded); auto_resume with
+    save_every=2 whose train_fn raises once at step 5; a run that sends
+    itself SIGTERM during step 3, then a fresh net and trainer resumed
+    from its directory.  Every resumed curve equals the uninterrupted one
+    bit for bit (each step replays the recorded gradient after its own
+    backward).  Then save and restore ms and one step's bytes on disk."""
+    import signal
+    n = UTIL["curve_steps"]
+    ck = tmx.checkpoint
+    run.restart()
+    trainer = run.trainer()
+    grads, ref = [], []
+    for _ in range(n):
+        ref.append(run.step(trainer, record=grads)[0])
+    # the same steps with their own gradients: how far the atomics move
+    run.restart()
+    trainer = run.trainer()
+    own = [run.step(trainer)[0] for _ in range(n)]
+    _log(f"util resume: uninterrupted losses {[round(x, 5) for x in ref]}; "
+         f"a second run with its own gradients differs by rel "
+         f"{_rel(own, ref):.2e} (the fused backward's dq atomics)")
+    if not ref[-1] < ref[0]:
+        raise AssertionError(f"util: losses not falling: {ref}")
+
+    run.restart()
+    trainer = run.trainer()
+    curve, faulted = {}, []
+
+    def train_fn(step):
+        loss, _ = run.step(trainer, replay=grads[step])
+        if step == UTIL["fault_at"] and not faulted:
+            faulted.append(step)
+            raise RuntimeError("injected fault after the update")
+        curve[step] = loss
+        return step < n - 1
+
+    d1 = os.path.join(root, "fault")
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        last = ck.auto_resume(train_fn, d1, net=run.net, trainer=trainer,
+                              save_every=2, max_to_keep=2)
+    got = [curve.get(s) for s in range(n)]
+    _log(f"util resume: fault at step {UTIL['fault_at']}: "
+         f"{[str(w.message)[:90] for w in caught]}; curve equal: "
+         f"{got == ref}; steps kept {ck.CheckpointManager(d1).all_steps()}")
+    if last != n - 1 or got != ref or not faulted:
+        raise AssertionError(f"resume after a fault: {got} against {ref}")
+
+    run.restart()
+    trainer = run.trainer()
+    curve = {}
+
+    def make_fn(net, tr, kill_at=None):
+        def fn(step):
+            loss, _ = run.step(tr, net=net, replay=grads[step])
+            curve[step] = loss
+            if step == kill_at:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return step < n - 1
+        return fn
+
+    d2 = os.path.join(root, "sigterm")
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        stop = ck.auto_resume(make_fn(run.net, trainer, UTIL["sigterm_at"]),
+                              d2, net=run.net, trainer=trainer, save_every=8,
+                              max_to_keep=2)
+    fresh = _util_net(torch, tmx, 12345)      # other weights, overwritten
+    fresh_trainer = run.trainer(net=fresh)
+    last = ck.auto_resume(make_fn(fresh, fresh_trainer), d2, net=fresh,
+                          trainer=fresh_trainer, save_every=8,
+                          max_to_keep=2)
+    got = [curve.get(s) for s in range(n)]
+    _log(f"util resume: SIGTERM at step {UTIL['sigterm_at']}: stopped at "
+         f"{stop} ({[str(w.message)[:60] for w in caught]}), a fresh net and "
+         f"trainer resumed to {last}; joined curve equal: {got == ref}")
+    if stop != UTIL["sigterm_at"] or last != n - 1 or got != ref:
+        raise AssertionError(f"resume after SIGTERM: {got} against {ref}")
+    fresh = fresh_trainer = None
+
+    # one step saved and restored by hand, timed
+    mgr = ck.CheckpointManager(os.path.join(root, "timed"), max_to_keep=2)
+    want = run.weights()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    mgr.save(0, net=run.net, trainer=trainer)
+    save_ms = (time.perf_counter() - t) * 1e3
+    nbytes = _dir_bytes(os.path.join(root, "timed", "0"))
+    run.restart()
+    trainer = run.trainer()
+    t = time.perf_counter()
+    step, _ = mgr.restore(net=run.net, trainer=trainer)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t) * 1e3
+    if step != 0 or not _same_bits(torch, run.weights(), want):
+        raise AssertionError("a restored step is not the saved one")
+    _log(f"util checkpoint: save {save_ms:.1f} ms, restore "
+         f"{restore_ms:.1f} ms, one step on disk {nbytes} bytes "
+         f"({nbytes / 1e9:.3f} GB: bf16 weights, the f32 masters and Adam's "
+         f"two f32 moments)")
+    return {"save_ms": save_ms, "restore_ms": restore_ms,
+            "step_bytes": nbytes}
+
+
+def _util_monitor(torch, tmx, mx, run):
+    """Monitor(1, ".*FullyConnected.*") over two eager (not hybridized)
+    steps: finite stats for every matching op; nothing after uninstall,
+    in a hand-captured CUDA graph (NaiveEngine on: no synchronisation in
+    the capture either), or in a captured TrainStep's replays."""
+    net, rows = run.net, []
+    net.hybridize(active=False)
+    trainer = run.trainer()
+    mon = tmx.monitor.Monitor(1, pattern=".*FullyConnected.*")
+    mon.install()
+    for _ in range(2):
+        mon.tic()
+        run.step(trainer)
+        rows.append(mon.toc())
+    mon.uninstall()
+    mon.activated = True
+    run.step(trainer)
+    after = mon.toc()
+    net.hybridize()
+    names = [[r[1] for r in b] for b in rows]
+    if not rows[0] or names[0] != names[1] or after or not all(
+            math.isfinite(r[2]) for b in rows for r in b):
+        raise AssertionError(f"monitor: {len(rows[0])}, {len(rows[1])} rows, "
+                             f"{len(after)} after uninstall")
+
+    x = tmx.nd.array(np.ones((64, 768), np.float32), ctx=tmx.gpu())
+    w = tmx.nd.array(np.ones((256, 768), np.float32), ctx=tmx.gpu())
+    mon.install()
+    tmx.engine.set_engine_type("NaiveEngine")
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            tmx.nd.FullyConnected(x, w, num_hidden=256, no_bias=True)
+        torch.cuda.current_stream().wait_stream(side)
+        mon.tic()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            y = tmx.nd.FullyConnected(x, w, num_hidden=256, no_bias=True)
+        graph.replay()
+        in_graph = mon.toc()
+    finally:
+        tmx.engine.set_engine_type("ThreadedEnginePerDevice")
+    if in_graph or float(y.asnumpy()[0, 0]) != 768.0:
+        raise AssertionError(f"monitor saw {len(in_graph)} rows in a capture")
+
+    tt = torch.tensor(run.inputs[0].asnumpy(), device="cuda")
+    tl = torch.tensor(run.labels.asnumpy(), device="cuda")
+    step = mx["parallel"].TrainStep(net, _bert_loss(mx["nn"]), mx[
+        "optimizer"].Adam(learning_rate=UTIL["lr"], multi_precision=True))
+    in_step = []
+    for _ in range(3):              # warm-up, capture, replay
+        mon.tic()
+        step(tt, tl)
+        in_step.append(len(mon.toc()))
+    torch.cuda.synchronize()
+    mon.uninstall()
+    step = None
+    _log(f"util monitor: {len(rows[0])} FullyConnected outputs a step "
+         f"(mean |x| of the first {rows[0][0][2]:.5f}, all finite), the same "
+         f"names in both steps; after uninstall {len(after)}; in a captured "
+         f"graph {len(in_graph)}; in TrainStep's warm-up, capture and "
+         f"replay {in_step}")
+    if any(in_step):
+        raise AssertionError(f"monitor saw TrainStep's ops: {in_step}")
+
+
+def _util_speedometer(tmx, run):
+    """Speedometer(32, frequent=2) fed BatchEndParam after each of 7 steps:
+    its samples/s within SPEEDOMETER_TOL of the phase's own clock over the
+    same batches."""
+    import logging
+    trainer = run.trainer()
+    B = UTIL["batch"]
+    sp = tmx.callback.Speedometer(B, frequent=2)
+    records = []
+
+    class Keep(logging.Handler):
+        def emit(self, record):
+            records.append(record.getMessage())
+
+    root = logging.getLogger()
+    handler, level = Keep(), root.level
+    root.addHandler(handler)
+    root.setLevel(logging.INFO)
+    marks = []
+    try:
+        for nbatch in range(7):
+            if nbatch:
+                run.step(trainer)
+            marks.append(time.perf_counter())
+            sp(tmx.model.BatchEndParam(epoch=0, nbatch=nbatch,
+                                       eval_metric=None, locals=None))
+    finally:
+        root.removeHandler(handler)
+        root.setLevel(level)
+    said = [float(m.split("Speed: ")[1].split()[0]) for m in records
+            if "Speed:" in m]
+    own = [2 * B / (marks[i] - marks[i - 2]) for i in (2, 4, 6)]
+    _log(f"util speedometer: {records}; own samples/s "
+         f"{[round(x, 2) for x in own]}")
+    if len(said) != 3 or any(abs(s - o) > SPEEDOMETER_TOL * o
+                             for s, o in zip(said, own)):
+        raise AssertionError(f"Speedometer {said} against {own}")
+
+
+def _util_engine_runtime(torch, tmx):
+    """engine.waitall; NaiveEngine raising at the failing op and the
+    default engine at the next read (a child process each: a device-side
+    assert ends the CUDA context); runtime.Features()."""
+    tmx.engine.waitall()
+    here = os.path.dirname(os.path.abspath(__file__))
+    said = {}
+    for mode in ("NaiveEngine", "ThreadedEnginePerDevice"):
+        r = subprocess.run([sys.executable, "-c", _NAIVE_CHILD, mode],
+                           cwd=here, capture_output=True, text=True,
+                           timeout=300)
+        said[mode] = r.stdout.strip().splitlines()[-1:] or [r.stderr[-300:]]
+        if r.returncode != 0:
+            raise AssertionError(f"{mode} child: {r.returncode} {said[mode]} "
+                                 f"{r.stderr[-500:]}")
+    if not said["NaiveEngine"][0].startswith("raised at the op") or \
+            not said["ThreadedEnginePerDevice"][0].startswith(
+                "raised at the read"):
+        raise AssertionError(f"engine: {said}")
+    feats = tmx.runtime.Features()
+    _log(f"util engine: NaiveEngine: {said['NaiveEngine'][0]}; default: "
+         f"{said['ThreadedEnginePerDevice'][0]}")
+    _log(f"util runtime: {feats}")
+    for name, want in (("CUDA", True), ("CUDNN", True), ("TPU", False),
+                       ("XLA", False), ("PALLAS", False)):
+        if feats.is_enabled(name) != want:
+            raise AssertionError(f"runtime feature {name} is not {want}")
+
+
+def _util_consistency(torch, tmx):
+    """check_consistency over [gpu(0), cpu(0)] on FullyConnected,
+    LayerNorm and dot with a bf16 first input and f32 others (C.12 on the
+    card: float32 outputs within float32's default tolerances)."""
+    tu = tmx.test_utils
+    r = np.random.RandomState(7)
+    x = r.randn(512, 768).astype(np.float32)
+    cases = {
+        "FullyConnected": (lambda a, w, b: tmx.nd.FullyConnected(
+            a.astype("bfloat16"), w, b, num_hidden=3072),
+            [x, r.randn(3072, 768).astype(np.float32) * 0.02,
+             r.randn(3072).astype(np.float32)]),
+        "LayerNorm": (lambda a, g, b: tmx.nd.LayerNorm(
+            a.astype("bfloat16"), g, b),
+            [x, r.randn(768).astype(np.float32),
+             r.randn(768).astype(np.float32)]),
+        "dot": (lambda a, b: tmx.nd.dot(a.astype("bfloat16"), b),
+                [x, r.randn(768, 1024).astype(np.float32) * 0.02]),
+    }
+    for name, (f, ins) in cases.items():
+        outs = tu.check_consistency(f, ins)
+        dt = f(*[tmx.nd.array(a, ctx=tmx.gpu()) for a in ins]).dtype
+        if len(outs) != 2 or dt != np.float32:
+            raise AssertionError(f"{name}: {len(outs)} contexts, {dt}")
+    _log(f"util consistency: {sorted(cases)} with a bf16 first input: "
+         f"float32 outputs, gpu(0) within float32's tolerances of cpu(0)")
+
+
+def _util_custom_op(torch, tmx):
+    """A CustomOp with a backward (y = x^2 s) on the card: its gradients
+    against the CPU's, which check_numeric_gradient holds to central
+    differences."""
+    name = "smoke_square_scale"
+    if name not in tmx.operator.get_all_registered():
+        @tmx.operator.register(name)
+        class _Prop(tmx.operator.CustomOpProp):
+            def list_arguments(self):
+                return ["data", "scale"]
+
+            def create_operator(self, ctx, shapes, dtypes):  # noqa: ARG002
+                class Op(tmx.operator.CustomOp):
+                    def forward(self, is_train, req, in_data, out_data,
+                                aux):  # noqa: ARG002
+                        x, s = in_data
+                        self.assign(out_data[0], req[0], x * x * s)
+
+                    def backward(self, req, out_grad, in_data, out_data,
+                                 in_grad, aux):  # noqa: ARG002
+                        x, s = in_data
+                        self.assign(in_grad[0], req[0],
+                                    2 * x * s * out_grad[0])
+                        self.assign(in_grad[1], req[1], x * x * out_grad[0])
+                return Op()
+
+    def f(x, s):
+        return tmx.nd.Custom(x, s, op_type=name)
+
+    r = np.random.RandomState(3)
+    ins = [r.randn(4, 5), r.randn(4, 5)]
+    tmx.test_utils.check_numeric_gradient(f, ins, ctx=tmx.cpu(), rtol=1e-4,
+                                          atol=1e-6)
+    grads = {}
+    for ctx in (tmx.gpu(), tmx.cpu()):
+        xs = [tmx.nd.array(a, ctx=ctx) for a in ins]
+        for v in xs:
+            v.attach_grad()
+        with tmx.autograd.record():
+            y = f(*xs)
+        y.backward()
+        grads[ctx] = [v.grad.asnumpy() for v in xs]
+        if ctx == tmx.gpu() and y._data.device.type != "cuda":
+            raise AssertionError("the custom op left the card")
+    for g, c in zip(grads[tmx.gpu()], grads[tmx.cpu()]):
+        tmx.test_utils.assert_almost_equal(g, c, names=("gpu", "cpu"))
+    _log("util custom op: x^2 s on the card, its backward's gradients "
+         "equal to the CPU's, which central differences confirm")
+
+
+def util_phase(torch, fa, mx, args, smi):
+    """The training utilities as a user's script drives them, on BERT-base
+    at bench.py's bert_seq512 width (vocab 30522, batch 32, seq 512, bf16,
+    multi-precision Adam, dropout 0), attention through the flash forward
+    and the fused backward: the fused optimizer against the per-parameter
+    update, 2-bit compression against the CPU, checkpoint and resume after
+    a fault and after SIGTERM, the monitor, the Speedometer, the engine,
+    runtime features, check_consistency with mixed dtypes and a CustomOp.
+    Returns (launch counts of the BERT steps, numbers)."""
+    tmx = mx["pkg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.RandomState(args.seed + 16)
+    toks = rng.randint(0, UTIL["vocab"], (UTIL["batch"], UTIL["len"]))
+    labs = rng.randint(0, UTIL["vocab"], (UTIL["batch"], UTIL["len"]))
+    run = _UtilRun(torch, tmx, _util_net(torch, tmx, args.seed), toks, labs)
+    saved_env = os.environ.get("MXNET_OPTIMIZER_FUSED")
+    root = tempfile.mkdtemp(prefix="mx_util_")
+    numbers = {}
+    _reset_counts(fa)
+    try:
+        numbers.update(_util_fused(torch, tmx, run))
+        numbers.update(_util_compression(torch, tmx, run))
+        numbers.update(_util_resume(torch, tmx, run, root))
+        counts = _counts(fa)
+        _util_monitor(torch, tmx, mx, run)
+        _util_speedometer(tmx, run)
+    finally:
+        if saved_env is None:
+            os.environ.pop("MXNET_OPTIMIZER_FUSED", None)
+        else:
+            os.environ["MXNET_OPTIMIZER_FUSED"] = saved_env
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    if os.path.exists(root):
+        raise AssertionError(f"{root} is left behind")
+    run = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    _util_engine_runtime(torch, tmx)
+    _util_consistency(torch, tmx)
+    _util_custom_op(torch, tmx)
+    _log(f"util launches over the fused, compression and resume steps: "
+         f"{counts}")
+    if counts["flash_fwd"] < UTIL["layers"] or counts["flash_bwd_fused"] < \
+            UTIL["layers"] or counts["flash_bwd_fused"] % UTIL["layers"] \
+            or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"] \
+            or counts["flash_fwd_f32"] or counts["flash_bwd_fused_f32"]:
+        raise AssertionError(f"util: launches {counts}")
+    _log(f"util numbers ({smi}): " + ", ".join(
+        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in numbers.items()))
+    return counts, numbers
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -5011,6 +5680,7 @@ def main(argv=None):
     det_counts, _ = _phase("det", det_phase, torch, fa, mx, args, smi)
     moe_counts = _phase("moe", moe_phase, torch, fa, mx, args, smi)
     image_counts, _ = _phase("image", image_phase, torch, fa, mx, args, smi)
+    util_counts, _ = _phase("util", util_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -5048,6 +5718,9 @@ def main(argv=None):
         "image_launches": image_counts["flash_fwd"],
         # the mt phase's timed steps: transformer_base, f32 and bf16
         "mt_launches": mt_counts["flash_fwd"],
+        # the util phase's BERT-base bf16 steps (fused optimizer,
+        # compression, checkpoint and resume)
+        "util_launches": util_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -5113,6 +5786,7 @@ def main(argv=None):
                 "moe_launches": _dtype_count(moe_counts, kind_, pre),
                 "image_launches": _dtype_count(image_counts, kind_, pre),
                 "mt_launches": _dtype_count(mt_counts, kind_, pre),
+                "util_launches": _dtype_count(util_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

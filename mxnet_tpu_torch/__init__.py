@@ -47,6 +47,12 @@ Then the rest of ``parallel.TrainStep`` (microbatching, rematerialisation
 through ``gluon.utils.remat_call``, one CUDA graph per step signature),
 ``amp`` (the reference's cast lists at the dispatch chokepoint) and the
 transformer-base MT model (``gluon.model_zoo.transformer``).
+Then the training utilities: ``checkpoint`` (step checkpoints and
+``auto_resume``), 2-bit gradient compression (``kvstore.compression``),
+``optimizer_fusion`` (fused Adam and SGD), ``monitor``, ``callback``,
+``model`` (``.params`` checkpoints), ``engine``, ``runtime``,
+``test_utils``, ``operator`` (``CustomOp``, ``nd.Custom``) and
+``library``; mixed float inputs promote as ``jnp`` does.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -90,3 +96,6 @@ from . import kvstore  # noqa: E402,F401
 from . import kvstore as kv  # noqa: E402,F401
 from . import recordio, image, io  # noqa: E402,F401
 from . import amp  # noqa: E402,F401
+from . import engine, runtime, test_utils  # noqa: E402,F401
+from . import monitor, callback, model, checkpoint  # noqa: E402,F401
+from . import operator, library, optimizer_fusion  # noqa: E402,F401

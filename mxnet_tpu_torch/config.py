@@ -70,6 +70,30 @@ KNOWN_VARS = {
         "If 1, LlamaModel(remat=None) recomputes each decoder block's "
         "activations during backward (remat_call per block) instead of "
         "keeping them (MXNet's mirror memory/compute trade)."),
+    "MXNET_ENGINE_TYPE": (
+        "ThreadedEnginePerDevice",
+        "Execution engine. 'NaiveEngine' synchronizes the device after "
+        "every op, so an asynchronous CUDA error surfaces at the op that "
+        "caused it; anything else keeps torch's asynchronous launches."),
+    "MXNET_OPTIMIZER_FUSED": (
+        "1",
+        "If 1 (default), exact Adam and SGD updates of a gluon.Trainer "
+        "run as one update over all parameters (optimizer_fusion: one "
+        "chain of in-place torch._foreach_* passes per dtype, bitwise "
+        "identical to the per-key path); 0 updates key by key."),
+    "MXNET_OPTIMIZER_BUCKET_MB": (
+        "25",
+        "The reference's fused-optimizer bucket bound (MB). <= 0 "
+        "disables optimizer fusion; a positive value bounds nothing here "
+        "(the fused update covers all parameters at once)."),
+    "MXNET_CHECKPOINT_KEEP": (
+        "3",
+        "How many step checkpoints mx.checkpoint.CheckpointManager keeps."),
+    "MXNET_RESILIENCE_SIGTERM_SAVE": (
+        "1",
+        "If 1, mx.checkpoint.auto_resume installs a SIGTERM hook that "
+        "checkpoints after the in-flight step and returns cleanly "
+        "(preemption-safe save); 0 leaves the default signal behavior."),
     "MXNET_SERVING_BLOCK_TOKENS": (
         "16", "Paged-KV block size (token positions per pool block)."),
     "MXNET_SERVING_MAX_BATCH": (

@@ -21,7 +21,9 @@ import torch
 from .base import MXNetError
 
 __all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device",
-           "context_of", "num_gpus"]
+           "context_of", "num_gpus", "used_cuda_devices"]
+
+_used_cuda = set()      # CUDA indices resolve_device gave out (None: current)
 
 
 class Context:
@@ -107,8 +109,19 @@ def resolve_device(device=None):
         device = current_context()
     dev = device.torch_device() if isinstance(device, Context) \
         else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise MXNetError(
-            "no CUDA device is available; pass ctx=mx.cpu() (or "
-            "device='cpu') to run on the host explicitly")
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise MXNetError(
+                "no CUDA device is available; pass ctx=mx.cpu() (or "
+                "device='cpu') to run on the host explicitly")
+        _used_cuda.add(dev.index)
     return dev
+
+
+def used_cuda_devices():
+    """The CUDA device indices the port has resolved so far (the current
+    device stands for an index-less ``"cuda"``)."""
+    if not _used_cuda:
+        return set()
+    return {torch.cuda.current_device() if i is None else i
+            for i in _used_cuda}

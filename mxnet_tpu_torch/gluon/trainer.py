@@ -4,9 +4,12 @@
 then, after ``loss.backward()``, ``step(batch_size)``: the gradients are
 rescaled by 1/batch_size, each parameter's gradients of every context are
 summed through the kvstore and written back into every replica, and every
-replica is updated by its own ``Updater`` (one ``update_multi`` over all
-parameters, ``torch._foreach_*``), so the replicas stay identical; each
-logical step advances the update counts (Adam's t, the schedule) once.
+replica is updated by its own ``Updater``, so the replicas stay
+identical; each logical step advances the update counts (Adam's t, the
+schedule) once.  Every optimizer runs one ``update_multi`` over all
+parameters (``torch._foreach_*``; ``optimizer_fusion.fused_update`` for
+exact Adam and SGD); with ``MXNET_OPTIMIZER_FUSED=0`` Adam and SGD update
+key by key instead, with the same bits.
 With ``update_on_kvstore`` the store runs the optimizer on the summed
 gradient and ``pull`` hands every replica the updated weight.
 
@@ -20,14 +23,18 @@ and ``update()`` raise when the store owns the update; ``save_states``/
 reference's pickled layout (``optimizer.Updater``), so a file written by
 either package's Trainer loads in the other.
 
-Not ported: gradient compression (``compression_params``) and the
-distributed stores; both raise.
+``compression_params`` set 2-bit gradient compression on the store
+(``kvstore/compression.py``) when there is one; a string store with one
+replica is skipped, so then nothing is compressed, as in the reference.
+
+Not ported: the distributed stores raise.
 """
 
 from __future__ import annotations
 
 from .. import kvstore as kvs
 from .. import optimizer as opt
+from .. import optimizer_fusion
 from ..base import MXNetError
 from .parameter import Parameter, ParameterDict
 
@@ -48,9 +55,6 @@ class Trainer:
         for p in params:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
-        if compression_params:
-            raise MXNetError("gradient compression is not yet ported to "
-                             "mxnet_tpu_torch")
         if isinstance(kvstore, str) and kvstore.lower() not in _SKIPPABLE:
             kvstore = kvs.create(kvstore)     # raises for dist_* names
         self._params = list(params)
@@ -58,6 +62,7 @@ class Trainer:
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
         self._kvstore_type = kvstore
+        self._compression_params = compression_params
         self._kvstore = None
         self._kv_initialized = False
         self._update_on_kvstore = bool(update_on_kvstore)
@@ -95,6 +100,9 @@ class Trainer:
         else:
             self._kvstore = kvt
         if self._kvstore is not None:
+            if self._compression_params:
+                self._kvstore.set_gradient_compression(
+                    self._compression_params)
             for i, p in enumerate(self._params):
                 if p.grad_req != "null":
                     self._kvstore.init(i, p.data())
@@ -187,9 +195,24 @@ class Trainer:
         self._optimizer.rescale_grad = self._scale / batch_size
         self._update(ignore_stale_grad)
 
+    def _fused_kind(self):
+        """``"adam"``/``"sgd"`` when this step's update is
+        ``optimizer_fusion.fused_update``, else None: the knob off, another
+        optimizer, or the store owns the update."""
+        if self._update_on_kvstore or \
+                not optimizer_fusion.fusion_active(self._optimizer):
+            return None
+        return optimizer_fusion.supported_kind(self._optimizer)
+
     def _update(self, ignore_stale_grad=False):  # noqa: ARG002
         o = self._optimizer
         trained = self._trained()
+        if self._fused_kind() is not None:
+            run = self._update_fused
+        elif optimizer_fusion.supported_kind(o) is not None:
+            run = self._update_per_param
+        else:
+            run = opt.Updater.call_multi
         counts, num = dict(o._index_update_count), o.num_update
         for j, upd in enumerate(self._updaters):
             if j:       # every replica sees the same step count
@@ -198,9 +221,22 @@ class Trainer:
                 o.num_update = num
             idx = [i for i, p in trained if j < len(p._data_list)]
             if idx:
-                upd.call_multi(
-                    idx, [self._params[i]._data_list[j]._grad for i in idx],
+                run(upd, idx,
+                    [self._params[i]._data_list[j]._grad for i in idx],
                     [self._params[i]._data_list[j] for i in idx])
+
+    @staticmethod
+    def _update_fused(upd, idx, grads, weights):
+        """One ``optimizer_fusion.fused_update`` over all of ``idx``."""
+        states = [upd._ensure_state(i, w._data) for i, w in zip(idx, weights)]
+        optimizer_fusion.fused_update(upd.optimizer, idx, weights, grads,
+                                      states)
+
+    @staticmethod
+    def _update_per_param(upd, idx, grads, weights):
+        """One update a key, the reference's path with fusion off."""
+        for i, g, w in zip(idx, grads, weights):
+            upd.call_multi([i], [g], [w])
 
     def save_states(self, fname):
         """Write the optimizer state and update counts to ``fname``."""

@@ -10,8 +10,12 @@ output, on its own device.  ``pushpull_list`` reduces many keys at once,
 bucket by bucket (``fusion.GradBucketer``), with the same adds as the
 per-key path, so the two give the same bits.
 
-Not ported: gradient compression and ``row_sparse_pull`` (the port has no
-sparse storage); both raise.
+With ``set_gradient_compression`` each replica's pushed gradient is
+quantized to 2 bits and dequantized (``compression.py``, a residual per
+key and replica) before the reduction, as MXNet's workers quantize
+before they send; keys then reduce one by one.
+
+Not ported: ``row_sparse_pull`` (the port has no sparse storage) raises.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import torch
 
 from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
 from . import fusion
 from .base import KVStoreBase
 
@@ -44,6 +49,7 @@ class KVStoreLocal(KVStoreBase):
         self._optimizer = None
         self._bucket_bytes = fusion.bucket_bytes_from_env()
         self._bucketer = None
+        self._compression = None
 
     @property
     def type(self):
@@ -87,7 +93,7 @@ class KVStoreLocal(KVStoreBase):
         if _is_list(key):
             key = key[0]
         stored = self._stored(key)
-        merged = self._reduce(value)
+        merged = self._reduce(self._compress_values(key, value))
         if self._updater is not None:
             self._updater(key, merged, stored)
         else:
@@ -124,8 +130,10 @@ class KVStoreLocal(KVStoreBase):
 
     def pushpull_list(self, keys, values, outs, priority=0):
         """pushpull of every key: bucket by bucket, unless the store owns
-        the update (it runs per key inside push) or buckets are off."""
-        if self._updater is not None or self._bucket_bytes <= 0:
+        the update (it runs per key inside push), buckets are off or
+        gradients are compressed."""
+        if self._updater is not None or self._bucket_bytes <= 0 \
+                or self._compression is not None:
             return KVStoreBase.pushpull_list(self, keys, values, outs,
                                              priority=priority)
         vlists = [list(v) if _is_list(v) else [v] for v in values]
@@ -164,9 +172,23 @@ class KVStoreLocal(KVStoreBase):
         self._optimizer = optimizer
         self._updater = opt.get_updater(optimizer)
 
-    def set_gradient_compression(self, compression_params):  # noqa: ARG002
-        raise MXNetError("gradient compression is not yet ported to "
-                         "mxnet_tpu_torch")
+    def set_gradient_compression(self, compression_params):
+        """2-bit compression with error feedback of every pushed gradient
+        (MXNet's ``set_gradient_compression``)."""
+        from .compression import GradientCompression
+        self._compression = GradientCompression(compression_params)
+
+    def _compress_values(self, key, values):
+        """Each replica's value quantized and dequantized."""
+        if self._compression is None:
+            return values
+        out = []
+        for slot, v in enumerate(values if _is_list(values) else [values]):
+            packed, shape, dtype = self._compression.compress(key, slot,
+                                                              v._data)
+            out.append(NDArray(self._compression.decompress(packed, shape,
+                                                            dtype), v._ctx))
+        return out if _is_list(values) else out[0]
 
     def save_optimizer_states(self, fname, dump_optimizer=False):
         if self._updater is None:

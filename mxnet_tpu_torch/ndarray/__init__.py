@@ -13,4 +13,15 @@ from .ndarray import (  # noqa: F401
 )
 from . import register as _register
 
+
+def Custom(*inputs, op_type=None, **kwargs):  # noqa: N802 (MXNet's name)
+    """A user-registered Python op (``mx.operator``); under autograd its
+    ``backward`` is the gradient."""
+    from ..base import MXNetError
+    if op_type is None:
+        raise MXNetError("nd.Custom requires op_type=")
+    from .. import operator as _op
+    return _op.invoke_custom(list(inputs), op_type, **kwargs)
+
+
 _GENERATED = _register.populate(_sys.modules[__name__])

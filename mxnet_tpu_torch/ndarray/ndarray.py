@@ -594,9 +594,9 @@ def from_dlpack(capsule):
 
 
 def waitall():
-    """Wait for all pending device work."""
-    if torch.cuda.is_available():
-        torch.cuda.synchronize()
+    """Wait for all pending device work (``engine.waitall``)."""
+    from .. import engine
+    engine.waitall()
 
 
 _SAVE_MAGIC = "mxnet_tpu.params.v1"

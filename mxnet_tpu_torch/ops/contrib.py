@@ -137,7 +137,7 @@ def masked_selfatt(qkv, valid_length=None, heads=1, causal=False):
     return out.permute(2, 0, 1, 3).reshape(L, B, E // 3)
 
 
-@register("contrib.masked_att_qkv")
+@register("contrib.masked_att_qkv", promote="common")
 def masked_att_qkv(q, k, v, valid_length=None, num_kv_groups=1,
                    causal=False):
     """Masked attention over separate (B, H, L, D) q/k/v.  k/v may carry
@@ -174,7 +174,7 @@ def _interleaved_matmul_selfatt_qk(qkv, heads=1):
                         k).reshape(-1, L, L)
 
 
-@register("contrib.interleaved_matmul_selfatt_valatt")
+@register("contrib.interleaved_matmul_selfatt_valatt", promote="common")
 def _interleaved_matmul_selfatt_valatt(qkv, att, heads=1):
     """(B heads, L, L) weights applied to the v of ``qkv`` -> (L, B,
     heads D)."""
@@ -192,7 +192,7 @@ def _kv_pair(kv, heads):
     return x[:, :, :, 0], x[:, :, :, 1]
 
 
-@register("contrib.interleaved_matmul_encdec_qk")
+@register("contrib.interleaved_matmul_encdec_qk", promote="common")
 def _interleaved_matmul_encdec_qk(q, kv, heads=1):
     """Scaled scores (B heads, Lq, Lk) of q (Lq, B, heads D) against the k
     of the interleaved ``kv``."""
@@ -203,7 +203,7 @@ def _interleaved_matmul_encdec_qk(q, kv, heads=1):
                         k).reshape(-1, Lq, kv.shape[0])
 
 
-@register("contrib.interleaved_matmul_encdec_valatt")
+@register("contrib.interleaved_matmul_encdec_valatt", promote="common")
 def _interleaved_matmul_encdec_valatt(kv, att, heads=1):
     """(B heads, Lq, Lk) weights applied to the v of ``kv`` -> (Lq, B,
     heads D)."""
@@ -225,7 +225,7 @@ def _merge_heads(x):
     return x.permute(2, 0, 1, 3).reshape(L, B, H * D)
 
 
-@register("contrib.multihead_attention_qk")
+@register("contrib.multihead_attention_qk", promote="common")
 def _multihead_attention_qk(q, k, heads=1):
     """Scaled scores (B heads, Lq, Lk) of q (Lq, B, heads D) and k (Lk, B,
     heads D)."""
@@ -235,7 +235,7 @@ def _multihead_attention_qk(q, k, heads=1):
     return att.reshape(-1, q.shape[0], k.shape[0])
 
 
-@register("contrib.multihead_attention_valatt")
+@register("contrib.multihead_attention_valatt", promote="common")
 def _multihead_attention_valatt(att, v, heads=1):
     """(B heads, Lq, Lk) weights applied to v (Lk, B, heads D)."""
     vh = _split_heads(v, heads)
@@ -243,7 +243,7 @@ def _multihead_attention_valatt(att, v, heads=1):
     return _merge_heads(torch.einsum("bhqk,bhkd->bhqd", a, vh))
 
 
-@register("contrib.multihead_attention")
+@register("contrib.multihead_attention", promote="common")
 def multihead_attention(q, k, v, valid_length=None, heads=1, causal=False,
                         flash_reference=False):
     """Masked multi-head attention over separate time-major projections q
@@ -270,7 +270,7 @@ def multihead_attention(q, k, v, valid_length=None, heads=1, causal=False,
     return _merge_heads(out)
 
 
-@register("contrib.masked_encdec_att")
+@register("contrib.masked_encdec_att", promote="common")
 def masked_encdec_att(q, kv, valid_length=None, heads=1,
                       flash_reference=False):
     """Masked encoder-decoder attention: decoder queries q (Lq, B, heads D)
@@ -469,11 +469,11 @@ def _quadratic(data, a=0.0, b=0.0, c=0.0):
     return a * data * data + b * data + c
 
 
-@register("contrib.allclose", differentiable=False)
+@register("contrib.allclose", differentiable=False, promote="common")
 def _allclose(a, b, rtol=1e-5, atol=1e-8, equal_nan=False):
-    """1.0 when every element of ``a`` is close to ``b``, else 0.0 (a
-    float32 scalar)."""
-    close = torch.isclose(a, b.to(a.dtype), rtol=rtol, atol=atol,
+    """1.0 when every element of ``a`` is close to ``b``, compared in
+    their promoted dtype, else 0.0 (a float32 scalar)."""
+    close = torch.isclose(a, b, rtol=rtol, atol=atol,
                           equal_nan=equal_nan).all()
     return close.to(torch.float32)
 
@@ -530,7 +530,7 @@ def _count_sketch(data, h, s, out_dim=16):
     return (data * sign[None, :]) @ oh
 
 
-@register("ctc_loss")
+@register("ctc_loss", host_f32=True)
 def _ctc_loss(data, label, data_lengths=None, label_lengths=None,
               use_data_lengths=False, use_label_lengths=False,
               blank_label="first"):

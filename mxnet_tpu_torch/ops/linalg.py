@@ -22,7 +22,7 @@ def _t(x):
     return x.transpose(-1, -2)
 
 
-@register("linalg.gemm")
+@register("linalg.gemm", promote="common")
 def _gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
           beta=1.0, axis=-2):  # noqa: N803,ARG001
     """alpha op(A) op(B) + beta C."""
@@ -31,7 +31,7 @@ def _gemm(A, B, C, transpose_a=False, transpose_b=False, alpha=1.0,
     return alpha * torch.matmul(a, b) + beta * C
 
 
-@register("linalg.gemm2")
+@register("linalg.gemm2", promote="common")
 def _gemm2(A, B, transpose_a=False, transpose_b=False, alpha=1.0,
            axis=-2):  # noqa: N803,ARG001
     """alpha op(A) op(B)."""
@@ -59,7 +59,7 @@ def _potrf(A):  # noqa: N803
     return torch.linalg.cholesky(_sym(A))
 
 
-@register("linalg.potri")
+@register("linalg.potri", host_f32=True)
 def _potri(L):  # noqa: N803
     """(L L^T)^-1 from the Cholesky factor L."""
     eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device) \
@@ -68,7 +68,7 @@ def _potri(L):  # noqa: N803
     return torch.matmul(_t(linv), linv)
 
 
-@register("linalg.trsm")
+@register("linalg.trsm", promote="common", host_f32=True)
 def _trsm(A, B, transpose=False, rightside=False, lower=True,
           alpha=1.0):  # noqa: N803
     """X with op(A) X = alpha B (X op(A) = alpha B with ``rightside``),
@@ -81,7 +81,7 @@ def _trsm(A, B, transpose=False, rightside=False, lower=True,
     return torch.linalg.solve_triangular(a, alpha * B, upper=not lo)
 
 
-@register("linalg.trmm")
+@register("linalg.trmm", promote="common")
 def _trmm(A, B, transpose=False, rightside=False, lower=True,
           alpha=1.0):  # noqa: N803
     """alpha op(A) B (B op(A) with ``rightside``), A triangular."""
@@ -178,7 +178,7 @@ def _gelqf(A):  # noqa: N803
     return _t(r), _t(q)
 
 
-register("linalg.solve")(torch.linalg.solve)
+register("linalg.solve", promote="common")(torch.linalg.solve)
 
 
 @register("linalg.tensorinv")
@@ -209,6 +209,6 @@ def _pinv(A, rcond=1e-15):  # noqa: N803
     return torch.linalg.pinv(A, rtol=rcond)
 
 
-@register("einsum")
+@register("einsum", promote="common")
 def _einsum(*operands, subscripts=""):
     return torch.einsum(subscripts, *operands)

@@ -94,7 +94,7 @@ def basic_index(t, key, value=None):
     return t
 
 
-@register("dot")
+@register("dot", promote="common")
 def _dot(lhs, rhs, transpose_a=False, transpose_b=False):
     """2-D product; for N-D inputs, contracts lhs's last axis with rhs's
     first (``tensordot`` with one axis)."""
@@ -105,7 +105,7 @@ def _dot(lhs, rhs, transpose_a=False, transpose_b=False):
     return torch.tensordot(a, b, dims=1)
 
 
-@register("batch_dot")
+@register("batch_dot", promote="common")
 def _batch_dot(lhs, rhs, transpose_a=False, transpose_b=False):
     a = lhs.transpose(-1, -2) if transpose_a else lhs
     b = rhs.transpose(-1, -2) if transpose_b else rhs
@@ -333,7 +333,7 @@ def _pad(x, mode="constant", pad_width=(), constant_value=0.0):
 
 # -- products and shapes ------------------------------------------------------
 
-@register("matmul")
+@register("matmul", promote="common")
 def _matmul(a, b):
     return torch.matmul(a, b)
 
@@ -468,14 +468,14 @@ def _scatter_nd(data, indices, shape=None):
     return out.index_put(idx, data, accumulate=True)
 
 
-@register("index_add")
+@register("index_add", promote="first")
 def _index_add(old, index, new):
     """``old`` with ``new`` added at rows ``index``."""
     return old.index_put((_in_range(index, old.shape[0]),), new,
                          accumulate=True)
 
 
-@register("index_copy")
+@register("index_copy", promote="first")
 def _index_copy(old, index, new):
     """``old`` with rows ``index`` replaced by ``new``."""
     return old.index_put((_in_range(index, old.shape[0]),), new)

@@ -37,7 +37,7 @@ from .registry import register
 __all__ = ["softmax_cross_entropy", "rnn_infer"]
 
 
-@register("FullyConnected")
+@register("FullyConnected", promote="common")
 def _fully_connected(data, weight, bias=None, num_hidden=0, no_bias=False,
                      flatten=True):  # noqa: ARG001
     x = data.reshape(data.shape[0], -1) if flatten else data
@@ -112,7 +112,7 @@ def softmax_cross_entropy(data, label):
     return -logp.gather(-1, label.long().reshape(-1, 1)).sum()
 
 
-@register("LayerNorm")
+@register("LayerNorm", promote="common")
 def _layer_norm(data, gamma, beta, axis=-1, eps=1e-5,
                 output_mean_var=False):  # noqa: ARG001
     """(data - mean) / sqrt(var + eps) * gamma + beta over ``axis``
@@ -200,7 +200,7 @@ def _unpack_rnn_params(params, mode, num_layers, input_size, hidden, d):
 
 
 @register("RNN", num_outputs=-1, wrap_key="_generator",
-          wrap_train="_training")
+          wrap_train="_training", promote="common", host_f32=True)
 def _rnn(data, parameters, state, state_cell=None, state_size=0,
          num_layers=1, mode="lstm", bidirectional=False, p=0.0,
          state_outputs=False, projection_size=None,
@@ -424,13 +424,13 @@ def _batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-3,
     return out, new_mm, new_mv
 
 
-@register("GroupNorm")
+@register("GroupNorm", promote="common")
 def _group_norm(data, gamma, beta, num_groups=1, eps=1e-5,
                 output_mean_var=False):  # noqa: ARG001
     return F.group_norm(data, num_groups, gamma, beta, eps)
 
 
-@register("InstanceNorm")
+@register("InstanceNorm", promote="common")
 def _instance_norm(data, gamma, beta, eps=1e-3):
     return F.instance_norm(data, weight=gamma, bias=beta, eps=eps)
 

@@ -24,8 +24,17 @@ alike, and returns them cast (``set_dispatch_cast_hook``); each change of
 the hook bumps :func:`dispatch_epoch`, by which a captured training step
 knows its graphs baked the old casts.
 
-Not ported: the reference's per-op jit cache (eager torch has nothing to
-compile), its monitor and cost-model hooks.
+After the cast hook, an op registered with ``promote`` gets its float
+inputs in one dtype, as ``jnp``'s promotion gives the reference's ops
+(torch's matmuls, index writes and fused norms want equal dtypes), and an
+op registered with ``host_f32`` computes 16-bit float inputs in float32
+on the CPU, whose kernels lack bfloat16 there, and casts its float
+outputs back.
+
+Monitor hooks (``mx.monitor``) see each op's outputs after
+:func:`invoke`, and ``engine.on_dispatch`` runs there (NaiveEngine's
+synchronisation).  Not ported: the reference's per-op jit cache (eager
+torch has nothing to compile) and its cost-model hook.
 """
 
 from __future__ import annotations
@@ -36,7 +45,7 @@ from ..base import MXNetError
 
 __all__ = ["Op", "register", "get", "alias", "list_ops", "invoke",
            "invoke_arrays", "tensor_ops", "set_dispatch_cast_hook",
-           "dispatch_epoch"]
+           "dispatch_epoch", "add_monitor_hook", "remove_monitor_hook"]
 
 _REGISTRY: dict = {}
 # fn(op_name, tensors) -> tensors, applied before every op (amp); the epoch
@@ -58,6 +67,23 @@ def dispatch_epoch():
     return _dispatch_epoch
 
 
+# fn(op_name, output tensors), called after each op that :func:`invoke`
+# runs (mx.monitor); several monitors may be installed at once
+_monitor_hooks: list = []
+
+
+def add_monitor_hook(fn):
+    if fn not in _monitor_hooks:
+        _monitor_hooks.append(fn)
+
+
+def remove_monitor_hook(fn):
+    try:
+        _monitor_hooks.remove(fn)
+    except ValueError:
+        pass
+
+
 class Op:
     """One registered operator.
 
@@ -77,15 +103,27 @@ class Op:
         on under this keyword: an op without tensor inputs (``_zeros``,
         ``eye``) creates its output there (the reference places it on the
         current context).
+    promote : ``"common"``: dispatch casts the float inputs to their
+        promoted dtype (``torch.promote_types``: bfloat16 and float32 give
+        float32, as in ``jnp``); ``"first"``: to the first input's dtype
+        (an indexed write keeps its destination's, as ``.at[]`` does);
+        None: as given.
+    host_f32 : 16-bit float inputs on the CPU are computed in float32 and
+        the float outputs cast back to their dtype (torch's CPU kernel
+        lacks bfloat16; the card's path is unchanged).
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable",
                  "mutate_inputs", "visible_outputs", "wrap_key", "wrap_train",
-                 "wrap_device", "doc")
+                 "wrap_device", "promote", "host_f32", "doc")
 
     def __init__(self, name, fn, num_outputs=1, differentiable=True,
                  mutate_inputs=(), visible_outputs=None, wrap_key=None,
-                 wrap_train=None, wrap_device=None, doc=None):
+                 wrap_train=None, wrap_device=None, promote=None,
+                 host_f32=False, doc=None):
+        if promote not in (None, "common", "first"):
+            raise MXNetError(f"op {name!r}: promote must be None, 'common' "
+                             f"or 'first', got {promote!r}")
         self.name = name
         self.fn = fn
         self.num_outputs = num_outputs
@@ -95,6 +133,8 @@ class Op:
         self.wrap_key = wrap_key
         self.wrap_train = wrap_train
         self.wrap_device = wrap_device
+        self.promote = promote
+        self.host_f32 = host_f32
         self.doc = doc if doc is not None else fn.__doc__
 
     def __repr__(self):
@@ -151,6 +191,42 @@ def _with_implicit(op, attrs, device):
     return attrs
 
 
+def _is_float(t):
+    return isinstance(t, torch.Tensor) and t.is_floating_point()
+
+
+def _promote(mode, tensors):
+    """``tensors`` with every float one in the dtype ``mode`` names."""
+    floats = [t.dtype for t in tensors if _is_float(t)]
+    if len(set(floats)) < 2:
+        return tensors
+    if mode == "first":
+        dt = floats[0]
+    else:
+        dt = floats[0]
+        for d in floats[1:]:
+            dt = torch.promote_types(dt, d)
+    return [t.to(dt) if _is_float(t) else t for t in tensors]
+
+
+def _run_host_f32(op, tensors, attrs):
+    """``op`` on the CPU with its 16-bit float inputs in float32, the
+    float outputs cast back to the narrowest input dtype."""
+    narrow = next((t.dtype for t in tensors
+                   if _is_float(t) and t.itemsize < 4), None)
+    if narrow is None or not any(_is_float(t) and t.device.type == "cpu"
+                                 for t in tensors):
+        return op.fn(*tensors, **attrs)
+    raw = op.fn(*[t.float() if _is_float(t) and t.itemsize < 4 else t
+                  for t in tensors], **attrs)
+    back = [t.to(narrow) if _is_float(t) and t.dtype == torch.float32
+            else t
+            for t in (raw if isinstance(raw, (tuple, list)) else [raw])]
+    if isinstance(raw, (tuple, list)):
+        return type(raw)(back)
+    return back[0]
+
+
 def invoke_arrays(op, tensors, attrs, device=None):
     """Run ``op`` on raw tensors: no NDArray wrapping and no change of
     torch's grad mode."""
@@ -161,7 +237,12 @@ def invoke_arrays(op, tensors, attrs, device=None):
                        if isinstance(t, torch.Tensor)), None)
     if _cast_hook is not None:
         tensors = _cast_hook(op.name, list(tensors))
-    return op.fn(*tensors, **_with_implicit(op, attrs or {}, device))
+    if op.promote is not None:
+        tensors = _promote(op.promote, tensors)
+    attrs = _with_implicit(op, attrs or {}, device)
+    if op.host_f32:
+        return _run_host_f32(op, tensors, attrs)
+    return op.fn(*tensors, **attrs)
 
 
 def _write_back(op, tensors, outs):
@@ -188,7 +269,7 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     """The ``Imperative::Invoke`` analog: run ``op`` on NDArray ``inputs``
     (recorded under ``autograd.record()``) and return NDArray output(s),
     written into ``out`` when given."""
-    from .. import autograd
+    from .. import autograd, engine
     from ..context import resolve_device
     from ..ndarray.ndarray import NDArray
     if isinstance(op, str):
@@ -202,6 +283,10 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     with torch.set_grad_enabled(recording):
         raw = invoke_arrays(op, tensors, attrs, device)
     outs = list(raw) if isinstance(raw, (tuple, list)) else [raw]
+    engine.on_dispatch(outs)
+    if _monitor_hooks and not engine.capturing():
+        for hook in list(_monitor_hooks):
+            hook(op.name, outs)
     if op.mutate_inputs:
         _write_back(op, tensors, outs)
     if recording:
@@ -248,7 +333,8 @@ class _TensorNamespace:
                 def fn(*tensors, _op=op, **attrs):
                     return _invoke_tensors(_op, tensors, attrs)
             elif op.wrap_key is None and op.wrap_train is None \
-                    and op.wrap_device is None:
+                    and op.wrap_device is None and op.promote is None \
+                    and not op.host_f32:
                 fn = op.fn
                 if _cast_hook is not None:
                     def fn(*tensors, _op=op, _hook=_cast_hook, **attrs):

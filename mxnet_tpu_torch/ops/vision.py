@@ -262,7 +262,7 @@ def _roi_align(data, rois, pooled_size=(1, 1), spatial_scale=1.0,
     return samp.reshape(R, C, Ph, s, Pw, s).mean(dim=(3, 5))
 
 
-@register("contrib.PSROIPooling")
+@register("contrib.PSROIPooling", promote="common")
 def _psroi_pooling(data, rois, spatial_scale=1.0, output_dim=1,
                    pooled_size=7, group_size=0):
     """Position-sensitive ROI pooling (R-FCN): ``data`` (N, D g g, H, W);
@@ -352,7 +352,7 @@ def _correlation(data1, data2, kernel_size=1, max_displacement=1, stride1=1,
     return torch.stack(outs, 1).to(data1.dtype)
 
 
-@register("contrib.DeformableConvolution")
+@register("contrib.DeformableConvolution", promote="common")
 def _deformable_convolution(data, offset, weight, bias=None, kernel=(3, 3),
                             stride=(1, 1), pad=(0, 0), dilate=(1, 1),
                             num_filter=0, num_group=1,

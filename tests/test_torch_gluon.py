@@ -401,11 +401,9 @@ def test_not_yet_ported_raise():
                  lambda: mx.gluon.SymbolBlock(lambda x: x),
                  lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
                                           kvstore="dist_sync"),
-                 lambda: mx.gluon.Trainer(
-                     net.collect_params(), "sgd",
-                     compression_params={"type": "2bit"}),
-                 lambda: mx.kv.create("local").set_gradient_compression(
-                     {"type": "2bit"})):
+                 lambda: mx.model.load_checkpoint("x", 1),
+                 lambda: mx.model.FeedForward(None),
+                 lambda: mx.test_utils.rand_ndarray((2, 2), "csr")):
         with pytest.raises(mx.MXNetError, match="not yet ported"):
             call()
 
