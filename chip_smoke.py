@@ -49,7 +49,28 @@ result line; each prints its seconds):
     forward kernel's counter must grow by >= layers per prefill; one
     prefill is repeated with attention bound to the plain version and the
     logits compared;
- 7. train oracle — bert_3_128_2 at seq 512 (fused backward) and llama_small
+ 7. tier — the rest of serving at full width: (a) the serve phase's
+    llama3_8b behind ``ServingEngine(max_batch=8, block_tokens=16,
+    max_seq=2048, prefill_tokens=1024)`` answers 8 requests sharing a
+    768-token system prompt (48 blocks) with distinct 32-224-token tails,
+    16 new tokens each, with ``prefix_cache`` off and on: tokens equal,
+    >= 7 hits, fewer prefill positions with the cache, >= 32 flash
+    launches a cold prefill; wall ms of a cold prefill and of a hit
+    admission; (b) ``spec_k=3`` with the target as its own draft (weights
+    shared, a second pool: k+1 tokens every verify dispatch) and with a
+    llama_small draft at vocab 128256: tokens equal plain decoding;
+    decode ms an emitted token beside plain decoding, the accepted-draft
+    histogram; (c) transformer_base (vocab 32768) serves 8 sources of
+    100-256 tokens padded to ``prefill_tokens=256``: tokens equal the
+    port's ``greedy_decode`` of the same model on the card, >= 6 flash
+    launches a prefill (one per encoder layer); (d) the SLO histograms'
+    p50/p99 of TTFT and TPOT over (a)-(c); (e) ``serving.Router`` over two
+    llama_small replicas (vocab 32000, one seed) started as
+    ``python -m mxnet_tpu_torch.serving.replica`` on this card, 32
+    requests, replica 0 SIGKILLed while it decodes: every answer equals
+    an in-process engine's, the death, the retry and the respawn are
+    counted, and no process is left after ``Router.stop()``;
+ 8. train oracle — bert_3_128_2 at seq 512 (fused backward) and llama_small
     at seq 1024 (dq + dkv) train 6 steps on the card (``TrainStep`` captured
     as a CUDA graph: one eager warm-up, then 5 replays) and on the CPU
     (plain versions) from the same f32 weights and batches, Adam's rate
@@ -57,7 +78,7 @@ result line; each prints its seconds):
     masks on every replay, a replay after ``load_parameters`` reads the
     loaded weights, and a forward that reads to the host raises
     ``MXNetError`` at capture (the card and its memory fine after it);
- 8. train lanes — bench.py's bert_seq512 (BERT-base, batch 32, seq 512)
+ 9. train lanes — bench.py's bert_seq512 (BERT-base, batch 32, seq 512)
     and llama_seq2048 (8 layers, 2048 units, batch 4, seq 2048) lanes at
     full width, in bf16 with multi-precision Adam, then again in f32 with
     plain Adam (``bert_seq512_f32``, ``llama_seq2048_f32``, bench.py's
@@ -71,7 +92,7 @@ result line; each prints its seconds):
     Gluon loop; the bf16 BERT lane again at ``n_micro=4`` (losses agree,
     peak memory of each) and the f32 llama lane again with remat per
     decoder block (losses agree, less peak memory, step ms of both);
- 9. gluon — MXNet's canonical Gluon loop (``autograd.record()``,
+10. gluon — MXNet's canonical Gluon loop (``autograd.record()``,
     ``SoftmaxCELoss``, ``backward()``, ``gluon.Trainer("adam").step(B)``)
     over the Gluon BERT: (a) bert_3_128_2 built on the CPU and carried to
     the card by its ``collect_params()`` names trains 3 steps on a padded
@@ -84,7 +105,7 @@ result line; each prints its seconds):
     12 forward and 12 fused-backward kernels of its dtype's route; median
     step ms, samples/s, MFU, peak memory and profiled idle share of the
     Gluon loop beside the captured ``TrainStep``'s;
-10. mt — ``transformer_base`` (6 + 6 layers, 512, FFN 2048, 8 heads,
+11. mt — ``transformer_base`` (6 + 6 layers, 512, FFN 2048, 8 heads,
     vocabulary 32,768) at batch 16, source and target 256 tokens
     (lengths in [128, 256], Zipf-drawn tokens), label smoothing 0.1,
     Adam (0.9, 0.98, 1e-9) with a linear warm-up, dropout 0.1: 20 steps
@@ -96,7 +117,7 @@ result line; each prints its seconds):
     equal 3 captured steps; ``greedy_decode`` of 4 sentences at max_len
     64 equals the full forward's argmax; step ms, target tokens/s, MFU,
     peak memory, idle share and device ms by family;
-11. vision — the convolution, pooling, BatchNorm and pad ops card vs CPU,
+12. vision — the convolution, pooling, BatchNorm and pad ops card vs CPU,
     a small bottleneck ResNet (7x7 stem, max-pool) card vs CPU on the
     same weights carried by name (predict outputs, one SGD step, the
     running statistics), then bench.py's ResNet-50 lane: resnet50_v1
@@ -114,7 +135,7 @@ result line; each prints its seconds):
     logits card vs CPU at batch 2 and the CPU parity tests' input size on
     weights carried by name, then 3 SGD steps at batch 32 in f32 (losses
     finite), step ms and images/s;
-12. loop — MXNet's training loop around the model: (a) every optimizer
+13. loop — MXNet's training loop around the model: (a) every optimizer
     of ``mx.optimizer`` with a schedule, 3 steps of the small bottleneck
     ResNet on the card and on the CPU, f32 and bf16 (multi_precision: the
     f32 masters held as f32, each bf16 weight its master rounded);
@@ -138,7 +159,7 @@ result line; each prints its seconds):
     left, 12 bf16 forward and 12 bf16 fused backward launches a BERT step;
     step ms, images or samples/s, MFU, peak memory, idle share, ms in
     next() and in the metrics' update;
-13. nd — the rest of ``mx.nd``: (a) every op the port registers, the
+14. nd — the rest of ``mx.nd``: (a) every op the port registers, the
     samplers apart (``mxnet_tpu_torch/ops/sweep.py``: 268 ops under 309
     names), on the card and on the CPU from the same numpy inputs,
     outputs, dtypes and the gradients of the differentiable ops; (b) every
@@ -152,7 +173,7 @@ result line; each prints its seconds):
     heads) in f32 and bf16, forward and gradients, against the same op
     with the flash call bound to its plain version on the card and against
     the CPU; their device ms and the flash kernels' share;
-14. rnn — ``gluon.rnn`` over the ``RNN`` op: (a) the op in its four
+15. rnn — ``gluon.rnn`` over the ``RNN`` op: (a) the op in its four
     modes, uni- and bidirectional, 2 layers, T 35, N 32, I 256, H 512,
     f32, on the card against the CPU (outputs, final states, the
     gradients of data, flat parameters and states), each through cuDNN
@@ -168,7 +189,7 @@ result line; each prints its seconds):
     20).step``): losses finite and falling, median step ms, tokens/s,
     MFU, peak memory, idle share, device time by family and the LSTM
     layer's own device ms.  No flash kernel launches;
-15. det — (a) YOLOv3-DarkNet53 (``yolo3_darknet53(classes=80)``) at 416,
+16. det — (a) YOLOv3-DarkNet53 (``yolo3_darknet53(classes=80)``) at 416,
     batch 8 (GluonCV train_yolo3.py's --data-shape 416, one GPU's share of
     its batch 64 over 8), SGD lr 0.001, momentum 0.9, wd 5e-4,
     ``step(batch)``, targets from the host ``YOLOV3TargetGenerator`` for
@@ -191,13 +212,13 @@ result line; each prints its seconds):
     roi_align on the first ``DET_CPU_ROIS`` rois, Correlation on the
     first image: both devices run the slice), device and wall ms of the
     full shape.  No flash kernel launches;
-16. moe — ``gluon.contrib.SparseMoE`` at google/switch-base-8's widths
+17. moe — ``gluon.contrib.SparseMoE`` at google/switch-base-8's widths
     (768, 3072, 8 experts, capacity factor 1.25; GELU, see ``MOE``) on 16 x
     512 tokens with a router skewed by the inputs' mean (tokens dropped at
     capacity), k = 1 and k = 2, f32: forward and backward card vs CPU on
     the same weights, aux losses and dropped tokens equal; device ms and
     peak memory.  No flash kernel launches;
-17. image — the port's data input: (a) an ImageNet-shaped ``.rec`` (MXNet's
+18. image — the port's data input: (a) an ImageNet-shaped ``.rec`` (MXNet's
     example/image-classification recipe: im2rec at shorter side 480, JPEG
     quality 95) of 1280 synthetic images of 100 classes, aspects 4:3,
     3:4, 3:2 and 1:1, written by ``recordio.pack_img`` through the port's
@@ -224,7 +245,7 @@ result line; each prints its seconds):
     (f) ``imresize`` of a 375x500 image, all five codes, at (224, 224) and
     (341, 256) on the card against the CPU (within 1), device ms.  No
     flash kernel launches;
-18. util — the training utilities as a user's script drives them, on
+19. util — the training utilities as a user's script drives them, on
     BERT-base at bench.py's bert_seq512 width (vocab 30522, batch 32, seq
     512, bf16, multi-precision Adam at 1e-4, dropout 0; attention on the
     flash forward and the fused backward), see ``util_phase``: (a) 3
@@ -260,6 +281,9 @@ both, ``gluon_launches`` those of the Gluon loop's timed steps, f32 and
 bf16), and each backward entry point twice, bf16 (``flash_bwd_*``, the
 tensor-core kernels, launches of the bf16 lanes) and f32
 (``flash_bwd_*_f32``, the CUDA-core kernels, launches of the f32 lanes),
+every entry with the tier phase's launches (``tier_launches``: llama3_8b's
+cold prefills and transformer_base's encoder on the forward; 0 on the
+backward rows),
 the fused ones with the Gluon loop's launches in its dtype
 (``gluon_launches``), every entry with the vision phase's launches
 (``vision_launches``, 0: ResNet-50 has no attention) and the loop
@@ -850,6 +874,323 @@ def serve_phase(torch, fa, tmx, llama, serving, args):
     if err > LOGITS_TOL or tok_k != outs[-1][0]:
         raise AssertionError("prefill with the kernel disagrees with the "
                              "plain version or with the served token")
+    return counts, net
+
+
+TIER = {"shared": 768, "tail_min": 32, "tail_max": 224, "requests": 8,
+        "new": 16, "spec_k": 3, "mt_min": 100, "mt_max": 256,
+        "router_requests": 32, "router_vocab": 32000, "router_new": 16}
+TIER_ENGINE = dict(max_batch=8, block_tokens=16, max_seq=2048,
+                   prefill_tokens=1024)
+TIER_REPLICA = dict(max_batch=8, block_tokens=16, max_seq=512,
+                    prefill_tokens=256)
+
+
+def _hist_quantiles(h, qs=(0.5, 0.99)):
+    """Upper bucket bounds (seconds) below which a fraction ``q`` of a
+    telemetry histogram's observations lie ("+Inf" past the last)."""
+    snap = h.snapshot()
+    out = []
+    for q in qs:
+        want = q * snap["count"]
+        out.append(next((f"{b:g}" for b, c in snap["buckets"].items()
+                         if c >= want), "+Inf"))
+    return out
+
+
+def _timed(obj, name, sink):
+    """Wrap ``obj.name`` (a call that returns host values, so it ends
+    synchronised) to append its wall seconds to ``sink``."""
+    orig = getattr(obj, name)
+
+    def timed(*a, **kw):
+        t = time.perf_counter()
+        r = orig(*a, **kw)
+        sink.append(time.perf_counter() - t)
+        return r
+    setattr(obj, name, timed)
+
+
+def _served(torch, serving, net, prompts, new, **kw):
+    """One ServingEngine run of ``prompts``: (tokens, engine, wall s,
+    prefill s per call, decode-side s per call).  The engine is returned
+    so callers read its cache; they drop it before the next run."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    eng = serving.ServingEngine(net, eos_id=kw.pop("eos_id", -1), **kw)
+    pre, dec = [], []
+    ads = [eng.adapter] + ([eng._spec] if eng._spec is not None else [])
+    for ad in ads:
+        _timed(ad, "prefill", pre)
+        if hasattr(ad, "prefill_tail"):
+            _timed(ad, "prefill_tail", pre)
+        _timed(ad, "decode", dec)
+        if hasattr(ad, "decode_multi"):
+            _timed(ad, "decode_multi", dec)
+    t0 = time.perf_counter()
+    outs = eng.generate(prompts, max_new_tokens=new)
+    wall = time.perf_counter() - t0
+    return outs, eng, wall, pre, dec
+
+
+def _tier_prefix(torch, fa, tmx, serving, net, args, smi):
+    """Prefix cache at llama3_8b width: 8 requests sharing a 768-token
+    system prompt (48 blocks of 16) with distinct tails, off then on."""
+    tel = tmx.telemetry
+    vocab = int(net.embed.weight.shape[0])
+    layers = len(net.blocks)
+    rng = np.random.RandomState(args.seed + 17)
+    shared = rng.randint(3, vocab, TIER["shared"]).tolist()
+    tails = np.linspace(TIER["tail_min"], TIER["tail_max"],
+                        TIER["requests"]).astype(int)
+    prompts = [shared + rng.randint(3, vocab, int(n)).tolist()
+               for n in tails]
+    pos = tel.counter("mxnet_serving_prefill_positions_total")
+    runs = {}
+    for on in (False, True):
+        p0, f0 = pos.value, fa.launches
+        outs, eng, wall, pre, dec = _served(
+            torch, serving, net, prompts, TIER["new"], prefix_cache=on,
+            **TIER_ENGINE)
+        cache = eng.cache
+        runs[on] = {"outs": outs, "wall": wall, "pre": pre, "dec": dec,
+                    "positions": pos.value - p0, "flash": fa.launches - f0,
+                    "hits": cache.prefix_hits,
+                    "hit_tokens": cache.prefix_hit_tokens,
+                    "cow": cache.cow_copies,
+                    "pool_gib": sum(k.numel() + v.numel() for k, v in
+                                    eng.adapter._kv) * 4 / 2**30}
+        del eng, cache
+    off, on = runs[False], runs[True]
+    for o in off["outs"]:
+        if len(o) != TIER["new"] or not all(0 <= t < vocab for t in o):
+            raise AssertionError(f"tier prefix: bad output {o}")
+    if on["outs"] != off["outs"]:
+        bad = sum(a != b for a, b in zip(on["outs"], off["outs"]))
+        raise AssertionError(f"tier prefix: {bad} of {len(prompts)} "
+                             "requests differ with the prefix cache on")
+    cold_on = TIER["requests"] - on["hits"]
+    if on["hits"] < TIER["requests"] - 1 \
+            or on["positions"] >= off["positions"] \
+            or off["flash"] < layers * TIER["requests"] \
+            or on["flash"] < layers * cold_on:
+        raise AssertionError(f"tier prefix: hits {on['hits']}, prefill "
+                             f"positions {on['positions']} (off "
+                             f"{off['positions']}), flash launches "
+                             f"{on['flash']} / {off['flash']}")
+    hit_ms = [s * 1e3 for s in on["pre"][1:]]
+    _log(f"tier prefix: llama3_8b, {TIER['requests']} requests sharing "
+         f"{TIER['shared']} tokens, tails {tails.tolist()}, "
+         f"{TIER['new']} new tokens; tokens equal with the cache on and "
+         f"off; hits {on['hits']}, hit tokens {on['hit_tokens']}, COW "
+         f"{on['cow']}; prefill positions {on['positions']} on vs "
+         f"{off['positions']} off; flash launches {on['flash']} on vs "
+         f"{off['flash']} off ({off['flash'] / TIER['requests']:.1f} a "
+         f"cold prefill); KV pool {on['pool_gib']:.2f} GiB ({smi})")
+    _log(f"tier prefix: cold prefill wall ms median "
+         f"{statistics.median(off['pre']) * 1e3:.1f} "
+         f"[{', '.join(f'{s * 1e3:.1f}' for s in off['pre'])}]; hit "
+         f"admission (tail chunks of 16) wall ms "
+         f"[{', '.join(f'{s:.1f}' for s in hit_ms)}] for tails "
+         f"{tails[1:].tolist()}; generate wall {off['wall']:.2f} s off, "
+         f"{on['wall']:.2f} s on ({smi})")
+    return prompts, off
+
+
+def _tier_spec(torch, fa, tmx, llama, serving, net, prompts, plain, args,
+               smi):
+    """Speculative decoding at llama3_8b width, spec_k=3: the target as its
+    own draft (weights shared, a second pool), then a llama_small draft at
+    the target's vocabulary."""
+    tel = tmx.telemetry
+    vocab = int(net.embed.weight.shape[0])
+    k, new = TIER["spec_k"], TIER["new"]
+    hist = tel.REGISTRY.get("mxnet_serving_accepted_draft_tokens")
+    steps = tel.counter("mxnet_serving_decode_steps_total")
+
+    def per_token_ms(run):
+        wall, pre = run[2], run[3]
+        return (wall - sum(pre)) / (new - 1) * 1e3
+
+    plain_ms = (plain["wall"] - sum(plain["pre"])) / (new - 1) * 1e3
+    small = _llama_net(tmx, llama, "llama_small", vocab, tmx.gpu(),
+                       args.seed + 1, train=False)
+    lines = []
+    for label, draft in (("identical", net), ("llama_small", small)):
+        h0 = list(hist._raw()[1])
+        s0 = steps.value
+        run = _served(torch, serving, net, prompts, new, draft_model=draft,
+                      spec_k=k, **TIER_ENGINE)
+        outs, ms = run[0], per_token_ms(run)
+        del run                       # the engine and its two pools
+        n_steps = steps.value - s0
+        accepted = [b - a for a, b in zip(h0, hist._raw()[1])]
+        if outs != plain["outs"]:
+            bad = sum(a != b for a, b in zip(outs, plain["outs"]))
+            raise AssertionError(f"tier spec ({label} draft): {bad} "
+                                 "requests differ from plain decoding")
+        want = -(-(new - 1) // (k + 1))
+        if label == "identical" and n_steps != want:
+            raise AssertionError(
+                f"tier spec: the identical draft took {n_steps} verify "
+                f"dispatches for {new - 1} tokens, not {want} (k+1 each)")
+        lines.append(f"{label} draft: {n_steps} verify dispatches, "
+                     f"{(new - 1) / n_steps:.2f} tokens a dispatch a "
+                     f"request, decode {ms:.2f} ms an "
+                     f"emitted token, accepted-draft histogram (le 0, 1, "
+                     f"2, 3, ...) {accepted[:5]}")
+    del small
+    _log(f"tier spec: llama3_8b, spec_k={k}, tokens equal plain greedy for "
+         f"both drafts; plain decode {plain_ms:.2f} ms an emitted token; "
+         + "; ".join(lines) + f" ({smi})")
+
+
+def _tier_mt(torch, fa, tmx, serving, args, smi):
+    """transformer-base served from padded 256-token sources against the
+    port's greedy_decode of the same model on the card."""
+    tr = tmx.gluon.model_zoo.transformer
+    gpu = tmx.gpu()
+    mt = tr.transformer_model(MT["name"], vocab_size=MT["vocab"],
+                              dropout=0.0, prefix="mtserve_")
+    mt.collect_params().setattr("grad_req", "null")
+    tmx.random.seed(args.seed)
+    mt.initialize(tmx.init.Xavier(), ctx=gpu)
+    rng = np.random.RandomState(args.seed + 23)
+    lens = np.linspace(TIER["mt_min"], TIER["mt_max"],
+                       TIER["requests"]).astype(int)
+    srcs = [rng.randint(3, MT["vocab"], int(n)).tolist() for n in lens]
+    new = TIER["new"]
+    f0 = fa.launches
+    outs, eng, wall, pre, dec = _served(
+        torch, serving, mt, srcs, new, eos_id=MT_EOS, bos_id=MT_BOS,
+        max_batch=8, block_tokens=16, max_seq=256, prefill_tokens=256)
+    flash = fa.launches - f0
+    del eng
+    padded = np.zeros((len(srcs), 256), np.int32)
+    for i, s in enumerate(srcs):
+        padded[i, :len(s)] = s
+    ref = tr.greedy_decode(
+        mt, tmx.nd.array(padded, ctx=gpu, dtype="int32"), MT_BOS, MT_EOS,
+        max_len=new + 1,
+        src_valid_length=tmx.nd.array(lens, ctx=gpu, dtype="int32"))
+    want = []
+    for row in ref:
+        toks = [int(t) for t in row[1:]]
+        want.append(toks[:toks.index(MT_EOS) + 1] if MT_EOS in toks
+                    else toks)
+    if outs != want:
+        bad = sum(a != b for a, b in zip(outs, want))
+        raise AssertionError(f"tier mt: {bad} of {len(srcs)} sources "
+                             "differ from greedy_decode")
+    if flash < MT["layers"] * len(srcs):
+        raise AssertionError(f"tier mt: {flash} flash launches for "
+                             f"{len(srcs)} prefills of {MT['layers']} "
+                             "encoder layers")
+    _log(f"tier mt: transformer_base (vocab {MT['vocab']}), {len(srcs)} "
+         f"sources of {lens.tolist()} tokens padded to 256, {new} new "
+         f"tokens: equal to greedy_decode; flash launches {flash} "
+         f"({flash / len(srcs):.1f} a prefill); encoder prefill wall ms "
+         f"median {statistics.median(pre) * 1e3:.2f}, decode step "
+         f"{statistics.median(dec) * 1e3:.2f} (B=8); generate "
+         f"{wall:.2f} s ({smi})")
+
+
+def _tier_router(torch, tmx, serving, args, smi):
+    """Two llama_small replicas (the same seed) as subprocesses on this
+    card behind one Router; one is SIGKILLed while it decodes."""
+    import shutil
+    import signal
+    from mxnet_tpu_torch.serving.replica import build_llama
+    tel = tmx.telemetry
+    V, new, n = TIER["router_vocab"], TIER["router_new"], \
+        TIER["router_requests"]
+    rng = np.random.RandomState(args.seed + 31)
+    prompts = [rng.randint(3, V, int(m)).tolist()
+               for m in rng.randint(20, 241, n)]
+    net = build_llama("llama_small", V, args.seed, "gpu")
+    oracle = serving.ServingEngine(net, eos_id=-1, **TIER_REPLICA) \
+        .generate(prompts, max_new_tokens=new)
+    del net
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.serving.replica",
+           "--model", "llama_small", "--vocab", str(V), "--seed",
+           str(args.seed), "--eos", "-1"]
+    for key, val in TIER_REPLICA.items():
+        cmd += ["--" + key.replace("_", "-"), str(val)]
+    workdir = tempfile.mkdtemp(prefix="mx_tier_router_")
+    names = ("dispatched", "retries", "replica_deaths", "respawns")
+    c0 = {m: tel.counter(f"mxnet_router_{m}_total").value for m in names}
+    router = serving.Router(cmd, 2, workdir, hang_s=120.0)
+    killed = None
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        if router.wait_up(timeout_s=180) != 2:
+            raise AssertionError("tier router: replicas did not come up: "
+                                 f"{router.replica_status()}")
+        up_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hs = [router.submit(p, max_new_tokens=new) for p in prompts]
+        deadline = time.monotonic() + 60
+        while killed is None and time.monotonic() < deadline:
+            st = router.replica_status()[0]
+            if st["inflight"] > 0 and any(h.ready() for h in hs):
+                killed = st["pid"]
+                os.kill(killed, signal.SIGKILL)
+            time.sleep(0.002)
+        if killed is None:
+            raise AssertionError("tier router: replica 0 never decoded")
+        got = [h.result(timeout=300) for h in hs]
+        serve_s = time.perf_counter() - t0
+        deadline = time.monotonic() + 30
+        while tel.counter("mxnet_router_respawns_total").value \
+                == c0["respawns"] and time.monotonic() < deadline:
+            time.sleep(0.05)
+        status = router.replica_status()
+        # read before stop(): the router counts the end of a replica it
+        # shuts down (its socket's EOF) as a death too
+        delta = {m: tel.counter(f"mxnet_router_{m}_total").value - c0[m]
+                 for m in names}
+    finally:
+        router.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+    live = {p: i for p, i in _descendants().items() if i[1] != "Z"}
+    if got != oracle:
+        bad = sum(a != b for a, b in zip(got, oracle))
+        raise AssertionError(f"tier router: {bad} of {n} answers differ "
+                             "from the in-process engine")
+    if delta["replica_deaths"] < 1 or delta["respawns"] < 1 \
+            or delta["retries"] < 1:
+        raise AssertionError(f"tier router: counters {delta}")
+    if live:
+        raise AssertionError(f"tier router: processes left: {live}")
+    _log(f"tier router: 2 llama_small replicas (vocab {V}) up in "
+         f"{up_s:.1f} s; {n} requests x {new} tokens answered in "
+         f"{serve_s:.2f} s with replica 0 (pid {killed}) SIGKILLed while "
+         f"decoding; all equal to the in-process engine; counters "
+         f"{delta}; replicas {[(s['state'], s['respawns']) for s in status]}"
+         f"; no process left ({smi})")
+
+
+def tier_phase(torch, fa, mx, llama, serving, net, args, smi):
+    """The rest of serving on the card (see the module docstring, phase
+    7): the prefix cache and speculative decoding at llama3_8b width, the
+    MT adapter on transformer_base, and the router tier with a replica
+    killed; then the SLO histograms of the in-process engines."""
+    tmx = mx["pkg"]
+    tel = tmx.telemetry
+    tel.REGISTRY.reset()
+    _reset_counts(fa)
+    prompts, plain = _tier_prefix(torch, fa, tmx, serving, net, args, smi)
+    _tier_spec(torch, fa, tmx, llama, serving, net, prompts, plain, args,
+               smi)
+    _tier_mt(torch, fa, tmx, serving, args, smi)
+    counts = _counts(fa)
+    ttft = _hist_quantiles(tel.REGISTRY.get("mxnet_serving_ttft_seconds"))
+    tpot = _hist_quantiles(tel.REGISTRY.get("mxnet_serving_tpot_seconds"))
+    _log(f"tier slo: in-process engines of the phase, histogram bucket "
+         f"bounds: TTFT p50 <= {ttft[0]} s, p99 <= {ttft[1]} s; TPOT p50 "
+         f"<= {tpot[0]} s, p99 <= {tpot[1]} s ({smi})")
+    _tier_router(torch, tmx, serving, args, smi)
     return counts
 
 
@@ -5665,8 +6006,11 @@ def main(argv=None):
     bwd_errors, _, bwd_times = _phase("backward kernels", bwd_kernel_phase,
                                       torch, fa)
     _phase("serving oracle", oracle_phase, torch, mx["pkg"], llama, serving)
-    serve_counts = _phase("serve", serve_phase, torch, fa, mx["pkg"], llama,
-                          serving, args)
+    serve_counts, net8b = _phase("serve", serve_phase, torch, fa, mx["pkg"],
+                                 llama, serving, args)
+    tier_counts = _phase("tier", tier_phase, torch, fa, mx, llama, serving,
+                         net8b, args, smi)
+    del net8b
     _phase("train oracle", train_oracle_phase, torch, fa, mx)
     train_launches, lanes = _phase("train lanes", train_lane_phase, torch,
                                    fa, mx, args)
@@ -5691,6 +6035,9 @@ def main(argv=None):
         "shape": "B=1 H=32 Lq=Lk=1024 D=128 float32 causal",
         "launches": train_launches["flash_fwd"],
         "serve_launches": serve_counts["flash_fwd"],
+        # the tier phase: llama3_8b cold prefills (prefix cache off and
+        # on, speculation) and transformer_base's encoder
+        "tier_launches": tier_counts["flash_fwd"],
         "max_abs_err": errors[("prefill", "float32", True, False)][0],
         "ms": t_k,
         "plain_ms": t_p,
@@ -5787,6 +6134,7 @@ def main(argv=None):
                 "image_launches": _dtype_count(image_counts, kind_, pre),
                 "mt_launches": _dtype_count(mt_counts, kind_, pre),
                 "util_launches": _dtype_count(util_counts, kind_, pre),
+                "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

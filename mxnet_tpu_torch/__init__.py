@@ -99,3 +99,4 @@ from . import amp  # noqa: E402,F401
 from . import engine, runtime, test_utils  # noqa: E402,F401
 from . import monitor, callback, model, checkpoint  # noqa: E402,F401
 from . import operator, library, optimizer_fusion  # noqa: E402,F401
+from . import telemetry, resilience  # noqa: E402,F401

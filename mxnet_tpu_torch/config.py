@@ -6,7 +6,7 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "get_int", "get_float", "KNOWN_VARS"]
+__all__ = ["get", "get_int", "get_float", "get_bool", "KNOWN_VARS"]
 
 # name -> (default, help)
 KNOWN_VARS = {
@@ -106,6 +106,103 @@ KNOWN_VARS = {
         "64", "Fixed padded prompt shape (1, P) of the prefill step."),
     "MXNET_SERVING_SLA_S": (
         "0", "Default per-request SLA deadline in seconds; 0 = none."),
+    "MXNET_SERVING_PREFIX_CACHE": (
+        "0",
+        "If 1, the paged KV cache refcounts blocks and indexes full blocks "
+        "of prompt tokens: a prompt sharing a cached prefix maps those "
+        "blocks (copy-on-write on contended writes) and prefills only its "
+        "tail. Decoder-only (llama) engines only."),
+    "MXNET_SERVING_DRAFT": (
+        None,
+        "Draft-model zoo config name for speculative decoding in the "
+        "replica CLI (built with the engine's vocab and seed); unset = "
+        "off. In-process callers pass ServingEngine(draft_model=)."),
+    "MXNET_SERVING_SPEC_K": (
+        "3",
+        "Draft tokens proposed per scheduler iteration when speculative "
+        "decoding is armed; the target verifies them in one (B, K+1) "
+        "dispatch, so output equals plain greedy decoding."),
+    "MXNET_TELEMETRY": (
+        "0",
+        "If 1, the span tracer records from import; 0 leaves it off until "
+        "telemetry.enable()."),
+    "MXNET_TELEMETRY_BUFFER": (
+        "65536",
+        "Span ring-buffer capacity (events); oldest events drop beyond it."),
+    "MXNET_KVSTORE_TIMEOUT_S": (
+        "300",
+        "Default resilience.Deadline bound (seconds) on blocking waits "
+        "(ResultHandle.result, RouterHandle.result); 0 disables it."),
+    "MXNET_RESILIENCE_MAX_RETRIES": (
+        "3",
+        "Re-attempts a Retry policy makes after the first failure of a "
+        "transient (retryable) operation; 0 fails fast."),
+    "MXNET_RESILIENCE_BACKOFF_S": (
+        "0.05",
+        "Base backoff (seconds) before retry attempt k sleeps "
+        "backoff * 2^k (with +/-25% jitter)."),
+    "MXNET_RESILIENCE_BACKOFF_MAX_S": (
+        "2", "Cap on the exponential retry backoff (seconds)."),
+    "MXNET_CHAOS": (
+        "0",
+        "If 1, arm chaos faults from MXNET_CHAOS_SITES at import "
+        "(resilience.chaos fault injection for recovery testing)."),
+    "MXNET_CHAOS_SITES": (
+        None,
+        "Comma list of faults to arm when MXNET_CHAOS=1: "
+        "'site:kind[:times[:delay_s[:after]]]' with kind in "
+        "delay|transient|fatal|exit, e.g. 'serving.reply:exit:1'."),
+    "MXNET_DIST_NUM_WORKERS": (
+        "1", "World size a heartbeat record reports."),
+    "MXNET_DIST_RANK": (
+        "0", "This process's rank (heartbeat file name; the router sets "
+             "it to the replica index)."),
+    "MXNET_ELASTIC_HEARTBEAT_S": (
+        "2", "Heartbeat interval (seconds) of resilience.heartbeat."),
+    "MXNET_ELASTIC_HEARTBEAT_DIR": (
+        None,
+        "Directory of per-rank heartbeat files (hb-rank<R>.json, atomic "
+        "rewrites); the router injects one; unset = heartbeats off."),
+    "MXNET_ELASTIC_INCARNATION": (
+        "0", "Incarnation counter a heartbeat record carries."),
+    "MXNET_ROUTER_QUEUE": (
+        "64",
+        "Admission bound on requests outstanding in the router (waiting "
+        "+ dispatched, unfinished); submits beyond it raise "
+        "RouterOverloaded at once."),
+    "MXNET_ROUTER_HEDGE_S": (
+        "0",
+        "A dispatched request unfinished after this many seconds is "
+        "duplicated to a second replica; the first completion wins and "
+        "the loser is cancelled. 0 (default) disables hedging."),
+    "MXNET_ROUTER_MAX_RETRIES": (
+        "2",
+        "Times the router resubmits one request to a surviving replica "
+        "after the replica serving it died; beyond it the handle fails "
+        "with ReplicaDeadError."),
+    "MXNET_ROUTER_MAX_RESPAWNS": (
+        "8",
+        "Per-replica respawn budget; beyond it the replica stays down and "
+        "the tier serves on the survivors."),
+    "MXNET_ROUTER_HANG_S": (
+        "20",
+        "Replica heartbeat staleness after which the router SIGKILLs it, "
+        "resubmits its requests and respawns it. 0 disables it."),
+    "MXNET_ROUTER_PING_S": (
+        "1",
+        "Interval at which the router pings each replica for its load."),
+    "MXNET_ROUTER_AFFINITY_TOKENS": (
+        "16",
+        "Prompt-prefix length (tokens) hashed for the router's prefix-"
+        "affinity hint: least-loaded ties prefer the replica that last "
+        "served the same prefix. 0 disables the hint."),
+    "MXNET_ROUTER_DIR": (
+        None,
+        "Router tier working directory (written by the router into each "
+        "replica's env): port files, state journal, heartbeats, logs."),
+    "MXNET_ROUTER_INDEX": (
+        None, "This replica's index in the router tier (written by the "
+              "router; mirrored into MXNET_DIST_RANK)."),
 }
 
 
@@ -134,3 +231,10 @@ def get_int(name, default=0):
 
 def get_float(name, default=0.0):
     return _typed(name, default, float)
+
+
+def get_bool(name, default=False):
+    v = get(name)
+    if v is None:
+        return default
+    return str(v).lower() in ("1", "true", "yes", "on")

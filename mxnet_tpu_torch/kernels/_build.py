@@ -7,19 +7,27 @@ compiled for ``sm_90a`` by one ``nvcc`` process into a shared library under
 first use, and bound with ``ctypes``.  :func:`build_kernel_libraries`
 starts one ``nvcc`` per source, all at once.  Nothing is built at import
 time; a build failure raises.
+
+The library is named by a digest of ``csrc/`` and the flags
+(``lib<source>.<digest>.so``, nvcc's output beside it as ``.log``), built
+under a temporary name of this process and renamed into place: a process
+that finds both files loads them instead of compiling (the serving
+replicas a router starts beside a process that built them), and processes
+that build at once never write one file.
 """
 
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 from ..base import MXNetError
 
-__all__ = ["build_kernel_libraries", "build_log", "BUILD_DIR",
-           "NVCC_FLAGS"]
+__all__ = ["build_kernel_libraries", "build_log", "library_path",
+           "BUILD_DIR", "NVCC_FLAGS"]
 
 _CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 _REPO = os.path.dirname(os.path.dirname(os.path.dirname(
@@ -40,34 +48,60 @@ def _nvcc():
     return os.path.join(CUDA_HOME, "bin", "nvcc")
 
 
+def _digest():
+    """sha1 over the flags and every file of ``csrc/`` (the sources and
+    the headers they share), 12 hex digits."""
+    h = hashlib.sha1(" ".join(NVCC_FLAGS).encode())
+    for name in sorted(os.listdir(_CSRC)):
+        h.update(name.encode())
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:12]
+
+
+def library_path(source):
+    """Where ``csrc/<source>.cu``'s library of this checkout lives."""
+    return os.path.join(BUILD_DIR, f"lib{source}.{_digest()}.so")
+
+
 def build_kernel_libraries(sources):
-    """Build (once per process) and load ``csrc/<source>.cu`` for every
-    name in ``sources``, compiling the missing ones in parallel; returns
+    """Build (once per process, unless a built copy of these sources is
+    there) and load ``csrc/<source>.cu`` for every name in ``sources``,
+    compiling the missing ones in parallel; returns
     ``{source: ctypes.CDLL}``."""
     with _lock:
         todo = [s for s in sources if s not in _libs]
-        if todo:
-            os.makedirs(BUILD_DIR, exist_ok=True)
-            nvcc = _nvcc()
-            procs = {}
-            for s in todo:
-                out = os.path.join(BUILD_DIR, f"lib{s}.so")
-                procs[s] = (out, subprocess.Popen(
-                    [nvcc, *NVCC_FLAGS, "-o", out + ".tmp",
-                     os.path.join(_CSRC, f"{s}.cu")],
-                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                    text=True))
-            failed = []
-            for s, (out, proc) in procs.items():
-                _logs[s] = proc.communicate()[0]
-                if proc.returncode != 0:
-                    failed.append(f"{s}.cu (nvcc exit {proc.returncode}):\n"
-                                  f"{_logs[s]}")
-                    continue
-                os.replace(out + ".tmp", out)
+        procs = {}
+        for s in todo:
+            out = library_path(s)
+            log = out[:-3] + ".log"
+            if os.path.exists(out) and os.path.exists(log):
+                with open(log) as f:
+                    _logs[s] = f.read()
                 _libs[s] = ctypes.CDLL(out)
-            if failed:
-                raise MXNetError("kernel build failed: " + "\n".join(failed))
+                continue
+            os.makedirs(BUILD_DIR, exist_ok=True)
+            tmp = f"{out}.tmp.{os.getpid()}"
+            procs[s] = (out, tmp, subprocess.Popen(
+                [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+                 os.path.join(_CSRC, f"{s}.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True))
+        failed = []
+        for s, (out, tmp, proc) in procs.items():
+            _logs[s] = proc.communicate()[0]
+            if proc.returncode != 0:
+                failed.append(f"{s}.cu (nvcc exit {proc.returncode}):\n"
+                              f"{_logs[s]}")
+                continue
+            # the log first: a library in place always has its log
+            with open(f"{tmp}.log", "w") as f:
+                f.write(_logs[s])
+            os.replace(f"{tmp}.log", out[:-3] + ".log")
+            os.replace(tmp, out)
+            _libs[s] = ctypes.CDLL(out)
+        if failed:
+            raise MXNetError("kernel build failed: " + "\n".join(failed))
         return {s: _libs[s] for s in sources}
 
 

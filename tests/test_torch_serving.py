@@ -8,7 +8,9 @@
   the dense path: logits within 2e-5 absolute (f32, other summation
   order);
 - the port-only parts: host cache bookkeeping, preemption, SLA eviction,
-  rejection, async mode and the features that are not ported yet.
+  rejection, async mode; and what both packages refuse (prefix caching or
+  a draft on the MT adapter, a draft of another vocabulary, a max_seq
+  beyond the positional table).
 """
 
 import threading
@@ -21,13 +23,18 @@ import jax.numpy as jnp
 import mxnet_tpu as mx
 from mxnet_tpu import serving as jserving
 from mxnet_tpu.gluon.model_zoo import llama as jllama
+from mxnet_tpu.base import MXNetError as JMXNetError
+from mxnet_tpu.gluon.model_zoo import transformer as jtr
 import torch
 
 from mxnet_tpu_torch import convert
 from mxnet_tpu_torch import serving
 from mxnet_tpu_torch.base import MXNetError
+from mxnet_tpu_torch.gluon.model_zoo import transformer as ttr
+from mxnet_tpu_torch.resilience import KVStoreTimeoutError
 from mxnet_tpu_torch.serving.cache import BlockAllocator, CacheOOMError
 
+ERRORS = (JMXNetError, MXNetError)      # either package's
 EOS = 2
 
 
@@ -156,18 +163,36 @@ def test_paged_cache_admit_release_reuse():
         c.admit(0, 17)                    # 5 blocks > max_blocks_per_seq
 
 
-def test_unported_features_raise(nets):
-    _jnet, port = nets
-    with pytest.raises(MXNetError, match="prefix caching"):
-        serving.ServingEngine(port, eos_id=EOS, prefix_cache=True, **ENGINE)
-    with pytest.raises(MXNetError, match="speculative"):
-        serving.ServingEngine(port, eos_id=EOS, draft_model=port, **ENGINE)
-
-    class TransformerModel(torch.nn.Module):
-        pass
-
-    with pytest.raises(MXNetError, match="not yet ported"):
-        serving.make_adapter(TransformerModel(), eos_id=EOS)
+def test_refuses_what_the_reference_refuses(nets):
+    """Both packages refuse: prefix caching and a draft model on the MT
+    adapter, a draft whose vocabulary differs from the target's, and a
+    max_seq beyond the MT model's positional table."""
+    jnet, port = nets
+    jdraft = _jax_net("llama_tiny", 64, 3)
+    tdraft = _port(jdraft, "llama_tiny")
+    jmt = jtr.transformer_model("transformer_test", vocab_size=50,
+                                max_length=32, dropout=0.0, prefix="mt_")
+    jmt.initialize(mx.initializer.Zero())
+    w = {k: np.full(p.shape, 0.01, np.float32)
+         for k, p in jmt.collect_params().items()}
+    for k, p in jmt.collect_params().items():
+        p.set_data(mx.nd.array(w[k]))
+    tmt = ttr.transformer_model("transformer_test", vocab_size=50,
+                                max_length=32, dropout=0.0, prefix="mt_")
+    convert.load_by_name(tmt, w, device="cpu")
+    mt_kw = dict(ENGINE, max_seq=32, bos_id=1)
+    for pkg, llm, draft, mt in ((jserving, jnet, jdraft, jmt),
+                                (serving, port, tdraft, tmt)):
+        with pytest.raises(ERRORS, match="prefix caching"):
+            pkg.ServingEngine(mt, eos_id=EOS, prefix_cache=True, **mt_kw)
+        with pytest.raises(ERRORS, match="multi-token verify"):
+            pkg.ServingEngine(mt, eos_id=EOS, draft_model=llm, **mt_kw)
+        with pytest.raises(ERRORS, match="draft vocab 64 != target vocab"):
+            pkg.ServingEngine(llm, eos_id=EOS, draft_model=draft, **ENGINE)
+        with pytest.raises(ERRORS, match="positional table"):
+            pkg.ServingEngine(mt, eos_id=EOS, **dict(mt_kw, max_seq=48))
+    with pytest.raises(MXNetError, match="no serving adapter"):
+        serving.make_adapter(torch.nn.Linear(2, 2), eos_id=EOS)
 
 
 def test_submit_rejects_misfits_and_evicts_expired(nets):
@@ -202,7 +227,8 @@ def test_async_start_submit_stop(nets):
 
 def test_copy_block_and_unfinished_result(nets):
     """copy_block duplicates one pool block in every layer (in place);
-    a request nobody drives times out as ServingError, not a hang."""
+    a request nobody drives times out (resilience.Deadline's
+    KVStoreTimeoutError), not a hang."""
     _jnet, port = nets
     eng = serving.ServingEngine(port, eos_id=EOS, **ENGINE)
     ad = eng.adapter
@@ -213,7 +239,7 @@ def test_copy_block_and_unfinished_result(nets):
     for kp, vp in ad._kv:
         assert torch.all(kp[7] == 1.5) and torch.all(vp[7] == -2.0)
     h = eng.submit([5, 6], max_new_tokens=3)
-    with pytest.raises(serving.ServingError, match="not finished"):
+    with pytest.raises(KVStoreTimeoutError, match="deadline"):
         h.result(timeout=0.05)
     assert eng.generate([[5, 6]], max_new_tokens=3)[0] == h.result(timeout=1)
 
