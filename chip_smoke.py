@@ -273,7 +273,27 @@ result line; each prints its seconds):
     ``test_utils.check_consistency`` over ``[gpu(0), cpu(0)]`` on
     FullyConnected, LayerNorm and dot with a bf16 first input; (h) a
     ``CustomOp`` with a backward on the card against the CPU's gradient,
-    which ``check_numeric_gradient`` holds.
+    which ``check_numeric_gradient`` holds;
+20. sym — the symbolic API on a post-LN encoder built from ``mx.sym``
+    ops at BERT-base's widths (vocab 30522, 768 units, 12 heads, FFN 3072
+    with GELU, token and position ``Embedding``, the interleaved qkv into
+    ``contrib.masked_selfatt`` with a ``valid_length`` input, a head over
+    every position into ``SoftmaxOutput``; see ``SYM``): (a) at 2 layers,
+    batch 2, sequence 512 (lengths 384-512), one ``Executor`` forward and
+    backward on the card and on the CPU from the same parameters: loss,
+    outputs and every gradient; ``Module(context=[gpu(0), gpu(0)])``
+    against one context over 2 SGD steps; a ``BucketingModule`` over
+    buckets 512 and 256 on the card and on the CPU; (b) 12 layers, batch
+    32, f32: ``Module.fit`` with Adam over an ``NDArrayIter`` of synthetic
+    tokens (a copy task), 8 steps: losses finite and falling, 12 f32
+    forward and 12 f32 fused backward launches a step, median step ms,
+    samples/s, MFU (FLOPs counted from the layers, 3x the forward), peak
+    memory, idle share; (c) ``save_checkpoint``, ``load_checkpoint`` and
+    ``SymbolBlock.imports`` of the head at batch 8 against
+    ``Module.predict`` of ``Module.load``, a rebind at batch 4; (d)
+    ``amp.init`` + ``amp.convert_model`` of the checkpoint served by
+    ``SymbolBlock``: logits against the f32 ones, 12 bf16 forward
+    launches.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -296,7 +316,9 @@ the LSTM LM has no attention) and the det, moe and image phases'
 attention) and the mt phase's timed steps (``mt_launches``: the forward
 of both dtypes; each backward row the fused launches of its dtype, 0 on
 dq and dkv) and the util phase's BERT-base steps (``util_launches``: the
-bf16 forward and fused backward; 0 elsewhere);
+bf16 forward and fused backward; 0 elsewhere) and the sym phase's
+(``sym_launches``: on the forward both dtypes, with ``sym_f32_launches``
+the f32 ones; the f32 fused backward on its row; 0 elsewhere);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -355,7 +377,12 @@ moe: outputs and gradients 1e-5 of max |CPU|.  image: the N-thread
 decode and the decode-pool loader bit for bit; a decoded crop 1 raw unit
 / std of imdecode + crop + normalize (the lanes multiply by 1/std or
 divide by std); imresize card vs CPU 1 (float32 sums in another order
-round across .5).
+round across .5).  sym: the oracle's loss card vs CPU 1e-4 relative and
+each output and gradient 1e-3 of max |CPU| (``SYM_ORACLE_TOL``, f32, TF32
+off; 2.7e-6 seen on an H100); multi-context and bucketing outputs 1e-3 of
+max, parameters after the steps TRAIN_TOL of max; SymbolBlock against
+``Module.predict`` and its rebind 1e-4 of max (the same kernels: 0 seen);
+the bf16 serve's logits 2^-5 of max |f32| (``SYM_BF16_TOL``; 6.0e-3 seen).
 """
 
 from __future__ import annotations
@@ -5826,6 +5853,477 @@ def util_phase(torch, fa, mx, args, smi):
     return counts, numbers
 
 
+# -- sym: the symbolic API ----------------------------------------------------
+
+# the post-LN encoder at BERT-base's widths (bench.py:529-531) built from
+# mx.sym ops; the oracle, multi-context and bucketing legs cut its depth and
+# batch, the train leg runs it at full width
+SYM = {"layers": 12, "units": 768, "heads": 12, "ffn": 3072,
+       "vocab": 30522, "batch": 32, "len": 512, "min_len": 384,
+       "oracle_layers": 2, "oracle_batch": 2, "batches": 4, "epochs": 2,
+       "lr": 1e-4, "serve_batch": 8, "rebind_batch": 4}
+SYM_LOSS_TOL = 1e-4     # relative, the oracle's loss card vs CPU (f32)
+SYM_ORACLE_TOL = 1e-3   # of max |CPU|, each output and gradient (f32)
+SYM_SERVE_TOL = 1e-4    # of max |ref|: SymbolBlock against Module.predict
+SYM_BF16_TOL = 2**-5    # of max |f32 logits|: the bf16 serve's logits
+
+
+def _sym_encoder(sym, name, layers):
+    """The encoder as a Symbol: token and position Embedding, LayerNorm,
+    ``layers`` post-LN blocks (interleaved qkv, ``contrib.masked_selfatt``
+    with ``valid_length``, GELU FFN), a head over every position into
+    SoftmaxOutput; its args are data (B, L), valid_length (B,) and
+    softmax_label (B, L)."""
+    s = SYM
+    U = s["units"]
+    with name.NameManager():
+        data, vl = sym.var("data"), sym.var("valid_length")
+        tok = sym.Embedding(data, input_dim=s["vocab"], output_dim=U,
+                            name="word_embed")
+        pos = sym.Embedding(sym.contrib.arange_like(data, axis=1),
+                            input_dim=s["len"], output_dim=U,
+                            name="pos_embed")
+        x = sym.LayerNorm(sym.broadcast_add(tok, pos), name="embed_ln")
+        x = sym.transpose(x, axes=(1, 0, 2))
+        for i in range(layers):
+            qkv = sym.FullyConnected(x, num_hidden=3 * U, flatten=False,
+                                     name=f"l{i}_qkv")
+            att = sym.contrib.masked_selfatt(qkv, vl, heads=s["heads"],
+                                             name=f"l{i}_att")
+            proj = sym.FullyConnected(att, num_hidden=U, flatten=False,
+                                      name=f"l{i}_proj")
+            x = sym.LayerNorm(x + proj, name=f"l{i}_ln1")
+            h = sym.FullyConnected(x, num_hidden=s["ffn"], flatten=False,
+                                   name=f"l{i}_ffn1")
+            h = sym.LeakyReLU(h, act_type="gelu", name=f"l{i}_gelu")
+            h = sym.FullyConnected(h, num_hidden=U, flatten=False,
+                                   name=f"l{i}_ffn2")
+            x = sym.LayerNorm(x + h, name=f"l{i}_ln2")
+        x = sym.transpose(x, axes=(1, 0, 2))
+        logits = sym.FullyConnected(x, num_hidden=s["vocab"], flatten=False,
+                                    name="head")
+        return sym.SoftmaxOutput(logits, name="softmax")
+
+
+def _sym_flops(B, L, layers):
+    """FLOPs of one training step counted from the graph's layers: the
+    forward's matmuls (qkv, projection, FFN, the head over every position)
+    and attention's two products over the full length, 3x for forward and
+    backward."""
+    s = SYM
+    U, F, V = s["units"], s["ffn"], s["vocab"]
+    per_token = layers * (2 * (4 * U * U + 2 * U * F) + 4 * L * U) \
+        + 2 * U * V
+    return 3 * B * L * per_token
+
+
+def _sym_batch(rng, B, L, lo):
+    """Token ids, valid lengths in [lo, L] and labels (the tokens
+    themselves: a copy task the loss can fall on), float32."""
+    toks = rng.randint(0, SYM["vocab"], (B, L)).astype(np.float32)
+    lens = rng.randint(lo, L + 1, (B,)).astype(np.float32)
+    return toks, lens, toks.copy()
+
+
+def _sym_params(sym, shapes, seed):
+    """Normal(0.02) weights, unit norm scales, zero shifts and biases, as
+    numpy, for every argument that is not an input."""
+    rng = np.random.RandomState(seed)
+    args, _, _ = sym.infer_shape(**shapes)
+    out = {}
+    for n, shp in zip(sym.list_arguments(), args):
+        if n in shapes:
+            continue
+        if n.endswith("gamma"):
+            out[n] = np.ones(shp, np.float32)
+        elif n.endswith(("beta", "bias")):
+            out[n] = np.zeros(shp, np.float32)
+        else:
+            out[n] = (0.02 * rng.standard_normal(shp)).astype(np.float32)
+    return out
+
+
+def _sym_loss(torch, probs, labels):
+    """Mean cross entropy of SoftmaxOutput's probabilities, on their
+    device."""
+    lab = labels.to(probs.device).long().unsqueeze(-1)
+    return float(-torch.log(probs.gather(-1, lab).clamp_min(1e-30)).mean())
+
+
+def _rel_to_max(torch, got, ref):
+    """max |got - ref| over max |ref|, on ref's device, in float32."""
+    ref = ref.detach().float()
+    got = got.detach().to(ref.device, torch.float32)
+    return float((got - ref).abs().max() / ref.abs().max().clamp_min(1e-30))
+
+
+def _sym_oracle(torch, tmx, seed):
+    """The 2-layer graph through an Executor on the card and on the CPU
+    from the same parameters: loss, outputs and every gradient; and its
+    ``Symbol.eval`` of the numpy inputs with ``ctx=gpu(0)``."""
+    B, L = SYM["oracle_batch"], SYM["len"]
+    sym = _sym_encoder(tmx.sym, tmx.name, SYM["oracle_layers"])
+    shapes = {"data": (B, L), "valid_length": (B,), "softmax_label": (B, L)}
+    params = _sym_params(sym, shapes, seed)
+    toks, lens, labs = _sym_batch(np.random.RandomState(seed + 1), B, L,
+                                  SYM["min_len"])
+    feed = dict(params, data=toks, valid_length=lens, softmax_label=labs)
+    runs = []
+    for ctx in (tmx.gpu(0), tmx.cpu()):
+        ex = sym.simple_bind(ctx, **shapes)
+        ex.copy_params_from({k: tmx.nd.array(v, ctx=ctx)
+                             for k, v in feed.items()})
+        (out,) = ex.forward(is_train=True)
+        ex.backward()
+        runs.append((_sym_loss(torch, out._data, torch.from_numpy(labs)),
+                     out._data, {k: g._data for k, g in ex.grad_dict.items()
+                                 if k in params}))
+    (gl, go, gg), (cl, co, cg) = runs
+    # Symbol.eval of numpy inputs with ctx=gpu(0) runs on the card
+    (ev,) = sym.eval(ctx=tmx.gpu(0), **feed)
+    eval_dev = ev._data.device.type
+    eval_err = _rel_to_max(torch, ev._data, co)
+    loss_err = abs(gl - cl) / abs(cl)
+    out_err = _rel_to_max(torch, go, co)
+    grad_err = {k: _rel_to_max(torch, gg[k], cg[k]) for k in cg}
+    worst = max(grad_err, key=grad_err.get)
+    _log(f"sym oracle ({SYM['oracle_layers']} layers, B {B}, L {L}, f32, "
+         f"TF32 {torch.backends.cuda.matmul.allow_tf32}): loss card "
+         f"{gl:.6f} CPU {cl:.6f} (rel {loss_err:.2e}), outputs {out_err:.2e}"
+         f", gradients worst {worst} {grad_err[worst]:.2e} of max |CPU| "
+         f"over {len(grad_err)}; eval of numpy inputs on {eval_dev} "
+         f"{eval_err:.2e}")
+    if torch.backends.cuda.matmul.allow_tf32 or loss_err > SYM_LOSS_TOL \
+            or out_err > SYM_ORACLE_TOL or grad_err[worst] > SYM_ORACLE_TOL \
+            or eval_dev != "cuda" or eval_err > SYM_ORACLE_TOL:
+        raise AssertionError("sym oracle: card and CPU disagree")
+    return sym, params
+
+
+def _sym_module(tmx, sym, context, B, params, opt):
+    mod = tmx.mod.Module(sym, data_names=("data", "valid_length"),
+                         label_names=("softmax_label",), context=context)
+    mod.bind(data_shapes=[("data", (B, SYM["len"])),
+                          ("valid_length", (B,))],
+             label_shapes=[("softmax_label", (B, SYM["len"]))])
+    ctx = context[0] if isinstance(context, list) else context
+    mod.init_params(arg_params={k: tmx.nd.array(v, ctx=ctx)
+                                for k, v in params.items()})
+    mod.init_optimizer(optimizer="sgd", optimizer_params=opt)
+    return mod
+
+
+def _sym_databatch(tmx, toks, lens, labs, ctx):
+    L = toks.shape[1]
+    return tmx.io.DataBatch(
+        data=[tmx.nd.array(toks, ctx=ctx), tmx.nd.array(lens, ctx=ctx)],
+        label=[tmx.nd.array(labs, ctx=ctx)],
+        provide_data=[tmx.io.DataDesc("data", toks.shape),
+                      tmx.io.DataDesc("valid_length", lens.shape)],
+        provide_label=[tmx.io.DataDesc("softmax_label", labs.shape)])
+
+
+def _sym_multi_context(torch, tmx, sym, params, seed):
+    """Module over [gpu(0), gpu(0)] (two executors, half the batch each)
+    against one context: outputs and parameters after 2 SGD steps."""
+    B, L = 2 * SYM["oracle_batch"], SYM["len"]
+    batch = _sym_databatch(tmx, *_sym_batch(np.random.RandomState(seed + 2),
+                                            B, L, SYM["min_len"]),
+                           tmx.gpu(0))
+    opt = (("learning_rate", 0.1), ("rescale_grad", 1.0 / B))
+    runs = []
+    for context in (tmx.gpu(0), [tmx.gpu(0), tmx.gpu(0)]):
+        mod = _sym_module(tmx, sym, context, B, params, opt)
+        for _ in range(2):
+            mod.forward_backward(batch)
+            mod.update()
+        mod.forward(batch, is_train=False)
+        arg, _ = mod.get_params()
+        runs.append((mod.get_outputs()[0]._data, arg, len(mod._execs)))
+    (o1, a1, n1), (o2, a2, n2) = runs
+    out_err = _rel_to_max(torch, o2, o1)
+    par_err = max(_rel_to_max(torch, a2[k]._data, a1[k]._data) for k in a1)
+    _log(f"sym multi-context ({n2} executors on one card vs {n1}, B {B}, "
+         f"2 SGD steps): outputs {out_err:.2e}, parameters {par_err:.2e} of "
+         f"max |one context|")
+    if n2 != 2 or out_err > SYM_ORACLE_TOL or par_err > TRAIN_TOL:
+        raise AssertionError("sym: multi-context disagrees with one context")
+
+
+def _sym_bucketing(torch, tmx, fa, params, seed):
+    """BucketingModule over buckets 512 and 256 on the card and on the
+    CPU from the same parameters, batches 512, 256, 512 with SGD: each
+    step's outputs and the parameters after; the flash launches of the
+    card's run."""
+    B = SYM["oracle_batch"]
+    rng = np.random.RandomState(seed + 3)
+    batches = [(key, _sym_batch(rng, B, key, key * 3 // 4))
+               for key in (512, 256, 512)]
+
+    def gen(key):  # noqa: ARG001 - one graph for every length
+        return (_sym_encoder(tmx.sym, tmx.name, SYM["oracle_layers"]),
+                ("data", "valid_length"), ("softmax_label",))
+
+    runs = []
+    for ctx in (tmx.gpu(0), tmx.cpu()):
+        _reset_counts(fa)
+        mod = tmx.mod.BucketingModule(gen, default_bucket_key=512,
+                                      context=ctx)
+        mod.bind(data_shapes=[("data", (B, 512)), ("valid_length", (B,))],
+                 label_shapes=[("softmax_label", (B, 512))])
+        mod.init_params(arg_params={k: tmx.nd.array(v, ctx=ctx)
+                                    for k, v in params.items()})
+        mod.init_optimizer(optimizer="sgd", optimizer_params=(
+            ("learning_rate", 0.1), ("rescale_grad", 1.0 / B)))
+        outs = []
+        for key, arrays in batches:
+            batch = _sym_databatch(tmx, *arrays, ctx)
+            batch.bucket_key = key
+            mod.forward(batch, is_train=True)
+            mod.backward()
+            mod.update()
+            outs.append(mod.get_outputs()[0]._data)
+        arg, _ = mod.get_params()
+        runs.append((outs, arg, _counts(fa), sorted(mod._buckets)))
+    (go, ga, counts, keys), (co, ca, _, _) = runs
+    out_err = max(_rel_to_max(torch, g, c) for g, c in zip(go, co))
+    par_err = max(_rel_to_max(torch, ga[k]._data, ca[k]._data) for k in ca)
+    _log(f"sym bucketing (buckets {keys}, batches 512, 256, 512, card vs "
+         f"CPU): outputs {out_err:.2e}, parameters {par_err:.2e} of max "
+         f"|CPU|; card launches {counts}")
+    if keys != [256, 512] or out_err > SYM_ORACLE_TOL \
+            or par_err > TRAIN_TOL or counts["flash_fwd_f32"] != \
+            3 * SYM["oracle_layers"] or counts["flash_bwd_fused_f32"] != \
+            3 * SYM["oracle_layers"]:
+        raise AssertionError("sym: bucketing disagrees")
+    return counts
+
+
+def _sym_loss_metric(torch, tmx):
+    """An EvalMetric whose value is the loss of SoftmaxOutput's
+    probabilities, computed on the card (no host copy of the (B, L,
+    vocab) outputs); ``losses`` keeps one per update."""
+    class SymLoss(tmx.metric.EvalMetric):
+        def __init__(self):
+            self.losses = []
+            super().__init__("sym-ce")
+
+        def update(self, labels, preds):
+            v = _sym_loss(torch, preds[0]._data, labels[0]._data)
+            self.losses.append(v)
+            self._incr(v, 1)
+
+    return SymLoss()
+
+
+def _sym_train(torch, tmx, fa, args, smi):
+    """The full-width encoder trained by ``Module.fit`` with Adam on an
+    NDArrayIter of synthetic tokens: losses, step ms, samples/s, MFU,
+    peak memory, idle share, the memory a step holds after its backward
+    and the flash launches of the timed steps."""
+    s = SYM
+    B, L, layers = s["batch"], s["len"], s["layers"]
+    sym = _sym_encoder(tmx.sym, tmx.name, layers)
+    rng = np.random.RandomState(args.seed + 4)
+    n = B * s["batches"]
+    toks, lens, labs = _sym_batch(rng, n, L, s["min_len"])
+    it = tmx.io.NDArrayIter({"data": toks, "valid_length": lens},
+                            {"softmax_label": labs}, batch_size=B,
+                            shuffle=False)
+    mod = tmx.mod.Module(sym, data_names=("data", "valid_length"),
+                         label_names=("softmax_label",),
+                         context=tmx.gpu(0))
+    metric = _sym_loss_metric(torch, tmx)
+    stamps = []
+
+    def stamp(param):  # noqa: ARG001
+        torch.cuda.synchronize()
+        stamps.append(time.perf_counter())
+
+    _fresh_peak(torch)
+    tmx.random.seed(args.seed)
+    _reset_counts(fa)
+    t0 = time.perf_counter()
+    mod.fit(it, num_epoch=s["epochs"], optimizer="adam",
+            optimizer_params=(("learning_rate", s["lr"]),),
+            initializer=tmx.init.Normal(0.02), eval_metric=metric,
+            batch_end_callback=stamp)
+    counts = _counts(fa)
+    steps = len(metric.losses)
+    step_ms = [(b - a) * 1e3 for a, b in zip([t0] + stamps, stamps)]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    it.reset()
+    batch = next(iter(it))
+
+    def one_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    prof = _profile_step(torch, one_step, "sym train")
+    # memory a step holds after its backward (through update, metric and
+    # callbacks): Module's, whose backward frees the graph as it walks it,
+    # against executors that keep it for another backward (the default)
+    held = []
+    for retain in (False, True):
+        gc.collect()
+        mod.forward(batch, is_train=True)
+        if retain:
+            for e in mod._execs:
+                e.backward(retain_graph=True)
+        else:
+            mod.backward()
+        torch.cuda.synchronize()
+        held.append(torch.cuda.memory_allocated() / 2**30)
+    for e in mod._execs:
+        e.backward(retain_graph=False)      # lets the kept graph go
+    med = statistics.median(step_ms[2:])
+    sps = B / (med / 1e3)
+    flops = _sym_flops(B, L, layers)
+    numbers = {"steps": steps, "step_ms": med, "samples_per_s": sps,
+               "mfu": flops / (med / 1e3) / PEAK_FLOPS["float32"],
+               "peak_gib": peak,
+               "held_after_backward_gib": held[0],
+               "held_retained_gib": held[1],
+               "idle_share": max(0.0, 1 - prof["device_ms"]
+                                 / prof["wall_ms"]),
+               "rescale_grad": mod._optimizer.rescale_grad}
+    _log(f"sym train losses: {[round(x, 4) for x in metric.losses]}")
+    _log(f"sym train launches over the {steps} timed steps: {counts}")
+    _log(f"sym train ({layers} layers, {s['units']} units, B {B}, L {L}, "
+         f"f32, Adam {s['lr']}, {smi}): {steps} steps, median step "
+         f"{med:.2f} ms, {sps:.2f} samples/s, {flops / 1e12:.2f} TFLOP a "
+         f"step, MFU {numbers['mfu']:.4f} (of 67 TFLOP/s), peak {peak:.2f} "
+         f"GiB, idle share {numbers['idle_share']:.3f}; held after a "
+         f"step's backward {held[0]:.2f} GiB (Module), {held[1]:.2f} GiB "
+         f"with the graph retained")
+    losses = metric.losses
+    if steps != s["batches"] * s["epochs"] \
+            or not all(math.isfinite(x) for x in losses) \
+            or not losses[-1] < losses[0]:
+        raise AssertionError(f"sym train: losses {losses}")
+    if counts["flash_fwd_f32"] != layers * steps \
+            or counts["flash_bwd_fused_f32"] != layers * steps \
+            or counts["flash_fwd"] != counts["flash_fwd_f32"] \
+            or counts["flash_bwd_fused"] != counts["flash_bwd_fused_f32"] \
+            or counts["flash_bwd_dq"] or counts["flash_bwd_dkv"]:
+        raise AssertionError(f"sym train: launches {counts}")
+    return mod, (toks, lens, labs), counts, numbers
+
+
+def _sym_serve(torch, tmx, fa, mod, data, root):
+    """``save_checkpoint`` then ``load_checkpoint``; the head served by
+    ``SymbolBlock.imports`` at batch 8 against ``Module.predict`` of a
+    ``Module.load`` of the checkpoint, a rebind at batch 4; then bf16 under
+    ``amp.init`` after ``amp.convert_model``.  Returns the serve's
+    launches (f32 and bf16)."""
+    s = SYM
+    nb = s["serve_batch"]
+    toks, lens, labs = (a[:nb] for a in data)
+    prefix = os.path.join(root, "encoder")
+    t0 = time.perf_counter()
+    mod.save_checkpoint(prefix, 1)
+    t_save = time.perf_counter() - t0
+    names = dict(data_names=("data", "valid_length"),
+                 label_names=("softmax_label",))
+    t0 = time.perf_counter()
+    sym, arg, aux = tmx.model.load_checkpoint(prefix, 1)
+    t_load = time.perf_counter() - t0
+    if sorted(arg) != sorted(mod.get_params()[0]):
+        raise AssertionError("sym: the checkpoint's parameters differ")
+    pmod = tmx.mod.Module.load(prefix, 1, context=tmx.gpu(0), **names)
+    pmod.bind(data_shapes=[("data", (nb, s["len"])), ("valid_length", (nb,))],
+              label_shapes=[("softmax_label", (nb, s["len"]))],
+              for_training=False)
+    it = tmx.io.NDArrayIter({"data": toks, "valid_length": lens},
+                            {"softmax_label": labs}, batch_size=nb)
+    _reset_counts(fa)
+    want = pmod.predict(it)[0]._data
+    del pmod
+    head = sym.get_internals()["head_output"]
+    params = f"{prefix}-0001.params"
+    blk = tmx.gluon.SymbolBlock.imports(head, ["data", "valid_length"],
+                                        params, ctx=tmx.gpu(0))
+    ins = (tmx.nd.array(toks, ctx=tmx.cpu()), tmx.nd.array(lens,
+                                                          ctx=tmx.cpu()))
+    logits = blk(*ins)._data
+    serve_err = _rel_to_max(torch, torch.softmax(logits, -1), want)
+    r = s["rebind_batch"]
+    small = blk(*(a[:r] for a in ins))._data
+    rebind_err = _rel_to_max(torch, small, logits[:r])
+    f32_counts = _counts(fa)
+    _log(f"sym serve: checkpoint saved in {t_save:.2f} s, loaded in "
+         f"{t_load:.2f} s ({os.path.getsize(params) / 2**20:.1f} MiB); "
+         f"SymbolBlock at batch {nb} vs Module.predict {serve_err:.2e} of "
+         f"max, rebind at batch {r} {rebind_err:.2e}; launches {f32_counts}")
+    if serve_err > SYM_SERVE_TOL or rebind_err > SYM_SERVE_TOL \
+            or f32_counts["flash_fwd_f32"] != 3 * s["layers"]:
+        raise AssertionError("sym serve: SymbolBlock disagrees")
+    del blk
+    tmx.amp.init()
+    try:
+        sym16, arg16, aux16 = tmx.amp.convert_model(sym, arg, aux)
+        tmx.model.save_checkpoint(prefix + "-bf16", 1, head, arg16, aux16)
+        blk16 = tmx.gluon.SymbolBlock.imports(
+            head, ["data", "valid_length"], prefix + "-bf16-0001.params",
+            ctx=tmx.gpu(0))
+        _reset_counts(fa)
+        logits16 = blk16(*ins)._data
+        torch.cuda.synchronize()
+        bf16_counts = _counts(fa)
+    finally:
+        tmx.amp.off()
+    bf16_err = _rel_to_max(torch, logits16, logits)
+    dtypes = sorted({str(v.dtype).replace("torch.", "")
+                     for v in arg16.values()})
+    _log(f"sym bf16 serve (amp.init + convert_model, parameters {dtypes}): "
+         f"logits {logits16.dtype} vs f32 {bf16_err:.2e} of max |f32|; "
+         f"launches {bf16_counts}")
+    bf16_fwd = bf16_counts["flash_fwd"] - bf16_counts["flash_fwd_f32"]
+    if bf16_err > SYM_BF16_TOL or bf16_fwd != s["layers"] \
+            or bf16_counts["flash_fwd_f32"]:
+        raise AssertionError("sym bf16 serve: logits or launches")
+    return {k: f32_counts[k] + bf16_counts[k] for k in f32_counts}
+
+
+def sym_phase(torch, fa, mx, args, smi):
+    """The symbolic API on the card: the 2-layer oracle card vs CPU,
+    Module over two contexts of one card, BucketingModule card vs CPU,
+    the full-width encoder trained by ``Module.fit``, its checkpoint
+    served by ``SymbolBlock`` in f32 and bf16.  Returns (launch counts of
+    the whole phase, numbers)."""
+    tmx = mx["pkg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = dict.fromkeys(_COUNTERS, 0)
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] += v
+
+    _reset_counts(fa)
+    sym2, params = _sym_oracle(torch, tmx, args.seed + 30)
+    _sym_multi_context(torch, tmx, sym2, params, args.seed + 30)
+    add(_counts(fa))
+    add(_sym_bucketing(torch, tmx, fa, params, args.seed + 30))
+    del params
+    mod, data, train_counts, numbers = _sym_train(torch, tmx, fa, args, smi)
+    add(train_counts)
+    root = tempfile.mkdtemp(prefix="mx_sym_")
+    try:
+        add(_sym_serve(torch, tmx, fa, mod, data, root))
+    finally:
+        import shutil
+        shutil.rmtree(root, ignore_errors=True)
+    del mod
+    gc.collect()
+    torch.cuda.empty_cache()
+    _log(f"sym launches over the phase: {total}")
+    _log(f"sym numbers ({smi}): " + ", ".join(
+        f"{k} {v:.2f}" if isinstance(v, float) else f"{k} {v}"
+        for k, v in numbers.items()))
+    return total, numbers
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -6025,6 +6523,7 @@ def main(argv=None):
     moe_counts = _phase("moe", moe_phase, torch, fa, mx, args, smi)
     image_counts, _ = _phase("image", image_phase, torch, fa, mx, args, smi)
     util_counts, _ = _phase("util", util_phase, torch, fa, mx, args, smi)
+    sym_counts, _ = _phase("sym", sym_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -6068,6 +6567,10 @@ def main(argv=None):
         # the util phase's BERT-base bf16 steps (fused optimizer,
         # compression, checkpoint and resume)
         "util_launches": util_counts["flash_fwd"],
+        # the sym phase: the symbolic encoder's oracle, buckets, Module
+        # steps and SymbolBlock serves, f32 and bf16
+        "sym_launches": sym_counts["flash_fwd"],
+        "sym_f32_launches": sym_counts["flash_fwd_f32"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -6134,6 +6637,7 @@ def main(argv=None):
                 "image_launches": _dtype_count(image_counts, kind_, pre),
                 "mt_launches": _dtype_count(mt_counts, kind_, pre),
                 "util_launches": _dtype_count(util_counts, kind_, pre),
+                "sym_launches": _dtype_count(sym_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":

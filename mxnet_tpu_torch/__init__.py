@@ -53,6 +53,14 @@ Then the training utilities: ``checkpoint`` (step checkpoints and
 ``model`` (``.params`` checkpoints), ``engine``, ``runtime``,
 ``test_utils``, ``operator`` (``CustomOp``, ``nd.Custom``) and
 ``library``; mixed float inputs promote as ``jnp`` does.
+Then the rest of serving (the prefix cache, speculative decoding, the
+router and its replicas, telemetry and resilience).  Then the symbolic
+API: ``mx.sym`` (``Symbol`` graphs over the op registry, evaluated node
+by node by an ``Executor`` under torch autograd, shapes inferred on the
+``meta`` device, the reference's json), ``mx.mod`` (``Module``,
+``BucketingModule``), ``gluon.SymbolBlock``, the symbol checkpoints of
+``model``, ``mx.viz``, ``mx.name``, ``mx.AttrScope`` and
+``amp.convert_model``.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -100,3 +108,10 @@ from . import engine, runtime, test_utils  # noqa: E402,F401
 from . import monitor, callback, model, checkpoint  # noqa: E402,F401
 from . import operator, library, optimizer_fusion  # noqa: E402,F401
 from . import telemetry, resilience  # noqa: E402,F401
+from . import name, attribute, visualization  # noqa: E402,F401
+from . import visualization as viz  # noqa: E402,F401
+from .attribute import AttrScope  # noqa: E402,F401
+from . import symbol  # noqa: E402,F401
+from . import symbol as sym  # noqa: E402,F401
+from . import module  # noqa: E402,F401
+from . import module as mod  # noqa: E402,F401

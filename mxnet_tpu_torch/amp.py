@@ -29,7 +29,8 @@ reference's dynamic scaling (``LossScaler``: halve on overflow, double
 after ``scale_window`` clean steps), attached to a ``gluon.Trainer`` by
 ``init_trainer`` and used through ``scale_loss``/``unscale``, and
 ``Trainer.step`` skips the update of a step whose gradients overflowed.
-``convert_model`` needs ``symbol/``, which is not ported.
+``convert_model`` casts a symbolic checkpoint's parameter dicts
+(``mx.sym``); its graph then runs under the same cast hook.
 """
 
 from __future__ import annotations
@@ -104,12 +105,20 @@ def _is_float(t):
     return isinstance(t, torch.Tensor) and t.is_floating_point()
 
 
+# inputs that carry integers (lengths) as floats: never narrowed, since a
+# 16-bit float holds integers exactly only up to 256 (bf16) or 2048 (fp16);
+# the reference narrows them (ROADMAP C.7)
+_INTEGER_INPUTS = {"contrib.masked_selfatt": frozenset({1})}
+
+
 def _cast_hook(op_name, tensors):
     """The dispatch hook: ``tensors`` cast as the op's list says."""
     st = _state
     if op_name in st.target_ops:
-        return [t.to(st.target_dtype) if _is_float(t) and t.itemsize > 2
-                else t for t in tensors]
+        keep = _INTEGER_INPUTS.get(op_name, ())
+        return [t.to(st.target_dtype)
+                if _is_float(t) and t.itemsize > 2 and i not in keep else t
+                for i, t in enumerate(tensors)]
     if op_name in st.fp32_ops:
         return [t.float() if _is_float(t) and t.itemsize < 4 else t
                 for t in tensors]
@@ -275,10 +284,25 @@ def convert_hybrid_block(block, target_dtype="bfloat16",
 
 def convert_model(sym, arg_params, aux_params, target_dtype="bfloat16",
                   target_dtype_ops=None, fp32_ops=None,
-                  conditional_fp32_ops=None,
-                  excluded_sym_names=()):  # noqa: ARG001
-    """Symbolic-graph conversion: needs ``symbol/``, not yet ported to
-    mxnet_tpu_torch (ROADMAP queue A item 10); raises."""
-    raise MXNetError("amp.convert_model needs symbol/, which is not yet "
-                     "ported to mxnet_tpu_torch (ROADMAP queue A item 10); "
-                     "use amp.convert_hybrid_block")
+                  conditional_fp32_ops=None, excluded_sym_names=()):
+    """Symbolic-graph conversion: ``(sym, arg_params, aux_params)`` with
+    the float parameters cast to ``target_dtype``, but for those named in
+    ``excluded_sym_names`` and the norm layers' (kept float32).  The graph
+    needs no rewrite: the executor's ops go through the same cast hook
+    (``amp.init``).  The op lists are accepted and have no effect, as in
+    the reference."""
+    del target_dtype_ops, fp32_ops, conditional_fp32_ops
+    tgt = _target(target_dtype)
+    excluded = set(excluded_sym_names)
+
+    def conv(d):
+        out = {}
+        for k, v in d.items():
+            if k not in excluded and v._data.is_floating_point() \
+                    and not any(m in k for m in _KEEP_FP32_PARAM_MARKERS):
+                out[k] = v.astype(tgt)
+            else:
+                out[k] = v
+        return out
+
+    return sym, conv(arg_params), conv(aux_params)

@@ -37,8 +37,9 @@ names the context for the tensors its subtree runs on.
 
 ``save_parameters``/``load_parameters`` write and read the reference's
 ``.params`` files (``nd.save``) under the same structural names, so a net
-trained in either package loads in the other.  ``export`` and
-``SymbolBlock`` need ``symbol/`` and are not ported yet.
+trained in either package loads in the other.  ``HybridBlock.export``
+is not ported yet (ROADMAP A.10).  ``SymbolBlock`` runs a symbolic graph
+(``mx.sym``) through its executor.
 """
 
 from __future__ import annotations
@@ -438,16 +439,99 @@ class HybridBlock(Block):
         raise NotImplementedError
 
     def export(self, path, epoch=0):  # noqa: ARG002
-        raise MXNetError("HybridBlock.export needs symbol/, which is not "
-                         "yet ported to mxnet_tpu_torch")
+        raise MXNetError(
+            "HybridBlock.export is not yet ported to mxnet_tpu_torch: its "
+            "program text needs a capture of the forward (torch.export), "
+            "which a launch of a hand-written kernel on the card prevents "
+            "until the kernels are torch.library ops (ROADMAP A.10)")
 
 
 class SymbolBlock(HybridBlock):
-    def __init__(self, *args, **kwargs):  # noqa: ARG002
-        raise MXNetError("SymbolBlock needs symbol/, which is not yet "
-                         "ported to mxnet_tpu_torch")
+    """A symbolic graph, or a callable, run as a Gluon block.
+
+    ``SymbolBlock(callable)`` wraps a function of the block's inputs.
+    ``SymbolBlock.imports(symbol_or_file, input_names, param_file, ctx)``
+    loads the json + ``.params`` pair that ``Symbol.save`` and
+    ``model.save_checkpoint`` write (in either package) and runs it
+    through the graph executor on ``ctx``, the imported parameters and
+    each call's inputs moved there; a call with new input shapes binds
+    again."""
+
+    def __init__(self, outputs_fn=None, params=None, prefix=None):
+        super().__init__(prefix=prefix, params=params)
+        self._fn = outputs_fn
+        self._symbol = None
+        self._input_names = None
+        self._imported_params = {}
+        self._sb_ctx = None
+        self._sb_executor = None
+        self._sb_shapes = None
 
     @classmethod
-    def imports(cls, *args, **kwargs):  # noqa: ARG003
-        raise MXNetError("SymbolBlock.imports needs symbol/, which is not "
-                         "yet ported to mxnet_tpu_torch")
+    def imports(cls, symbol_file, input_names, param_file=None, ctx=None):
+        """A block over a saved graph (a json file name or a Symbol) and,
+        when given, its parameters; the ``.params`` keys may carry
+        ``arg:``/``aux:`` (a checkpoint) or not (``save_parameters``)."""
+        from .. import symbol as _sym
+        sym = _sym.load(symbol_file) if isinstance(symbol_file, str) \
+            else symbol_file
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        blk = cls()
+        blk._symbol = sym
+        blk._input_names = list(input_names)
+        blk._sb_ctx = ctx
+        if param_file:
+            blk._imported_params = {
+                (k.split(":", 1)[1] if k.startswith(("arg:", "aux:"))
+                 else k): v
+                for k, v in nd.load(param_file, ctx=ctx).items()}
+        return blk
+
+    def _bind_for(self, ctx, shapes):
+        shape_kw = dict(zip(self._input_names, shapes))
+        try:
+            ex = self._symbol.simple_bind(ctx, grad_req="null", **shape_kw)
+        except MXNetError as e:
+            unbound = [a for a in self._symbol.list_arguments()
+                       if a not in self._imported_params
+                       and a not in self._input_names]
+            raise MXNetError(
+                f"SymbolBlock: could not bind — unbound inputs "
+                f"{unbound} are neither in input_names nor in the "
+                "param file. For a training checkpoint with a loss "
+                "head (e.g. SoftmaxOutput's *_label), either list the "
+                "label in input_names or strip the head first: "
+                "sym.get_internals()['<name>_output'] "
+                "(reference SymbolBlock.imports contract)") from e
+        for d in (ex.arg_dict, ex.aux_dict):
+            for name in d:
+                if name in self._imported_params:
+                    d[name] = self._imported_params[name].as_in_context(ctx)
+        return ex
+
+    def forward(self, *args, **kwargs):
+        if self._symbol is None:
+            return super().forward(*args, **kwargs)
+        from ..context import current_context
+        if kwargs:
+            raise MXNetError(
+                "SymbolBlock takes inputs positionally in input_names "
+                f"order {self._input_names} (got kwargs {list(kwargs)})")
+        if len(args) != len(self._input_names):
+            raise MXNetError(
+                f"SymbolBlock expects {len(self._input_names)} inputs "
+                f"{self._input_names}, got {len(args)}")
+        ctx = self._sb_ctx or current_context()
+        ins = [(a if isinstance(a, NDArray) else nd.array(a, ctx=ctx))
+               .as_in_context(ctx) for a in args]
+        shapes = tuple(a.shape for a in ins)
+        if self._sb_executor is None or self._sb_shapes != shapes:
+            self._sb_executor = self._bind_for(ctx, shapes)
+            self._sb_shapes = shapes
+        outs = self._sb_executor.forward(
+            is_train=False, **dict(zip(self._input_names, ins)))
+        return outs[0] if len(outs) == 1 else outs
+
+    def hybrid_forward(self, F, *args, **params):  # noqa: ARG002
+        return self._fn(*args, **params)

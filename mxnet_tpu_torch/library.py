@@ -7,9 +7,8 @@ library is a Python file that registers operators through the same
 public seams: ``mx.operator.register`` (``nd.Custom`` ops) or
 ``ops.registry.register`` (ops on tensors, run like the built-in ones).
 ``load(path)`` imports it and returns the names it added, which then
-appear on ``mx.nd``; loading a file again returns the same names, and a
-library that raises leaves no registration behind.  ``mx.sym`` waits
-for ``symbol/`` (ROADMAP A.10).
+appear on ``mx.nd`` and ``mx.sym``; loading a file again returns the
+same names, and a library that raises leaves no registration behind.
 """
 
 from __future__ import annotations
@@ -67,8 +66,11 @@ def load(path, verbose=True):
             f"{path} registered no operators (libraries must call "
             "mxnet_tpu.operator.register or ops.registry.register)")
     from . import ndarray as _nd_mod
+    from . import symbol as _sym_mod
     from .ndarray import register as _nd_reg
+    from .symbol import register as _sym_reg
     _nd_reg.populate(_nd_mod)
+    _sym_reg.populate(_sym_mod)
     _LOADED[path] = new_ops
     if verbose:
         print(f"mx.library: loaded {len(new_ops)} operator(s) from {path}")

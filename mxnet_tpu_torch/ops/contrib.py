@@ -92,7 +92,11 @@ def _attend(q, k, v, valid_length, causal, flash_reference=False):
     ``valid_length=None`` means every position is valid (no segment ids).
     ``flash_reference=True`` binds the flash path to its plain PyTorch
     version instead of the kernel — an explicit request used only to hold
-    the kernel against its twin; nothing selects it automatically."""
+    the kernel against its twin; nothing selects it automatically.  A
+    ``meta`` tensor (``mx.sym``'s shape inference) gets an empty output of
+    the right shape: nothing is computed and no kernel is asked for."""
+    if q.device.type == "meta":
+        return q.new_empty(q.shape[:3] + v.shape[3:])
     L, D = q.shape[2], q.shape[3]
     scale = 1.0 / float(D) ** 0.5
     seg = None if valid_length is None else _seg_of(valid_length, L,

@@ -649,3 +649,118 @@ def _col2im(data, output_size, kernel, stride=(), dilate=(), pad=()):
         img[(slice(None), slice(None)) + w] += cols[:, :, i]
     return img[(slice(None), slice(None))
                + tuple(slice(p, p + s) for p, s in zip(pad, spatial))]
+
+
+# -- what the symbolic API reads (mxnet_tpu/ops/nn.py's rules) ----------------
+# ``infer_args`` fills a parameter's shape from the data's, as nnvm's
+# InferShape pass does for simple_bind; ``_wire_inputs`` declares the inputs
+# composition creates as "<name>_<input>" variables when they are not passed.
+
+from .registry import get as _get_op  # noqa: E402
+
+
+def _fc_infer(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    nh = attrs.get("num_hidden", 0)
+    in_units = math.prod(data[1:]) if attrs.get("flatten", True) \
+        else data[-1]
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (nh, in_units)
+    if len(out) > 2 and out[2] is None and not attrs.get("no_bias", False):
+        out[2] = (nh,)
+    return out
+
+
+def _conv_infer(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    k = tuple(attrs.get("kernel", ()))
+    nf = attrs.get("num_filter", 0)
+    g = attrs.get("num_group", 1)
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (nf, data[1] // g) + k
+    if len(out) > 2 and out[2] is None and not attrs.get("no_bias", False):
+        out[2] = (nf,)
+    return out
+
+
+def _deconv_infer(shapes, attrs):
+    data = shapes[0]
+    if data is None:
+        return shapes
+    k = tuple(attrs.get("kernel", ()))
+    nf = attrs.get("num_filter", 0)
+    g = attrs.get("num_group", 1)
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (data[1], nf // g) + k
+    if len(out) > 2 and out[2] is None and not attrs.get("no_bias", True):
+        out[2] = (nf,)
+    return out
+
+
+def _channel_infer(axis_of):
+    """Every input after the data is (C,), C the data's ``axis_of(attrs)``
+    extent."""
+    def infer(shapes, attrs):
+        if shapes[0] is None:
+            return shapes
+        c = shapes[0][axis_of(attrs)]
+        return [shapes[0]] + [(c,) if s is None else s for s in shapes[1:]]
+    return infer
+
+
+def _embedding_infer(shapes, attrs):
+    out = list(shapes)
+    if len(out) > 1 and out[1] is None:
+        out[1] = (attrs.get("input_dim", 0), attrs.get("output_dim", 0))
+    return out
+
+
+_get_op("FullyConnected").infer_args = _fc_infer
+_get_op("Convolution").infer_args = _conv_infer
+_get_op("Deconvolution").infer_args = _deconv_infer
+_get_op("BatchNorm").infer_args = _channel_infer(
+    lambda attrs: attrs.get("axis", 1))
+_get_op("LayerNorm").infer_args = _channel_infer(
+    lambda attrs: attrs.get("axis", -1))
+_get_op("GroupNorm").infer_args = _channel_infer(lambda attrs: 1)
+_get_op("InstanceNorm").infer_args = _channel_infer(lambda attrs: 1)
+_get_op("Embedding").infer_args = _embedding_infer
+_get_op("RNN").infer_args = rnn_infer
+
+
+def _wire_inputs(opname, names, aux=(), omit=None):
+    op = _get_op(opname)
+    op.input_names = tuple(names)
+    op.aux_names = frozenset(aux)
+    op.omit_inputs = omit
+
+
+def _omit_bias(default):
+    return lambda attrs: {"bias"} if attrs.get("no_bias", default) \
+        else set()
+
+
+_wire_inputs("FullyConnected", ("data", "weight", "bias"),
+             omit=_omit_bias(False))
+_wire_inputs("Convolution", ("data", "weight", "bias"),
+             omit=_omit_bias(False))
+_wire_inputs("Deconvolution", ("data", "weight", "bias"),
+             omit=_omit_bias(True))
+_wire_inputs("BatchNorm",
+             ("data", "gamma", "beta", "moving_mean", "moving_var"),
+             aux=("moving_mean", "moving_var"))
+_wire_inputs("LayerNorm", ("data", "gamma", "beta"))
+_wire_inputs("InstanceNorm", ("data", "gamma", "beta"))
+_wire_inputs("GroupNorm", ("data", "gamma", "beta"))
+_wire_inputs("Embedding", ("data", "weight"))
+_wire_inputs("RNN", ("data", "parameters", "state", "state_cell"),
+             omit=lambda attrs: set()
+             if attrs.get("mode", "lstm") == "lstm" else {"state_cell"})
+_wire_inputs("SoftmaxOutput", ("data", "label"))

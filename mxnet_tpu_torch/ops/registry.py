@@ -111,11 +111,22 @@ class Op:
     host_f32 : 16-bit float inputs on the CPU are computed in float32 and
         the float outputs cast back to their dtype (torch's CPU kernel
         lacks bfloat16; the card's path is unchanged).
+
+    The symbolic API (``mx.sym``) reads four more, set after registration
+    (``ops/nn.py``): ``input_names``, the declared inputs (nnvm's
+    FListInputNames), for which composition creates ``<name>_<input>``
+    variables when they are not passed; ``aux_names``, those of them that
+    are auxiliary states (BatchNorm's moving statistics);
+    ``omit_inputs(attrs)``, the inputs absent under ``attrs`` (``bias``
+    with ``no_bias``); and ``infer_args(shapes, attrs)``, which fills the
+    unknown input shapes (None) from the known ones, as nnvm's InferShape
+    pass does for the parameters.
     """
 
     __slots__ = ("name", "fn", "num_outputs", "differentiable",
                  "mutate_inputs", "visible_outputs", "wrap_key", "wrap_train",
-                 "wrap_device", "promote", "host_f32", "doc")
+                 "wrap_device", "promote", "host_f32", "doc", "input_names",
+                 "aux_names", "omit_inputs", "infer_args")
 
     def __init__(self, name, fn, num_outputs=1, differentiable=True,
                  mutate_inputs=(), visible_outputs=None, wrap_key=None,
@@ -136,6 +147,10 @@ class Op:
         self.promote = promote
         self.host_f32 = host_f32
         self.doc = doc if doc is not None else fn.__doc__
+        self.input_names = None
+        self.aux_names = frozenset()
+        self.omit_inputs = None
+        self.infer_args = None
 
     def __repr__(self):
         return f"<Op {self.name}>"
@@ -174,8 +189,9 @@ def list_ops():
 
 def _with_implicit(op, attrs, device):
     """``attrs`` plus what dispatch supplies: the device's generator under
-    ``wrap_key``, the training flag under ``wrap_train`` and the device
-    under ``wrap_device``."""
+    ``wrap_key`` (none on ``meta``, where shape inference draws nothing),
+    the training flag under ``wrap_train`` and the device under
+    ``wrap_device``."""
     if op.wrap_key is None and op.wrap_train is None \
             and op.wrap_device is None:
         return attrs
@@ -184,7 +200,8 @@ def _with_implicit(op, attrs, device):
     attrs = dict(attrs)
     if op.wrap_device is not None:
         attrs[op.wrap_device] = resolve_device(device)
-    if op.wrap_key is not None:
+    if op.wrap_key is not None and not (
+            isinstance(device, torch.device) and device.type == "meta"):
         attrs[op.wrap_key] = random.generator(device)
     if op.wrap_train is not None and op.wrap_train not in attrs:
         attrs[op.wrap_train] = autograd.is_training()

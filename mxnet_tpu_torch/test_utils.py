@@ -49,8 +49,10 @@ _ATOLS = {"float16": 1e-3, "bfloat16": 2e-2, "float32": 1e-5,
 
 def effective_dtype(arr):
     """The dtype's name: ``"bfloat16"`` for a bfloat16 NDArray or tensor,
-    numpy's name otherwise."""
-    dt = arr.dtype
+    numpy's name otherwise (a list or a scalar: numpy's for its array)."""
+    dt = getattr(arr, "dtype", None)
+    if dt is None:
+        return _np.asarray(arr).dtype.name
     if dt == torch.bfloat16:
         return "bfloat16"
     if isinstance(dt, torch.dtype):

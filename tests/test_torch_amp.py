@@ -1,7 +1,8 @@
 """The port's ``amp`` held against the JAX package's on the CPU: the op
 lists, the dtype each op returns under ``amp.init``, the dynamic loss
 scaler's sequence, the skipped update of an overflowing step, ``off()``
-restoring dispatch (and TF32), and ``convert_model`` refusing.
+restoring dispatch (and TF32), and ``convert_model`` refusing a target
+that is not a 16-bit float.
 
 Both packages keep amp as process state: every test turns it off again.
 """
@@ -207,7 +208,35 @@ def test_convert_hybrid_block_keeps_norm_parameters_f32():
 
 
 def test_convert_model_raises():
-    with pytest.raises(MXNetError, match="symbol"):
-        tamp.convert_model(None, {}, {})
+    # convert_model is ported (tests/test_torch_symbol.py); a target that
+    # is not a 16-bit float raises, as convert_hybrid_block does
+    with pytest.raises(MXNetError, match="bfloat16 or float16"):
+        tamp.convert_model(None, {}, {}, target_dtype="float32")
     with pytest.raises(MXNetError, match="float16"):
         tamp.init("float32")
+
+
+
+def test_masked_selfatt_keeps_its_lengths_exact_under_amp():
+    """ROADMAP C.7: the reference's amp narrows ``valid_length`` to bf16
+    with the other inputs, so a length of 301 masks as 300; the port keeps
+    the lengths in float32."""
+    qkv = np.random.RandomState(0).randn(512, 1, 48).astype(np.float32)
+    gaps = {}
+    for pkg, amp, name in ((mx, jamp, "ref"), (tmx, tamp, "port")):
+        ctx = tmx.cpu() if pkg is tmx else mx.cpu()
+
+        def att(n):
+            return pkg.nd.contrib.masked_selfatt(
+                pkg.nd.array(qkv, ctx=ctx),
+                pkg.nd.array(np.array([n], np.float32), ctx=ctx), heads=2)
+
+        exact = {n: att(n).asnumpy() for n in (300, 301)}
+        amp.init("bfloat16")
+        try:
+            low = att(301).astype("float32").asnumpy()
+        finally:
+            amp.off()
+        gaps[name] = {n: np.abs(low - v).max() for n, v in exact.items()}
+    assert gaps["port"][301] < gaps["port"][300]
+    assert gaps["ref"][300] < gaps["ref"][301]

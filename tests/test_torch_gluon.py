@@ -398,11 +398,8 @@ def test_not_yet_ported_raise():
     net.initialize()
     net(mx.nd.ones((1, 10)))
     for call in (lambda: net.export("x"),
-                 lambda: mx.gluon.SymbolBlock(lambda x: x),
                  lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
                                           kvstore="dist_sync"),
-                 lambda: mx.model.load_checkpoint("x", 1),
-                 lambda: mx.model.FeedForward(None),
                  lambda: mx.test_utils.rand_ndarray((2, 2), "csr")):
         with pytest.raises(mx.MXNetError, match="not yet ported"):
             call()

@@ -156,8 +156,17 @@ def _keep_module_state(mod, monkeypatch):
         monkeypatch.setattr(mod, name, getattr(mod, name))
 
 
+def _fresh_module_state(mod, monkeypatch):
+    """Start the heartbeat module from its fresh-import state (an earlier
+    test in the process may have marked it failed); restored afterwards."""
+    monkeypatch.setattr(mod, "_phase", "spawned")
+    for name in ("_step", "_error", "_last_beat"):
+        monkeypatch.setattr(mod, name, None)
+
+
 def _hb_records(mod, tmp_path, monkeypatch):
     _keep_module_state(mod, monkeypatch)
+    _fresh_module_state(mod, monkeypatch)
     monkeypatch.setenv("MXNET_ELASTIC_HEARTBEAT_DIR", str(tmp_path))
     monkeypatch.setenv("MXNET_DIST_RANK", "3")
     monkeypatch.setenv("MXNET_DIST_NUM_WORKERS", "4")

@@ -45,7 +45,8 @@ def restore_registries():
     from mxnet_tpu import operator as jop
     from mxnet_tpu.ops import registry as jreg
     before = (set(registry._REGISTRY), set(mx.operator._REGISTRY),
-              set(vars(mx.nd)), set(jreg._REGISTRY), set(jop._REGISTRY))
+              set(vars(mx.nd)), set(jreg._REGISTRY), set(jop._REGISTRY),
+              set(vars(mx.sym)))
     yield
     for reg, keys in ((registry._REGISTRY, before[0]),
                       (mx.operator._REGISTRY, before[1]),
@@ -53,8 +54,9 @@ def restore_registries():
                       (jop._REGISTRY, before[4])):
         for k in set(reg) - keys:
             del reg[k]
-    for k in set(vars(mx.nd)) - before[2]:
-        delattr(mx.nd, k)
+    for ns, keys in ((mx.nd, before[2]), (mx.sym, before[5])):
+        for k in set(vars(ns)) - keys:
+            delattr(ns, k)
 
 
 # -- engine -------------------------------------------------------------------
@@ -403,11 +405,11 @@ def test_model_symbol_half_raises_naming_the_roadmap():
     assert (bep.epoch, bep.nbatch) == (1, 2)
     assert type(bep).__name__ == type(jmx.model.BatchEndParam(
         1, 2, None, None)).__name__
-    for call in (lambda: mx.model.save_checkpoint("p", 1, object(), {}, {}),
-                 lambda: mx.model.load_checkpoint("p", 1),
-                 lambda: mx.model.FeedForward(None)):
-        with pytest.raises(MXNetError, match="A.10"):
-            call()
+    # the symbol half is ported (tests/test_torch_module.py); what of it
+    # still waits is the int8 rewrite, with quantization
+    net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2)
+    with pytest.raises(MXNetError, match="A.10"):
+        net.optimize_for("INT8")
 
 
 # -- CustomOp and library -----------------------------------------------------
