@@ -294,6 +294,36 @@ result line; each prints its seconds):
     ``amp.init`` + ``amp.convert_model`` of the checkpoint served by
     ``SymbolBlock``: logits against the f32 ones, 12 bf16 forward
     launches.
+21. ops — operations on the port's own telemetry: (a) bench.py's
+    bert_seq512 (BERT-base, batch 32, seq 512, bf16, captured
+    ``TrainStep``) with ``telemetry.enable()``, ``costmodel.arm()`` and
+    ``httpd.start(0)``: one warm-up (analysed into the cost ledger), the
+    capture, 20 replays; the ``parallel.TrainStep`` entry's FLOPs within
+    1 % of the layers' hand count (GEMMs 3x the forward, the pooler's
+    forward, attention 12·layers·B·L²·units); its bytes, peak bytes,
+    capture seconds and calls; ``lane_summary``'s analytic MFU beside
+    bench.py's formula MFU and the roofline verdict; the step clock's 20
+    steps, each a sum of its phases, its summary and verdict; 12 forward
+    and 12 fused backward flash launches a replay; scrapes of
+    ``/metrics`` (equal to ``to_prometheus()``), ``/statusz`` (its
+    verdict the clock's), ``/ledger.json`` (lists the site) and
+    ``/healthz`` (200) between replays; the median step ms with telemetry
+    and the ledger on and off, in turns (on within 5 % of off); (b)
+    ``mx.profiler`` around one replay and then 3 more, each in a
+    ``profiler.scope``: the host trace holds the 3 scopes, the device
+    trace (``torch.profiler``) 12 launches a step of each flash kernel
+    after the first scope opens; (c) a child process trains
+    bert_3_128_2 on the card through the Gluon loop with a chaos ``exit``
+    armed at ``trainer.step`` after 2 steps: it leaves a flight-recorder
+    dump with spans, the registry, a step-clock summary of >= 1 step and
+    the armed site; SIGUSR2 to this process dumps and it runs on;
+    ``checkpoint.auto_resume`` saves and then restores the BERT-base
+    weights: one observation in each checkpoint histogram and one resume;
+    (d) ``serving.Router`` over two llama_small replicas (as in the tier
+    phase) with ``MXNET_TELEMETRY_DIR`` set answers 8 requests of 256
+    prompt tokens: after ``stop()`` three shards (replicas 0 and 1, the
+    router 2), the merged trace has pids {0, 1, 2}, each merged counter
+    is the sum over the shards, and no process is left.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -318,7 +348,9 @@ of both dtypes; each backward row the fused launches of its dtype, 0 on
 dq and dkv) and the util phase's BERT-base steps (``util_launches``: the
 bf16 forward and fused backward; 0 elsewhere) and the sym phase's
 (``sym_launches``: on the forward both dtypes, with ``sym_f32_launches``
-the f32 ones; the f32 fused backward on its row; 0 elsewhere);
+the f32 ones; the f32 fused backward on its row; 0 elsewhere) and the
+ops phase's 20 replays (``ops_launches``: the bf16 forward and fused
+backward; 0 elsewhere);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -383,6 +415,11 @@ off; 2.7e-6 seen on an H100); multi-context and bucketing outputs 1e-3 of
 max, parameters after the steps TRAIN_TOL of max; SymbolBlock against
 ``Module.predict`` and its rebind 1e-4 of max (the same kernels: 0 seen);
 the bf16 serve's logits 2^-5 of max |f32| (``SYM_BF16_TOL``; 6.0e-3 seen).
+ops: the cost ledger's FLOPs of the step within 1 % of the hand count
+(both count the same GEMMs and the flash formula: equal seen), the step
+clock's phases equal to each step's total (to 1e-9 relative), the median
+step with telemetry and the ledger on at most 5 % (``OPS_OVERHEAD``)
+above off (0.9984 of it seen on an H100).
 """
 
 from __future__ import annotations
@@ -6324,6 +6361,423 @@ def sym_phase(torch, fa, mx, args, smi):
     return total, numbers
 
 
+# -- phase 21: operations ---------------------------------------------------
+
+OPS_REPLAYS = 20
+OPS_TURNS = 4          # on/off alternations of the overhead measurement
+OPS_TURN_STEPS = 8
+OPS_OVERHEAD = 0.05    # telemetry on may cost at most 5 % of a step
+
+
+def _bert_hand_flops(layers, units, hidden, vocab, B, L):
+    """A BERT training step's FLOPs from its layer shapes: each Dense's
+    GEMM 2·T·in·out forward and twice that backward (the q/k/v, proj and
+    FFN GEMMs of every layer and the MLM decoder), the pooler's forward
+    alone (the loss reads only the decoder), attention 12·layers·B·L²·
+    units (4·B·L²·units forward, twice that backward)."""
+    T = B * L
+    per_layer = 2 * T * (4 * units * units + 2 * units * hidden)
+    gemm = 3 * (layers * per_layer + 2 * T * units * vocab)
+    return gemm + 2 * B * units * units + 12 * layers * B * L * L * units
+
+
+def _http_get(port, path):
+    import urllib.error
+    import urllib.request
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{path}",
+                                    timeout=30) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def _ops_scrape(tel, port, site):
+    """/metrics, /statusz, /ledger.json and /healthz of the live server,
+    each held against the process's own view."""
+    status, body = _http_get(port, "/metrics")
+    want = tel.to_prometheus()
+    if status != 200 or body != want:
+        raise AssertionError(f"ops: /metrics ({status}) differs from "
+                             "to_prometheus()")
+    status, body = _http_get(port, "/statusz")
+    verdict = tel.STEP_CLOCK.verdict()
+    if status != 200 or json.loads(body)["stepclock"]["verdict"] != verdict:
+        raise AssertionError(f"ops: /statusz ({status}) verdict is not the "
+                             f"step clock's {verdict}")
+    status, body = _http_get(port, "/ledger.json")
+    sites = {e["site"] for e in json.loads(body)["costmodel"]["entries"]}
+    if status != 200 or site not in sites:
+        raise AssertionError(f"ops: /ledger.json ({status}) lists {sites}")
+    status, body = _http_get(port, "/healthz")
+    if status != 200 or not json.loads(body)["ok"]:
+        raise AssertionError(f"ops: /healthz {status} {body}")
+
+
+def _ops_step(torch, fa, mx, args, smi, tmp):
+    """(a) and (b): the captured BERT-base step under telemetry, the cost
+    ledger, the scrape server and the profiler."""
+    tmx = mx["pkg"]
+    tel, prof = tmx.telemetry, tmx.profiler
+    cm, httpd = tel.costmodel, tel.httpd
+    dname, dtype = "bfloat16", torch.bfloat16
+    _fresh_peak(torch)
+    net, loss_fn, flops_tok, layers, B, L, vocab = _lane_model(
+        torch, mx, "bert_seq512", dtype, args.seed)
+    units, hidden = 768, 3072
+    step = mx["parallel"].TrainStep(net, loss_fn, mx["optimizer"].Adam(
+        learning_rate=1e-4, multi_precision=True))
+    rng = np.random.RandomState(args.seed + 21)
+    toks = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
+    labs = torch.tensor(rng.randint(0, vocab, (B, L)), device="cuda")
+    site = "parallel.TrainStep"
+    tel.clear()
+    tel.enable()
+    cm.arm()
+    port = httpd.start(0, host="127.0.0.1")
+    try:
+        t0 = time.perf_counter()
+        step(toks, labs)            # eager warm-up: the ledger's analysis
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        step(toks, labs)            # the capture (its seconds: compile_s)
+        torch.cuda.synchronize()
+        tel.STEP_CLOCK.reset()
+        _reset_counts(fa)
+        losses, step_ms = [], []
+        for i in range(OPS_REPLAYS):
+            loss, ms = _timed_steps(torch, step, toks, labs, 1)
+            losses += loss
+            step_ms += ms
+            if i % 5 == 4:
+                _ops_scrape(tel, port, site)
+        counts = _counts(fa)
+        summary = tel.STEP_CLOCK.summary()
+        records = list(tel.STEP_CLOCK._window)
+        report = tel.report(cost=True)
+        ents = cm.LEDGER.entries(site)
+        calls = cm.LEDGER.calls(site)
+        med = statistics.median(step_ms)
+        lane = cm.lane_summary(site, step_seconds=med / 1e3, dtype=dname)
+        # telemetry and the ledger on and off, in turns
+        on_ms, off_ms = [], []
+        for turn in range(2 * OPS_TURNS):
+            on = turn % 2 == 0
+            (tel.enable if on else tel.disable)()
+            (cm.arm if on else cm.disarm)()
+            (on_ms if on else off_ms).extend(_timed_steps(
+                torch, step, toks, labs, OPS_TURN_STEPS)[1])
+        tel.enable()
+        cm.arm()
+        # (b) the profiler around 3 replays, each a scope; one replay
+        # first, outside them (CUPTI missed 2 of the first replay's
+        # kernels right after the trace started in one run on an H100)
+        prof.set_config(filename=os.path.join(tmp, "profile.json"))
+        prof.start()
+        step(toks, labs)
+        torch.cuda.synchronize()
+        _reset_counts(fa)
+        for _ in range(3):
+            with prof.scope("step"):
+                step(toks, labs)
+        torch.cuda.synchronize()
+        prof.stop()
+        prof.dump()
+        prof_counts = _counts(fa)
+    finally:
+        httpd.stop()
+        cm.disarm()
+        tel.disable()
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"ops: losses {losses}")
+    if len(ents) != 1:
+        raise AssertionError(f"ops: {len(ents)} ledger entries for {site}")
+    e = ents[0]
+    hand = _bert_hand_flops(layers, units, hidden, vocab, B, L)
+    if abs(e["flops"] / hand - 1) > 0.01:
+        raise AssertionError(f"ops: ledger FLOPs {e['flops']:.0f} vs the "
+                             f"hand count {hand:.0f}")
+    sps = B / (med / 1e3)
+    formula_mfu = sps * L * flops_tok / PEAK_FLOPS[dname]
+    _log(f"ops ledger: {site} FLOPs {e['flops']:.0f} (hand count {hand}, "
+         f"ratio {e['flops'] / hand:.6f}), bytes {e['bytes_accessed']:.0f},"
+         f" peak bytes {e['peak_bytes']} ({e['peak_bytes'] / 2**30:.2f} "
+         f"GiB), capture {e['compile_s']:.3f} s (warm-up with the analysis "
+         f"{warm_s:.2f} s, of it {e['analysis_s']:.2f} s analysed), calls "
+         f"{calls} ({smi})")
+    _log(f"ops ledger: median replay {med:.2f} ms; analytic MFU "
+         f"{lane['analytic_mfu']:.4f} (ledger FLOPs / step / "
+         f"{lane['peak_flops'] / 1e12:.1f} TFLOP/s) beside bench.py's "
+         f"formula MFU {formula_mfu:.4f} ({PEAK_FLOPS[dname] / 1e12:.0f} "
+         f"TFLOP/s); arithmetic intensity {lane['arithmetic_intensity']}, "
+         f"ridge {lane['ridge_flops_per_byte']}: {lane['verdict']} ({smi})")
+    for line in report.splitlines():
+        _log(f"ops report: {line}")
+    if calls != OPS_REPLAYS + 2:
+        raise AssertionError(f"ops: {calls} ledger calls, want "
+                             f"{OPS_REPLAYS + 2}")
+    if summary["steps"] != OPS_REPLAYS:
+        raise AssertionError(f"ops: the step clock holds {summary['steps']} "
+                             f"steps, want {OPS_REPLAYS}")
+    for rec in records:
+        parts = sum(rec[p] for p in ("data_wait", "h2d", "compute", "comms",
+                                     "optimizer"))
+        if abs(parts - rec["total"]) > 1e-9 * max(1.0, rec["total"]):
+            raise AssertionError(f"ops: phases {parts} != total {rec}")
+    _log(f"ops stepclock: {summary['steps']} steps, verdict "
+         f"{summary['verdict']}; median ms "
+         + ", ".join(f"{p} {v['median'] * 1e3:.3f}"
+                     for p, v in summary["phases"].items()))
+    for kind in ("flash_fwd", "flash_bwd_fused"):
+        if counts[kind] != layers * OPS_REPLAYS:
+            raise AssertionError(f"ops: {kind} launched {counts[kind]} "
+                                 f"times in {OPS_REPLAYS} replays")
+    on, off = statistics.median(on_ms), statistics.median(off_ms)
+    _log(f"ops overhead: median step {on:.3f} ms with telemetry and the "
+         f"ledger on, {off:.3f} ms with both off ({OPS_TURNS} turns of "
+         f"{OPS_TURN_STEPS} steps each, alternating; on/off "
+         f"{on / off:.4f}) ({smi})")
+    if on > off * (1 + OPS_OVERHEAD):
+        raise AssertionError(f"ops: telemetry on costs {on / off - 1:.1%}")
+    # (b) the traces
+    with open(os.path.join(tmp, "profile.json")) as f:
+        host = json.load(f)
+    scopes = [ev for ev in host["traceEvents"] if ev.get("name")
+              == "scope:step"]
+    with open(prof.device_trace_path()) as f:
+        dev = json.load(f)
+    # the kernels that started after the first scope opened on the host
+    ranges = [ev["ts"] for ev in dev["traceEvents"]
+              if ev.get("cat") == "user_annotation"
+              and ev.get("name") == "step"]
+    kernels = [ev["name"] for ev in dev["traceEvents"]
+               if ev.get("cat") == "kernel" and ranges
+               and ev["ts"] >= min(ranges)]
+    seen = {k: sum(k in name for name in kernels)
+            for k in ("flash_fwd_bf16_tc_kernel",
+                      "flash_bwd_fused_bf16_tc_kernel")}
+    _log(f"ops profiler: host trace {len(host['traceEvents'])} events, "
+         f"{len(scopes)} step scopes; device trace {len(ranges)} step "
+         f"ranges, {len(kernels)} kernel events in the 3 replays, flash "
+         f"{seen}; wrappers counted "
+         f"{ {k: prof_counts[k] for k in ('flash_fwd', 'flash_bwd_fused')} }")
+    if len(scopes) != 3 or len(ranges) != 3:
+        raise AssertionError(f"ops: {len(scopes)} step scopes in the host "
+                             f"trace, {len(ranges)} in the device trace")
+    if any(n != 3 * layers for n in seen.values()):
+        raise AssertionError(f"ops: the device trace holds {seen} flash "
+                             f"kernels over 3 steps of {layers} layers")
+    return net, counts
+
+
+def _ops_flightrec(torch, tmx, net, tmp, smi):
+    """(c): a chaos exit in a child on the card, SIGUSR2 here, and
+    auto_resume's checkpoint telemetry at BERT-base."""
+    import signal
+    tel = tmx.telemetry
+    d = os.path.join(tmp, "flightrec")
+    os.makedirs(d)
+    code = (
+        "import numpy as np, torch\n"
+        "import mxnet_tpu_torch as mx\n"
+        "from mxnet_tpu_torch.gluon.model_zoo import bert\n"
+        "net = bert.bert_model('bert_3_128_2', vocab_size=1000, "
+        "max_length=512, dropout=0.0, generator=torch.Generator("
+        "device='cuda').manual_seed(0))\n"
+        "tr = mx.gluon.Trainer(net.collect_params(), 'adam', "
+        "{'learning_rate': 1e-4})\n"
+        "r = np.random.RandomState(0)\n"
+        "x = mx.nd.array(r.randint(0, 1000, (4, 512)), ctx=mx.gpu())\n"
+        "y = mx.nd.array(r.randint(0, 1000, (4, 512)), ctx=mx.gpu())\n"
+        "loss_fn = mx.gluon.loss.SoftmaxCELoss()\n"
+        "for i in range(5):\n"
+        "    with mx.autograd.record():\n"
+        "        loss = loss_fn(net(x)[2], y)\n"
+        "    loss.backward()\n"
+        "    tr.step(4)\n"
+        "    print('step', i, float(loss.mean().asscalar()), flush=True)\n")
+    env = {**os.environ, "MXNET_FLIGHTREC_DIR": d, "MXNET_TELEMETRY": "1",
+           "MXNET_CHAOS": "1", "MXNET_CHAOS_SITES": "trainer.step:exit:1:0:2"}
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, env=env)
+    child_s = time.perf_counter() - t0
+    dumps = sorted(f for f in os.listdir(d) if f.startswith("flightrec-"))
+    if res.returncode != 1 or len(dumps) != 1 \
+            or "chaos.exit.trainer.step" not in dumps[0]:
+        raise AssertionError(f"ops flightrec: child rc {res.returncode}, "
+                             f"dumps {dumps}: {res.stderr[-2000:]}")
+    with open(os.path.join(d, dumps[0])) as f:
+        rec = json.load(f)
+    names = {ev["name"] for ev in rec["spans"]}
+    if "trainer.step" not in names or not rec["metrics"] \
+            or rec["stepclock"]["steps"] < 1 \
+            or rec["chaos"]["armed_sites"] != ["trainer.step"] \
+            or rec["chaos"]["faults_fired"] != 1:
+        raise AssertionError(f"ops flightrec: dump {sorted(rec)} spans "
+                             f"{sorted(names)[:10]} stepclock "
+                             f"{rec['stepclock']['steps']} chaos "
+                             f"{rec['chaos']}")
+    _log(f"ops flightrec: child (bert_3_128_2, Gluon loop on the card) "
+         f"printed {res.stdout.strip().splitlines()} and exited "
+         f"{res.returncode} at the armed trainer.step in {child_s:.1f} s; "
+         f"dump {dumps[0]}: {len(rec['spans'])} spans, "
+         f"{len(rec['metrics'])} metrics, step clock "
+         f"{rec['stepclock']['steps']} steps ({rec['stepclock']['verdict']})"
+         f", chaos {rec['chaos']}")
+    # SIGUSR2 here: a dump, and the process runs on
+    prev = os.environ.get("MXNET_FLIGHTREC_DIR")
+    os.environ["MXNET_FLIGHTREC_DIR"] = d
+    try:
+        os.kill(os.getpid(), signal.SIGUSR2)
+        deadline = time.monotonic() + 30
+        while time.monotonic() < deadline and not [
+                f for f in os.listdir(d) if f.endswith("sigusr2.json")]:
+            time.sleep(0.01)
+    finally:
+        if prev is None:
+            os.environ.pop("MXNET_FLIGHTREC_DIR")
+        else:
+            os.environ["MXNET_FLIGHTREC_DIR"] = prev
+    usr2 = [f for f in os.listdir(d) if f.endswith("sigusr2.json")]
+    if len(usr2) != 1:
+        raise AssertionError(f"ops flightrec: SIGUSR2 left {usr2}")
+    # auto_resume at BERT-base: a save, then a restore and a save
+    names = ("mxnet_checkpoint_save_seconds",
+             "mxnet_checkpoint_restore_seconds")
+
+    def counts():
+        return [tel.REGISTRY.get(n).count for n in names] + [
+            tel.REGISTRY.get("mxnet_resilience_resumes_total").value]
+    trainer = tmx.gluon.Trainer(net.collect_params(), "adam",
+                                {"learning_rate": 1e-4,
+                                 "multi_precision": True})
+    ckpt = os.path.join(tmp, "ckpt")
+    tel.enable()
+    try:
+        c0 = counts()
+        t0 = time.perf_counter()
+        tmx.checkpoint.auto_resume(lambda s: False, ckpt, net=net,
+                                   trainer=trainer)
+        c1 = counts()
+        last = tmx.checkpoint.auto_resume(lambda s: False, ckpt, net=net,
+                                          trainer=trainer)
+        c2 = counts()
+        ckpt_s = time.perf_counter() - t0
+    finally:
+        tel.disable()
+    first = [b - a for a, b in zip(c0, c1)]
+    second = [b - a for a, b in zip(c1, c2)]
+    if first != [1, 0, 0] or second != [1, 1, 1] or last != 1:
+        raise AssertionError(f"ops checkpoint: (save, restore, resume) "
+                             f"observations {first} then {second}, last "
+                             f"step {last}")
+    _log(f"ops checkpoint: auto_resume at BERT-base saved step 0, then "
+         f"restored it (one observation in each histogram, one resume) and "
+         f"saved step 1, in {ckpt_s:.1f} s; SIGUSR2 dumped {usr2[0]} and "
+         f"the run went on ({smi})")
+
+
+def _ops_aggregate(torch, tmx, serving, args, tmp, smi):
+    """(d): two llama_small replicas behind a Router, each process a
+    telemetry shard."""
+    import shutil
+    tel = tmx.telemetry
+    agg = tel.aggregate
+    d = os.path.join(tmp, "shards")
+    V = TIER["router_vocab"]
+    rng = np.random.RandomState(args.seed + 41)
+    prompts = [rng.randint(3, V, 256).tolist() for _ in range(8)]
+    cmd = [sys.executable, "-m", "mxnet_tpu_torch.serving.replica",
+           "--model", "llama_small", "--vocab", str(V), "--seed",
+           str(args.seed), "--eos", "-1"]
+    for key, val in TIER_REPLICA.items():
+        cmd += ["--" + key.replace("_", "-"), str(val)]
+    workdir = tempfile.mkdtemp(prefix="mx_ops_router_")
+    saved = {k: os.environ.get(k) for k in ("MXNET_TELEMETRY_DIR",
+                                            "MXNET_TELEMETRY")}
+    os.environ.update(MXNET_TELEMETRY_DIR=d, MXNET_TELEMETRY="1")
+    label = tel.get_tracer().process_label
+    router = serving.Router(cmd, 2, workdir, hang_s=120.0)
+    pids = []
+    tel.enable()
+    try:
+        t0 = time.perf_counter()
+        router.start()
+        if router.wait_up(timeout_s=180) != 2:
+            raise AssertionError("ops router: replicas did not come up: "
+                                 f"{router.replica_status()}")
+        pids = [s["pid"] for s in router.replica_status()]
+        got = [h.result(timeout=300) for h in
+               [router.submit(p, max_new_tokens=8) for p in prompts]]
+        serve_s = time.perf_counter() - t0
+    finally:
+        router.stop()
+        shutil.rmtree(workdir, ignore_errors=True)
+        tel.disable()
+        agg.export_snapshot(d)          # the router's shard: rank 2
+        agg.set_rank(None)
+        tel.get_tracer().set_process_label(label)
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    live = {p: i for p, i in _descendants().items()
+            if i[1] != "Z" and p in pids}
+    if live:
+        raise AssertionError(f"ops router: processes left: {live}")
+    snaps = agg.load_snapshots(d)
+    ranks = [s["rank"] for s in snaps]
+    trace = agg.merged_chrome_trace(snaps)
+    trace_pids = {ev.get("pid") for ev in trace["traceEvents"]}
+    spans = {ev["pid"]: 0 for ev in trace["traceEvents"]}
+    for ev in trace["traceEvents"]:
+        spans[ev["pid"]] += ev.get("ph") == "X"
+    merged = agg.merged_registry(snaps)
+    bad = []
+    for m in merged.all_metrics():
+        if m.kind != "counter":
+            continue
+        want = sum(e.get("value", 0) for s in snaps for e in s["metrics"]
+                   if e["name"] == m.name and (e.get("labels") or {})
+                   == dict(m.labels))
+        if m.value != want:
+            bad.append((m.name, m.value, want))
+    prefills = [sum(e["value"] for e in s["metrics"]
+                    if e["name"] == "mxnet_serving_prefills_total")
+                for s in snaps if s["rank"] in (0, 1)]
+    if ranks != [0, 1, 2] or trace_pids != {0, 1, 2} or bad \
+            or len(got) != 8 or sum(prefills) != 8:
+        raise AssertionError(f"ops aggregate: ranks {ranks}, trace pids "
+                             f"{trace_pids}, counter sums off {bad[:5]}")
+    _log(f"ops aggregate: Router over 2 llama_small replicas answered 8 "
+         f"requests of 256 prompt tokens in {serve_s:.1f} s; shards of "
+         f"ranks {ranks}; merged trace pids {sorted(trace_pids)} with "
+         f"{spans} complete events; "
+         f"{sum(1 for m in merged.all_metrics() if m.kind == 'counter')} "
+         f"merged counters each the sum over the shards; prefills by replica "
+         f"{prefills}; no process left ({smi})")
+
+
+def ops_phase(torch, fa, mx, args, smi):
+    """Operations on the port's telemetry (module docstring, phase 21)."""
+    from mxnet_tpu_torch import serving
+    import shutil
+    tmp = tempfile.mkdtemp(prefix="mx_ops_")
+    try:
+        net, counts = _ops_step(torch, fa, mx, args, smi, tmp)
+        _ops_flightrec(torch, mx["pkg"], net, tmp, smi)
+        del net
+        _fresh_peak(torch)
+        _ops_aggregate(torch, mx["pkg"], serving, args, tmp, smi)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return counts, None
+
+
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -6478,6 +6932,10 @@ def main(argv=None):
         return 3
     mx = {"bert": bert, "llama": llama, "optimizer": optimizer,
           "parallel": parallel, "nn": ops_nn, "pkg": mxnet_tpu_torch}
+    # flight-recorder dumps (a process this run signals leaves one) go to
+    # a directory of this run, removed at its end
+    flightrec_dir = tempfile.mkdtemp(prefix="mx_flightrec_")
+    os.environ.setdefault("MXNET_FLIGHTREC_DIR", flightrec_dir)
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -6524,6 +6982,7 @@ def main(argv=None):
     image_counts, _ = _phase("image", image_phase, torch, fa, mx, args, smi)
     util_counts, _ = _phase("util", util_phase, torch, fa, mx, args, smi)
     sym_counts, _ = _phase("sym", sym_phase, torch, fa, mx, args, smi)
+    ops_counts, _ = _phase("ops", ops_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -6571,6 +7030,9 @@ def main(argv=None):
         # steps and SymbolBlock serves, f32 and bf16
         "sym_launches": sym_counts["flash_fwd"],
         "sym_f32_launches": sym_counts["flash_fwd_f32"],
+        # the ops phase's 20 replays of the BERT-base bf16 step under
+        # telemetry and the cost ledger
+        "ops_launches": ops_counts["flash_fwd"],
     }]
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
@@ -6638,6 +7100,7 @@ def main(argv=None):
                 "mt_launches": _dtype_count(mt_counts, kind_, pre),
                 "util_launches": _dtype_count(util_counts, kind_, pre),
                 "sym_launches": _dtype_count(sym_counts, kind_, pre),
+                "ops_launches": _dtype_count(ops_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":
@@ -6648,6 +7111,8 @@ def main(argv=None):
              f"{r['samples_per_s']:.2f} samples/s, MFU {r['mfu']:.4f}, peak "
              f"{r['peak_gib']:.2f} GiB ({smi})")
     signalled = _stop_processes()
+    import shutil
+    shutil.rmtree(flightrec_dir, ignore_errors=True)
     _log(f"processes: the fork server and resource tracker stopped; "
          f"{len(signalled)} other process(es) had to be signalled"
          + (f": {signalled}" if signalled else ""))

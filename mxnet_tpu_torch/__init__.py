@@ -60,7 +60,10 @@ by node by an ``Executor`` under torch autograd, shapes inferred on the
 ``meta`` device, the reference's json), ``mx.mod`` (``Module``,
 ``BucketingModule``), ``gluon.SymbolBlock``, the symbol checkpoints of
 ``model``, ``mx.viz``, ``mx.name``, ``mx.AttrScope`` and
-``amp.convert_model``.
+``amp.convert_model``.  Then operations: the rest of ``telemetry`` (the
+step clock, the cost ledger, the per-op ledger and dispatch hook, the
+flight recorder, the scrape endpoint, cross-process aggregation) and
+``mx.profiler`` over ``torch.profiler``.
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -107,7 +110,7 @@ from . import amp  # noqa: E402,F401
 from . import engine, runtime, test_utils  # noqa: E402,F401
 from . import monitor, callback, model, checkpoint  # noqa: E402,F401
 from . import operator, library, optimizer_fusion  # noqa: E402,F401
-from . import telemetry, resilience  # noqa: E402,F401
+from . import telemetry, resilience, profiler  # noqa: E402,F401
 from . import name, attribute, visualization  # noqa: E402,F401
 from . import visualization as viz  # noqa: E402,F401
 from .attribute import AttrScope  # noqa: E402,F401

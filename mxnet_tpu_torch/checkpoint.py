@@ -32,9 +32,18 @@ step in flight and returns.  The random generators are not saved, as in
 the reference: a resumed run equals the uninterrupted one where its steps
 draw nothing (dropout 0).
 
-Not ported: the reference's telemetry (save and restore histograms, the
-corrupt-step and resize counters), its ``checkpoint.save`` chaos site and
-``resilience.record_resume`` (ROADMAP A.11).
+Telemetry, as the reference's: a save is a ``checkpoint.save`` span and
+a restore a ``checkpoint.restore`` span, observed (with telemetry on) in
+``mxnet_checkpoint_save_seconds`` and
+``mxnet_checkpoint_restore_seconds``; a committed step that fails to
+restore counts in ``mxnet_checkpoint_corrupt_steps_total`` with a
+``checkpoint.corrupt`` instant; ``auto_resume`` counts each resume in
+``mxnet_resilience_resumes_total`` (``resilience.record_resume``) and
+marks restarts and preemptions with instants.
+``mxnet_checkpoint_resize_restores_total`` is registered and stays 0: a
+step that another world size committed is refused here, not restored.
+``checkpoint.save`` is a chaos site between a step's data landing and the
+manifest's commit, so a fault there leaves the step invisible.
 """
 
 from __future__ import annotations
@@ -44,9 +53,25 @@ import os
 import shutil
 
 from . import config
+from . import resilience as _res
+from . import telemetry as _tel
 from .base import MXNetError
+from .resilience import chaos as _chaos
 
 __all__ = ["CheckpointManager", "auto_resume"]
+
+_M_SAVE_SECONDS = _tel.histogram(
+    "mxnet_checkpoint_save_seconds", "Checkpoint save latency (blocking).")
+_M_RESTORE_SECONDS = _tel.histogram(
+    "mxnet_checkpoint_restore_seconds", "Checkpoint restore latency.")
+_M_CORRUPT = _tel.counter(
+    "mxnet_checkpoint_corrupt_steps_total",
+    "Checkpoint steps that failed to restore and were skipped by the "
+    "fall-back-to-previous policy.")
+_M_RESIZE_RESTORES = _tel.counter(
+    "mxnet_checkpoint_resize_restores_total",
+    "Restores where the current world size differs from the world that "
+    "saved the step (elastic resume with a different n).")
 
 _PARAMS, _STATES, _EXTRA = "params.params", "trainer.states", "extra.params"
 
@@ -134,7 +159,6 @@ class CheckpointManager:
     def save(self, step, net=None, trainer=None, extra=None, force=False):
         """Checkpoint ``step``; False (nothing written) when it is already
         committed, unless ``force``."""
-        from .ndarray import ndarray as nd
         if net is None and trainer is None and not extra:
             raise MXNetError("nothing to checkpoint: pass net/trainer/extra")
         step = int(step)
@@ -142,6 +166,14 @@ class CheckpointManager:
         committed = set(self.committed_steps())
         if step in committed and not force:
             return False
+        with _tel.span("checkpoint.save", "checkpoint", step=step) as sp:
+            self._save(step, net, trainer, extra, data, committed)
+        if sp is not _tel.NULL_SPAN:
+            _M_SAVE_SECONDS.observe(sp.duration_s)
+        return True
+
+    def _save(self, step, net, trainer, extra, data, committed):
+        from .ndarray import ndarray as nd
         tmp = os.path.join(self._dir, f".{step}.tmp.{os.getpid()}")
         shutil.rmtree(tmp, ignore_errors=True)
         os.makedirs(tmp)
@@ -166,6 +198,10 @@ class CheckpointManager:
         if os.path.exists(final):   # a replaced step, or an uncommitted one
             shutil.rmtree(final)
         os.replace(tmp, final)
+        if _chaos._ACTIVE:
+            # the step's data is in place and the manifest not yet
+            # committed: a fault here leaves the step invisible
+            _chaos.hit("checkpoint.save", step=step)
         committed.add(step)
         world = dict((data or {}).get("world") or {})
         world[str(step)] = {"n": 1, "sharded": False}
@@ -176,7 +212,6 @@ class CheckpointManager:
             for s in self.all_steps():
                 if s not in committed:
                     shutil.rmtree(self._step_dir(s), ignore_errors=True)
-        return True
 
     # -- restore --------------------------------------------------------------
     def restore(self, step=None, net=None, trainer=None):
@@ -197,6 +232,8 @@ class CheckpointManager:
             except Exception as exc:  # noqa: BLE001 - a corrupted step
                 import warnings
                 last_exc = exc
+                _M_CORRUPT.inc()
+                _tel.instant("checkpoint.corrupt", "resilience", step=s)
                 warnings.warn(
                     f"checkpoint step {s} failed to restore ({exc!r}); "
                     "falling back to the previous step", stacklevel=2)
@@ -205,8 +242,15 @@ class CheckpointManager:
             f"step {list(reversed(candidates))} failed") from last_exc
 
     def _restore_step(self, step, net=None, trainer=None):
-        from .ndarray import ndarray as nd
         step = int(step)
+        with _tel.span("checkpoint.restore", "checkpoint", step=step) as sp:
+            extra = self._restore(step, net, trainer)
+        if sp is not _tel.NULL_SPAN:
+            _M_RESTORE_SECONDS.observe(sp.duration_s)
+        return step, extra
+
+    def _restore(self, step, net, trainer):
+        from .ndarray import ndarray as nd
         d = self._step_dir(step)
         if not os.path.isdir(d):
             raise MXNetError(f"no checkpoint step {step} in {self._dir}")
@@ -233,7 +277,7 @@ class CheckpointManager:
         if saved is not None:
             for name, p in params.items():
                 p.set_data(saved[name])
-        return step, extra
+        return extra
 
 
 def _cpu():
@@ -295,6 +339,8 @@ def auto_resume(train_fn, directory, net=None, trainer=None,
     import warnings
     mgr = CheckpointManager(directory, max_to_keep=max_to_keep)
     last, _ = mgr.restore(net=net, trainer=trainer)
+    if last is not None:
+        _res.record_resume()
     step = (last + 1) if last is not None else 0
     restarts = 0
     if sigterm_save is None:
@@ -323,6 +369,9 @@ def auto_resume(train_fn, directory, net=None, trainer=None,
                 if good is None:
                     raise
                 restarts += 1
+                _res.record_resume()
+                _tel.instant("auto_resume.restart", "resilience",
+                             failed_step=step, resume_from=good)
                 warnings.warn(
                     f"train_fn failed at step {step} ({exc!r}); resumed "
                     f"from checkpoint step {good} "
@@ -333,6 +382,8 @@ def auto_resume(train_fn, directory, net=None, trainer=None,
             if step % save_every == 0 or not more or preempted:
                 mgr.save(step, net=net, trainer=trainer, force=preempted)
             if preempted:
+                _tel.instant("auto_resume.preempted", "resilience",
+                             step=step)
                 warnings.warn(
                     f"SIGTERM received: emergency checkpoint at step "
                     f"{step}; stopping cleanly", stacklevel=2)

@@ -6,7 +6,8 @@ from __future__ import annotations
 
 import os
 
-__all__ = ["get", "get_int", "get_float", "get_bool", "KNOWN_VARS"]
+__all__ = ["get", "get_int", "get_float", "get_bool", "describe",
+           "KNOWN_VARS"]
 
 # name -> (default, help)
 KNOWN_VARS = {
@@ -129,6 +130,60 @@ KNOWN_VARS = {
     "MXNET_TELEMETRY_BUFFER": (
         "65536",
         "Span ring-buffer capacity (events); oldest events drop beyond it."),
+    "MXNET_TELEMETRY_DIR": (
+        None,
+        "Cross-process telemetry collection directory: every process "
+        "exports a rank-tagged span+metric snapshot here at exit (and on "
+        "flight-recorder dumps); telemetry.aggregate merges the shards "
+        "into one Chrome trace and one Prometheus snapshot.  Unset = no "
+        "export."),
+    "MXNET_TELEMETRY_PORT": (
+        None,
+        "If set, a daemon-thread HTTP server exposes the live telemetry "
+        "plane on this port: /metrics (Prometheus exposition of the "
+        "registry), /statusz (knobs, world, step-clock verdict, serving "
+        "gauges), /ledger.json (cost and op ledgers), /healthz.  0 binds "
+        "an ephemeral port; unset (default) = no server."),
+    "MXNET_STEPCLOCK_WINDOW": (
+        "64",
+        "Steps the StepClock keeps for the rolling input-/comms-/compute-"
+        "bound verdict and telemetry.report()'s phase medians."),
+    "MXNET_COSTMODEL": (
+        "0",
+        "If 1, the cost ledger arms at import: each captured TrainStep "
+        "signature, each (op, shapes) dispatched through ops.registry, "
+        "the fused optimizer update and the serving entries record their "
+        "FLOPs (torch's FlopCounterMode, the flash kernels by formula), "
+        "bytes accessed and peak device bytes into "
+        "telemetry.costmodel.LEDGER."),
+    "MXNET_PEAK_FLOPS": (
+        "0",
+        "Per-card peak FLOP/s for analytic-MFU accounting (0 = from the "
+        "device table: H100 SXM 989.4e12 bf16 / 66.9e12 f32, H100 PCIe "
+        "756e12 / 51.2e12; CPU 5e11)."),
+    "MXNET_PEAK_HBM_GBS": (
+        "0",
+        "Per-card memory bandwidth in GB/s for the roofline ridge (0 = "
+        "from the device table: H100 SXM 3350, H100 PCIe 2000, CPU 50)."),
+    "MXNET_FLIGHTREC": (
+        "1",
+        "If 1 (default), the crash flight recorder arms at import: "
+        "unhandled exceptions, deadline-exceeded, chaos 'exit' faults, "
+        "SIGTERM, and SIGUSR2 (on demand) each dump a bounded postmortem "
+        "(last spans, metric state, chaos sites, resolved knobs) per "
+        "rank.  0 disables the dumps and installs no handlers."),
+    "MXNET_FLIGHTREC_DIR": (
+        None,
+        "Directory for flight-recorder dumps (default: MXNET_TELEMETRY_DIR "
+        "when set, else ~/.cache/mxnet_tpu_torch/flightrec, never the "
+        "working tree)."),
+    "MXNET_FLIGHTREC_SPANS": (
+        "256",
+        "Most-recent trace events included in each flight-recorder dump."),
+    "MXNET_FLIGHTREC_MAX_DUMPS": (
+        "16",
+        "Flight-recorder dump-file cap per process (a retry loop hitting "
+        "deadlines must not flood the disk)."),
     "MXNET_KVSTORE_TIMEOUT_S": (
         "300",
         "Default resilience.Deadline bound (seconds) on blocking waits "
@@ -238,3 +293,9 @@ def get_bool(name, default=False):
     if v is None:
         return default
     return str(v).lower() in ("1", "true", "yes", "on")
+
+
+def describe():
+    """The catalog as rows (name, current, default, help)."""
+    return [(name, get(name), default, doc)
+            for name, (default, doc) in sorted(KNOWN_VARS.items())]

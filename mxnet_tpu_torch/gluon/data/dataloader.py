@@ -46,7 +46,13 @@ the same seeds (adding one to ``fallbacks``); after
 ``MXNET_DATALOADER_RETRIES`` such errors the loader loads in this process
 for good.
 
-Not ported: the reference's telemetry and fault injection hooks.
+With telemetry on, each batch handed over is a ``dataloader.batch`` span
+whose seconds count in ``mxnet_dataloader_batch_seconds`` and
+``mxnet_dataloader_batches_total`` and go to the step clock as
+``data_wait`` (folded into the step the batch feeds); the pool path sets
+``mxnet_dataloader_queue_depth``.  ``dataloader.fetch`` is a chaos site
+(``resilience.chaos``) on every path; the in-process refetch that handles
+a failure does not hit it again.
 """
 
 from __future__ import annotations
@@ -59,11 +65,32 @@ import numpy as np
 import torch
 
 from ... import autograd, config
+from ... import telemetry as _tel
 from ...context import Context, cpu, resolve_device
 from ...ndarray.ndarray import NDArray
+from ...resilience import chaos as _chaos
+from ...telemetry import stepclock as _sclock
 from .sampler import BatchSampler, RandomSampler, SequentialSampler
 
 __all__ = ["DataLoader", "default_batchify_fn", "default_mp_batchify_fn"]
+
+_M_BATCH_SECONDS = _tel.histogram(
+    "mxnet_dataloader_batch_seconds",
+    "Host latency to materialize one batch (fetch + batchify).")
+_M_BATCHES = _tel.counter(
+    "mxnet_dataloader_batches_total", "Batches yielded by DataLoader.")
+_M_QUEUE_DEPTH = _tel.gauge(
+    "mxnet_dataloader_queue_depth",
+    "Outstanding prefetched batches in the worker pool.")
+
+
+def _observe(sp):
+    """A finished ``dataloader.batch`` span: the batch counters and the
+    step clock's data_wait."""
+    if sp is not _tel.NULL_SPAN:
+        _M_BATCHES.inc()
+        _M_BATCH_SECONDS.observe(sp.duration_s)
+        _sclock.STEP_CLOCK.note("data_wait", sp.duration_s)
 
 fallbacks = 0
 """Worker batches refetched in this process, plus pools given up: 0 while
@@ -105,6 +132,7 @@ _worker_dataset = None
 def _worker_init(dataset):
     global _worker_dataset
     _worker_dataset = dataset
+    _tel.flightrec.default_sigterm()   # terminate() must end the worker
     Context._default.value = cpu(0)
     autograd.set_recording(False)
     autograd.set_training(False)
@@ -157,8 +185,17 @@ class DataLoader:
                 self._num_workers, initializer=_worker_init,
                 initargs=(dataset,))
 
-    def _materialize(self, batch_idx):
-        return self._batchify_fn([self._dataset[i] for i in batch_idx])
+    def _materialize(self, batch_idx, hit_chaos=True):
+        """Fetch and batchify one batch in this process (the path without
+        workers, and the refetch of a failed one, which passes
+        ``hit_chaos=False``: it is the fault's handler)."""
+        with _tel.span("dataloader.batch", "data",
+                       samples=len(batch_idx)) as sp:
+            if hit_chaos and _chaos._ACTIVE:
+                _chaos.hit("dataloader.fetch")
+            batch = self._batchify_fn([self._dataset[i] for i in batch_idx])
+        _observe(sp)
+        return batch
 
     def _load(self, batch):
         """A worker's numpy batch as NDArrays on the current context."""
@@ -201,14 +238,23 @@ class DataLoader:
         while results:
             idx, r = results.pop(0)
             issue()
-            try:
-                out = self._load(r.get(self._timeout))
-            except Exception as exc:  # noqa: BLE001 (refetch, don't hang)
-                failures += 1
-                fallbacks += 1
-                warnings.warn(f"DataLoader worker batch failed ({exc!r}); "
-                              "refetched in-process", stacklevel=2)
-                out = self._materialize(idx)
+            if _tel.enabled():
+                _M_QUEUE_DEPTH.set(len(results))
+            with _tel.span("dataloader.batch", "data",
+                           queue_depth=len(results)) as sp:
+                try:
+                    if _chaos._ACTIVE:
+                        _chaos.hit("dataloader.fetch")
+                    out = self._load(r.get(self._timeout))
+                except Exception as exc:  # noqa: BLE001 (refetch, don't hang)
+                    failures += 1
+                    fallbacks += 1
+                    warnings.warn(f"DataLoader worker batch failed "
+                                  f"({exc!r}); refetched in-process",
+                                  stacklevel=2)
+                    out = self._batchify_fn(
+                        [self._dataset[i] for i in idx])
+            _observe(sp)
             yield out
             if failures and failures >= self._max_pool_failures \
                     and self._pool is not None:
@@ -220,9 +266,9 @@ class DataLoader:
                 results.clear()
                 self._shutdown_pool()
                 for batch_idx in pending:
-                    yield self._materialize(batch_idx)
+                    yield self._materialize(batch_idx, hit_chaos=False)
                 for batch_idx in it:
-                    yield self._materialize(batch_idx)
+                    yield self._materialize(batch_idx, hit_chaos=False)
                 return
 
     def _iter_decode_pool(self):
@@ -255,9 +301,12 @@ class DataLoader:
                         for b in batches])
             for bi in range(len(batches)):
                 try:
-                    imgs, labels = pipe.next_batch()
-                    out = (_to_context(torch.from_numpy(imgs)),
-                           _to_context(torch.from_numpy(labels)))
+                    with _tel.span("dataloader.batch", "data") as sp:
+                        if _chaos._ACTIVE:
+                            _chaos.hit("dataloader.fetch")
+                        imgs, labels = pipe.next_batch()
+                        out = (_to_context(torch.from_numpy(imgs)),
+                               _to_context(torch.from_numpy(labels)))
                 except Exception as exc:  # noqa: BLE001 (ladder)
                     self._decode_pool_failures += 1
                     fallbacks += 1
@@ -273,8 +322,9 @@ class DataLoader:
                            else "finishing this epoch in-process"),
                         stacklevel=2)
                     for bj in range(bi, len(batches)):
-                        yield self._materialize(batches[bj])
+                        yield self._materialize(batches[bj], hit_chaos=False)
                     return
+                _observe(sp)
                 yield out
         finally:
             self._io_pipeline_busy = False

@@ -27,6 +27,13 @@ either package's Trainer loads in the other.
 (``kvstore/compression.py``) when there is one; a string store with one
 replica is skipped, so then nothing is compressed, as in the reference.
 
+With telemetry on, ``step`` is a ``trainer.step`` span that feeds the
+step clock (``telemetry.STEP_CLOCK``): the reduction is its ``comms``
+phase, the update its ``optimizer`` phase, the time since the last step
+its ``compute``; ``mxnet_trainer_steps_total`` and
+``mxnet_trainer_step_seconds`` count the steps.  ``trainer.step`` is a
+chaos site (``resilience.chaos``).
+
 Not ported: the distributed stores raise.
 """
 
@@ -35,10 +42,19 @@ from __future__ import annotations
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from .. import optimizer_fusion
+from .. import telemetry as _tel
 from ..base import MXNetError
+from ..resilience import chaos as _chaos
+from ..telemetry import stepclock as _sclock
+from ..telemetry import tracer as _ttrace
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
+
+_M_STEPS = _tel.counter(
+    "mxnet_trainer_steps_total", "Optimizer steps taken by gluon.Trainer.")
+_M_STEP_SECONDS = _tel.histogram(
+    "mxnet_trainer_step_seconds", "End-to-end Trainer.step latency.")
 
 _SKIPPABLE = ("local", "device", "nccl")
 
@@ -136,27 +152,38 @@ class Trainer:
         gradients hold a non-finite value updates nothing while the
         dynamic scaler backs off (the reference's amp hand-off)."""
         self._init_kvstore()
-        scaler = getattr(self, "_amp_loss_scaler", None)
-        if scaler is None:
-            self._optimizer.rescale_grad = self._scale / batch_size
-        else:
-            base = self._amp_original_scale
-            scale = base / batch_size
-            if not getattr(self, "_amp_grads_unscaled", False):
-                scale /= scaler.loss_scale
-            self._amp_grads_unscaled = False
-            # checked before any update: with update_on_kvstore the store
-            # updates inside the reduction
-            grads = [g for p in self._params if p.grad_req != "null"
-                     and p._data is not None for g in p.list_grad()]
-            overflow = scaler.has_overflow(grads)
-            self._scale = base
-            if overflow:
-                return
-            self._optimizer.rescale_grad = scale
-        self._allreduce_grads()
-        if not self._update_on_kvstore:
-            self._update(ignore_stale_grad)
+        if _chaos._ACTIVE:
+            _chaos.hit("trainer.step")
+        if _ttrace._ENABLED:
+            # the gap since the last step (forward, backward, user code)
+            # and the DataLoader's pending data_wait fold into this step
+            _sclock.STEP_CLOCK.begin_step()
+        with _tel.span("trainer.step", "trainer", batch_size=batch_size) as sp:
+            scaler = getattr(self, "_amp_loss_scaler", None)
+            if scaler is None:
+                self._optimizer.rescale_grad = self._scale / batch_size
+            else:
+                base = self._amp_original_scale
+                scale = base / batch_size
+                if not getattr(self, "_amp_grads_unscaled", False):
+                    scale /= scaler.loss_scale
+                self._amp_grads_unscaled = False
+                # checked before any update: with update_on_kvstore the
+                # store updates inside the reduction
+                grads = [g for p in self._params if p.grad_req != "null"
+                         and p._data is not None for g in p.list_grad()]
+                overflow = scaler.has_overflow(grads)
+                self._scale = base
+                if overflow:
+                    return      # the step clock drops the open step
+                self._optimizer.rescale_grad = scale
+            self._allreduce_grads()
+            if not self._update_on_kvstore:
+                self._update(ignore_stale_grad)
+        if sp is not _tel.NULL_SPAN:
+            _M_STEPS.inc()
+            _M_STEP_SECONDS.observe(sp.duration_s)
+            _sclock.STEP_CLOCK.end_step()
 
     def allreduce_grads(self):
         """Sum each gradient over its contexts, into every replica."""
@@ -173,6 +200,13 @@ class Trainer:
     def _allreduce_grads(self):
         if self._kvstore is None:
             return
+        with _tel.span("trainer.allreduce", "trainer",
+                       update_on_kvstore=self._update_on_kvstore) as sp:
+            self._reduce()
+        if sp is not _tel.NULL_SPAN:
+            _sclock.STEP_CLOCK.note("comms", sp.duration_s)
+
+    def _reduce(self):
         trained = self._trained()
         if self._update_on_kvstore:
             # the store updates on push; pull hands out the new weights
@@ -204,7 +238,13 @@ class Trainer:
             return None
         return optimizer_fusion.supported_kind(self._optimizer)
 
-    def _update(self, ignore_stale_grad=False):  # noqa: ARG002
+    def _update(self, ignore_stale_grad=False):
+        with _tel.span("trainer.optimizer", "trainer") as sp:
+            self._update_all(ignore_stale_grad)
+        if sp is not _tel.NULL_SPAN:
+            _sclock.STEP_CLOCK.note("optimizer", sp.duration_s)
+
+    def _update_all(self, ignore_stale_grad=False):  # noqa: ARG002
         o = self._optimizer
         trained = self._trained()
         if self._fused_kind() is not None:
@@ -214,6 +254,7 @@ class Trainer:
         else:
             run = opt.Updater.call_multi
         counts, num = dict(o._index_update_count), o.num_update
+        fused = run == self._update_fused and _ttrace._ENABLED
         for j, upd in enumerate(self._updaters):
             if j:       # every replica sees the same step count
                 o._index_update_count.clear()
@@ -224,6 +265,8 @@ class Trainer:
                 run(upd, idx,
                     [self._params[i]._data_list[j]._grad for i in idx],
                     [self._params[i]._data_list[j] for i in idx])
+                if fused:
+                    optimizer_fusion.record_update()   # one a replica step
 
     @staticmethod
     def _update_fused(upd, idx, grads, weights):

@@ -417,7 +417,9 @@ _DECODE_CFG = None
 
 def _decode_worker_init(cfg):
     global _DECODE_CFG
+    from ..telemetry import flightrec
     _DECODE_CFG = cfg
+    flightrec.default_sigterm()        # terminate() must end the worker
     torch.set_num_threads(1)
 
 

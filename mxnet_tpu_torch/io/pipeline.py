@@ -29,12 +29,22 @@ affected chunk is decoded again in this process from the same seeds
 (nothing lost or duplicated), and the pool is rebuilt; after
 ``MXNET_DATALOADER_RETRIES`` episodes decoding stays in this process for
 good.  Each episode warns and adds one to the module counter ``episodes``.
+
+Telemetry, as the reference's: ``mxnet_io_decoded_images_total`` and
+``mxnet_io_decode_seconds`` count each chunk (a worker's or this
+process's) and ``mxnet_io_queue_depth`` is the batches in flight, with
+telemetry on.  Each task ack also carries the worker's counter deltas
+(``telemetry.aggregate.counter_deltas``: chaos and resilience counters
+that moved since its last ack), which this process folds into its
+registry whatever the telemetry flag.  ``io.decode`` is a chaos site in
+the worker, re-armed there from this process's ``MXNET_CHAOS_SITES``.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
 import warnings
 from collections import deque
 from multiprocessing import shared_memory
@@ -42,9 +52,23 @@ from multiprocessing import shared_memory
 import numpy as np
 
 from .. import config
+from .. import telemetry as _tel
 from ..base import MXNetError
 
 __all__ = ["PooledDecodePipeline", "shm_free_bytes"]
+
+_M_DECODED = _tel.counter(
+    "mxnet_io_decoded_images_total",
+    "Images decoded by the io pipeline (pooled workers + in-process "
+    "fallback).")
+_M_DECODE_SECONDS = _tel.histogram(
+    "mxnet_io_decode_seconds",
+    "Decode-worker seconds per chunk (pread + JPEG decode + augment into "
+    "the shared-memory slab).")
+_M_QUEUE_DEPTH = _tel.gauge(
+    "mxnet_io_queue_depth",
+    "Batches in flight in the decode pipeline (issued to workers, not "
+    "yet consumed).")
 
 _SHM = "/dev/shm"
 
@@ -66,12 +90,19 @@ _W_FD = -1
 _W_SLABS: dict = {}
 
 
-def _worker_init(cfg):
+def _worker_init(cfg, chaos_spec=None):
     global _W_CFG, _W_FD
     import torch
+    from ..resilience import chaos
     _W_CFG = cfg
     _W_FD = -1
+    _tel.flightrec.default_sigterm()   # a hard kill must end the worker
     torch.set_num_threads(1)
+    # the fork server may carry a stale environment: arm what the parent
+    # resolved
+    chaos.clear()
+    if chaos_spec:
+        chaos.arm_from_spec(chaos_spec)
 
 
 def _worker_fd():
@@ -107,10 +138,15 @@ def _decode_into(fd, cfg, imgs, labels, start_slot, recs):
 
 def _decode_chunk(slab_name, start_slot, recs):
     """The pool task: decode ``recs`` into the slab from ``start_slot``;
-    returns the count."""
+    returns the ack (count, seconds, counter deltas)."""
+    from ..resilience import chaos
+    if chaos._ACTIVE:
+        chaos.hit("io.decode")
     imgs, labels = _attach_slab(slab_name)
+    t0 = time.perf_counter()
     _decode_into(_worker_fd(), _W_CFG, imgs, labels, start_slot, recs)
-    return len(recs)
+    return (len(recs), time.perf_counter() - t0,
+            _tel.aggregate.counter_deltas())
 
 
 # -- parent side --------------------------------------------------------------
@@ -232,9 +268,11 @@ class PooledDecodePipeline:
             return self._pool
         from concurrent.futures import ProcessPoolExecutor
         from .io import _mp_context
+        chaos_spec = config.get("MXNET_CHAOS_SITES", "") \
+            if config.get_bool("MXNET_CHAOS") else None
         self._pool = ProcessPoolExecutor(
             self._workers, mp_context=_mp_context(),
-            initializer=_worker_init, initargs=(self._cfg,))
+            initializer=_worker_init, initargs=(self._cfg, chaos_spec))
         return self._pool
 
     def _hard_kill_pool(self):
@@ -286,6 +324,8 @@ class PooledDecodePipeline:
         while self._free and self._pending:
             keys, seeds = self._pending.popleft()
             self._issue(keys, seeds)
+        if _tel.enabled():
+            _M_QUEUE_DEPTH.set(len(self._inflight))
 
     def _issue(self, keys, seeds):
         n = len(keys)
@@ -310,23 +350,36 @@ class PooledDecodePipeline:
 
     def _inline_chunk(self, slab, start_slot, recs):
         """Decode one chunk in this process: the ladder's refetch and the
-        single-process fallback; the same pread and seeds as a worker."""
+        single-process fallback; the same pread and seeds as a worker.
+        Returns its seconds."""
         if self._parent_fd < 0:
             self._parent_fd = os.open(self._cfg["rec_path"], os.O_RDONLY)
+        t0 = time.perf_counter()
         _decode_into(self._parent_fd, self._cfg, self._slabs[slab].imgs,
                      self._slabs[slab].labels, start_slot, recs)
+        return time.perf_counter() - t0
 
     def _collect(self, entry):
         """Wait until every chunk of ``entry`` is in its slab, riding the
         ladder for any chunk whose worker failed."""
+        tel_on = _tel.enabled()
         for start_slot, recs, fut, fgen in entry.chunks:
             if fut is not None and fgen == self._gen:
                 try:
-                    fut.result(self._timeout)
+                    n, dt, deltas = fut.result(self._timeout)
+                    if deltas:
+                        # the worker's counters ride its ack home
+                        _tel.aggregate.absorb_counter_deltas(deltas)
+                    if tel_on:
+                        _M_DECODED.inc(n)
+                        _M_DECODE_SECONDS.observe(dt)
                     continue
                 except Exception as exc:  # noqa: BLE001 (ladder)
                     self._episode(exc)
-            self._inline_chunk(entry.slab, start_slot, recs)
+            dt = self._inline_chunk(entry.slab, start_slot, recs)
+            if tel_on:
+                _M_DECODED.inc(len(recs))
+                _M_DECODE_SECONDS.observe(dt)
 
     def _assemble_loop(self):
         while True:
@@ -356,6 +409,8 @@ class PooledDecodePipeline:
                     self._free.append(entry.slab)
                     self._ready.append((imgs, labels))
                     self._pump()
+                if _tel.enabled():
+                    _M_QUEUE_DEPTH.set(len(self._inflight))
                 self._cv.notify_all()
 
     def next_batch(self):

@@ -33,6 +33,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from ..base import MXNetError
+from ..telemetry import costmodel as _costmodel
 
 __all__ = ["flash_attention", "flash_attention_plain",
            "flash_attention_reference",
@@ -300,6 +301,13 @@ def _fwd(q, k, v, seg_q=None, seg_kv=None, causal=False, sm_scale=1.0):
     """Forward returning (out, lse): the kernel for CUDA tensors, the plain
     version for CPU tensors, an error for anything else."""
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+    if _costmodel.counting():
+        return _counted_op("flash_fwd")(q, k, v, seg_q, seg_kv,
+                                        bool(causal), float(sm_scale))
+    return _fwd_run(q, k, v, seg_q, seg_kv, causal, sm_scale)
+
+
+def _fwd_run(q, k, v, seg_q, seg_kv, causal, sm_scale):
     if q.is_cuda:
         return _launch(q, k, v, seg_q, seg_kv, causal, sm_scale)
     if q.device.type == "cpu":
@@ -475,10 +483,23 @@ def launch_bwd_dkv(x):
     return dk, dv
 
 
-def _bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal=False, sm_scale=1.0):
+def _bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal=False, sm_scale=1.0,
+         counted=None):
     """Backward returning (dq, dk, dv): the kernels for CUDA tensors, the
     plain version (tiled as the reference tiles it) for CPU tensors, an
-    error for anything else."""
+    error for anything else.  ``counted`` (default: whether this thread's
+    call is being analysed) routes it through the cost ledger's custom
+    op."""
+    if counted is None:
+        counted = _costmodel.counting()
+    if counted:
+        seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
+        return _counted_op("flash_bwd")(q, k, v, seg_q, seg_kv, out, lse, do,
+                                        bool(causal), float(sm_scale))
+    return _bwd_run(q, k, v, seg_q, seg_kv, out, lse, do, causal, sm_scale)
+
+
+def _bwd_run(q, k, v, seg_q, seg_kv, out, lse, do, causal, sm_scale):
     if q.is_cuda:
         x = prepare_bwd(q, k, v, seg_q, seg_kv, out, lse, do, causal,
                         sm_scale)
@@ -503,13 +524,16 @@ class _FlashAttention(torch.autograd.Function):
         out, lse = _fwd(q, k, v, seg_q, seg_kv, causal, sm_scale)
         ctx.save_for_backward(q, k, v, seg_q, seg_kv, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
+        # the backward of a CUDA graph runs on autograd's device thread,
+        # which does not see the analysing thread's flag
+        ctx.counted = _costmodel.counting()
         return out
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, seg_q, seg_kv, out, lse = ctx.saved_tensors
         dq, dk, dv = _bwd(q, k, v, seg_q, seg_kv, out, lse, do, ctx.causal,
-                          ctx.sm_scale)
+                          ctx.sm_scale, counted=ctx.counted)
         return dq, dk, dv, None, None, None, None
 
 
@@ -561,3 +585,59 @@ def flash_attention_plain(q, k, v, seg_q=None, seg_kv=None, causal=False,
     seg_q, seg_kv = _canon_segs(seg_q, seg_kv)
     return _FlashAttentionPlain.apply(q, k, v, seg_q, seg_kv, causal,
                                       sm_scale)
+
+
+# -- the cost ledger's view of the kernels ----------------------------------
+# While telemetry.costmodel analyses a call, _fwd and _bwd go through these
+# custom ops: FlopCounterMode and the ledger's byte counter see one op with
+# the formula's FLOPs (costmodel.flash_flops) instead of nothing (a ctypes
+# launch) or the plain twin's matmuls.  They are defined at import (a
+# FlopCounterMode reads the formulas when it is made), in a namespace
+# named after this package, so that two copies of the package in one
+# process do not collide.
+
+_NS = __name__.split(".")[0]
+_COUNTED = {}
+
+
+def _counted_op(name):
+    return _COUNTED[name]
+
+
+def _define_counted_ops():
+    from torch.utils.flop_counter import register_flop_formula
+
+    @torch.library.custom_op(f"{_NS}::flash_fwd", mutates_args=())
+    def flash_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  seg_q: Optional[torch.Tensor],
+                  seg_kv: Optional[torch.Tensor], causal: bool,
+                  sm_scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+        return _fwd_run(q, k, v, seg_q, seg_kv, causal, sm_scale)
+
+    @torch.library.custom_op(f"{_NS}::flash_bwd", mutates_args=())
+    def flash_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  seg_q: Optional[torch.Tensor],
+                  seg_kv: Optional[torch.Tensor], out: torch.Tensor,
+                  lse: torch.Tensor, do: torch.Tensor, causal: bool,
+                  sm_scale: float) -> tuple[torch.Tensor, torch.Tensor,
+                                            torch.Tensor]:
+        return tuple(_bwd_run(q, k, v, seg_q, seg_kv, out, lse, do, causal,
+                              sm_scale))
+
+    ops = getattr(torch.ops, _NS)
+
+    @register_flop_formula(ops.flash_fwd)
+    def _fwd_flops(q, k, v, seg_q, seg_kv, causal, sm_scale, out_shape=None,
+                   **kw):  # noqa: ARG001
+        return _costmodel.flash_flops(q, k, causal)
+
+    @register_flop_formula(ops.flash_bwd)
+    def _bwd_flops(q, k, v, seg_q, seg_kv, out, lse, do, causal, sm_scale,
+                   out_shape=None, **kw):  # noqa: ARG001
+        return _costmodel.flash_flops(q, k, causal, backward=True)
+
+    _COUNTED["flash_fwd"] = flash_fwd
+    _COUNTED["flash_bwd"] = flash_bwd
+
+
+_define_counted_ops()

@@ -1,5 +1,5 @@
 """Gradient buckets — the port of ``mxnet_tpu/kvstore/fusion.py``
-(``tree_sum``, ``GradBucketer``), without its telemetry.
+(``tree_sum``, ``GradBucketer`` and the fused path's counters).
 
 ``tree_sum`` adds a list of arrays as a pairwise tree: O(log n) depth and
 a fixed association of IEEE adds, so every reduction of the local store
@@ -12,6 +12,13 @@ key order, into buckets of at most ``bucket_bytes``; ``reduce_bucket`` sums
 each key of a bucket over its replicas with one ``torch._foreach_add`` per
 level of the tree for the whole bucket (the reference runs one jitted
 program per bucket).  A one-replica bucket is its own sum.
+
+The reference's counters of the fused path count here too, with telemetry
+on (:func:`record_pushpull`, :func:`record_bucket`,
+:func:`record_fallback`, called by ``KVStoreLocal.pushpull_list``).
+``mxnet_kvstore_fused_bucket_errors_total`` is registered and stays 0: a
+bucket's reduction is the same torch ops as the per-key path, so there is
+no separately compiled program whose failure is replayed key by key.
 """
 
 from __future__ import annotations
@@ -21,6 +28,48 @@ import operator
 import torch
 
 from .. import config
+from .. import telemetry as _tel
+
+_M_FUSED_PUSHPULLS = _tel.counter(
+    "mxnet_kvstore_fused_pushpulls_total",
+    "Fused pushpull_list calls taking the bucketed path.")
+_M_FUSED_BUCKETS = _tel.counter(
+    "mxnet_kvstore_fused_buckets_total",
+    "Gradient buckets dispatched (one fused reduce each).")
+_M_FUSED_BYTES = _tel.counter(
+    "mxnet_kvstore_fused_bytes_total",
+    "Bytes entering fused bucket reductions (all replicas).")
+_M_FUSED_KEYS = _tel.counter(
+    "mxnet_kvstore_fused_keys_total",
+    "Keys reduced through the fused bucket path.")
+_M_FALLBACK_KEYS = _tel.counter(
+    "mxnet_kvstore_fused_fallback_keys_total",
+    "pushpull_list keys that fell back to the per-key path "
+    "(sparse / compressed / update-on-kvstore / uninitialized).")
+_M_BUCKET_SECONDS = _tel.histogram(
+    "mxnet_kvstore_fused_bucket_seconds",
+    "Host-side latency per fused bucket (flatten+reduce+scatter dispatch).")
+_M_BUCKET_ERRORS = _tel.counter(
+    "mxnet_kvstore_fused_bucket_errors_total",
+    "Fused buckets whose executable FAILED and were replayed through the "
+    "per-key path (graceful degradation — distinct from the "
+    "planned fallback rules above, which never enter a bucket).")
+
+
+def record_bucket(bucket, dt_ns):
+    _M_FUSED_BUCKETS.inc()
+    _M_FUSED_KEYS.inc(len(bucket.positions))
+    _M_FUSED_BYTES.inc(bucket.nbytes * bucket.n_rep)
+    _M_BUCKET_SECONDS.observe(dt_ns / 1e9)
+
+
+def record_pushpull():
+    _M_FUSED_PUSHPULLS.inc()
+
+
+def record_fallback(n_keys):
+    if n_keys:
+        _M_FALLBACK_KEYS.inc(n_keys)
 
 __all__ = ["GradBucketer", "bucket_bytes_from_env", "tree_sum",
            "DEFAULT_BUCKET_MB"]

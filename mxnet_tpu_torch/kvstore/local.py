@@ -15,19 +15,39 @@ quantized to 2 bits and dequantized (``compression.py``, a residual per
 key and replica) before the reduction, as MXNet's workers quantize
 before they send; keys then reduce one by one.
 
+With telemetry on, ``push`` and ``pull`` are ``kvstore.push`` and
+``kvstore.pull`` spans counted in ``mxnet_kvstore_{push,pull}_bytes_total``
+and ``mxnet_kvstore_{push,pull}_seconds``; ``pushpull_list`` is a
+``kvstore.fused_pushpull`` span feeding the fused path's counters
+(``fusion.record_*``).
+
 Not ported: ``row_sparse_pull`` (the port has no sparse storage) raises.
 """
 
 from __future__ import annotations
 
+import time as _time
+
 import torch
 
+from .. import telemetry as _tel
 from ..base import MXNetError
+from ..telemetry import tracer as _ttrace
 from ..ndarray.ndarray import NDArray
 from . import fusion
 from .base import KVStoreBase
 
 __all__ = ["KVStoreLocal"]
+
+
+_M_PUSH_BYTES = _tel.counter(
+    "mxnet_kvstore_push_bytes_total", "Bytes pushed into the kvstore.")
+_M_PULL_BYTES = _tel.counter(
+    "mxnet_kvstore_pull_bytes_total", "Bytes pulled out of the kvstore.")
+_M_PUSH_SECONDS = _tel.histogram(
+    "mxnet_kvstore_push_seconds", "kvstore push call latency.")
+_M_PULL_SECONDS = _tel.histogram(
+    "mxnet_kvstore_pull_seconds", "kvstore pull call latency.")
 
 
 def _is_list(v):
@@ -92,12 +112,18 @@ class KVStoreLocal(KVStoreBase):
             return
         if _is_list(key):
             key = key[0]
-        stored = self._stored(key)
-        merged = self._reduce(self._compress_values(key, value))
-        if self._updater is not None:
-            self._updater(key, merged, stored)
-        else:
-            _write(stored, merged)
+        with _tel.span("kvstore.push", "kvstore") as sp:
+            if sp is not _tel.NULL_SPAN:
+                sp.set(key=str(key), bytes=_tel.payload_bytes(value))
+            stored = self._stored(key)
+            merged = self._reduce(self._compress_values(key, value))
+            if self._updater is not None:
+                self._updater(key, merged, stored)
+            else:
+                _write(stored, merged)
+        if sp is not _tel.NULL_SPAN:
+            _M_PUSH_SECONDS.observe(sp.duration_s)
+            _M_PUSH_BYTES.inc(sp.attrs.get("bytes", 0))
 
     def pull(self, key, out=None, priority=0,  # noqa: ARG002
              ignore_sparse=True):  # noqa: ARG002
@@ -108,9 +134,17 @@ class KVStoreLocal(KVStoreBase):
             return
         if _is_list(key):
             key = key[0]
-        stored = self._stored(key)
-        for o in (out if _is_list(out) else [out]):
-            _write(o, stored._data)
+        with _tel.span("kvstore.pull", "kvstore") as sp:
+            stored = self._stored(key)
+            outs = out if _is_list(out) else [out]
+            for o in outs:
+                _write(o, stored._data)
+            if sp is not _tel.NULL_SPAN:
+                sp.set(key=str(key),
+                       bytes=_tel.payload_bytes(stored) * len(outs))
+        if sp is not _tel.NULL_SPAN:
+            _M_PULL_SECONDS.observe(sp.duration_s)
+            _M_PULL_BYTES.inc(sp.attrs.get("bytes", 0))
 
     def pushpull(self, key, value, out=None, priority=0):
         self.push(key, value, priority)
@@ -132,8 +166,13 @@ class KVStoreLocal(KVStoreBase):
         """pushpull of every key: bucket by bucket, unless the store owns
         the update (it runs per key inside push), buckets are off or
         gradients are compressed."""
-        if self._updater is not None or self._bucket_bytes <= 0 \
-                or self._compression is not None:
+        if self._updater is not None or self._bucket_bytes <= 0:
+            return KVStoreBase.pushpull_list(self, keys, values, outs,
+                                             priority=priority)
+        if self._compression is not None:
+            # compressed keys reduce one by one
+            if _ttrace._ENABLED:
+                fusion.record_fallback(len(keys))
             return KVStoreBase.pushpull_list(self, keys, values, outs,
                                              priority=priority)
         vlists = [list(v) if _is_list(v) else [v] for v in values]
@@ -143,17 +182,29 @@ class KVStoreLocal(KVStoreBase):
             self._stored(k)
         signature = tuple((tuple(v[0].shape), v[0]._data.dtype, len(v))
                           for v in vlists)
-        for b in self._bucketer.plan(signature):
-            dev = vlists[b.positions[0]][0]._data.device
-            arrays = [t for r in range(b.n_rep) for t in self._stage(
-                [vlists[p][r] for p in b.positions], dev)]
-            for p, t in zip(b.positions, self._bucketer.reduce_bucket(
-                    b, arrays)):
-                _write(self._store[keys[p]], t)
-                o = outs[p]
-                for out_nd in (o if _is_list(o) else [o]):
-                    if out_nd is not None:
-                        _write(out_nd, t)
+        buckets = self._bucketer.plan(signature)
+        enabled = _ttrace._ENABLED
+        with _tel.span("kvstore.fused_pushpull", "kvstore") as sp:
+            total_bytes = 0
+            for b in buckets:
+                t0 = _time.perf_counter_ns() if enabled else 0
+                dev = vlists[b.positions[0]][0]._data.device
+                arrays = [t for r in range(b.n_rep) for t in self._stage(
+                    [vlists[p][r] for p in b.positions], dev)]
+                for p, t in zip(b.positions, self._bucketer.reduce_bucket(
+                        b, arrays)):
+                    _write(self._store[keys[p]], t)
+                    o = outs[p]
+                    for out_nd in (o if _is_list(o) else [o]):
+                        if out_nd is not None:
+                            _write(out_nd, t)
+                if enabled:
+                    fusion.record_bucket(b, _time.perf_counter_ns() - t0)
+                    total_bytes += b.nbytes * b.n_rep
+            if enabled:
+                fusion.record_pushpull()
+                sp.set(keys=len(keys), buckets=len(buckets),
+                       bytes=total_bytes)
 
     def pushpull_flat(self, keys, values, outs, priority=0):  # noqa: ARG002
         """The reference's flat hand-off to a fused optimizer exists only

@@ -33,15 +33,27 @@ outputs back.
 
 Monitor hooks (``mx.monitor``) see each op's outputs after
 :func:`invoke`, and ``engine.on_dispatch`` runs there (NaiveEngine's
-synchronisation).  Not ported: the reference's per-op jit cache (eager
-torch has nothing to compile) and its cost-model hook.
+synchronisation).  With telemetry on, :func:`invoke` reports each
+dispatch to ``telemetry.record_dispatch`` (counter, latency histogram,
+trace event, per-op ledger row), the monitor hooks' time included; with
+it off it pays one module-attribute read.  While the cost ledger is armed
+(``telemetry.costmodel``), each new (op, shapes, dtypes, attributes) that
+:func:`invoke` dispatches is analysed into an ``op:<name>`` entry.  Not
+ported: the reference's per-op jit cache (eager torch has nothing to
+compile).  A captured ``parallel.TrainStep`` replays without dispatching
+through here, so neither hook sees its replays.
 """
 
 from __future__ import annotations
 
+import time as _time
+
 import torch
 
+from .. import telemetry as _telemetry
 from ..base import MXNetError
+from ..telemetry import costmodel as _costmodel
+from ..telemetry import tracer as _ttrace
 
 __all__ = ["Op", "register", "get", "alias", "list_ops", "invoke",
            "invoke_arrays", "tensor_ops", "set_dispatch_cast_hook",
@@ -282,6 +294,35 @@ def _invoke_tensors(op, tensors, attrs):
         outs[:op.visible_outputs]
 
 
+_op_sites: dict = {}
+
+
+def _invoke_costed(op, tensors, attrs, device):
+    """:func:`invoke_arrays` as the ``op:<name>`` site of the cost ledger,
+    keyed by the tensors' signature and the attributes."""
+    site = _op_sites.get(op.name)
+    if site is None:
+        site = _op_sites[op.name] = _costmodel.Site(f"op:{op.name}")
+    try:
+        key = (_costmodel.signature(list(tensors)),
+               repr(sorted((attrs or {}).items())))
+    except TypeError:       # attributes that do not sort
+        key = None
+    return site.call(invoke_arrays, (op, tensors, attrs, device), key=key)
+
+
+def _costmodel_rearm():
+    """Armed, :func:`invoke` runs ops through :func:`_invoke_costed`;
+    disarmed, straight through :func:`invoke_arrays`."""
+    global _run
+    _run = _invoke_costed if _costmodel.armed() else invoke_arrays
+
+
+_run = invoke_arrays
+_costmodel.add_rearm_hook(_costmodel_rearm)
+_costmodel_rearm()
+
+
 def invoke(op, inputs, attrs=None, out=None, ctx=None):
     """The ``Imperative::Invoke`` analog: run ``op`` on NDArray ``inputs``
     (recorded under ``autograd.record()``) and return NDArray output(s),
@@ -291,6 +332,8 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
     from ..ndarray.ndarray import NDArray
     if isinstance(op, str):
         op = get(op)
+    # telemetry gate: one module-attribute read on the disabled path
+    t0 = _time.perf_counter_ns() if _ttrace._ENABLED else None
     tensors = [a._data if isinstance(a, NDArray) else a for a in inputs]
     device = next((t.device for t in tensors if isinstance(t, torch.Tensor)),
                   None)
@@ -298,12 +341,20 @@ def invoke(op, inputs, attrs=None, out=None, ctx=None):
         device = resolve_device(ctx)
     recording = autograd.is_recording() and op.differentiable
     with torch.set_grad_enabled(recording):
-        raw = invoke_arrays(op, tensors, attrs, device)
+        raw = _run(op, tensors, attrs, device)
     outs = list(raw) if isinstance(raw, (tuple, list)) else [raw]
     engine.on_dispatch(outs)
+    hook_ns = 0
     if _monitor_hooks and not engine.capturing():
+        h0 = _time.perf_counter_ns() if t0 is not None else 0
         for hook in list(_monitor_hooks):
             hook(op.name, outs)
+        if t0 is not None:
+            hook_ns = _time.perf_counter_ns() - h0
+    if t0 is not None:
+        # host dispatch time; the device's is in the profiler's trace
+        _telemetry.record_dispatch(op.name, t0, _time.perf_counter_ns(),
+                                   hook_ns)
     if op.mutate_inputs:
         _write_back(op, tensors, outs)
     if recording:

@@ -25,22 +25,91 @@ process hands over none (``KVStoreLocal.pushpull_flat`` is None), so only
 a direct call reaches it.  ``plan_trainstep`` and ``traced_update`` are
 the reference's ``TrainStep`` entries; ``parallel.TrainStep`` already runs
 one ``update_multi`` over its trainable tensors, which is what
-``traced_update`` runs.  Not ported: the reference's telemetry counters
-(ROADMAP A.11).
+``traced_update`` runs.
+
+The reference's counters count here too, with telemetry on:
+``mxnet_optimizer_fused_updates_total`` one per replica step that took the
+fused path (``gluon.Trainer`` calls :func:`record_update`),
+``mxnet_optimizer_fused_buckets_total`` one per fused ``update_multi``
+call (the port's one "bucket" holds every parameter of the call),
+``mxnet_optimizer_fused_params_total`` the parameters those calls
+updated, ``mxnet_optimizer_fused_bucket_seconds`` each call's host
+seconds, and ``mxnet_optimizer_fused_fallback_params_total`` parameters
+routed past the fused path (:func:`record_fallback`; none in the port,
+which has no sparse parameters).  While the cost ledger is armed, each
+parameter signature of a fused call is an ``optimizer_fusion.<kind>``
+entry.
 """
 
 from __future__ import annotations
 
+import time as _time
+
 import torch
 
 from . import config
+from . import telemetry as _tel
+from .telemetry import costmodel as _costmodel
+from .telemetry import tracer as _ttrace
 
 __all__ = ["fusion_enabled", "fusion_active", "supported_kind",
            "bucket_bytes_from_env", "fused_update", "fused_update_flat",
            "traced_update", "plan_trainstep", "reset", "exec_builds",
-           "DEFAULT_OPT_BUCKET_MB"]
+           "record_fallback", "record_update", "DEFAULT_OPT_BUCKET_MB"]
 
 DEFAULT_OPT_BUCKET_MB = 25.0
+
+_M_FUSED_UPDATES = _tel.counter(
+    "mxnet_optimizer_fused_updates_total",
+    "Fused optimizer update calls (one per replica step taking the "
+    "bucketed path).")
+_M_FUSED_BUCKETS = _tel.counter(
+    "mxnet_optimizer_fused_buckets_total",
+    "Optimizer buckets dispatched (one donated jitted update each).")
+_M_FUSED_PARAMS = _tel.counter(
+    "mxnet_optimizer_fused_params_total",
+    "Parameters updated through the fused bucket path.")
+_M_FALLBACK_PARAMS = _tel.counter(
+    "mxnet_optimizer_fused_fallback_params_total",
+    "Parameters that fell back to the per-param update path "
+    "(sparse / unsupported).")
+_M_BUCKET_SECONDS = _tel.histogram(
+    "mxnet_optimizer_fused_bucket_seconds",
+    "Host-side latency per fused optimizer bucket dispatch.")
+
+_SITES = {}
+
+
+def record_fallback(n_params):
+    """Parameters the caller routed past the fused path."""
+    if n_params:
+        _M_FALLBACK_PARAMS.inc(n_params)
+
+
+def record_update():
+    """One replica step took the fused path (``gluon.Trainer`` counts this
+    once a replica)."""
+    _M_FUSED_UPDATES.inc()
+
+
+def _run_update(optzr, kind, indices, weights, grads, states):
+    """The fused ``update_multi``, counted and, armed, a cost-ledger
+    site."""
+    enabled = _ttrace._ENABLED
+    t0 = _time.perf_counter_ns() if enabled else 0
+    if _costmodel._ARMED:
+        site = _SITES.get(kind)
+        if site is None:
+            site = _SITES[kind] = _costmodel.Site(f"optimizer_fusion.{kind}")
+        site.call(optzr.update_multi,
+                  (list(indices), weights, grads, list(states)),
+                  key=tuple((tuple(w.shape), w.dtype) for w in weights))
+    else:
+        optzr.update_multi(list(indices), weights, grads, list(states))
+    if enabled:
+        _M_FUSED_BUCKETS.inc()
+        _M_FUSED_PARAMS.inc(len(weights))
+        _M_BUCKET_SECONDS.observe((_time.perf_counter_ns() - t0) / 1e9)
 
 
 def fusion_enabled():
@@ -115,18 +184,18 @@ def fused_update(optzr, indices, weights, grads, states, traced=False):  # noqa:
     ``indices`` (``Updater._ensure_state``'s).  ``traced`` is the
     reference's flag for an update inside a trace and changes nothing
     here."""
-    _kind_or_raise(optzr)
+    kind = _kind_or_raise(optzr)
     weights = [_tensor(w) for w in weights]
     grads = [None if g is None else _tensor(g) for g in grads]
     _note(weights)
-    optzr.update_multi(list(indices), weights, grads, list(states))
+    _run_update(optzr, kind, indices, weights, grads, states)
 
 
 def fused_update_flat(optzr, indices, weights, states, shapes, sizes,
                       flat_grad, traced=False):  # noqa: ARG001
     """The update whose reduced gradients arrive as one flat buffer: each
     parameter's gradient is a view of its segment."""
-    _kind_or_raise(optzr)
+    kind = _kind_or_raise(optzr)
     weights = [_tensor(w) for w in weights]
     flat = _tensor(flat_grad)
     if flat.device != weights[0].device:
@@ -136,7 +205,7 @@ def fused_update_flat(optzr, indices, weights, states, shapes, sizes,
         grads.append(flat[off:off + size].view(tuple(shape)))
         off += size
     _note(weights)
-    optzr.update_multi(list(indices), weights, grads, list(states))
+    _run_update(optzr, kind, indices, weights, grads, states)
 
 
 # -- the reference's TrainStep entries ---------------------------------------

@@ -69,15 +69,36 @@ return the losses as one tensor, step by step, without synchronising (the
 reference scans the steps in one program).  Meshes of more than one
 device, sharding rules, data layouts and autoshard plans are not ported:
 asking for one raises ``MXNetError``.
+
+Telemetry, as the reference's: with telemetry on, each call is one step
+of the step clock (``telemetry.STEP_CLOCK``), whose ``h2d`` phase is the
+copy of data and label into the graph's static inputs and whose
+``compute`` is the rest (the replay's launch; the clock reads the host's
+clock and adds no synchronisation), and ``mxnet_sharding_step_dispatches
+_total`` (and ``mxnet_trainstep_microbatches_total`` with ``n_micro`` > 1)
+count the calls; each new signature adds one to
+``mxnet_sharding_retraces_total``.  While the cost ledger is armed
+(``telemetry.costmodel``), the warm-up call of each signature is analysed
+into a ``parallel.TrainStep`` entry (FLOPs, bytes, peak bytes) whose
+``compile_s`` is the seconds of the capture that follows it; every armed
+call counts in ``calls``.  A signature first seen while the ledger was
+disarmed is analysed at its first armed call, which then runs eagerly in
+place of a replay.
 """
 
 from __future__ import annotations
+
+import time as _time
 
 import numpy as np
 import torch
 
 from . import autograd, config, optimizer as opt, random
+from . import telemetry as _tel
 from .base import MXNetError
+from .telemetry import costmodel as _costmodel
+from .telemetry import stepclock as _sclock
+from .telemetry import tracer as _ttrace
 from .context import resolve_device
 from .gluon.block import Block
 from .gluon.utils import _block_tensors, remat_call
@@ -86,6 +107,18 @@ from .ndarray.ndarray import NDArray
 from .ops import registry
 
 __all__ = ["TrainStep"]
+
+_M_STEP_DISPATCHES = _tel.counter(
+    "mxnet_sharding_step_dispatches_total",
+    "Sharded TrainStep dispatches (one per __call__/run invocation).")
+_M_RETRACES = _tel.counter(
+    "mxnet_sharding_retraces_total",
+    "TrainStep executable builds (trace+compile); growth at steady state "
+    "is a retrace bug — see graftcheck GC02.")
+_M_MICROBATCHES = _tel.counter(
+    "mxnet_trainstep_microbatches_total",
+    "Microbatches executed by gradient-accumulation TrainSteps "
+    "(n_micro per dispatch; n_micro=1 steps do not count).")
 
 
 def _mesh_size(mesh):
@@ -192,6 +225,9 @@ class TrainStep:
         self._scalars = None    # device f64: rate per group, t, rescale
         self._host = None       # its pinned host twin, and the copy's event
         self._copied = None
+        self._signatures = set()    # seen, for the retrace counter
+        self._cost = _costmodel.Site("parallel.TrainStep")
+        self._cost_entry = {}   # signature -> entry awaiting its capture
 
     # -- parameters and state -------------------------------------------------
     def _trainable(self):
@@ -421,25 +457,64 @@ class TrainStep:
             self._resolve(data)
         self._evict_stale()
         self._advance()
-        if self.device.type != "cuda":
-            return self._body(data, label)
         sig = ((tuple(data.shape), data.dtype),
                (tuple(label.shape), label.dtype))
-        if sig not in self._graphs:
-            # warm-up: eager, on a side stream (torch's capture recipe)
+        # one flag read a step: the step clock's step is this call
+        enabled = _ttrace._ENABLED
+        if enabled:
+            _sclock.STEP_CLOCK.begin_step()
+            _M_STEP_DISPATCHES.inc()
+            if self._n_micro > 1:
+                _M_MICROBATCHES.inc(self._n_micro)
+            if sig not in self._signatures:
+                _M_RETRACES.inc()
+        self._signatures.add(sig)
+        loss = self._step(data, label, sig, enabled)
+        if enabled:
+            _sclock.STEP_CLOCK.end_step()
+        return loss
+
+    def _eager(self, data, label, sig, analyze):
+        """The step's body run eagerly, analysed into a ledger entry when
+        ``analyze``."""
+        if not analyze:
+            return self._body(data, label)
+        loss, entry = _costmodel.LEDGER.analyze(
+            self._cost.site, self._body, (data, label))
+        if self.device.type == "cuda" and sig not in self._graphs:
+            self._cost_entry[sig] = entry   # compile_s: its capture's
+        return loss
+
+    def _step(self, data, label, sig, enabled):
+        # armed, every call counts and a signature's first is analysed
+        analyze = _costmodel._ARMED and self._cost.admit(sig)
+        if self.device.type != "cuda":
+            return self._eager(data, label, sig, analyze)
+        if sig not in self._graphs or analyze:
+            # warm-up (or the ledger's analysis of a signature already
+            # captured while it was disarmed): eager, on a side stream
+            # (torch's capture recipe)
             side = torch.cuda.Stream(self.device)
             side.wait_stream(torch.cuda.current_stream(self.device))
             with torch.cuda.stream(side):
-                loss = self._body(data, label)
+                loss = self._eager(data, label, sig, analyze)
             torch.cuda.current_stream(self.device).wait_stream(side)
-            self._graphs[sig] = None
+            self._graphs.setdefault(sig, None)
             return loss
         entry = self._graphs[sig]
         if entry is None:
+            t0 = _time.perf_counter()
             entry = self._graphs[sig] = self._capture(data, label)
+            cost = self._cost_entry.pop(sig, None)
+            if cost is not None:
+                _costmodel.LEDGER.set_compile_seconds(
+                    cost, _time.perf_counter() - t0)
         else:
+            t0 = _time.perf_counter() if enabled else 0.0
             entry.data.copy_(data)
             entry.label.copy_(label)
+            if enabled:
+                _sclock.STEP_CLOCK.note("h2d", _time.perf_counter() - t0)
         entry.graph.replay()
         _set_launch_counts([a + b for a, b in zip(_launch_counts(),
                                                   entry.counts)])

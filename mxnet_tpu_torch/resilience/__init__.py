@@ -14,9 +14,8 @@ serving tier needs:
 Recovery events count in the telemetry registry:
 ``mxnet_resilience_{retries,faults_injected,deadline_exceeded,resumes,
 fallbacks}_total`` and ``mxnet_resilience_retry_backoff_seconds``.
-Not ported yet: ``ElasticController`` (ROADMAP A.9); the wiring of
-``record_resume`` into ``checkpoint.auto_resume`` and of the checkpoint
-and decode-pool chaos sites (ROADMAP A.11).
+``checkpoint.auto_resume`` records each resume (:func:`record_resume`).
+Not ported yet: ``ElasticController`` (ROADMAP A.9).
 """
 
 from __future__ import annotations

@@ -21,9 +21,13 @@ Faults fire on deterministic hit counts (``after`` skips the first K hits,
 ``times`` bounds how many fire; ``times=0`` = unbounded), so a chaos test
 reproduces exactly.  Instrumented code guards with
 ``if chaos._ACTIVE: chaos.hit(site)`` — one module-attribute check when no
-fault is armed.  The reference's other sites (``checkpoint.save``,
-``dataloader.fetch``, ``io.decode``, the kvstore and controller sites) are
-not wired in the port yet (ROADMAP A.11).
+fault is armed.  The port also wires the reference's ``trainer.step``
+(``gluon.Trainer.step``), ``dataloader.fetch`` (each DataLoader batch),
+``io.decode`` (each decode-pool task, in the worker) and
+``checkpoint.save`` (between a step's data and its manifest commit)
+sites; the kvstore and controller sites wait for the distributed stores
+(ROADMAP A.9).  An ``exit`` fault dumps the flight recorder
+(``chaos.exit.<site>``) before ``os._exit``.
 """
 
 from __future__ import annotations
@@ -168,8 +172,8 @@ def hit(site, **ctx):
             raise ChaosWorkerDeath(f.message)
         elif f.kind == "exit":
             import os
-            # the reference dumps its flight recorder before the exit;
-            # that recorder is not ported yet (ROADMAP A.11)
+            # os._exit skips every hook: the black box dumps here
+            _tel.flightrec.dump(f"chaos.exit.{site}")
             os._exit(1)
 
 

@@ -18,10 +18,10 @@ every ``MXNET_ELASTIC_HEARTBEAT_S`` seconds::
   hang signal; writes are write-then-rename so a reader never sees a torn
   file.
 
-The reference embeds its step clock's rolling summary under
-``stepclock``.  The step clock is not ported yet (ROADMAP A.11); the port
-writes the summary that clock gives when it recorded no step, which is
-what every serving replica of the reference writes too.
+Each record embeds the step clock's rolling summary under ``stepclock``
+(``telemetry.STEP_CLOCK.summary()``: the per-phase medians and the
+input-/comms-/compute-bound verdict; ``idle`` in a process that recorded
+no training step, such as a serving replica).
 
 One departure from the reference (ROADMAP C.7): ``start()`` of a new
 beater begins again at phase ``spawned`` with no step and no error, where
@@ -39,6 +39,7 @@ import threading
 import time
 
 from .. import config
+from .. import telemetry as _tel
 
 __all__ = [
     "enabled", "heartbeat_dir", "start", "stop", "beat", "set_phase",
@@ -47,9 +48,6 @@ __all__ = [
 ]
 
 PREFIX = "hb-rank"
-
-# the reference step clock's summary when no step was recorded
-IDLE_STEPCLOCK = {"steps": 0, "phases": {}, "groups": {}, "verdict": "idle"}
 
 _lock = threading.Lock()
 _thread = None
@@ -89,7 +87,7 @@ def _record():
         "step": step,
         "incarnation": config.get_int("MXNET_ELASTIC_INCARNATION", 0),
         "world": config.get_int("MXNET_DIST_NUM_WORKERS", 1),
-        "stepclock": dict(IDLE_STEPCLOCK),
+        "stepclock": _tel.stepclock.STEP_CLOCK.summary(),
         "error": error,
     }
     return rec

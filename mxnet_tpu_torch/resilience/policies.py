@@ -211,8 +211,8 @@ class Deadline:
         if not done.wait(t):
             self._abandon()
             _M_DEADLINE.inc()
-            # the reference dumps its flight recorder here; that recorder
-            # is not ported yet (ROADMAP A.11)
+            # postmortem while the stuck call is still blocked
+            _tel.flightrec.dump(f"deadline.{self.site or 'call'}")
             raise KVStoreTimeoutError(
                 f"{self.site or 'call'} exceeded its {t:g}s deadline "
                 "(MXNET_KVSTORE_TIMEOUT_S); the blocked call was "

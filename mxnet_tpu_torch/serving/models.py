@@ -24,7 +24,11 @@ scheduler:
 
 Numerics mirror the zoo forward (same op order, f32 softmax/norm islands,
 ``-1e9`` masking on the dense paths).  PyTorch runs eagerly, so there is
-no jit cache; the pools are updated in place.
+no jit cache; the pools are updated in place.  The six entries are cost
+ledger sites (``telemetry.costmodel``): ``serving.llama_prefill``,
+``serving.llama_decode``, ``serving.llama_multi``,
+``serving.llama_copy_block``, ``serving.tf_encode`` and
+``serving.tf_decode``, one flag read each while the ledger is disarmed.
 """
 
 from __future__ import annotations
@@ -41,6 +45,7 @@ from ..kernels import paged_attention as _pa
 from ..ops.contrib import _attend, _dense_sdpa_cross
 from ..ops.nn import _layer_norm
 from ..ops.registry import tensor_ops
+from ..telemetry import costmodel as _costmodel
 
 __all__ = ["LlamaServingAdapter", "TransformerServingAdapter",
            "make_adapter"]
@@ -317,6 +322,21 @@ def _tf_decode_raw(cfg, w, kv, cross_k, cross_v, seg, tokens, tables, ctx):
 # adapters
 # --------------------------------------------------------------------------
 
+def _entry(name, site):
+    """The module function ``name`` (looked up at each call) as the cost
+    ledger's ``site``."""
+    scope = globals()
+    return _costmodel.wrap(lambda *a, **kw: scope[name](*a, **kw), site)
+
+
+_llama_decode = _entry("_llama_decode_raw", "serving.llama_decode")
+_llama_multi = _entry("_llama_multi_decode_raw", "serving.llama_multi")
+_copy_block = _entry("_copy_block_raw", "serving.llama_copy_block")
+_llama_prefill = _entry("_llama_prefill_raw", "serving.llama_prefill")
+_tf_encode = _entry("_tf_encode_raw", "serving.tf_encode")
+_tf_decode = _entry("_tf_decode_raw", "serving.tf_decode")
+
+
 class _AdapterBase:
     """Device-state owner for one engine (weights, pools).
 
@@ -441,7 +461,7 @@ class LlamaServingAdapter(_AdapterBase):
         plain twin (for holding the kernel against it end to end)."""
         toks = self.to_device(self.pad_prompt(prompt))
         row = self.to_device(table_row)
-        nxt, logits = _llama_prefill_raw(
+        nxt, logits = _llama_prefill(
             self.cfg, self.weights, self._kv, toks, len(prompt), row,
             flash_reference=flash_reference)
         return int(nxt), logits
@@ -471,7 +491,7 @@ class LlamaServingAdapter(_AdapterBase):
             chunk = np.zeros((1, T), np.int64)
             nv = min(T, plen - lo)
             chunk[0, :nv] = prompt[lo:lo + nv]
-            g, _ = _llama_multi_decode_raw(
+            g, _ = _llama_multi(
                 self.cfg, self.weights, self._kv, self.to_device(chunk), row,
                 self.to_device([lo]), self.to_device([nv]))
             nxt = int(g[0, nv - 1])
@@ -493,7 +513,7 @@ class LlamaServingAdapter(_AdapterBase):
         else:
             valid = torch.as_tensor(np.asarray(valid, bool),
                                     device=self.device)
-        nxt, _ = _llama_decode_raw(
+        nxt, _ = _llama_decode(
             self.cfg, self.weights, self._kv, self.to_device(tokens),
             tables, self.to_device(ctx), valid)
         return nxt.cpu().numpy().astype(np.int32)
@@ -502,7 +522,7 @@ class LlamaServingAdapter(_AdapterBase):
     def decode_multi(self, tokens, tables, ctx, n_valid):
         """One (B, K) speculative-verify dispatch: greedy argmax per
         chunk column (B, K) int32."""
-        g, _ = _llama_multi_decode_raw(
+        g, _ = _llama_multi(
             self.cfg, self.weights, self._kv, self.to_device(tokens), tables,
             self.to_device(ctx), self.to_device(n_valid))
         return g.cpu().numpy().astype(np.int32)
@@ -511,7 +531,7 @@ class LlamaServingAdapter(_AdapterBase):
     def copy_block(self, dst, src):
         """Copy-on-write: duplicate pool block ``src`` into ``dst`` in
         every layer's k/v pools."""
-        _copy_block_raw(self._kv, int(src), int(dst))
+        _copy_block(self._kv, int(src), int(dst))
 
 
 class TransformerServingAdapter(_AdapterBase):
@@ -601,7 +621,7 @@ class TransformerServingAdapter(_AdapterBase):
         del table_row  # the source rides the cross cache, not the pages
         toks = self.to_device(self.pad_prompt(prompt))
         svl = self.to_device([len(prompt)])
-        ck, cv, seg = _tf_encode_raw(self.cfg, self.weights, toks, svl)
+        ck, cv, seg = _tf_encode(self.cfg, self.weights, toks, svl)
         for li in range(self.cfg.layers):
             self._cross_k[li][slot] = ck[li]
             self._cross_v[li][slot] = cv[li]
@@ -610,7 +630,7 @@ class TransformerServingAdapter(_AdapterBase):
 
     @torch.inference_mode()
     def decode(self, tokens, tables, ctx):
-        nxt, _ = _tf_decode_raw(
+        nxt, _ = _tf_decode(
             self.cfg, self.weights, self._kv, self._cross_k, self._cross_v,
             self._seg, self.to_device(tokens), tables, self.to_device(ctx))
         return nxt.cpu().numpy().astype(np.int32)

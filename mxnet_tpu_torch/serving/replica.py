@@ -64,6 +64,7 @@ import sys
 import threading
 
 from .. import config
+from .. import telemetry as _tel
 from ..telemetry import tracer as _ttrace
 from ..base import MXNetError
 from ..resilience import chaos as _chaos
@@ -454,8 +455,7 @@ def main(argv=None):
     # the scheduler thread re-acquires the GIL after every dispatch; a 1 ms
     # switch interval bounds the handoff to the reader thread
     sys.setswitchinterval(0.001)
-    # the reference also tags its telemetry shard with this rank; the
-    # aggregation plane is not ported yet (ROADMAP A.11)
+    _tel.aggregate.set_rank(args.index)
     _ttrace.get_tracer().set_process_label(
         f"mxnet_tpu_torch replica {args.index}")
     _hb.start()

@@ -398,9 +398,8 @@ class Router:
         self._started = True
         os.makedirs(self._workdir, exist_ok=True)
         os.makedirs(os.path.join(self._workdir, "logs"), exist_ok=True)
-        # the reference also makes the router its own telemetry rank, one
-        # past the replicas; the aggregation plane is not ported yet
-        # (ROADMAP A.11)
+        # the router is its own telemetry rank: one past the replicas
+        _tel.aggregate.set_rank(self._n)
         _ttrace.get_tracer().set_process_label("mxnet_tpu_torch router")
         st = self._load_state()
         with self._lock:

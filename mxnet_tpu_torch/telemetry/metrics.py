@@ -11,8 +11,9 @@ nothing of the JAX package).  Metrics are process-global, get-or-create by
 A metric may carry a fixed label set; each label combination is its own
 series under one exported name, with label values escaped per the
 exposition format and rows emitted in a stable (name, labels) order.
-``export_state()``/``Histogram._absorb`` are the merge protocol a
-cross-process aggregation plane would ride (not ported: ROADMAP A.11).
+``export_state()``/``Histogram._absorb`` are the merge protocol that the
+cross-process aggregation plane (``telemetry.aggregate``) rides: counters
+and histogram buckets sum across ranks, gauges sum (per-rank depths).
 
 Stdlib-only; safe to import anywhere.
 """

@@ -21,6 +21,7 @@ from mxnet_tpu import resilience as jres
 from mxnet_tpu.resilience import chaos as jchaos
 from mxnet_tpu.resilience import heartbeat as jhb
 from mxnet_tpu.telemetry import stepclock as jstepclock
+from mxnet_tpu_torch.telemetry import stepclock as tstepclock
 
 from mxnet_tpu_torch import resilience as tres
 from mxnet_tpu_torch import telemetry as ttel
@@ -201,9 +202,10 @@ def _hb_records(mod, tmp_path, monkeypatch):
 
 
 def test_heartbeat_file_contents_match(tmp_path, monkeypatch):
-    # the reference's record embeds its step clock's summary: idle in a
-    # process that recorded no training step, as a serving replica
+    # both records embed their step clock's summary: idle in a process
+    # that recorded no training step, as a serving replica
     monkeypatch.setattr(jstepclock, "STEP_CLOCK", jstepclock.StepClock())
+    monkeypatch.setattr(tstepclock, "STEP_CLOCK", tstepclock.StepClock())
     j = _hb_records(jhb, tmp_path / "j", monkeypatch)
     t = _hb_records(thb, tmp_path / "t", monkeypatch)
     # the reference starts from whatever phase its module was left in;
