@@ -324,6 +324,43 @@ result line; each prints its seconds):
     prompt tokens: after ``stop()`` three shards (replicas 0 and 1, the
     router 2), the merged trace has pids {0, 1, 2}, each merged counter
     is the sum over the shards, and no process is left.
+22. quant — INT8 post-training quantization (``contrib.quantization``,
+    the int8 products on cuBLASLt through ``torch._int_mm``): (a) the zoo
+    BERT at BERT-base (12 layers, 768 units, 12 heads, vocab 30522, f32,
+    Normal(0.02) weights from --seed), ``quantize_net(calib_mode=
+    "entropy")`` on 2 batches of 8 x 512, then batch 32 x 512 with
+    lengths 384-512: all 50 Dense layers int8, attention float on the f32
+    flash forward (12 launches a forward); float and int8 median ms over
+    20 forwards each in turns, calibration seconds, peak memory, the
+    int8 sequence output against the float one; one int8 forward under
+    torch.profiler runs 50 ``aten::_int_mm``, no float matmul and none of
+    the float forward's GEMM kernels; layer 0's qkv product at (16384,
+    768) x (2304, 768) card against CPU bit for bit in int32; the flash
+    forward at (32, 12, 512, 64) against its plain version on layer 0's
+    q, k, v; (b) resnet50_v1, batch 32 at 224, BatchNorm statistics from
+    the data, ``calib_mode="naive"`` on 32 other images: 53 Conv2D and the
+    Dense int8 (54 ``aten::_int_mm``), the stem's and a 3x3 layer's int8
+    convolutions card against CPU bit for bit in int32, top-1 agreement,
+    float and int8 ms; (c) the sym phase's 12-layer encoder up to its
+    head through ``optimize_for("INT8")`` (49 nodes), forward at 8 x 512
+    against float, 12 f32 flash launches;
+23. sparse — sparse storage: (a) a LibSVM file of 65,536 rows over
+    1,000,000 features, 39 non-zeros a row (the LIBSVM collection's
+    Criteo set: 13 integer and 26 categorical fields) read by
+    ``LibSVMIter(batch_size=1024)``; a factorization machine (factor 16,
+    the reference's ``examples/sparse/factorization_machine.py``) whose w
+    and v live in a ``SparsePS`` (server-side SGD for 25 steps, then
+    Adagrad) trains 50 steps: ``row_sparse_pull`` of the touched rows onto
+    the card, forward and backward through ``sparse.dot``, a push of the
+    row-sparse gradients; the same run on the CPU: losses and tables
+    agree, untouched rows bit-unchanged, the first SGD and the first
+    Adagrad step of the store against a dense update of the same rows
+    computed apart; steps/s, pull, compute and push ms; (b)
+    ``Embedding(1_000_000, 64, sparse_grad=True)`` under ``gluon.Trainer``
+    3 SGD steps on the card and on the CPU: each step's
+    ``grad(stype="row_sparse")`` holds exactly the touched rows, the
+    tables agree, untouched rows bit-unchanged; (c) ``_sparse_dot_csr``
+    and its gradients at an FM batch's shapes, card against CPU.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -350,7 +387,9 @@ bf16 forward and fused backward; 0 elsewhere) and the sym phase's
 (``sym_launches``: on the forward both dtypes, with ``sym_f32_launches``
 the f32 ones; the f32 fused backward on its row; 0 elsewhere) and the
 ops phase's 20 replays (``ops_launches``: the bf16 forward and fused
-backward; 0 elsewhere);
+backward; 0 elsewhere) and the quant phase's timed int8 BERT-base
+forwards (``quant_launches``: 12 each on the f32 forward; 0 elsewhere)
+and the sparse phase's (``sparse_launches``, 0: no attention);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -420,6 +459,15 @@ ops: the cost ledger's FLOPs of the step within 1 % of the hand count
 clock's phases equal to each step's total (to 1e-9 relative), the median
 step with telemetry and the ledger on at most 5 % (``OPS_OVERHEAD``)
 above off (0.9984 of it seen on an H100).
+quant: int32 products card vs CPU bit for bit; int8 against float, each
+over max |float|: the mean |d| 0.03 and the max 0.30 (the reference's
+own bounds for entropy calibration, whose KL thresholds clip outliers)
+and the cosine 0.98, on BERT-base's sequence output and the symbolic
+encoder's logits; ResNet-50 top-1 agreement 0.9 and cosine 0.98; the
+flash forward at the path's shape 2e-5.  sparse: FM losses and tables
+card vs CPU 1e-4 relative (``index_add`` sums with atomics on the card),
+a store step against the dense update 1e-6, ``_sparse_dot_csr`` and its
+gradients 1e-5 of max |CPU|, the Embedding tables 1e-5 of max.
 """
 
 from __future__ import annotations
@@ -450,10 +498,10 @@ def _log(msg):
     print(msg, flush=True)
 
 
-def _time_ms(torch, fn, iters=20, reps=5):
+def _time_ms(torch, fn, iters=20, reps=5, warmup=3):
     """Median per-call device time (CUDA events) over ``reps`` runs of
-    ``iters`` back-to-back calls, after a warm-up."""
-    for _ in range(3):
+    ``iters`` back-to-back calls, after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
@@ -469,12 +517,15 @@ def _time_ms(torch, fn, iters=20, reps=5):
     return statistics.median(times)
 
 
-def _bound_ms(B, H, Lq, Lk, D, dtype_name, causal):
-    """Least time for the work: flops (4 B H Lq Lk D, halved when causal)
-    over the type's peak, or bytes (q, k, v read once; out, lse written
-    once) over HBM bandwidth — the larger, and which one bounds."""
+def _bound_ms(B, H, Lq, Lk, D, dtype_name, causal, pairs=None):
+    """Least time for the work: flops (4 B H Lq Lk D, halved when causal;
+    4 H D ``pairs`` where segment ids keep only ``pairs`` query-key pairs
+    of the batch) over the type's peak, or bytes (q, k, v read once; out,
+    lse written once) over HBM bandwidth — the larger, and which one
+    bounds."""
     elt = 4 if dtype_name == "float32" else 2
-    flops = 4.0 * B * H * Lq * Lk * D * (0.5 if causal else 1.0)
+    flops = 4.0 * H * D * pairs if pairs is not None else \
+        4.0 * B * H * Lq * Lk * D * (0.5 if causal else 1.0)
     nbytes = elt * B * H * (2 * Lq * D + 2 * Lk * D) + 4 * B * H * Lq
     t_ops = flops / PEAK_FLOPS[dtype_name] * 1e3
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
@@ -1452,28 +1503,42 @@ def _capture_checks(torch, tmx, mx):
                              "(or its memory leaks)")
 
 
-def _profiled(torch, fn):
+def _profiled(torch, fn, host_ops=False, warmup=False):
     """Run fn once under torch.profiler: (wall ms to the end of its device
-    work, [(device ms, count, kernel name)] largest first)."""
+    work, [(device ms, count, kernel name)] largest first), and with
+    ``host_ops`` also {host op name: calls}.  With ``warmup`` fn runs once
+    before, traced but not counted (CUPTI can miss kernels right after a
+    trace starts)."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)
+                 if warmup else None) as prof:
+        if warmup:
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    rows = []
+        if warmup:
+            prof.step()
+    rows, ops = [], {}
     for ev in prof.key_averages():
+        if ev.key.startswith("ProfilerStep"):
+            continue            # the warm-up schedule's step span
         if ev.device_type != DeviceType.CUDA:
-            continue            # host ops: their kernels are listed apart
+            # host ops: their kernels are listed apart
+            ops[ev.key] = ops.get(ev.key, 0) + ev.count
+            continue
         dev_us = getattr(ev, "self_device_time_total",
                          getattr(ev, "self_cuda_time_total", 0))
         if dev_us > 0:
             rows.append((dev_us / 1e3, ev.count, ev.key))
     rows.sort(reverse=True)
-    return wall, rows
+    return (wall, rows, ops) if host_ops else (wall, rows)
 
 
 def _device_ms(torch, fn, iters=20):
@@ -6776,6 +6841,816 @@ def ops_phase(torch, fa, mx, args, smi):
     return counts, None
 
 
+# -- phase 22: INT8 quantization ---------------------------------------------
+
+QUANT = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
+         "vocab": 30522, "batch": 32, "len": 512, "min_len": 384,
+         "calib_batch": 8, "calib_batches": 2, "iters": 20,
+         "resnet_batch": 32, "resnet_size": 224, "resnet_calib": 2,
+         "resnet_iters": 10, "sym_batch": 8}
+# int8 against float (per-tensor symmetric ranges), each output over its
+# max |float|: the mean |int8 - float| and the max, the reference's own
+# bounds for entropy calibration (tests/test_quantization.py: KL
+# thresholds clip the tails, so the worst element is a clipped outlier),
+# and the cosine of the flattened outputs (BERT-base's sequence output
+# read a max of 0.206 and a cosine of 0.99948 on an H100)
+QUANT_MEAN = 0.03
+QUANT_MAX = 0.30
+QUANT_COS = 0.98
+# ResNet-50 (naive ranges from 32 other images, 54 int8 products) is held
+# as a classifier: top-1 agreement with float and the logits' cosine; its
+# mean error is printed (0.0315 of max on an H100, top-1 agreement 1.0)
+QUANT_RESNET_TOP1 = 0.9
+
+
+def _in_turns(torch, fns, iters):
+    """Median ms (CUDA events) of one call of each of ``fns`` (name -> fn,
+    each run once before), called in turns (a b, b a, ...) ``iters`` times
+    each."""
+    names = list(fns)
+    ms = {n: [] for n in names}
+    for i in range(iters):
+        for n in (names if i % 2 == 0 else names[::-1]):
+            ms[n].append(_time_ms(torch, fns[n], iters=1, reps=1, warmup=0))
+    return {n: statistics.median(v) for n, v in ms.items()}
+
+
+def _calibrated_s(torch, fn):
+    """Seconds of fn() (a calibration) to the end of its device work."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _mean_rel(got, ref):
+    """mean |got - ref| over max |ref|."""
+    ref = ref.detach().float()
+    return float((got.detach().float() - ref).abs().mean()
+                 / ref.abs().max().clamp_min(1e-30))
+
+
+def _quant_errs(rel, mean, cos):
+    return (f"max|d|/max|float| {rel:.4e} (tol {QUANT_MAX}), mean "
+            f"{mean:.4e} (tol {QUANT_MEAN}), cosine {cos:.6f} (min "
+            f"{QUANT_COS})")
+
+
+def _quant_ok(rel, mean, cos):
+    return rel <= QUANT_MAX and mean <= QUANT_MEAN and cos >= QUANT_COS
+
+
+def _cosine(torch, a, b):
+    a, b = a.detach().double().flatten(), b.detach().double().flatten()
+    return float((a @ b) / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+_FLOAT_MATMULS = ("aten::mm", "aten::addmm", "aten::bmm", "aten::matmul",
+                  "aten::linear", "aten::baddbmm")
+
+
+def _gemm_kernels(kernels):
+    return [k for k in kernels if any(w in k[2].lower()
+                                      for w in _GEMM_WORDS)]
+
+
+def _gemm_check(torch, label, fn_float, fn_int8, want_int_mm, want_flash):
+    """The int8 forward's host ops hold ``want_int_mm`` ``aten::_int_mm``
+    and no float matmul (attention is the flash kernel); its device trace
+    holds ``want_flash`` flash forwards and at least ``want_int_mm`` int8
+    GEMM kernels (so the trace lost none), none of them a GEMM kernel of
+    the float forward.  Each forward is traced after a warm-up forward in
+    the trace.  Returns the int8 GEMM kernels' names."""
+    _, ker_q, ops_q = _profiled(torch, fn_int8, host_ops=True, warmup=True)
+    _, ker_f = _profiled(torch, fn_float, warmup=True)
+    n_int = ops_q.get("aten::_int_mm", 0)
+    floats = {k: v for k, v in ops_q.items() if k in _FLOAT_MATMULS}
+    float_names = {k[2] for k in _gemm_kernels(ker_f)}
+    gemm_q = _gemm_kernels(ker_q)
+    shared = sorted({k[2][:80] for k in gemm_q if k[2] in float_names})
+    names = sorted({k[2][:100] for k in gemm_q})
+    n_gemm = sum(k[1] for k in gemm_q)
+    n_flash = sum(k[1] for k in ker_q if "flash_fwd" in k[2])
+    busy = sum(k[0] for k in ker_q)
+    gemm_ms = sum(k[0] for k in gemm_q)
+    flash_ms = sum(k[0] for k in ker_q if "flash_fwd" in k[2])
+    _log(f"quant {label} profile: {n_int} aten::_int_mm, float matmul ops "
+         f"{floats or 'none'}; int8 GEMM kernels {n_gemm} launches "
+         f"{names}; flash forward kernels {n_flash} launches; float GEMM "
+         f"kernels of the float forward among them: {shared or 'none'}; "
+         f"int8 forward device busy {busy:.2f} ms: int8 GEMM {gemm_ms:.2f}, "
+         f"flash {flash_ms:.2f}, other {busy - gemm_ms - flash_ms:.2f} "
+         f"(float forward {sum(k[0] for k in ker_f):.2f})")
+    for ms, n, key in ker_q[:8]:
+        _log(f"quant {label} profile:   {ms:9.3f} ms  x{n:<4d} {key[:90]}")
+    if n_int != want_int_mm or floats or shared or n_gemm < want_int_mm \
+            or n_flash != want_flash:
+        raise AssertionError(f"quant {label}: the int8 forward ran "
+                             f"{n_int} int8 products (want {want_int_mm}), "
+                             f"{n_gemm} int8 GEMM kernels, {n_flash} flash "
+                             f"forwards (want {want_flash}), float matmuls "
+                             f"{floats}, float GEMM kernels {shared}")
+    return names
+
+
+def _quant_bert_net(tmx, ctx, seed):
+    q = QUANT
+    net = tmx.gluon.model_zoo.bert.BERTModel(
+        vocab_size=q["vocab"], num_layers=q["layers"], units=q["units"],
+        hidden_size=q["hidden"], num_heads=q["heads"], max_length=q["len"],
+        dropout=0.0, prefix="bert_")
+    net.collect_params().setattr("grad_req", "null")
+    tmx.random.seed(seed)
+    net.initialize(tmx.init.Normal(0.02), ctx=ctx)
+    return net
+
+
+def _quant_bert(torch, fa, tmx, args, smi, ctx):
+    """(a) INT8 post-training quantization of BERT-base (entropy
+    calibration on 2 batches of 8 x 512) serving batch 32 x 512, lengths
+    384-512; attention stays float on the flash forward.  Returns the
+    flash launches of the timed int8 forwards and the numbers."""
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.ops import contrib as ops_contrib
+    from mxnet_tpu_torch.ops import quantization as tq
+    q = QUANT
+    seed = args.seed + 40
+    net_f = _quant_bert_net(tmx, ctx, seed)
+    net_q = _quant_bert_net(tmx, ctx, seed)
+    rng = np.random.RandomState(seed)
+    B, L = q["batch"], q["len"]
+    toks = tmx.nd.array(rng.randint(0, q["vocab"], (B, L))
+                        .astype(np.int32), ctx=ctx)
+    vl = tmx.nd.array(rng.randint(q["min_len"], L + 1, (B,))
+                      .astype(np.float32), ctx=ctx)
+    calib = [tmx.nd.array(rng.randint(0, q["vocab"], (q["calib_batch"], L))
+                          .astype(np.int32), ctx=ctx)
+             for _ in range(q["calib_batches"])]
+    calib_s = _calibrated_s(torch, lambda: qz.quantize_net(
+        net_q, calib_data=calib, calib_mode="entropy"))
+    wrappers = [m for m in net_q.modules() if isinstance(m,
+                                                         qz.QuantizedDense)]
+    n_dense = q["layers"] * 4 + 2
+    if len(wrappers) != n_dense:
+        raise AssertionError(f"quant bert: {len(wrappers)} Dense layers "
+                             f"quantized, want {n_dense}")
+    cell0 = net_q.encoder.cells[0]
+    seen = {}
+    hooks = [cell0.attn_qkv.register_forward_pre_hook(
+        lambda b, a: seen.setdefault("x", a[0]._data)),
+             cell0.attn_qkv.register_forward_hook(
+        lambda b, a, o: seen.setdefault("qkv", o._data))]
+    with torch.no_grad():
+        ref = [o._data for o in net_f(toks, vl)]
+        got = [o._data for o in net_q(toks, vl)]
+    for h in hooks:
+        h.remove()
+    rel, mean = _rel_to_max(torch, got[0], ref[0]), _mean_rel(got[0], ref[0])
+    cos = _cosine(torch, got[0], ref[0])
+    finite = all(bool(torch.isfinite(t).all()) for t in got)
+    shapes = [tuple(t.shape) for t in got]
+    del ref, got
+    # flash launches of each timed int8 forward (deltas: the float
+    # forwards between them launch the same kernel)
+    _reset_counts(fa)
+    launches = {"flash_fwd": 0, "flash_fwd_f32": 0}
+    per_fwd = set()
+
+    def fwd_f():
+        with torch.no_grad():
+            net_f(toks, vl)
+
+    def fwd_q():
+        a, b = fa.launches, fa.fwd_f32_launches
+        with torch.no_grad():
+            net_q(toks, vl)
+        per_fwd.add((fa.launches - a, fa.fwd_f32_launches - b))
+        launches["flash_fwd"] += fa.launches - a
+        launches["flash_fwd_f32"] += fa.fwd_f32_launches - b
+
+    _fresh_peak(torch)
+    times = _in_turns(torch, {"float": fwd_f, "int8": fwd_q}, q["iters"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = q["layers"]
+    if per_fwd != {(want, want)} or \
+            launches["flash_fwd"] != want * q["iters"]:
+        raise AssertionError(f"quant bert: flash forward launches a forward "
+                             f"(all, f32) {per_fwd}, want {want}")
+    gemms = _gemm_check(torch, "bert", fwd_f, lambda: net_q(toks, vl),
+                        n_dense, want)
+    # the flash forward at this path's shape against its plain version,
+    # on layer 0's q, k, v (outside the counted forwards)
+    qkv = seen["qkv"]
+    qh, kh, vh = (t.permute(1, 2, 0, 3) for t in
+                  ops_contrib._split_interleaved(qkv, q["heads"]))
+    seg = ops_contrib._seg_of(vl._data, L, qkv.device)
+    scale = 1.0 / (q["units"] // q["heads"]) ** 0.5
+    with torch.no_grad():
+        out_k, _ = fa._fwd(qh, kh, vh, seg, seg, False, scale)
+        out_p, _ = fa.flash_attention_reference(
+            qh, kh, vh, seg, seg, False, scale,
+            block_k=fa.kv_tile(torch.float32, q["units"] // q["heads"]))
+    att_err = ((out_k - out_p).abs() * seg.bool()[:, None, :, None]) \
+        .max().item()
+    D = q["units"] // q["heads"]
+    att = {"shape": f"B={B} H={q['heads']} Lq=Lk={L} D={D} float32 "
+                    f"non-causal, segment ids"}
+    mask = seg[:, None, :, None] == seg[:, None, None, :]
+    att["ms"] = _time_ms(torch, lambda: fa._fwd(qh, kh, vh, seg, seg,
+                                                False, scale))
+    att["plain_ms"] = _time_ms(torch, lambda: fa.flash_attention_reference(
+        qh, kh, vh, seg, seg, False, scale), iters=5)
+    att["library_ms"] = _time_ms(torch, lambda: torch.nn.functional
+                                 .scaled_dot_product_attention(
+                                     qh, kh, vh, attn_mask=mask,
+                                     scale=scale))
+    # the query-key pairs the segment ids keep: sum over rows and ids of
+    # (positions with that id)^2
+    pairs = int((torch.nn.functional.one_hot(seg.long()).sum(1).long() ** 2)
+                .sum())
+    att["bound_ms"], att["bound_by"] = _bound_ms(
+        B, q["heads"], L, L, D, "float32", False, pairs=pairs)
+    _log(f"quant flash forward at {att['shape']}: kernel "
+         f"{att['ms']:.4f} ms, plain {att['plain_ms']:.4f}, SDPA "
+         f"{att['library_ms']:.4f}, bound {att['bound_ms']:.4f} "
+         f"({att['bound_by']}; the segment ids keep {pairs} query-key "
+         f"pairs, {pairs / (B * L * L):.4f} of B L^2) ({smi})")
+    # one layer's int8 product at full size, card against the CPU
+    w = cell0.attn_qkv
+    xq = tq.quantize(seen["x"], w._input_range(seen["x"]))
+    xq = xq.reshape(-1, xq.shape[-1])
+    real_x = float(w._real_x)
+
+    def int_fc(c):
+        r = [tmx.nd.array(np.float32(v), ctx=c) for v in
+             (-real_x, real_x, -float(w._real_w), float(w._real_w))]
+        return tmx.nd.contrib.quantized_fully_connected(
+            tmx.nd.NDArray(xq.to(tmx.nd.ndarray._device(c)), c),
+            tmx.nd.NDArray(w.qweight.to(tmx.nd.ndarray._device(c)), c),
+            *r, num_hidden=w.qweight.shape[0], flatten=False)[0]._data
+    fc_card, fc_cpu = int_fc(ctx), int_fc(tmx.cpu())
+    fc_equal = fc_card.dtype == fc_cpu.dtype == torch.int32 and \
+        torch.equal(fc_card.cpu(), fc_cpu)
+    numbers = {"float_ms": times["float"], "int8_ms": times["int8"],
+               "calib_s": calib_s, "rel": rel, "mean_rel": mean,
+               "cos": cos, "peak_gib": peak, "att_err": att_err,
+               "flash": att}
+    _log(f"quant bert: BERT-base batch {B} x {L} (lengths {q['min_len']}-"
+         f"{L}), {n_dense} Dense layers int8 (entropy calibration on "
+         f"{q['calib_batches']} x {q['calib_batch']} x {L} in "
+         f"{calib_s:.2f} s); median forward float {times['float']:.2f}"
+         f" ms, int8 {times['int8']:.2f} ms ({q['iters']} each, in turns); "
+         f"sequence output int8 vs float {_quant_errs(rel, mean, cos)}; "
+         f"outputs "
+         f"{shapes} finite {finite}; peak {peak:.2f} GiB; flash f32 "
+         f"forward {want} launches a forward; attention kernel vs "
+         f"plain at ({B}, {q['heads']}, {L}, {q['units'] // q['heads']}) "
+         f"f32 {att_err:.3e} (tol {TOL['float32'][0]}); layer 0 qkv "
+         f"({xq.shape[0]}, {xq.shape[1]}) x {tuple(w.qweight.shape)} int32 "
+         f"card == CPU: {fc_equal} ({smi})")
+    if not (finite and _quant_ok(rel, mean, cos) and fc_equal
+            and att_err <= TOL["float32"][0] and gemms is not None):
+        raise AssertionError(f"quant bert failed: {numbers}, int32 equal "
+                             f"{fc_equal}, finite {finite}")
+    del net_f, net_q
+    return launches, numbers
+
+
+def _resnet_pair(torch, tmx, ctx, seed, x_stats):
+    """Two resnet50_v1 with the same weights, each BatchNorm's moving
+    statistics those of its input on ``x_stats`` (one train-mode pass at
+    momentum 0), as a trained net's are.  With the initial statistics (0,
+    1) the random net does not normalize: the spread of its activations
+    grows through the 16 residual blocks, and per-tensor int8 ranges lose
+    the small channels (the logits' cosine falls below QUANT_COS)."""
+    nets = []
+    for _ in range(2):
+        net = tmx.gluon.model_zoo.get_model("resnet50_v1", classes=1000)
+        net.collect_params().setattr("grad_req", "null")
+        tmx.random.seed(seed)
+        net.initialize(tmx.init.Xavier(magnitude=2), ctx=ctx)
+        nets.append(net)
+    bns = [m for m in nets[0].modules()
+           if isinstance(m, tmx.gluon.nn.BatchNorm)]
+    for m in bns:
+        m._momentum = 0.0
+    with torch.no_grad(), tmx.autograd.train_mode():
+        nets[0](x_stats)
+    for m in bns:
+        m._momentum = 0.9
+    src = nets[0]._collect_params_with_prefix()
+    for k, p in nets[1]._collect_params_with_prefix().items():
+        p.set_data(src[k].data())
+    return nets
+
+
+def _quant_resnet(torch, tmx, args, smi, ctx):
+    """(b) resnet50_v1, batch 32 at 224, naive calibration: every Conv2D
+    and the Dense int8; the stem's and a 3x3 layer's int8 convolutions
+    on the card equal the CPU's in int32; top-1 agreement and ms."""
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.ops import quantization as tq
+    q = QUANT
+    B, S = q["resnet_batch"], q["resnet_size"]
+    rng = np.random.RandomState(args.seed + 41)
+    x = tmx.nd.array(rng.randn(B, 3, S, S).astype(np.float32), ctx=ctx)
+    net_f, net_q = _resnet_pair(torch, tmx, ctx, args.seed + 41,
+                                tmx.nd.array(rng.randn(B, 3, S, S).astype(
+                                    np.float32), ctx=ctx))
+    calib = [tmx.nd.array(rng.randn(B // 2, 3, S, S).astype(np.float32),
+                          ctx=ctx) for _ in range(q["resnet_calib"])]
+    calib_s = _calibrated_s(torch, lambda: qz.quantize_net(
+        net_q, calib_data=calib, calib_mode="naive"))
+    convs = [m for m in net_q.modules() if isinstance(m, qz.QuantizedConv2D)]
+    dense = [m for m in net_q.modules() if isinstance(m, qz.QuantizedDense)]
+    stem = convs[0]
+    k3 = next(m for m in convs if m.qweight.shape[2] == 3)
+    seen = {}
+    hooks = [m.register_forward_pre_hook(
+        lambda b, a, k=k: seen.setdefault(k, a[0]._data))
+        for k, m in (("stem", stem), ("3x3", k3))]
+    with torch.no_grad():
+        ref = net_f(x)._data
+        got = net_q(x)._data
+    for h in hooks:
+        h.remove()
+    top1 = float((ref.argmax(1) == got.argmax(1)).float().mean())
+    rel, mean = _rel_to_max(torch, got, ref), _mean_rel(got, ref)
+    cos = _cosine(torch, got, ref)
+    finite = bool(torch.isfinite(got).all())
+
+    def conv(m, key, c):
+        xq = tq.quantize(seen[key], m._input_range(seen[key]))
+        dev = tmx.nd.ndarray._device(c)
+        rw, rx = float(m._real_w), float(m._real_x)
+        return tmx.nd.contrib.quantized_conv(
+            tmx.nd.NDArray(xq.to(dev), c), tmx.nd.NDArray(m.qweight.to(dev),
+                                                          c),
+            *[tmx.nd.array(np.float32(v), ctx=c)
+              for v in (-rx, rx, -rw, rw)],
+            stride=m._stride, pad=m._pad, dilate=m._dilate)[0]._data
+    equal = {}
+    for key, m in (("stem", stem), ("3x3", k3)):
+        a, b = conv(m, key, ctx), conv(m, key, tmx.cpu())
+        equal[key] = (tuple(a.shape), a.dtype == b.dtype == torch.int32
+                      and torch.equal(a.cpu(), b))
+
+    def fwd(net):
+        def run():
+            with torch.no_grad():
+                net(x)
+        return run
+    times = _in_turns(torch, {"float": fwd(net_f), "int8": fwd(net_q)},
+                      q["resnet_iters"])
+    gemms = _gemm_check(torch, "resnet50", fwd(net_f), fwd(net_q),
+                        len(convs) + len(dense), 0)
+    _log(f"quant resnet50_v1: batch {B} at {S}, {len(convs)} Conv2D and "
+         f"{len(dense)} Dense int8 (naive calibration on "
+         f"{q['resnet_calib']} x {B // 2} images in {calib_s:.2f} "
+         f"s); median forward float {times['float']:.2f} ms, int8 "
+         f"{times['int8']:.2f} ms; top-1 agreement with float {top1:.4f} "
+         f"(min {QUANT_RESNET_TOP1}), logits max|d|/max|float| {rel:.4e}, "
+         f"mean {mean:.4e}, cosine {cos:.6f} (min {QUANT_COS}); "
+         f"int32 card == CPU: " + ", ".join(
+             f"{k} {v[0]} {v[1]}" for k, v in equal.items()) + f" ({smi})")
+    if not (finite and top1 >= QUANT_RESNET_TOP1 and cos >= QUANT_COS
+            and gemms is not None and all(v[1] for v in equal.values())):
+        raise AssertionError(f"quant resnet failed: top-1 {top1}, cosine "
+                             f"{cos}, equal "
+                             f"{equal}, finite {finite}")
+    del net_f, net_q
+    return {"resnet_float_ms": times["float"],
+            "resnet_int8_ms": times["int8"], "resnet_top1": top1,
+            "resnet_rel": rel, "resnet_mean_rel": mean, "resnet_cos": cos}
+
+
+def _quant_sym(torch, fa, tmx, args, smi, ctx):
+    """(c) the sym phase's encoder (12 layers, BERT-base widths) up to its
+    head, through ``optimize_for("INT8")``, forward at 8 x 512 against its
+    float forward."""
+    s = SYM
+    B, L = QUANT["sym_batch"], s["len"]
+    head = _sym_encoder(tmx.sym, tmx.name, s["layers"]) \
+        .get_internals()["head_output"]
+    shapes = {"data": (B, L), "valid_length": (B,)}
+    params = _sym_params(head, shapes, args.seed + 42)
+    rng = np.random.RandomState(args.seed + 42)
+    toks, lens, _ = _sym_batch(rng, B, L, s["min_len"])
+    q = head.optimize_for("INT8")
+    n_q = int(q.attr("__int8_quantized_nodes__"))
+    want_q = 4 * s["layers"] + 1
+    if sorted(q.list_arguments()) != sorted(head.list_arguments()) \
+            or n_q != want_q:
+        raise AssertionError(f"quant sym: {n_q} nodes rewritten (want "
+                             f"{want_q}), arguments "
+                             f"{sorted(set(q.list_arguments()) ^ set(head.list_arguments()))}")
+    feed = dict(params, data=toks, valid_length=lens)
+    ref = head.eval(ctx=ctx, **feed)[0]._data
+    before = fa.fwd_f32_launches
+    got = q.eval(ctx=ctx, **feed)[0]._data
+    n_flash = fa.fwd_f32_launches - before
+    rel, mean = _rel_to_max(torch, got, ref), _mean_rel(got, ref)
+    cos = _cosine(torch, got, ref)
+    finite = bool(torch.isfinite(got).all())
+    _log(f"quant sym: the {s['layers']}-layer symbolic encoder's head through "
+         f"optimize_for('INT8'): {n_q} FullyConnected nodes int8, forward "
+         f"at {B} x {L}: logits {_quant_errs(rel, mean, cos)}, {n_flash} "
+         f"f32 flash forward launches ({smi})")
+    if not (finite and _quant_ok(rel, mean, cos)
+            and n_flash == s["layers"]):
+        raise AssertionError(f"quant sym failed: rel {rel}, cos {cos}, "
+                             f"finite {finite}, flash {n_flash}")
+    return {"sym_rel": rel, "sym_mean_rel": mean, "sym_cos": cos}
+
+
+def quant_phase(torch, fa, mx, args, smi):
+    """INT8 quantization on the card (module docstring, phase 22).
+    Returns (the launch counts of the timed int8 BERT forwards, numbers)."""
+    tmx = mx["pkg"]
+    ctx = tmx.gpu()
+    gc.collect()
+    _fresh_peak(torch)
+    launches, numbers = _quant_bert(torch, fa, tmx, args, smi, ctx)
+    gc.collect()
+    _fresh_peak(torch)
+    numbers.update(_quant_resnet(torch, tmx, args, smi, ctx))
+    gc.collect()
+    _fresh_peak(torch)
+    numbers.update(_quant_sym(torch, fa, tmx, args, smi, ctx))
+    gc.collect()
+    _fresh_peak(torch)
+    counts = dict.fromkeys(_COUNTERS, 0)
+    counts.update(launches)
+    _log(f"quant numbers ({smi}): " + ", ".join(
+        f"{k} {v:.4f}" for k, v in numbers.items() if k != "flash"))
+    return counts, numbers
+
+
+# -- phase 23: sparse storage --------------------------------------------------
+
+# the LIBSVM collection's Criteo set: 1,000,000 features, 39 non-zeros a
+# row (13 integer fields and 26 categorical ones); the reference's
+# examples/sparse/factorization_machine.py shape, factor 16
+SPARSE = {"features": 1_000_000, "int_fields": 13, "cat_fields": 26,
+          "rows": 65536, "batch": 1024, "factor": 16, "steps": 50,
+          "sgd_steps": 25, "lr": 0.1, "adagrad_lr": 0.05,
+          "emb_rows": 1_000_000, "emb_dim": 64, "emb_steps": 3,
+          "emb_batch": (64, 32)}
+SPARSE_LOSS_TOL = 1e-4    # relative, FM losses card vs CPU a step
+SPARSE_DOT_TOL = 1e-5     # of max |CPU|: _sparse_dot_csr and gradients
+SPARSE_UPDATE_TOL = 1e-6  # relative: a store step against a dense update
+
+
+def _criteo_like_file(path, seed):
+    """``SPARSE["rows"]`` LibSVM rows of 39 features in 1,000,000: field
+    f's ids in a range of its own (13 integer fields of 100 ids, the
+    categorical fields sharing the rest), drawn with a skew so that rows
+    share features; integer fields carry log-counts, categorical ones 1;
+    labels from a random linear model.  Returns the true weights."""
+    s = SPARSE
+    rng = np.random.RandomState(seed)
+    nf = s["int_fields"] + s["cat_fields"]
+    sizes = [100] * s["int_fields"]
+    cat = (s["features"] - sum(sizes)) // s["cat_fields"]
+    sizes += [cat] * s["cat_fields"]
+    offsets = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+    u = rng.rand(s["rows"], nf)
+    ids = offsets + np.minimum((u ** 3 * np.array(sizes)).astype(np.int64),
+                               np.array(sizes) - 1)
+    vals = np.ones((s["rows"], nf), np.float32)
+    vals[:, :s["int_fields"]] = np.round(np.log1p(
+        rng.poisson(3.0, (s["rows"], s["int_fields"]))), 4)
+    vals[vals == 0] = 0.5
+    true_w = rng.randn(s["features"]).astype(np.float32)
+    y = ((vals * true_w[ids]).sum(1) > 0).astype(int)
+    with open(path, "w") as f:
+        for r in range(s["rows"]):
+            f.write(f"{y[r]} " + " ".join(
+                f"{i}:{v:g}" for i, v in zip(ids[r], vals[r])) + "\n")
+
+
+def _fm_step(torch, tmx, sp, ps, csr, label, w0, ctx, s, sink):
+    """One FM step, under ``with ctx:``: pull the touched rows of w and v
+    onto ``ctx``, the forward and backward through ``sparse.dot`` over the
+    batch's columns renumbered into the pulled rows, a push of the
+    row-sparse gradients.  Returns the loss and the touched rows."""
+    cols = csr.indices._data
+    uniq = torch.unique(cols)
+    t0 = time.perf_counter()
+    w_rows = ps.row_sparse_pull("w", tmx.nd.NDArray(uniq, ctx))
+    v_rows = ps.row_sparse_pull("v", tmx.nd.NDArray(uniq, ctx))
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    local = torch.searchsorted(w_rows.indices._data, cols)
+    n = uniq.numel()
+    x = sp.CSRNDArray(csr.data, csr.indptr, tmx.nd.NDArray(local, ctx),
+                      (csr.shape[0], n), ctx=ctx)
+    x2 = sp.CSRNDArray(tmx.nd.NDArray(csr.data._data ** 2, ctx), csr.indptr,
+                       x.indices, (csr.shape[0], n), ctx=ctx)
+    wb, vb = w_rows.data.copy(), v_rows.data.copy()
+    for a in (wb, vb, w0):
+        a.attach_grad()
+    with tmx.autograd.record():
+        linear = sp.dot(x, wb).reshape((-1,))
+        xv = sp.dot(x, vb)
+        x2v2 = sp.dot(x2, vb * vb)
+        inter = 0.5 * (xv * xv - x2v2).sum(axis=1)
+        logit = w0 + linear + inter
+        loss = (tmx.nd.relu(logit) - logit * label + tmx.nd.log1p(
+            tmx.nd.exp(-tmx.nd.abs(logit)))).mean()
+    loss.backward()
+    idx = w_rows.indices
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    ps.push("w", sp.RowSparseNDArray(wb.grad, idx, (s["features"], 1),
+                                     ctx=ctx))
+    ps.push("v", sp.RowSparseNDArray(vb.grad, idx,
+                                     (s["features"], s["factor"]), ctx=ctx))
+    t3 = time.perf_counter()
+    with torch.no_grad():
+        w0._data -= s["lr"] * w0.grad._data
+    sink.append(((t1 - t0) * 1e3, (t2 - t1) * 1e3, (t3 - t2) * 1e3))
+    return float(loss.asnumpy()), uniq
+
+
+def _fm_run(torch, tmx, it, ctx, s, seed, check=None):
+    """The FM over the ``LibSVMIter`` ``it``'s batches on ``ctx``, its w and
+    v in a SparsePS: ``sgd_steps`` with server-side SGD, the rest with
+    Adagrad.  Returns (losses, the store, its initial v, touched rows,
+    times)."""
+    from mxnet_tpu_torch.kvstore.sparse_ps import SparsePS
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    ps = SparsePS()
+    gen = torch.Generator().manual_seed(seed)
+    v0 = torch.randn(s["features"], s["factor"], generator=gen) * 0.01
+    ps.init("w", tmx.nd.zeros((s["features"], 1), ctx=tmx.cpu()))
+    ps.init("v", tmx.nd.NDArray(v0.clone(), tmx.cpu()))
+    ps.set_optimizer(tmx.optimizer.SGD(learning_rate=s["lr"],
+                                       rescale_grad=1.0))
+    w0 = tmx.nd.zeros((1,), ctx=ctx)
+    losses, touched, times = [], [], []
+    it.reset()
+    with ctx:           # the batches land on ctx
+        for step, batch in enumerate(it):
+            if step == s["steps"]:
+                break
+            if step == s["sgd_steps"]:
+                ps.set_optimizer(tmx.optimizer.AdaGrad(
+                    learning_rate=s["adagrad_lr"], eps=1e-7))
+            if check is not None and step in (0, s["sgd_steps"]):
+                check(step, ps)
+            loss, uniq = _fm_step(torch, tmx, sp, ps, batch.data[0],
+                                  batch.label[0], w0, ctx, s, times)
+            losses.append(loss)
+            touched.append(uniq.cpu())
+    return losses, ps, v0, torch.unique(torch.cat(touched)), times
+
+
+def _sparse_fm(torch, tmx, args, smi, ctx, it):
+    """(a) the factorization machine: card against the CPU, untouched rows
+    bit-unchanged, a store step against a dense update; (c)
+    ``_sparse_dot_csr`` and its gradients at the FM's batch shapes, card
+    against the CPU."""
+    s = SPARSE
+    updates = {}
+
+    def check(step, ps):
+        """The v table before the step, from which
+        ``_sparse_dense_update`` replays it."""
+        updates[step] = ps._tables["v"].value.clone()
+
+    t0 = time.perf_counter()
+    losses, ps, v0, touched, times = _fm_run(torch, tmx, it, ctx, s,
+                                             args.seed + 43, check)
+    run_s = time.perf_counter() - t0
+    losses_cpu, ps_cpu, _, _, _ = _fm_run(torch, tmx, it, tmx.cpu(), s,
+                                          args.seed + 43)
+    rel = max(abs(a - b) / max(abs(b), 1e-30)
+              for a, b in zip(losses, losses_cpu))
+    v_end = ps._tables["v"].value
+    mask = torch.ones(s["features"], dtype=torch.bool)
+    mask[touched] = False
+    untouched_same = torch.equal(v_end[mask], v0[mask])
+    moved = int((v_end[touched] != v0[touched]).any(1).sum())
+    table_rel = _rel_to_max(torch, v_end, ps_cpu._tables["v"].value)
+    # a dense update computed apart: replay step 0 (SGD) and the first
+    # Adagrad step from the saved tables and the card's gradients
+    upd_err = _sparse_dense_update(torch, tmx, it, ctx, s, updates)
+    pull = statistics.median(t[0] for t in times)
+    comp = statistics.median(t[1] for t in times)
+    push = statistics.median(t[2] for t in times)
+    steps_s = len(losses) / run_s
+    _log(f"sparse fm: {s['rows']} rows x {s['features']} features, "
+         f"{s['int_fields'] + s['cat_fields']} non-zeros a row, batch "
+         f"{s['batch']}, factor {s['factor']}, {len(losses)} steps "
+         f"({s['sgd_steps']} server-side SGD, then Adagrad); loss "
+         f"{losses[0]:.5f} -> {losses[-1]:.5f}; card vs CPU losses max rel "
+         f"{rel:.3e}, v table {table_rel:.3e} of max (tol "
+         f"{SPARSE_LOSS_TOL}); "
+         f"{int(touched.numel())} rows touched ({moved} moved), untouched "
+         f"bit-unchanged {untouched_same}; dense update max rel "
+         f"{upd_err:.3e} (tol {SPARSE_UPDATE_TOL}); {steps_s:.2f} steps/s, "
+         f"median pull {pull:.2f} ms, forward+backward {comp:.2f} ms, push "
+         f"{push:.2f} ms ({smi})")
+    if not (rel <= SPARSE_LOSS_TOL and table_rel <= SPARSE_LOSS_TOL
+            and untouched_same and moved > 0
+            and upd_err <= SPARSE_UPDATE_TOL
+            and all(math.isfinite(x) for x in losses)
+            and losses[-1] < losses[0]):
+        raise AssertionError(f"sparse fm failed: rel {rel}, untouched "
+                             f"{untouched_same}, update {upd_err}")
+    return {"fm_steps_per_s": steps_s, "fm_pull_ms": pull,
+            "fm_push_ms": push, "fm_compute_ms": comp,
+            "fm_loss_rel": rel}
+
+
+def _sparse_dense_update(torch, tmx, it, ctx, s, tables):
+    """The two checked steps (SGD at 0, Adagrad at ``sgd_steps``) replayed
+    on one batch each: the store's new rows against the plain update of
+    the same rows with the merged gradient, computed here."""
+    from mxnet_tpu_torch.kvstore.sparse_ps import SparsePS
+    from mxnet_tpu_torch.ndarray import sparse as sp
+    worst = 0.0
+    it.reset()
+    with ctx:
+        batches = [b for b, _ in zip(it, range(s["sgd_steps"] + 1))]
+    for step, table in tables.items():
+        ps = SparsePS()
+        ps.init("w", tmx.nd.zeros((s["features"], 1), ctx=tmx.cpu()))
+        ps.init("v", tmx.nd.NDArray(table.clone(), tmx.cpu()))
+        sgd = step < s["sgd_steps"]
+        ps.set_optimizer(tmx.optimizer.SGD(learning_rate=s["lr"],
+                                           rescale_grad=1.0) if sgd else
+                         tmx.optimizer.AdaGrad(learning_rate=s["adagrad_lr"],
+                                               eps=1e-7))
+        b = batches[step]
+        grads = {}
+        orig = ps.push
+
+        def push(key, g, _orig=orig):
+            grads[key] = g
+            _orig(key, g)
+        ps.push = push
+        with ctx:
+            _fm_step(torch, tmx, sp, ps, b.data[0], b.label[0],
+                     tmx.nd.zeros((1,), ctx=ctx), ctx, s, [])
+        g = grads["v"]
+        rows = g.indices._data.cpu()
+        gv = g.data._data.cpu()
+        old = table[rows]
+        if sgd:
+            want = old - s["lr"] * gv
+        else:           # the first step of a fresh history: h = g^2
+            want = old + gv / (gv * gv + 1e-7).sqrt() * -s["adagrad_lr"]
+        got = ps._tables["v"].value[rows]
+        worst = max(worst, float((got - want).abs().max()
+                                 / want.abs().max()))
+        untouched = torch.ones(s["features"], dtype=torch.bool)
+        untouched[rows] = False
+        if not torch.equal(ps._tables["v"].value[untouched],
+                           table[untouched]):
+            raise AssertionError("sparse: a push moved an untouched row")
+    return worst
+
+
+def _sparse_dot_check(torch, tmx, it, ctx, s):
+    """(c) ``_sparse_dot_csr`` at an FM batch's shapes (1024 rows over its
+    touched columns, factor 16), plain and transposed, with the gradients
+    of its csr values and dense operand: card against the CPU."""
+    it.reset()
+    with ctx:
+        batch = next(it)
+    csr = batch.data[0]
+    cols = csr.indices._data.cpu()
+    uniq, local = torch.unique(cols, return_inverse=True)
+    n = uniq.numel()
+    rng = np.random.RandomState(7)
+    rhs = rng.randn(n, s["factor"]).astype(np.float32)
+    rhs_t = rng.randn(s["batch"], s["factor"]).astype(np.float32)
+    head = rng.randn(s["batch"], s["factor"]).astype(np.float32)
+    head_t = rng.randn(n, s["factor"]).astype(np.float32)
+    out = {}
+    for c in (ctx, tmx.cpu()):
+        dev = tmx.nd.ndarray._device(c)
+        res = []
+        for transpose, r_np, h_np in ((False, rhs, head),
+                                      (True, rhs_t, head_t)):
+            data = tmx.nd.NDArray(csr.data._data.to(dev).clone(), c)
+            r = tmx.nd.array(r_np, ctx=c)
+            data.attach_grad()
+            r.attach_grad()
+            with tmx.autograd.record():
+                o = tmx.nd._sparse_dot_csr(
+                    data, tmx.nd.NDArray(csr.indptr._data.to(dev), c),
+                    tmx.nd.NDArray(local.to(dev), c), r,
+                    transpose_a=transpose, num_cols=n)
+                loss = (o * tmx.nd.array(h_np, ctx=c)).sum()
+            loss.backward()
+            res += [o._data, data.grad._data, r.grad._data]
+        out[c] = res
+    errs = [_rel_to_max(torch, a, b) for a, b in zip(out[ctx],
+                                                     out[tmx.cpu()])]
+    _log(f"sparse dot: _sparse_dot_csr ({s['batch']} x {n}, "
+         f"{csr.data.shape[0]} stored) @ ({n}, {s['factor']}) and its "
+         f"transpose, outputs and gradients card vs CPU max rel "
+         f"{max(errs):.3e} (tol {SPARSE_DOT_TOL})")
+    if max(errs) > SPARSE_DOT_TOL:
+        raise AssertionError(f"sparse dot: card vs CPU {errs}")
+    return max(errs)
+
+
+def _sparse_embedding(torch, tmx, args, smi, ctx):
+    """(b) ``Embedding(1_000_000, 64, sparse_grad=True)`` under
+    ``gluon.Trainer`` (SGD) a few steps on the card and on the CPU from
+    the same table: each step's ``grad(stype="row_sparse")`` holds exactly
+    the touched rows; the tables agree and untouched rows stay bit for
+    bit."""
+    s = SPARSE
+    rng = np.random.RandomState(args.seed + 44)
+    table = (rng.standard_normal((s["emb_rows"], s["emb_dim"])) * 0.01) \
+        .astype(np.float32)
+    head = rng.randn(s["emb_dim"]).astype(np.float32)
+    batches = [rng.randint(0, s["emb_rows"], s["emb_batch"])
+               .astype(np.float32) for _ in range(s["emb_steps"])]
+    res, ok_rows, ms = {}, True, []
+    for c in (ctx, tmx.cpu()):
+        emb = tmx.gluon.nn.Embedding(s["emb_rows"], s["emb_dim"],
+                                     sparse_grad=True)
+        emb.initialize(tmx.init.Zero(), ctx=c)
+        emb.weight.set_data(tmx.nd.array(table, ctx=c))
+        tr = tmx.gluon.Trainer(emb.collect_params(), "sgd",
+                               {"learning_rate": 0.5})
+        w = tmx.nd.array(head, ctx=c)
+        for toks in batches:
+            t = tmx.nd.array(toks, ctx=c)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with tmx.autograd.record():
+                loss = (emb(t) * w).sum()
+            loss.backward()
+            g = emb.weight.grad(stype="row_sparse")
+            tr.step(toks.shape[0])
+            torch.cuda.synchronize()
+            if c is ctx:
+                ms.append((time.perf_counter() - t0) * 1e3)
+            want = np.unique(toks.astype(np.int64))
+            ok_rows &= np.array_equal(g.indices.asnumpy(), want)
+        res[c] = emb.weight.data()._data.cpu()
+    card, cpu = res[ctx], res[tmx.cpu()]
+    touched = np.unique(np.concatenate(batches).astype(np.int64))
+    mask = torch.ones(s["emb_rows"], dtype=torch.bool)
+    mask[torch.from_numpy(touched)] = False
+    same_untouched = torch.equal(card[mask], torch.from_numpy(table)[mask])
+    rel = _rel_to_max(torch, card, cpu)
+    _log(f"sparse embedding: Embedding({s['emb_rows']}, {s['emb_dim']}, "
+         f"sparse_grad=True), {s['emb_steps']} Trainer SGD steps of "
+         f"{s['emb_batch']} tokens: grad(stype='row_sparse') holds exactly "
+         f"the touched rows {ok_rows}; card vs CPU table max rel {rel:.3e} "
+         f"(tol {SPARSE_DOT_TOL}); untouched rows bit-unchanged "
+         f"{same_untouched}; median step {statistics.median(ms):.2f} ms "
+         f"({smi})")
+    if not (ok_rows and same_untouched and rel <= SPARSE_DOT_TOL):
+        raise AssertionError(f"sparse embedding failed: rows {ok_rows}, "
+                             f"untouched {same_untouched}, rel {rel}")
+    return {"emb_step_ms": statistics.median(ms), "emb_rel": rel}
+
+
+def sparse_phase(torch, fa, mx, args, smi):
+    """Sparse storage on the card (module docstring, phase 23).  Returns
+    (launch counts: none, numbers)."""
+    import shutil
+    tmx = mx["pkg"]
+    ctx = tmx.gpu()
+    gc.collect()
+    _fresh_peak(torch)
+    _reset_counts(fa)
+    root = tempfile.mkdtemp(prefix="mx_sparse_")
+    try:
+        path = os.path.join(root, "criteo_like.libsvm")
+        t0 = time.perf_counter()
+        _criteo_like_file(path, args.seed + 43)
+        t1 = time.perf_counter()
+        it = tmx.io.LibSVMIter(data_libsvm=path,
+                               data_shape=(SPARSE["features"],),
+                               batch_size=SPARSE["batch"])
+        t2 = time.perf_counter()
+        with ctx:
+            n_rows = sum(b.data[0].shape[0] - b.pad for b in it)
+        _log(f"sparse data: {os.path.getsize(path) / 2**20:.1f} MiB LibSVM "
+             f"written in {t1 - t0:.1f} s; LibSVMIter read {n_rows} rows "
+             f"in {t2 - t1:.1f} s")
+        numbers = _sparse_fm(torch, tmx, args, smi, ctx, it)
+        numbers["dot_rel"] = _sparse_dot_check(torch, tmx, it, ctx, SPARSE)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    numbers.update(_sparse_embedding(torch, tmx, args, smi, ctx))
+    counts = _counts(fa)
+    if any(counts.values()):
+        raise AssertionError(f"sparse: a flash kernel ran: {counts}")
+    _log(f"sparse numbers ({smi}): " + ", ".join(
+        f"{k} {v:.4g}" for k, v in numbers.items()))
+    return counts, numbers
 
 
 def _ptxas_summary(log):
@@ -6983,6 +7858,10 @@ def main(argv=None):
     util_counts, _ = _phase("util", util_phase, torch, fa, mx, args, smi)
     sym_counts, _ = _phase("sym", sym_phase, torch, fa, mx, args, smi)
     ops_counts, _ = _phase("ops", ops_phase, torch, fa, mx, args, smi)
+    quant_counts, quant_numbers = _phase("quant", quant_phase, torch, fa, mx,
+                                         args, smi)
+    sparse_counts, _ = _phase("sparse", sparse_phase, torch, fa, mx, args,
+                              smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -7033,7 +7912,18 @@ def main(argv=None):
         # the ops phase's 20 replays of the BERT-base bf16 step under
         # telemetry and the cost ledger
         "ops_launches": ops_counts["flash_fwd"],
+        # the quant phase's timed int8 BERT-base forwards (12 f32 launches
+        # each); the sparse phase has no attention
+        "quant_launches": quant_counts["flash_fwd"],
+        "sparse_launches": sparse_counts["flash_fwd"],
     }]
+    # the f32 kernel at the quant path's shape, on its own q, k, v
+    att = quant_numbers["flash"]
+    kernels[0].update({"quant_shape": att["shape"],
+                       "quant_max_abs_err": quant_numbers["att_err"],
+                       **{f"quant_{k}": att[k] for k in (
+                           "ms", "plain_ms", "library_ms", "bound_ms",
+                           "bound_by")}})
     t_k, t_p, t_l, bound, bound_by = timings[("single-tile", "float32")]
     kernels[0].update({
         "single_tile_shape": "B=2 H=32 Lq=Lk=512 D=128 float32 causal",
@@ -7101,6 +7991,8 @@ def main(argv=None):
                 "util_launches": _dtype_count(util_counts, kind_, pre),
                 "sym_launches": _dtype_count(sym_counts, kind_, pre),
                 "ops_launches": _dtype_count(ops_counts, kind_, pre),
+                "quant_launches": _dtype_count(quant_counts, kind_, pre),
+                "sparse_launches": _dtype_count(sparse_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":

@@ -63,7 +63,13 @@ by node by an ``Executor`` under torch autograd, shapes inferred on the
 ``amp.convert_model``.  Then operations: the rest of ``telemetry`` (the
 step clock, the cost ledger, the per-op ledger and dispatch hook, the
 flight recorder, the scrape endpoint, cross-process aggregation) and
-``mx.profiler`` over ``torch.profiler``.
+``mx.profiler`` over ``torch.profiler``.  Then ``mx.contrib``: INT8
+post-training quantization (``contrib.quantization``, the six int8 ops of
+``ops.quantization`` over ``torch._int_mm``, the ``INT8`` pass of
+``Symbol.optimize_for``), ``contrib.text`` and ``contrib.svrg``; and sparse
+storage (``mx.nd.sparse``: row_sparse and CSR arrays, the sparse ops,
+``Embedding(sparse_grad=True)``, ``kvstore.sparse_ps.SparsePS``,
+``LibSVMIter``).
 
 Entry points run on the CUDA card by default: the default context is
 ``mx.gpu(0)``, not the reference's ``mx.cpu(0)``.  Pass ``ctx=mx.cpu()``,
@@ -118,3 +124,4 @@ from . import symbol  # noqa: E402,F401
 from . import symbol as sym  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
+from . import contrib  # noqa: E402,F401

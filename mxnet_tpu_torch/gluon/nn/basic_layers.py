@@ -259,7 +259,8 @@ class Embedding(HybridBlock):
         self._sparse_grad = sparse_grad
         self.weight = self.params.get(
             "weight", shape=(input_dim, output_dim), dtype=dtype,
-            init=weight_initializer)
+            init=weight_initializer,
+            grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
         return F.Embedding(x, weight, input_dim=self._input_dim,

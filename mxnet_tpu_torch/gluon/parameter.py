@@ -231,10 +231,18 @@ class Parameter:
         self._check_initialized()
         return list(self._data_list)
 
-    def grad(self, ctx=None):
+    def grad(self, ctx=None, stype=None):
+        """The gradient buffer on ``ctx``; with ``stype`` (default: the
+        parameter's ``grad_stype``) ``"row_sparse"``, its non-zero rows as
+        a RowSparseNDArray taken on the device (what
+        ``Embedding(sparse_grad=True)`` gives: the dense buffer holds the
+        scattered rows, the view compresses them)."""
         d = self.data(ctx)
         if d._grad is None:
             raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
+        if (stype or self.grad_stype) == "row_sparse":
+            from ..ndarray import sparse
+            return sparse.row_sparse_array(d._grad)
         return d._grad
 
     def list_grad(self):

@@ -247,8 +247,15 @@ class Trainer:
     def _update_all(self, ignore_stale_grad=False):  # noqa: ARG002
         o = self._optimizer
         trained = self._trained()
+        perkey = set()
         if self._fused_kind() is not None:
             run = self._update_fused
+            # sparse parameters (and sparse gradients) keep the per-key
+            # path, as the reference's fused step routes them
+            perkey = {i for i, p in trained if p.stype != "default"
+                      or p.grad_stype != "default"}
+            if perkey and _ttrace._ENABLED:
+                optimizer_fusion.record_fallback(len(perkey))
         elif optimizer_fusion.supported_kind(o) is not None:
             run = self._update_per_param
         else:
@@ -261,12 +268,15 @@ class Trainer:
                 o._index_update_count.update(counts)
                 o.num_update = num
             idx = [i for i, p in trained if j < len(p._data_list)]
-            if idx:
-                run(upd, idx,
-                    [self._params[i]._data_list[j]._grad for i in idx],
-                    [self._params[i]._data_list[j] for i in idx])
-                if fused:
-                    optimizer_fusion.record_update()   # one a replica step
+            rest = [i for i in idx if i not in perkey]
+            for fn, ids in ((self._update_per_param,
+                             [i for i in idx if i in perkey]), (run, rest)):
+                if ids:
+                    fn(upd, ids,
+                       [self._params[i]._data_list[j]._grad for i in ids],
+                       [self._params[i]._data_list[j] for i in ids])
+            if fused and rest:
+                optimizer_fusion.record_update()   # one a replica step
 
     @staticmethod
     def _update_fused(upd, idx, grads, weights):

@@ -7,7 +7,7 @@ and ``ImageRecordIter`` keep the reference's contract: the
 and batch padding.  Batches are NDArrays on the current context (the
 card), except where the caller passes ``ctx`` (``ImageRecordIter(
 ctx=mx.cpu())`` keeps them on the host).  ``LibSVMIter`` yields CSR
-batches, which need sparse storage: it raises.
+batches (``ndarray/sparse.py``).
 
 ``ImageRecordIter`` decodes with the port's codec.  ``_decode_record``
 keeps the reference's two lanes, because they draw their augmentations
@@ -341,12 +341,88 @@ class MNISTIter(NDArrayIter):
 
 
 class LibSVMIter(DataIter):
-    """libsvm text -> CSR batches: needs sparse storage, which the port
-    does not have yet (ROADMAP queue A item 10)."""
+    """LibSVM text (``label index:value ...`` a line) -> CSR batches of
+    ``(batch_size, data_shape[0])`` on the current context (MXNet's
+    ``src/io/iter_libsvm.cc``).
 
-    def __init__(self, *args, **kwargs):  # noqa: ARG002
-        raise MXNetError("LibSVMIter yields CSR batches, and sparse storage "
-                         "is not yet ported (ROADMAP queue A item 10)")
+    The file is read once into one CSR over all its rows: within a row an
+    index seen twice keeps its last value, indices at or past the width are
+    dropped, columns are sorted and zero values left out, as the
+    reference's dense batch and ``csr_matrix`` give them; a batch is a
+    slice of it (the last one padded with empty rows, its labels wrapped
+    from the start).  The reference builds a dense (batch, width) array a
+    batch, which at a million features is 4 GB at batch 1024."""
+
+    def __init__(self, data_libsvm, data_shape, batch_size=1,
+                 part_index=0, num_parts=1, **kwargs):  # noqa: ARG002
+        super().__init__(batch_size)
+        self._feat_dim = data_shape[0] \
+            if isinstance(data_shape, (tuple, list)) else data_shape
+        labels, counts, keys, vals = [], [], [], []
+        with open(data_libsvm) as f:
+            for line in f:
+                parts = line.split()
+                if not parts:
+                    continue
+                labels.append(float(parts[0]))
+                pairs = [p.split(":") for p in parts[1:]]
+                counts.append(len(pairs))
+                keys.extend(int(k) for k, _ in pairs)
+                vals.extend(float(v) for _, v in pairs)
+        n = len(labels)
+        lo, hi = part_index * n // num_parts, (part_index + 1) * n // num_parts
+        starts = np.concatenate([[0], np.cumsum(counts, dtype=np.int64)])
+        rows = np.repeat(np.arange(n, dtype=np.int64), counts)
+        keys = np.asarray(keys, np.int64)
+        vals = np.asarray(vals, np.float64).astype(np.float32)
+        sl = slice(starts[lo], starts[hi])
+        rows, keys, vals = rows[sl] - lo, keys[sl], vals[sl]
+        order = np.arange(len(keys))
+        keep = keys < self._feat_dim
+        keys = np.where(keys < 0, keys + self._feat_dim, keys)
+        rows, keys, vals, order = (a[keep] for a in (rows, keys, vals, order))
+        # the last value of an index within its row, columns ascending
+        srt = np.lexsort((order, keys, rows))
+        rows, keys, vals = rows[srt], keys[srt], vals[srt]
+        last = np.ones(len(keys), bool)
+        last[:-1] = (rows[1:] != rows[:-1]) | (keys[1:] != keys[:-1])
+        keep = last & (vals != 0)
+        rows, self._cols, self._vals = rows[keep], keys[keep], vals[keep]
+        self._indptr = np.zeros(hi - lo + 1, np.int64)
+        np.add.at(self._indptr, rows + 1, 1)
+        self._indptr = np.cumsum(self._indptr)
+        self._n = hi - lo
+        self._labels = np.asarray(labels[lo:hi], dtype=np.float32)
+        self._cursor = -batch_size
+
+    def reset(self):
+        self._cursor = -self.batch_size
+
+    def iter_next(self):
+        self._cursor += self.batch_size
+        return self._cursor < self._n
+
+    def getdata(self):
+        from ..ndarray import sparse as sp
+        end = min(self._cursor + self.batch_size, self._n)
+        a, b = self._indptr[self._cursor], self._indptr[end]
+        indptr = np.full(self.batch_size + 1, b - a, np.int64)
+        indptr[:end - self._cursor + 1] = \
+            self._indptr[self._cursor:end + 1] - a
+        return [sp.csr_matrix((self._vals[a:b], self._cols[a:b], indptr),
+                              shape=(self.batch_size, self._feat_dim),
+                              dtype=np.float32)]
+
+    def getlabel(self):
+        end = self._cursor + self.batch_size
+        lab = self._labels[self._cursor:end]
+        if len(lab) < self.batch_size:
+            lab = np.concatenate(
+                [lab, self._labels[:self.batch_size - len(lab)]])
+        return [nd.array(lab)]
+
+    def getpad(self):
+        return max(0, self._cursor + self.batch_size - self._n)
 
 
 def _mix_seed(seed, k):

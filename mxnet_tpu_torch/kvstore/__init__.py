@@ -5,7 +5,9 @@ one process (``KVStoreLocal``), with plug-in backends through
 ``local``, ``device``, ``nccl``, ``local_update_cpu``,
 ``local_allreduce_cpu`` and ``local_allreduce_device`` are all the one
 in-process store, as the reference maps them.  The distributed stores
-(``dist_*``) and ``horovod`` are not yet ported and raise.
+(``dist_*``) and ``horovod`` are not yet ported and raise; the host
+store of row-sparse tables that they route such keys to is
+``kvstore.sparse_ps.SparsePS``, used directly until then.
 """
 
 from __future__ import annotations

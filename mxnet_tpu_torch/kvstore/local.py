@@ -21,7 +21,11 @@ and ``mxnet_kvstore_{push,pull}_seconds``; ``pushpull_list`` is a
 ``kvstore.fused_pushpull`` span feeding the fused path's counters
 (``fusion.record_*``).
 
-Not ported: ``row_sparse_pull`` (the port has no sparse storage) raises.
+A key may hold a row_sparse array (``ndarray/sparse.py``): pushed
+row-sparse values merge by row (the rows' union, duplicates summed on the
+values' device) and replace it, ``pull`` gives it dense, and
+``row_sparse_pull`` gives each output the stored rows its ``row_ids``
+ask for (a dense value is cast to row_sparse first).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ import torch
 from .. import telemetry as _tel
 from ..base import MXNetError
 from ..telemetry import tracer as _ttrace
+from ..ndarray import sparse as _sparse
 from ..ndarray.ndarray import NDArray
 from . import fusion
 from .base import KVStoreBase
@@ -83,11 +88,26 @@ class KVStoreLocal(KVStoreBase):
 
     def _reduce(self, values):
         """The sum of a value list as a tensor on the first value's
-        device."""
+        device (row-sparse values: a RowSparseNDArray)."""
         if not _is_list(values):
-            return values._data
+            return values if isinstance(values, _sparse.BaseSparseNDArray) \
+                else values._data
+        if isinstance(values[0], _sparse.RowSparseNDArray):
+            return self._reduce_rowsparse(values)
         dev = values[0]._data.device
         return fusion.tree_sum(self._stage(values, dev))
+
+    @staticmethod
+    def _reduce_rowsparse(values):
+        """Row-sparse values merged: the union of their rows, each row's
+        values summed, on the first value's device."""
+        dev = values[0].data._data.device
+        uniq, merged = _sparse.merge_rows(
+            torch.cat([v.indices._data.to(dev) for v in values]),
+            torch.cat([v.data._data.to(dev) for v in values]))
+        return _sparse.RowSparseNDArray(NDArray(merged), NDArray(uniq),
+                                        values[0].shape, ctx=values[0].ctx,
+                                        dtype=values[0].dtype)
 
     # -- API ------------------------------------------------------------------
     def init(self, key, value):
@@ -98,7 +118,8 @@ class KVStoreLocal(KVStoreBase):
         if key in self._store:
             raise MXNetError(f"key {key!r} already initialized")
         v = value[0] if _is_list(value) else value
-        self._store[key] = v.copy()
+        self._store[key] = v if isinstance(v, _sparse.BaseSparseNDArray) \
+            else v.copy()
 
     def _stored(self, key):
         if key not in self._store:
@@ -119,6 +140,9 @@ class KVStoreLocal(KVStoreBase):
             merged = self._reduce(self._compress_values(key, value))
             if self._updater is not None:
                 self._updater(key, merged, stored)
+            elif isinstance(merged, _sparse.BaseSparseNDArray) or \
+                    isinstance(stored, _sparse.BaseSparseNDArray):
+                self._store[key] = merged
             else:
                 _write(stored, merged)
         if sp is not _tel.NULL_SPAN:
@@ -136,6 +160,8 @@ class KVStoreLocal(KVStoreBase):
             key = key[0]
         with _tel.span("kvstore.pull", "kvstore") as sp:
             stored = self._stored(key)
+            if isinstance(stored, _sparse.BaseSparseNDArray):
+                stored = stored.tostype("default")
             outs = out if _is_list(out) else [out]
             for o in outs:
                 _write(o, stored._data)
@@ -152,9 +178,26 @@ class KVStoreLocal(KVStoreBase):
             self.pull(key, out, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0,  # noqa: ARG002
-                        row_ids=None):  # noqa: ARG002
-        raise MXNetError("row_sparse_pull needs sparse storage, which is not "
-                         "yet ported to mxnet_tpu_torch")
+                        row_ids=None):
+        """Each RowSparseNDArray of ``out`` takes the stored rows of its
+        ``row_ids`` (one NDArray for all, or one an output), on its own
+        device."""
+        if row_ids is None:
+            raise MXNetError("row_sparse_pull requires row_ids")
+        if _is_list(key):
+            key = key[0]
+        stored = self._stored(key)
+        if not isinstance(stored, _sparse.RowSparseNDArray):
+            stored = _sparse.cast_storage(stored, "row_sparse")
+        outs = out if _is_list(out) else [out]
+        rids = row_ids if _is_list(row_ids) else [row_ids] * len(outs)
+        for o, r in zip(outs, rids):
+            if not isinstance(o, _sparse.RowSparseNDArray):
+                raise MXNetError("row_sparse_pull writes RowSparseNDArray "
+                                 "outputs; pull() gives a dense one")
+            ret = stored.retain(r)
+            o.data = ret.data.as_in_context(o.ctx)
+            o.indices = ret.indices.as_in_context(o.ctx)
 
     # -- many keys at once ----------------------------------------------------
     def set_bucket_size(self, mb):
@@ -164,13 +207,15 @@ class KVStoreLocal(KVStoreBase):
 
     def pushpull_list(self, keys, values, outs, priority=0):
         """pushpull of every key: bucket by bucket, unless the store owns
-        the update (it runs per key inside push), buckets are off or
-        gradients are compressed."""
+        the update (it runs per key inside push), buckets are off,
+        gradients are compressed or a value is sparse."""
         if self._updater is not None or self._bucket_bytes <= 0:
             return KVStoreBase.pushpull_list(self, keys, values, outs,
                                              priority=priority)
-        if self._compression is not None:
-            # compressed keys reduce one by one
+        if self._compression is not None or any(
+                isinstance(x, _sparse.BaseSparseNDArray) for v in values
+                for x in (v if _is_list(v) else [v])):
+            # compressed and sparse keys reduce one by one
             if _ttrace._ENABLED:
                 fusion.record_fallback(len(keys))
             return KVStoreBase.pushpull_list(self, keys, values, outs,

@@ -2,7 +2,7 @@
 ``NDArray``, the creation functions, and one function per registered
 operator, dotted names as sub-namespaces (``mx.nd.random.uniform``,
 ``mx.nd.linalg.gemm2``, ``mx.nd.contrib.masked_encdec_att``) and flattened
-(``random_uniform``)."""
+(``random_uniform``), and ``mx.nd.sparse`` (row_sparse and CSR arrays)."""
 
 import sys as _sys
 
@@ -25,3 +25,6 @@ def Custom(*inputs, op_type=None, **kwargs):  # noqa: N802 (MXNet's name)
 
 
 _GENERATED = _register.populate(_sys.modules[__name__])
+
+from . import sparse  # noqa: F401,E402
+from .sparse import cast_storage  # noqa: F401,E402

@@ -107,10 +107,12 @@ class NDArray:
         return "default"
 
     def tostype(self, stype):
-        """Only the dense storage type is ported."""
-        if stype != "default":
-            raise MXNetError(f"storage type {stype!r} is not supported")
-        return self
+        """This array in the storage type ``stype`` (``sparse.cast_storage``
+        for ``row_sparse`` and ``csr``)."""
+        if stype == "default":
+            return self
+        from . import sparse
+        return sparse.cast_storage(self, stype)
 
     @property
     def grad(self):

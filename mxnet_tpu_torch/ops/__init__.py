@@ -6,6 +6,7 @@ the registry), and the reference's alias table
 from . import registry  # noqa: F401
 from . import elemwise, reduce, matrix, nn, contrib, optimizer_ops  # noqa: F401
 from . import random_ops, linalg, vision  # noqa: F401
+from . import quantization, sparse_ops  # noqa: F401
 
 # upstream MXNet registers legacy CamelCase names beside the snake_case ones
 _ALIASES = {

@@ -285,7 +285,10 @@ def _embedding(data, weight, input_dim=0, output_dim=0, dtype="float32",
                sparse_grad=False):  # noqa: ARG001
     """Rows of ``weight`` at the integer values of ``data``, clipped into
     ``[0, rows)`` as ``take`` clips (the reference gives NaN rows for an
-    index out of range)."""
+    index out of range).  ``sparse_grad`` belongs to the layer: the
+    gradient stays a dense buffer, and ``Parameter.grad(stype=
+    "row_sparse")`` takes its touched rows (``Embedding(sparse_grad=
+    True)`` sets that ``grad_stype``)."""
     idx = data.long().clamp(0, weight.shape[0] - 1)
     return F.embedding(idx, weight)
 

@@ -52,7 +52,7 @@ _SUMMING = frozenset([
     "Correlation", "GridGenerator",
     "scatter_nd", "index_add", "ElementWiseSum", "histogram", "ctc_loss",
     "lamb_full_update", "lamb_update_phase1", "lamb_update_phase2",
-    "lars_update"])
+    "lars_update", "_sparse_dot_csr", "_square_sum_rs"])
 TOL = {"elementwise": 1e-5, "reduction": 1e-4}
 
 
@@ -98,6 +98,15 @@ def _spec(r):
 
     def z(*shape):
         return np.zeros(shape, f32)
+
+    def q8(*shape):
+        return r.randint(-127, 128, shape).astype(np.int8)
+
+    def f0(v):
+        return np.array(v, f32)
+
+    def i64(*vals):
+        return np.array(vals, np.int64)
 
     x, g = t(4, 5), t(4, 5) * f32(0.1)
     lab = f(0, 3, 1, 4)
@@ -246,6 +255,30 @@ def _spec(r):
                                                  {"output_size": (3, 2)}),
         "contrib.BilinearResize2D": lambda: ([t(2, 3, 4, 5)],
                                              {"height": 7, "width": 3}),
+        # int8 quantization: int8 or int32 operands, ranges as 0-d arrays
+        "contrib.quantize_v2": lambda: ([x], {}),
+        "contrib.dequantize": lambda: ([q8(4, 5), f0(-2.5), f0(1.5)], {}),
+        "contrib.requantize": lambda: (
+            [r.randint(-60000, 60000, (4, 5)).astype(np.int32), f0(-7.0),
+             f0(3.0)], {}),
+        "contrib.quantized_dot": lambda: (
+            [q8(4, 6), q8(6, 5), f0(-2.0), f0(1.5), f0(-0.5), f0(0.75)], {}),
+        "contrib.quantized_fully_connected": lambda: (
+            [q8(4, 6), q8(3, 6), f0(-2.0), f0(1.5), f0(-0.5), f0(0.75)],
+            {"num_hidden": 3}),
+        "contrib.quantized_conv": lambda: (
+            [q8(2, 3, 6, 6), q8(4, 3, 3, 3), f0(-2.0), f0(1.5), f0(-0.5),
+             f0(0.75)], {"stride": (2, 1), "pad": (1, 1)}),
+        "contrib.getnnz": lambda: ([zeroed], {"axis": 1}),
+        # sparse storage's components: a 4 x 5 csr (an empty row), 3
+        # stored rows of a 6-row row_sparse array
+        "_sparse_dot_csr": lambda: ([t(7), i64(0, 2, 3, 3, 7),
+                                     i64(0, 4, 1, 0, 2, 3, 4), t(5, 3)],
+                                    {}),
+        "_square_sum_rs": lambda: ([t(3, 4), i64(0, 2, 5)],
+                                   {"num_rows": 6, "axis": 1}),
+        "_sparse_retain_values": lambda: ([t(3, 4), i64(0, 2, 5),
+                                           i64(2, 5)], {}),
         "_arange": lambda: ([], {"start": 1, "stop": 7, "step": 1.5}),
         "_full": lambda: ([], {"shape": (2, 3), "value": 2.5}),
         "_ones": lambda: ([], {"shape": (2, 3)}),

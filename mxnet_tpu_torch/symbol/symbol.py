@@ -58,13 +58,6 @@ for _n in ("default", "TPU", "xla"):
     _BACKEND_REGISTRY[_n] = _identity_pass
 
 
-@register_backend("INT8")
-def _int8_pass(sym, args=None, aux=None, **kwargs):  # noqa: ARG001
-    raise MXNetError("optimize_for('INT8') (the int8 FullyConnected "
-                     "rewrite) is not yet ported to mxnet_tpu_torch: it "
-                     "waits with quantization (ROADMAP A.10)")
-
-
 class Symbol:
     def __init__(self, op=None, inputs=(), attrs=None, name=None,
                  num_outputs=1, out_index=None):
@@ -399,8 +392,9 @@ class Symbol:
     def optimize_for(self, backend, args=None, aux=None, **kwargs):
         """Run the graph pass registered under ``backend``
         (``register_backend``); the built-in ``default``, ``TPU`` and
-        ``xla`` return the graph as it is, ``INT8`` raises (quantization,
-        ROADMAP A.10), an unknown name raises."""
+        ``xla`` return the graph as it is, ``INT8`` rewrites its
+        ``FullyConnected`` nodes to int8 (``int8_pass.py``), an unknown
+        name raises."""
         fn = _BACKEND_REGISTRY.get(str(backend))
         if fn is None:
             raise MXNetError(

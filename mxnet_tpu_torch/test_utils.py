@@ -124,15 +124,27 @@ def rand_shape_nd(num_dim, dim=10):
     return tuple(_np.random.randint(1, dim + 1, size=num_dim))
 
 
-def rand_ndarray(shape, stype="default", density=None,  # noqa: ARG001
+def rand_ndarray(shape, stype="default", density=None,
                  dtype=_np.float32, ctx=None):
-    """Uniform values in [-1, 1); sparse storage types raise."""
-    if stype != "default":
-        raise MXNetError(f"rand_ndarray(stype={stype!r}) needs sparse "
-                         "storage, which is not yet ported to "
-                         "mxnet_tpu_torch (ROADMAP A.10)")
-    return nd.array(_np.random.uniform(-1, 1, shape).astype(dtype),
-                    ctx=ctx if ctx is not None else default_context())
+    """Uniform values in [-1, 1) from ``numpy.random``; for ``row_sparse``
+    each row kept with probability ``density`` (default 0.5), for ``csr``
+    each kept row's elements too, with the reference's draws in its
+    order."""
+    ctx = ctx if ctx is not None else default_context()
+    if stype == "default":
+        return nd.array(_np.random.uniform(-1, 1, shape).astype(dtype),
+                        ctx=ctx)
+    from .ndarray import sparse as sp
+    density = density if density is not None else 0.5
+    arr = _np.random.uniform(-1, 1, shape).astype(dtype)
+    mask = _np.random.uniform(0, 1, shape[0]) < density
+    arr[~mask] = 0
+    if stype == "row_sparse":
+        return sp.row_sparse_array(arr, ctx=ctx)
+    if stype == "csr":
+        flat_mask = _np.random.uniform(0, 1, shape) < density
+        return sp.csr_matrix(arr * flat_mask, ctx=ctx)
+    raise MXNetError(f"unknown stype {stype}")
 
 
 def check_numeric_gradient(f, inputs, eps=1e-3, rtol=1e-2, atol=1e-3,

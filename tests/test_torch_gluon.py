@@ -399,10 +399,15 @@ def test_not_yet_ported_raise():
     net(mx.nd.ones((1, 10)))
     for call in (lambda: net.export("x"),
                  lambda: mx.gluon.Trainer(net.collect_params(), "sgd",
-                                          kvstore="dist_sync"),
-                 lambda: mx.test_utils.rand_ndarray((2, 2), "csr")):
+                                          kvstore="dist_sync")):
         with pytest.raises(mx.MXNetError, match="not yet ported"):
             call()
+    # sparse storage is ported (tests/test_torch_sparse.py)
+    np.random.seed(0)
+    csr = mx.test_utils.rand_ndarray((2, 2), "csr")
+    np.random.seed(0)
+    assert np.array_equal(csr.asnumpy(), jmx.test_utils.rand_ndarray(
+        (2, 2), "csr").asnumpy())
 
 
 # -- the zoo BERT through the Gluon training loop ---------------------------

@@ -175,8 +175,23 @@ def test_csv_mnist_resize_prefetch_match_reference(tmp_path):
 
 
 def test_libsvm_iter_raises_naming_sparse_storage(tmp_path):
-    with pytest.raises(mx.MXNetError, match="queue A item 10"):
-        mx.io.LibSVMIter(data_libsvm=str(tmp_path / "x"), data_shape=(3,))
+    """CSR batches (sparse storage) equal to the reference's; a missing
+    file raises in both (the batches' edge cases:
+    tests/test_torch_sparse.py)."""
+    path = tmp_path / "d.libsvm"
+    path.write_text("1 0:0.5 2:1.5\n0 1:-2\n1 2:3 0:1\n")
+    got = {}
+    for m in (mx, jmx):
+        with pytest.raises(OSError):
+            m.io.LibSVMIter(data_libsvm=str(tmp_path / "x"), data_shape=(3,))
+        it = m.io.LibSVMIter(data_libsvm=str(path), data_shape=(3,),
+                             batch_size=2)
+        got[m] = [(b.data[0].stype, b.data[0].asnumpy(), b.label[0].asnumpy(),
+                   b.pad) for b in it]
+    assert len(got[mx]) == len(got[jmx]) == 2
+    for g, w in zip(got[mx], got[jmx]):
+        assert g[0] == w[0] == "csr" and g[3] == w[3]
+        assert np.array_equal(g[1], w[1]) and np.array_equal(g[2], w[2])
 
 
 # -- ImageRecordIter ----------------------------------------------------------

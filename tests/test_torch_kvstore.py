@@ -175,8 +175,12 @@ def test_init_twice_and_unknown_key_raise():
         kv.init("a", mx.nd.ones((2,)))
     with pytest.raises(mx.MXNetError):
         kv.push("b", mx.nd.ones((2,)))
-    with pytest.raises(mx.MXNetError, match="not yet ported"):
+    # row_sparse keys are ported (tests/test_torch_sparse.py); a dense
+    # output and a pull without row ids raise
+    with pytest.raises(mx.MXNetError, match="RowSparseNDArray"):
         kv.row_sparse_pull("a", out=mx.nd.ones((2,)), row_ids=mx.nd.ones(1))
+    with pytest.raises(mx.MXNetError, match="row_ids"):
+        kv.row_sparse_pull("a", out=mx.nd.ones((2,)))
     with pytest.raises(mx.MXNetError):
         kv.save_optimizer_states("x")
 

@@ -252,7 +252,6 @@ print('alive')
 # metrics that only modules the port does not have yet register
 UNPORTED = {
     "kvstore/dist.py": "A.9",
-    "kvstore/sparse_ps.py": "A.10",
     "telemetry/perfgate.py": "A.11",
     "sharding.py": "A.9",
     "autoshard/planner.py": "A.9",

@@ -204,10 +204,19 @@ def test_symbol_surface_matches():
 
 def test_optimize_for_backends():
     ts = NETS["mlp"][0](mx)
+    js = NETS["mlp"][0](jmx)
     for name in ("default", "TPU", "xla"):
         assert ts.optimize_for(name) is ts
-    with pytest.raises(MXNetError, match="A.10"):
-        ts.optimize_for("INT8")
+    # INT8 rewrites every FullyConnected node as the reference's pass does
+    # (the graphs' outputs: tests/test_torch_quantization.py)
+    tq, jq = ts.optimize_for("INT8"), js.optimize_for("INT8")
+    assert [(s.name, s.attr("__int8_quantized_nodes__")) for s in
+            tq._walk()] == [(s.name, s.attr("__int8_quantized_nodes__"))
+                            for s in jq._walk()]
+    assert tq.attr("__int8_quantized_nodes__") == str(sum(
+        1 for s in ts._walk() if s._op is not None
+        and getattr(s._op, "name", None) == "FullyConnected"))
+    assert tq.list_arguments() == ts.list_arguments()
     with pytest.raises(MXNetError, match="not registered"):
         ts.optimize_for("TensorRT")
     mx.sym.register_backend("torch_test_drop_head")(

@@ -236,9 +236,17 @@ def test_rand_helpers_and_sparse_raises():
                             jmx.test_utils.rand_shape_nd(4))
     x = tu.rand_ndarray((3, 4))
     assert x.shape == (3, 4) and np.abs(x.asnumpy()).max() <= 1.0
+    # the sparse types are ported: the reference's draws, in its order
+    # (more cases: tests/test_torch_sparse.py); an unknown one raises
     for stype in ("csr", "row_sparse"):
-        with pytest.raises(MXNetError, match="A.10"):
-            tu.rand_ndarray((3, 4), stype)
+        np.random.seed(1)
+        got = tu.rand_ndarray((3, 4), stype)
+        np.random.seed(1)
+        want = jmx.test_utils.rand_ndarray((3, 4), stype)
+        assert got.stype == want.stype == stype
+        assert np.array_equal(got.asnumpy(), want.asnumpy())
+    with pytest.raises(MXNetError, match="unknown stype"):
+        tu.rand_ndarray((3, 4), "coo")
 
 
 def test_check_numeric_gradient_passes_and_catches_a_wrong_gradient():
@@ -405,11 +413,13 @@ def test_model_symbol_half_raises_naming_the_roadmap():
     assert (bep.epoch, bep.nbatch) == (1, 2)
     assert type(bep).__name__ == type(jmx.model.BatchEndParam(
         1, 2, None, None)).__name__
-    # the symbol half is ported (tests/test_torch_module.py); what of it
-    # still waits is the int8 rewrite, with quantization
+    # the symbol half is ported (tests/test_torch_module.py) and so is the
+    # int8 rewrite (tests/test_torch_quantization.py); what still waits is
+    # HybridBlock.export, which names the roadmap
     net = mx.sym.FullyConnected(mx.sym.var("data"), num_hidden=2)
+    assert net.optimize_for("INT8").attr("__int8_quantized_nodes__") == "1"
     with pytest.raises(MXNetError, match="A.10"):
-        net.optimize_for("INT8")
+        mx.gluon.nn.Dense(2, in_units=2).export("x")
 
 
 # -- CustomOp and library -----------------------------------------------------
