@@ -66,8 +66,9 @@ result line; each prints its seconds):
     launches a prefill (one per encoder layer); (d) the SLO histograms'
     p50/p99 of TTFT and TPOT over (a)-(c); (e) ``serving.Router`` over two
     llama_small replicas (vocab 32000, one seed) started as
-    ``python -m mxnet_tpu_torch.serving.replica`` on this card, 32
-    requests, replica 0 SIGKILLed while it decodes: every answer equals
+    ``python -m mxnet_tpu_torch.serving.replica`` on this card, both
+    engines built (their heartbeats), bursts of 32 requests until replica
+    0 is SIGKILLed while it decodes (at most 3): every answer equals
     an in-process engine's, the death, the retry and the respawn are
     counted, and no process is left after ``Router.stop()``;
  8. train oracle — bert_3_128_2 at seq 512 (fused backward) and llama_small
@@ -256,9 +257,9 @@ result line; each prints its seconds):
     "2bit", "threshold": 0.5})``: one step's packed codes and residuals
     on the card equal to the same gradients compressed on the CPU, step
     ms against the uncompressed store, and one step of each under
-    torch.profiler (wall, device busy, kernels); (c) 8 uninterrupted
+    torch.profiler (wall, device busy, kernels); (c) 6 uninterrupted
     steps, then ``checkpoint.auto_resume(save_every=2)`` whose step
-    raises once at step 5, then a run that sends itself SIGTERM during
+    raises once at step 4, then a run that sends itself SIGTERM during
     step 3 and a fresh net and trainer resumed from its directory: every
     curve equal to the uninterrupted one bit for bit (each step replays
     the uninterrupted run's gradient after its own backward: the fused
@@ -361,6 +362,23 @@ result line; each prints its seconds):
     ``grad(stype="row_sparse")`` holds exactly the touched rows, the
     tables agree, untouched rows bit-unchanged; (c) ``_sparse_dot_csr``
     and its gradients at an FM batch's shapes, card against CPU.
+24. np — ``mx.np``, ``npx`` and ``mx.util``: (a) every ``np.*`` registry
+    name (370, ``np.fft`` and ``np.linalg`` included) on the card and on
+    the CPU on the same seeded inputs (``mxnet_tpu_torch/numpy/_sweep.py``):
+    outputs and dtypes, every output on the card; the names that
+    synchronised with the host (``torch.cuda.set_sync_debug_mode``) are
+    printed; (b) BERT-base at bench.py's bert_seq512 width (the util
+    phase's net: vocab 30522, batch 32, seq 512, bf16, hybridized,
+    multi-precision Adam 1e-4, dropout 0) trained 8 steps under
+    ``npx.set_np()`` by ``gluon.Trainer`` on tokens and labels drawn by
+    ``mx.np.random.randint`` on the card, with a hybridized loss head
+    written only in ``mx.np`` / ``npx`` (``npx.log_softmax`` of the f32
+    logits, ``np.take_along_axis``, ``np.mean``): step 1's loss against
+    ``SoftmaxCELoss`` on the same logits, the curve against the same 8
+    steps written in ``mx.nd`` from the same start weights and batch, the
+    parameters through ``npx.save`` / ``npx.load`` bit for bit, 12 bf16
+    forward and 12 bf16 fused backward launches a step and no other;
+    median step ms, samples/s, MFU, peak memory and idle share.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -389,7 +407,9 @@ the f32 ones; the f32 fused backward on its row; 0 elsewhere) and the
 ops phase's 20 replays (``ops_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the quant phase's timed int8 BERT-base
 forwards (``quant_launches``: 12 each on the f32 forward; 0 elsewhere)
-and the sparse phase's (``sparse_launches``, 0: no attention);
+and the sparse phase's (``sparse_launches``, 0: no attention) and the np
+phase's 8 BERT-base steps (``np_launches``: the bf16 forward and fused
+backward; 0 elsewhere);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -467,7 +487,15 @@ encoder's logits; ResNet-50 top-1 agreement 0.9 and cosine 0.98; the
 flash forward at the path's shape 2e-5.  sparse: FM losses and tables
 card vs CPU 1e-4 relative (``index_add`` sums with atomics on the card),
 a store step against the dense update 1e-6, ``_sparse_dot_csr`` and its
-gradients 1e-5 of max |CPU|, the Embedding tables 1e-5 of max.
+gradients 1e-5 of max |CPU|, the Embedding tables 1e-5 of max.  np: each
+case card vs CPU ``_sweep.TOL`` of max |CPU| (1e-5 elementwise, 1e-4 for
+what sums, sorts or factors; integers, bools and host values equal;
+decompositions by their invariants); the np loss at step 1 against
+``SoftmaxCELoss`` 1e-6 relative (the same f32 log-softmax, the mean in
+another order); the np curve against the nd curve 2e-3 relative a step
+(``NP_CURVE_TOL``: the fused backward's dq sums by atomics, so two runs of
+one step differ in the last bits, and Adam carries that on); the saved
+parameters bit for bit.
 """
 
 from __future__ import annotations
@@ -994,7 +1022,8 @@ def serve_phase(torch, fa, tmx, llama, serving, args):
 
 TIER = {"shared": 768, "tail_min": 32, "tail_max": 224, "requests": 8,
         "new": 16, "spec_k": 3, "mt_min": 100, "mt_max": 256,
-        "router_requests": 32, "router_vocab": 32000, "router_new": 16}
+        "router_requests": 32, "router_vocab": 32000, "router_new": 16,
+        "router_bursts": 3}
 TIER_ENGINE = dict(max_batch=8, block_tokens=16, max_seq=2048,
                    prefill_tokens=1024)
 TIER_REPLICA = dict(max_batch=8, block_tokens=16, max_seq=512,
@@ -1210,6 +1239,37 @@ def _tier_mt(torch, fa, tmx, serving, args, smi):
          f"{wall:.2f} s ({smi})")
 
 
+def _tier_wait_running(router, workdir, count, timeout_s):
+    """Wait until ``count`` replicas' heartbeats report their engine
+    built (phase "running")."""
+    from mxnet_tpu_torch.resilience import heartbeat
+    deadline = time.monotonic() + timeout_s
+    while True:
+        beats = heartbeat.read_all(os.path.join(workdir, "hb"))
+        phases = {i: b.get("phase") for i, b in beats.items()}
+        if sum(p == "running" for p in phases.values()) >= count:
+            return
+        if time.monotonic() > deadline or "failed" in phases.values():
+            raise AssertionError(
+                f"tier router: replica engines not built (waited up to "
+                f"{timeout_s} s): phases {phases}, "
+                f"{router.replica_status()}")
+        time.sleep(0.05)
+
+
+def _tier_replica_logs(workdir, nbytes=1500):
+    """The end of each replica's log under the router's workdir."""
+    out = []
+    logs = os.path.join(workdir, "logs")
+    for fn in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, fn), "rb") as f:
+            f.seek(0, os.SEEK_END)
+            f.seek(max(0, f.tell() - nbytes))
+            tail = f.read().decode("utf-8", "replace")
+        out.append(f"{fn}: ...{tail}")
+    return "replica logs: " + (" | ".join(out) or "none")
+
+
 def _tier_router(torch, tmx, serving, args, smi):
     """Two llama_small replicas (the same seed) as subprocesses on this
     card behind one Router; one is SIGKILLed while it decodes."""
@@ -1226,6 +1286,10 @@ def _tier_router(torch, tmx, serving, args, smi):
     oracle = serving.ServingEngine(net, eos_id=-1, **TIER_REPLICA) \
         .generate(prompts, max_new_tokens=new)
     del net
+    # the phase's engines are gone: give their cached blocks back to the
+    # card before two more processes take memory there
+    gc.collect()
+    torch.cuda.empty_cache()
     cmd = [sys.executable, "-m", "mxnet_tpu_torch.serving.replica",
            "--model", "llama_small", "--vocab", str(V), "--seed",
            str(args.seed), "--eos", "-1"]
@@ -1235,26 +1299,46 @@ def _tier_router(torch, tmx, serving, args, smi):
     names = ("dispatched", "retries", "replica_deaths", "respawns")
     c0 = {m: tel.counter(f"mxnet_router_{m}_total").value for m in names}
     router = serving.Router(cmd, 2, workdir, hang_s=120.0)
-    killed = None
+    killed, bursts = None, []
     try:
         t0 = time.perf_counter()
         router.start()
         if router.wait_up(timeout_s=180) != 2:
             raise AssertionError("tier router: replicas did not come up: "
                                  f"{router.replica_status()}")
+        # a replica is "up" once its socket accepts, before its model is
+        # built: wait for both engines, so a burst meets two decoders
+        _tier_wait_running(router, workdir, 2, 180)
         up_s = time.perf_counter() - t0
         t0 = time.perf_counter()
-        hs = [router.submit(p, max_new_tokens=new) for p in prompts]
-        deadline = time.monotonic() + 60
-        while killed is None and time.monotonic() < deadline:
-            st = router.replica_status()[0]
-            if st["inflight"] > 0 and any(h.ready() for h in hs):
-                killed = st["pid"]
-                os.kill(killed, signal.SIGKILL)
-            time.sleep(0.002)
+        # kill replica 0 once decoding has begun (a request answered)
+        # while it still holds requests; when a burst ends with replica 0
+        # empty before that could be seen, the next burst tries again
+        for _ in range(TIER["router_bursts"]):
+            hs = [router.submit(p, max_new_tokens=new) for p in prompts]
+            bursts.append(hs)
+            deadline = time.monotonic() + 120
+            while killed is None and not all(h.ready() for h in hs):
+                st = router.replica_status()[0]
+                if st["state"] != "up":
+                    raise AssertionError(
+                        "tier router: replica 0 went down before the "
+                        f"kill: {router.replica_status()}")
+                if st["inflight"] > 0 and any(h.ready() for h in hs):
+                    killed = st["pid"]
+                    os.kill(killed, signal.SIGKILL)
+                elif time.monotonic() > deadline:
+                    raise AssertionError(
+                        "tier router: a burst was not answered in 120 s: "
+                        f"{router.replica_status()}")
+                time.sleep(0.002)
+            if killed is not None:
+                break
         if killed is None:
-            raise AssertionError("tier router: replica 0 never decoded")
-        got = [h.result(timeout=300) for h in hs]
+            raise AssertionError(
+                f"tier router: replica 0 held no request once decoding "
+                f"had begun, in {len(bursts)} bursts")
+        got = [[h.result(timeout=300) for h in hs] for hs in bursts]
         serve_s = time.perf_counter() - t0
         deadline = time.monotonic() + 30
         while tel.counter("mxnet_router_respawns_total").value \
@@ -1265,21 +1349,29 @@ def _tier_router(torch, tmx, serving, args, smi):
         # shuts down (its socket's EOF) as a death too
         delta = {m: tel.counter(f"mxnet_router_{m}_total").value - c0[m]
                  for m in names}
+    except AssertionError as exc:
+        free, total = torch.cuda.mem_get_info()
+        raise AssertionError(
+            f"{exc}; card memory free {free / 2**30:.2f} of "
+            f"{total / 2**30:.2f} GiB; {_tier_replica_logs(workdir)}") \
+            from None
     finally:
         router.stop()
         shutil.rmtree(workdir, ignore_errors=True)
     live = {p: i for p, i in _descendants().items() if i[1] != "Z"}
-    if got != oracle:
-        bad = sum(a != b for a, b in zip(got, oracle))
-        raise AssertionError(f"tier router: {bad} of {n} answers differ "
-                             "from the in-process engine")
+    for hs in got:
+        if hs != oracle:
+            bad = sum(a != b for a, b in zip(hs, oracle))
+            raise AssertionError(f"tier router: {bad} of {n} answers "
+                                 "differ from the in-process engine")
     if delta["replica_deaths"] < 1 or delta["respawns"] < 1 \
             or delta["retries"] < 1:
         raise AssertionError(f"tier router: counters {delta}")
     if live:
         raise AssertionError(f"tier router: processes left: {live}")
-    _log(f"tier router: 2 llama_small replicas (vocab {V}) up in "
-         f"{up_s:.1f} s; {n} requests x {new} tokens answered in "
+    _log(f"tier router: 2 llama_small replicas (vocab {V}) up and built "
+         f"in {up_s:.1f} s; {len(bursts)} burst(s) of {n} requests x "
+         f"{new} tokens answered in "
          f"{serve_s:.2f} s with replica 0 (pid {killed}) SIGKILLed while "
          f"decoding; all equal to the in-process engine; counters "
          f"{delta}; replicas {[(s['state'], s['respawns']) for s in status]}"
@@ -5324,10 +5416,10 @@ def image_phase(torch, fa, mx, args, smi):
 # carry no random generator, as the reference's do not)
 UTIL = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
         "vocab": 30522, "batch": 32, "len": 512, "lr": 1e-4,
-        "fused_steps": 3, "curve_steps": 8, "fault_at": 5, "sigterm_at": 3,
+        "fused_steps": 3, "curve_steps": 6, "fault_at": 4, "sigterm_at": 3,
         "compress": {"type": "2bit", "threshold": 0.5}}
 SPEEDOMETER_TOL = 0.05     # its samples/s against the phase's own clock
-TURN_STEPS = 5             # timed steps a turn (after one to warm up)
+TURN_STEPS = 3             # timed steps a turn (after one to warm up)
 
 # the child that shows where an asynchronous CUDA error surfaces: an
 # out-of-range gather asserts on the device; NaiveEngine synchronizes after
@@ -5582,8 +5674,8 @@ def _dir_bytes(path):
 
 
 def _util_resume(torch, tmx, run, root):
-    """8 uninterrupted steps (their gradients recorded); auto_resume with
-    save_every=2 whose train_fn raises once at step 5; a run that sends
+    """6 uninterrupted steps (their gradients recorded); auto_resume with
+    save_every=2 whose train_fn raises once at step 4; a run that sends
     itself SIGTERM during step 3, then a fresh net and trainer resumed
     from its directory.  Every resumed curve equals the uninterrupted one
     bit for bit (each step replays the recorded gradient after its own
@@ -7653,6 +7745,232 @@ def sparse_phase(torch, fa, mx, args, smi):
     return counts, numbers
 
 
+# -- np: mx.np, npx and util --------------------------------------------------
+
+NP_STEPS = 8
+NP_LOSS_TOL = 1e-6     # relative: the np head's step-1 loss, SoftmaxCELoss
+NP_CURVE_TOL = 2e-3    # relative a step: the np curve against the nd curve
+
+
+def _np_sweep(torch, tmx):
+    """Every np.* registry name on the card and on the CPU from the same
+    seeded inputs (``numpy/_sweep.py``): values within ``_sweep.TOL``,
+    dtypes equal, every output array on the card.  The card's calls run
+    under ``torch.cuda.set_sync_debug_mode("warn")`` (inputs made first),
+    which names the functions that synchronised with the host.  Returns
+    (cases, mismatches, synchronised names)."""
+    import warnings
+    from mxnet_tpu_torch.numpy import _sweep
+    bad, synced = [], []
+    with warnings.catch_warnings():     # the mode's own first warning
+        warnings.simplefilter("ignore")
+        torch.cuda.set_sync_debug_mode("warn")
+        torch.cuda.set_sync_debug_mode(0)
+    for name in _sweep.names():
+        want = _sweep.run(tmx.np, name, tmx.cpu())
+        with tmx.gpu():
+            xs = [tmx.np.array(a) for a in _sweep.inputs(name)]
+            torch.cuda.synchronize()
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    out = _sweep.leaves(_sweep.call(tmx.np, name, xs))
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+        where = [f"{os.path.basename(w.filename)}:{w.lineno}"
+                 for w in caught if "synchroniz" in str(w.message)]
+        if where:
+            synced.append(f"{name} ({where[0]})")
+        off_card = [type(v).__name__ for v in out if hasattr(v, "context")
+                    and v.context.device_type != "gpu"]
+        got = _sweep.to_numpy(out)
+        err, tol, same = _sweep.close(name, got, want)
+        if err > tol or not same or off_card:
+            bad.append(name)
+            _log(f"np sweep MISMATCH {name}: {err:.3g} (bound {tol:g}), "
+                 f"dtypes {[str(g.dtype) for g in got]} vs "
+                 f"{[str(w.dtype) for w in want]}, off the card {off_card}")
+    # the registry runs the same ops: with no inputs, on the current context
+    with tmx.gpu():
+        for name, attrs in [("zeros", {"shape": (2, 3)}),
+                            ("arange", {"start": 5}), ("eye", {"N": 3})]:
+            out = tmx.ops.invoke("np." + name, [], attrs)
+            if out.context.device_type != "gpu":
+                bad.append(name)
+                _log(f"np sweep MISMATCH mx.ops.invoke('np.{name}') made "
+                     f"its array on {out.context}")
+    listed = [n for n in synced if n.split(" ")[0] in _sweep.HOST_SYNC]
+    _log(f"np sweep: {len(_sweep.names())} np.* names card vs CPU, "
+         f"{len(bad)} mismatches; {len(synced)} synchronised with the host "
+         f"(the first place each did): {synced}; {len(listed)} of them have "
+         f"shapes that depend on the values (_sweep.HOST_SYNC)")
+    return len(_sweep.names()), bad, synced
+
+
+def _np_dispatch_us(torch, tmx, calls=2000):
+    """Host microseconds a call of ``mx.np.add`` and of ``mx.nd.elemwise_add``
+    on two 4-element card arrays (one launch each), in turns np, nd, nd,
+    np, each turn timed after a synchronize to the synchronize after its
+    last call: the dispatch's host cost beside the nd op's."""
+    with tmx.gpu():
+        a = tmx.np.array(np.arange(4, dtype=np.float32))
+        b = tmx.np.array(np.ones(4, dtype=np.float32))
+    fns = {"np": tmx.np.add, "nd": tmx.nd.elemwise_add}
+    for f in fns.values():
+        f(a, b)
+    us = {"np": [], "nd": []}
+    for kind in ("np", "nd", "nd", "np"):
+        f = fns[kind]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            f(a, b)
+        torch.cuda.synchronize()
+        us[kind].append((time.perf_counter() - t0) / calls * 1e6)
+    return {k: statistics.median(v) for k, v in us.items()}
+
+
+def _np_head(tmx):
+    """The MLM loss in mx.np / npx only, a hybridized block: the mean
+    negative log-likelihood of the labels under the f32 logits."""
+    np_, npx = tmx.np, tmx.npx
+
+    class NpMLMLoss(tmx.gluon.HybridBlock):
+        def hybrid_forward(self, F, logits, labels):
+            logp = npx.log_softmax(np_.astype(logits, "float32"), axis=-1)
+            picked = np_.take_along_axis(logp, np_.expand_dims(labels, -1),
+                                         axis=-1)
+            return np_.negative(np_.mean(picked))
+    head = NpMLMLoss()
+    head.hybridize()
+    return head
+
+
+def _np_bert(torch, fa, tmx, args, smi):
+    """BERT-base trained NP_STEPS steps under npx.set_np() with the np
+    head, on tokens and labels from mx.np.random on the card; then the
+    same steps in mx.nd from the same start; save/load through npx.
+    Returns (launch counts of the np steps, numbers)."""
+    u = UTIL
+    B, L = u["batch"], u["len"]
+    _fresh_peak(torch)
+    net = _util_net(torch, tmx, args.seed)
+    params = net.collect_params()
+    start = {k: p.data()._data.detach().clone() for k, p in params.items()}
+    trainer = tmx.gluon.Trainer(params, "adam", {
+        "learning_rate": u["lr"], "multi_precision": True})
+    head = _np_head(tmx)
+    tmx.npx.set_np()
+    try:
+        tmx.np.random.seed(args.seed + 24)
+        toks = tmx.np.random.randint(0, u["vocab"], size=(B, L))
+        labs = tmx.np.random.randint(0, u["vocab"], size=(B, L))
+        if toks.context != tmx.gpu() or labs.dtype != np.int64:
+            raise AssertionError(f"np.random drew {toks.context} "
+                                 f"{labs.dtype}")
+
+        def np_step(losses, ms, check=False):
+            t = time.perf_counter()
+            with tmx.autograd.record():
+                logits = net(toks)[2]
+                loss = head(logits, labs)
+            loss.backward()
+            if check:
+                ce = tmx.gluon.loss.SoftmaxCELoss()(
+                    logits.astype("float32", copy=False), labs).mean()
+                a, b = float(loss.asscalar()), float(ce.asscalar())
+                _log(f"np head: step-1 loss {a!r} against SoftmaxCELoss "
+                     f"{b!r} on the same logits (rel {abs(a - b) / b:.2e})")
+                if abs(a - b) > NP_LOSS_TOL * abs(b):
+                    raise AssertionError(f"np loss {a} against {b}")
+            trainer.step(1)
+            losses.append(loss)
+            tmx.nd.waitall()
+            ms.append((time.perf_counter() - t) * 1e3)
+
+        _reset_counts(fa)
+        np_losses, ms = [], []
+        for i in range(NP_STEPS):
+            np_step(np_losses, ms, check=i == 0)
+        counts = _counts(fa)
+        np_losses = [float(l.asscalar()) for l in np_losses]
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        prof = _profile_step(torch, lambda: np_step([], []),
+                             "np BERT-base step")
+        with tempfile.TemporaryDirectory(prefix="mx_np_") as d:
+            f = os.path.join(d, "params.npz")
+            saved = {k: p.data() for k, p in params.items()}
+            tmx.npx.save(f, saved)
+            back = tmx.npx.load(f)
+            same = set(back) == set(saved) and all(
+                back[k].dtype == saved[k].dtype and torch.equal(
+                    back[k]._data.to(saved[k]._data.device), saved[k]._data)
+                for k in saved)
+        if not same:
+            raise AssertionError("npx.save / npx.load changed a parameter")
+    finally:
+        tmx.npx.reset_np()
+    want = {k: NP_STEPS * UTIL["layers"] for k in ("flash_fwd",
+                                                   "flash_bwd_fused")}
+    if {k: counts[k] for k in want} != want or any(
+            v for k, v in counts.items() if k not in want):
+        raise AssertionError(f"np BERT-base launches {counts}")
+    # the same steps in mx.nd from the same start weights and batch
+    for k, p in params.items():
+        p.set_data(start[k])
+        p.data()._data.grad = None
+    trainer = tmx.gluon.Trainer(params, "adam", {
+        "learning_rate": u["lr"], "multi_precision": True})
+    nd_losses, _ = _gluon_steps(tmx, net, [toks], labs, NP_STEPS, trainer)
+    rel = [abs(a - b) / abs(b) for a, b in zip(np_losses, nd_losses)]
+    _log(f"np BERT-base: np curve {[round(x, 5) for x in np_losses]}, nd "
+         f"curve {[round(x, 5) for x in nd_losses]}, max rel "
+         f"{max(rel):.2e} (bound {NP_CURVE_TOL:g})")
+    if max(rel) > NP_CURVE_TOL or not np_losses[-1] < np_losses[0]:
+        raise AssertionError(f"np curve {np_losses} against nd {nd_losses}")
+    med = statistics.median(ms[1:])
+    # the gluon phase's count: 6 x the non-embedding weights a token, and
+    # attention's 12 x layers x units x L
+    n_matmul = sum(p.numel() for n, p in net.named_parameters()
+                   if "word_embed" not in n and "position" not in n)
+    flops_tok = 6 * n_matmul + 12 * u["layers"] * u["units"] * L
+    numbers = {"step_ms": med, "samples_per_s": B / (med / 1e3),
+               "mfu": B / (med / 1e3) * L * flops_tok
+               / PEAK_FLOPS["bfloat16"],
+               "peak_gib": peak,
+               "idle_share": max(0.0, 1 - prof["device_ms"]
+                                 / prof["wall_ms"])}
+    _log(f"np BERT-base ({smi}): median step {med:.2f} ms of steps 2-"
+         f"{NP_STEPS}, {numbers['samples_per_s']:.2f} samples/s, MFU "
+         f"{numbers['mfu']:.4f}, peak {peak:.2f} GiB, idle share "
+         f"{numbers['idle_share']:.3f}; launches {counts}")
+    return counts, numbers
+
+
+def np_phase(torch, fa, mx, args, smi):
+    """mx.np, npx and util on the card: the sweep of every np.* name card
+    against CPU, then BERT-base trained under npx.set_np() with an np loss
+    head.  Returns (launch counts of the BERT steps, numbers)."""
+    tmx = mx["pkg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    n, bad, synced = _np_sweep(torch, tmx)
+    if bad:
+        raise AssertionError(f"np sweep: {len(bad)} of {n} mismatch: {bad}")
+    us = _np_dispatch_us(torch, tmx)
+    _log(f"np dispatch ({smi}): mx.np.add {us['np']:.2f} us a call, "
+         f"mx.nd.elemwise_add {us['nd']:.2f} us (host clock, 4-element "
+         f"card arrays, median of two turns of 2000 calls)")
+    counts, numbers = _np_bert(torch, fa, tmx, args, smi)
+    numbers.update({"sweep_names": n, "sweep_mismatches": len(bad),
+                    "sweep_synchronised": len(synced),
+                    "np_add_us": us["np"], "nd_add_us": us["nd"]})
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, numbers
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -7862,6 +8180,7 @@ def main(argv=None):
                                          args, smi)
     sparse_counts, _ = _phase("sparse", sparse_phase, torch, fa, mx, args,
                               smi)
+    np_counts, _ = _phase("np", np_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -7916,6 +8235,8 @@ def main(argv=None):
         # each); the sparse phase has no attention
         "quant_launches": quant_counts["flash_fwd"],
         "sparse_launches": sparse_counts["flash_fwd"],
+        # the np phase's 8 BERT-base bf16 steps under npx.set_np()
+        "np_launches": np_counts["flash_fwd"],
     }]
     # the f32 kernel at the quant path's shape, on its own q, k, v
     att = quant_numbers["flash"]
@@ -7993,6 +8314,7 @@ def main(argv=None):
                 "ops_launches": _dtype_count(ops_counts, kind_, pre),
                 "quant_launches": _dtype_count(quant_counts, kind_, pre),
                 "sparse_launches": _dtype_count(sparse_counts, kind_, pre),
+                "np_launches": _dtype_count(np_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":

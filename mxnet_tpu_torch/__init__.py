@@ -90,8 +90,8 @@ _torch.backends.cudnn.allow_tf32 = False
 
 from . import config  # noqa: E402,F401
 from .base import MXNetError  # noqa: E402,F401
-from .context import (Context, cpu, current_context, gpu,  # noqa: E402,F401
-                      num_gpus, resolve_device)
+from .context import (Context, cpu, cpu_pinned, cpu_shared,  # noqa: E402,F401
+                      current_context, gpu, num_gpus, resolve_device)
 from . import random  # noqa: E402,F401
 from . import ndarray  # noqa: E402,F401
 from . import ndarray as nd  # noqa: E402,F401
@@ -125,3 +125,21 @@ from . import symbol as sym  # noqa: E402,F401
 from . import module  # noqa: E402,F401
 from . import module as mod  # noqa: E402,F401
 from . import contrib  # noqa: E402,F401
+from . import util  # noqa: E402,F401
+
+# modules loaded on first use, as the reference loads them
+# (``mxnet_tpu/__init__.py``): the serving engine, the native loader and
+# ``mx.np`` stay out of a plain ``import mxnet_tpu_torch``
+_LAZY = {"serving": "serving", "native": "native", "numpy": "numpy",
+         "np": "numpy", "numpy_extension": "numpy_extension",
+         "npx": "numpy_extension", "rtc": "rtc"}
+
+
+def __getattr__(name):
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+    mod = importlib.import_module(f".{target}", __name__)
+    globals()[name] = mod
+    return mod

@@ -11,13 +11,29 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["MXNetError", "mx_real_t", "torch_dtype", "numpy_dtype"]
+__all__ = ["MXNetError", "NotSupportedForSparseNDArray", "mx_real_t",
+           "numeric_types", "integer_types", "string_types", "torch_dtype",
+           "numpy_dtype"]
 
 mx_real_t = np.float32
+string_types = (str,)
+integer_types = (int, np.integer)
+numeric_types = (float, int, np.generic)
 
 
 class MXNetError(RuntimeError):
     """Default error type for all mxnet_tpu_torch API failures."""
+
+
+class NotSupportedForSparseNDArray(MXNetError):
+    """A function that a sparse array does not support."""
+
+    def __init__(self, function, alias, *args):
+        argstr = ", ".join(str(a) for a in args)
+        super().__init__(
+            f"Function {getattr(function, '__name__', function)} "
+            f"(alias {alias}) with arguments ({argstr}) is not supported "
+            "for SparseNDArray")
 
 
 def torch_dtype(dtype):

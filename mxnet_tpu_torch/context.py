@@ -20,17 +20,20 @@ import torch
 
 from .base import MXNetError
 
-__all__ = ["Context", "cpu", "gpu", "current_context", "resolve_device",
-           "context_of", "num_gpus", "used_cuda_devices"]
+__all__ = ["Context", "cpu", "gpu", "cpu_pinned", "cpu_shared",
+           "current_context", "resolve_device", "context_of", "num_gpus",
+           "used_cuda_devices"]
 
 _used_cuda = set()      # CUDA indices resolve_device gave out (None: current)
 
 
 class Context:
     """A device: ``Context("gpu", i)`` is CUDA card i, ``Context("cpu")``
-    the host.  ``with ctx:`` makes it the current context."""
+    the host.  ``cpu_pinned`` and ``cpu_shared`` are host contexts of their
+    own type (an array placed there keeps the label), with the host's
+    memory.  ``with ctx:`` makes it the current context."""
 
-    devtype2num = {"cpu": 1, "gpu": 2}
+    devtype2num = {"cpu": 1, "gpu": 2, "cpu_pinned": 3, "cpu_shared": 5}
     _default = threading.local()
 
     def __init__(self, device_type, device_id=0):
@@ -46,7 +49,7 @@ class Context:
 
     def torch_device(self):
         """The ``torch.device`` this context denotes."""
-        if self.device_type == "cpu":
+        if self.device_type != "gpu":
             return torch.device("cpu")
         return torch.device("cuda", self.device_id)
 
@@ -81,6 +84,16 @@ def gpu(device_id=0):
 def cpu(device_id=0):
     """The host (the id is kept for reference-API parity)."""
     return Context("cpu", device_id)
+
+
+def cpu_pinned(device_id=0):
+    """The host context of page-locked staging buffers."""
+    return Context("cpu_pinned", device_id)
+
+
+def cpu_shared(device_id=0):
+    """The host context of shared-memory buffers."""
+    return Context("cpu_shared", device_id)
 
 
 def num_gpus():

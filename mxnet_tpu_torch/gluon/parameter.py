@@ -300,6 +300,12 @@ class Parameter:
                 d._data.data = d._data.data.to(torch_dtype(dtype))
             self._init_grad()
 
+    def var(self):
+        """This parameter as a symbol variable of its name, shape and
+        dtype (``sym.var``)."""
+        from .. import symbol as sym
+        return sym.var(self.name, shape=self.shape, dtype=self.dtype)
+
     def __repr__(self):
         return (f"Parameter {self.name} (shape={self.shape}, "
                 f"dtype={self.dtype})")

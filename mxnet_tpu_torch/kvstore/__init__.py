@@ -17,10 +17,18 @@ from .base import KVStoreBase
 from . import fusion  # noqa: F401
 from .local import KVStoreLocal
 
-__all__ = ["create", "KVStore", "KVStoreBase", "KVStoreLocal"]
+__all__ = ["create", "KVStore", "KVStoreBase", "KVStoreLocal",
+           "num_data_devices"]
 
 _LOCAL = ("local", "local_update_cpu", "local_allreduce_cpu",
           "local_allreduce_device", "device", "nccl")
+
+
+def num_data_devices():
+    """The devices a data-parallel axis spans in this process: the CUDA
+    cards it sees, or 1 (the host) where there is none."""
+    import torch
+    return max(torch.cuda.device_count(), 1)
 
 
 def create(name="local", **kwargs):

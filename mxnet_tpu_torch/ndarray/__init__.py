@@ -14,6 +14,12 @@ from .ndarray import (  # noqa: F401
 from . import register as _register
 
 
+def imresize(*args, **kwargs):
+    """``image.imresize`` (the reference's ``mx.nd.imresize``)."""
+    from ..image import imresize as _f
+    return _f(*args, **kwargs)
+
+
 def Custom(*inputs, op_type=None, **kwargs):  # noqa: N802 (MXNet's name)
     """A user-registered Python op (``mx.operator``); under autograd its
     ``backward`` is the gradient."""
@@ -28,3 +34,6 @@ _GENERATED = _register.populate(_sys.modules[__name__])
 
 from . import sparse  # noqa: F401,E402
 from .sparse import cast_storage  # noqa: F401,E402
+
+# contrib.getnnz also counts a CSR array's stored entries
+contrib.getnnz = contrib_getnnz = sparse.getnnz  # noqa: F821,E305

@@ -505,6 +505,11 @@ class NDArray:
     def ones_like(self):
         return NDArray(torch.ones_like(self._data, requires_grad=False))
 
+    def as_np_ndarray(self):
+        """This array as an ``mx.np`` array: itself, since nd and np share
+        one array type (the reference's raises, ROADMAP C.7)."""
+        return self
+
     def to_dlpack_for_read(self):
         return torch.utils.dlpack.to_dlpack(self._data.detach())
 

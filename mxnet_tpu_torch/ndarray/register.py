@@ -39,9 +39,12 @@ def _make_op_func(op):
 def populate(target_module):
     """Install a function for every registered op into ``target_module``;
     attributes already there (hand-written helpers) win.  Returns the
-    names installed."""
+    names installed.  The ``np.*`` ops are ``mx.np``'s own: no
+    ``mx.nd.np`` (the reference has none)."""
     installed = []
     for name in _reg.list_ops():
+        if name.startswith("np."):
+            continue
         fn = _make_op_func(_reg.get(name))
         if "." in name:
             ns, leaf = name.split(".", 1)

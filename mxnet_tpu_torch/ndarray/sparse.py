@@ -19,13 +19,14 @@ import torch
 
 from ..base import MXNetError, numpy_dtype, torch_dtype
 from ..context import Context, current_context
+from ..ops import registry as _reg
 from .ndarray import NDArray, _placed, array as _dense_array, \
     zeros as _dense_zeros
 
 __all__ = ["BaseSparseNDArray", "RowSparseNDArray", "CSRNDArray",
            "row_sparse_array", "row_sparse_view", "csr_matrix",
            "cast_storage", "zeros", "dot", "square_sum", "sparse_retain",
-           "merge_rows"]
+           "merge_rows", "getnnz"]
 
 
 def _nd(v, ctx, dtype=None):
@@ -195,7 +196,14 @@ def row_sparse_array(arg1, shape=None, ctx=None, dtype=None):
     rows)."""
     if isinstance(arg1, tuple) and len(arg1) == 2:
         data, indices = arg1
-        return RowSparseNDArray(data, indices, shape, ctx=ctx, dtype=dtype)
+        out = RowSparseNDArray(data, indices, shape, ctx=ctx, dtype=dtype)
+        if shape is not None and out.indices.size:
+            ids = out.indices._data
+            top = int(ids.max())
+            if top >= shape[0]:
+                raise MXNetError(f"row_sparse_array: row id {top} is past "
+                                 f"the {shape[0]} rows of shape {shape}")
+        return out
     if isinstance(arg1, NDArray):
         return row_sparse_view(arg1, ctx=ctx, dtype=dtype)
     dense = np.asarray(arg1)
@@ -291,8 +299,29 @@ def sparse_retain(rsp, row_ids):
                             rsp.shape, ctx=rsp.ctx, dtype=rsp.dtype)
 
 
+def getnnz(data, axis=None):
+    """``contrib.getnnz``: of a CSRNDArray the stored entries (explicit
+    zeros included, as MXNet counts them), all of them, per column
+    (``axis=0``) or per row (``axis=1``, the ``indptr`` differences); of a
+    dense NDArray its non-zeros, as the registry's op counts them."""
+    if not isinstance(data, CSRNDArray):
+        return _reg.invoke("contrib.getnnz", [data], {"axis": axis})
+    indptr = data.indptr._data.to(torch.int64)
+    if axis is None:
+        out = indptr[-1:].reshape(())
+    elif int(axis) in (1, -1):
+        out = indptr[1:] - indptr[:-1]
+    elif int(axis) in (0, -2):
+        out = torch.bincount(data.indices._data.to(torch.int64),
+                             minlength=data.shape[1])
+    else:
+        raise MXNetError(f"getnnz: axis must be None, 0 or 1, got {axis}")
+    return NDArray(out.clone(), data.indptr._ctx)
+
+
 def zeros(stype, shape, ctx=None, dtype=None):
-    """An all-zero array of storage type ``stype``."""
+    """An all-zero array of storage type ``stype``, float32 unless
+    ``dtype`` says otherwise (MXNet's default dtype)."""
     if stype == "default":
         return _dense_zeros(shape, ctx=ctx, dtype=dtype)
     dt = np.dtype(dtype) if dtype is not None else np.float32

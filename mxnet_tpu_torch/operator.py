@@ -17,8 +17,7 @@ where it disagrees with the forward (a straight-through estimator).
 ``assign`` honours ``req``: ``"write"``/``"inplace"`` overwrite, ``"add"``
 accumulates, ``"null"`` leaves the destination.  Keyword arguments of
 ``nd.Custom`` reach the prop's ``__init__`` as strings, as MXNet passes
-them through its C attribute dict.  The symbol half (``mx.sym.Custom``)
-waits for ``symbol/`` (ROADMAP A.10).
+them through its C attribute dict.
 """
 
 from __future__ import annotations

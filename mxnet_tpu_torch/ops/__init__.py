@@ -4,6 +4,7 @@ the registry), and the reference's alias table
 (``mxnet_tpu/ops/__init__.py``) exposes its legacy CamelCase names."""
 
 from . import registry  # noqa: F401
+from .registry import register, get, list_ops, invoke  # noqa: F401
 from . import elemwise, reduce, matrix, nn, contrib, optimizer_ops  # noqa: F401
 from . import random_ops, linalg, vision  # noqa: F401
 from . import quantization, sparse_ops  # noqa: F401

@@ -83,9 +83,12 @@ def populate(target_module):
     """Install a Symbol-making function for every registered op into
     ``target_module`` (dotted names into sub-namespaces, and flattened:
     ``contrib_masked_selfatt``); names already there win.  Returns the
-    names installed."""
+    names installed.  The ``np.*`` ops of ``mx.np`` get no namespace
+    here (the reference has no ``mx.sym.np``)."""
     installed = []
     for name in _reg.list_ops():
+        if name.startswith("np."):
+            continue
         fn = _make_sym_func(_reg.get(name))
         if "." in name:
             ns, leaf = name.split(".", 1)

@@ -374,7 +374,11 @@ def test_hedge_fires_and_loser_cancelled(workdir):
         assert h.stats()["hedged"]
         assert wall < 1.5, f"hedge should beat the 2 s straggler: {wall}"
         cancel_log = workdir / "cancels-0000.log"
-        _wait(cancel_log.exists, msg="loser cancel log")
+        # the replica creates the log before it writes the rid: wait for
+        # the rid itself, not for the file
+        _wait(lambda: cancel_log.exists()
+              and h.rid in cancel_log.read_text().split(),
+              msg="loser cancel logged")
         assert h.rid in cancel_log.read_text().split()
     finally:
         r.stop()

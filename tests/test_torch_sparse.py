@@ -521,3 +521,45 @@ def test_rand_ndarray_sparse_matches_reference():
                                   want.indices.asnumpy())
     with pytest.raises(mx.MXNetError, match="stype"):
         tu.rand_ndarray((2, 2), "coo")
+
+
+# -- ROADMAP C.17: departures of the port, pinned ---------------------------
+
+@pytest.mark.parametrize("stype", ["row_sparse", "csr"])
+def test_sparse_zeros_is_float32(stype):
+    """MXNet's default dtype; the reference's is float64, from ``np.zeros``
+    under its x64 mode (ROADMAP C.7)."""
+    z = sparse.zeros(stype, (4, 3))
+    assert z.dtype == np.float32 and z.asnumpy().dtype == np.float32
+    assert z.data.dtype == np.float32
+    assert jsparse.zeros(stype, (4, 3)).dtype == np.float64
+    assert sparse.zeros(stype, (4, 3), dtype="float16").dtype == np.float16
+
+
+def test_row_id_past_the_shape_raises_naming_it():
+    """The reference drops such a row silently (ROADMAP C.7)."""
+    data = np.ones((2, 2), np.float32)
+    with pytest.raises(mx.MXNetError, match="row id 7"):
+        sparse.row_sparse_array((data, [1, 7]), shape=(4, 2))
+    ok = sparse.row_sparse_array((data, [1, 3]), shape=(4, 2))
+    want = jsparse.row_sparse_array((data, [1, 3]), shape=(4, 2))
+    assert np.array_equal(ok.asnumpy(), want.asnumpy())
+
+
+def test_getnnz_of_a_csr_counts_its_stored_entries():
+    """MXNet's ``contrib.getnnz`` is defined on CSR arrays: the stored
+    entries, explicit zeros included, in all (``axis=None``), per row (the
+    ``indptr`` differences) or per column; the reference's raises on a CSR
+    (ROADMAP C.7).  A dense input keeps the count of its non-zeros."""
+    d = np.array([[1, 0, 2], [0, 0, 0], [0, 3, 0]], np.float32)
+    data = np.array([1, 0, 2, 3], np.float32)       # an explicit zero
+    csr = sparse.csr_matrix((data, [0, 1, 2, 1], [0, 3, 3, 4]), shape=(3, 3))
+    assert int(mx.nd.contrib.getnnz(csr).asnumpy()) == 4
+    assert mx.nd.contrib.getnnz(csr, axis=1).asnumpy().tolist() == [3, 0, 1]
+    assert mx.nd.contrib.getnnz(csr, axis=0).asnumpy().tolist() == [1, 2, 1]
+    assert mx.nd.contrib.getnnz(csr, axis=1).dtype == np.int64
+    dense = mx.nd.contrib.getnnz(mx.nd.array(d), axis=1).asnumpy()
+    want = jmx.nd.contrib.getnnz(jmx.nd.array(d), axis=1).asnumpy()
+    assert dense.tolist() == want.tolist() == [2, 0, 1]
+    with pytest.raises(TypeError):
+        jmx.nd.contrib.getnnz(jsparse.csr_matrix(d))
