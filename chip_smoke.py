@@ -257,10 +257,10 @@ result line; each prints its seconds):
     "2bit", "threshold": 0.5})``: one step's packed codes and residuals
     on the card equal to the same gradients compressed on the CPU, step
     ms against the uncompressed store, and one step of each under
-    torch.profiler (wall, device busy, kernels); (c) 6 uninterrupted
+    torch.profiler (wall, device busy, kernels); (c) 4 uninterrupted
     steps, then ``checkpoint.auto_resume(save_every=2)`` whose step
-    raises once at step 4, then a run that sends itself SIGTERM during
-    step 3 and a fresh net and trainer resumed from its directory: every
+    raises once at step 2, then a run that sends itself SIGTERM during
+    step 1 and a fresh net and trainer resumed from its directory: every
     curve equal to the uninterrupted one bit for bit (each step replays
     the uninterrupted run's gradient after its own backward: the fused
     backward's dq sums by atomics), save and restore ms and one step's
@@ -379,6 +379,35 @@ result line; each prints its seconds):
     parameters through ``npx.save`` / ``npx.load`` bit for bit, 12 bf16
     forward and 12 bf16 fused backward launches a step and no other;
     median step ms, samples/s, MFU, peak memory and idle share.
+25. sp — the device mesh and sequence parallelism (``parallel.DeviceMesh``
+    of shards that share the card): (a) ``sequence_parallel_attention``
+    (ring) and ``ulysses_sequence_parallel_attention`` over a 4-shard
+    ``sp`` axis at llama3_8b's attention shape (32 heads, kv from 8 heads
+    repeated, head_dim 128, causal, scale 1/sqrt(128)): q (1, 32, 16384,
+    128) bf16 and (1, 32, 4096, 128) f32, and the ring again in f32 with
+    the last 1000 positions padded (segment ids); out, dq, dk, dv against
+    ``flash_attention`` over the whole sequence on the card, the flash
+    launches of one call (the ring 10 forward blocks, 10 dq and 10 dkv;
+    Ulysses 4 of each), device ms of the forward and of forward +
+    backward beside the unsharded call; the flash kernels themselves
+    against ``flash_attention_plain`` on the same inputs (out, dq, dk,
+    dv) at every shape this phase gives them: the unsharded call, the
+    ring's diagonal block (causal) and an off-diagonal one (not), and
+    Ulysses' head group, at (a)'s three cases and at (b)'s B 2 x L 4096
+    bf16 (ring blocks (2, 32, 1024, 128), Ulysses (2, 8, 4096, 128));
+    (b) ``LlamaModel`` at llama3_8b's
+    widths (vocab 128256, 4096 units, FFN 14336, 32 heads, 8 kv heads)
+    cut to 2 layers, bf16, B 2 x L 4096, 3 ``TrainStep`` steps with
+    multi-precision Adam (1e-4) on ``DeviceMesh((2, 4), ("dp", "sp"))``
+    for each of ``attn_impl`` fused, ring and ulysses from the same
+    weights and batch: the loss curves, launches a step (ring 2 x 10
+    forward, dq and dkv; Ulysses 2 x 4; fused 2), median step ms of 3
+    more replays, tokens/s, MFU, peak memory and one profiled step's idle
+    share; (c) ``parallel.allreduce`` (sum, mean) and ``allgather`` over
+    4 shards equal to plain torch sums and concatenation bit for bit;
+    ``mx.kv.create("dist_sync")`` is a world of one over NCCL, and its
+    ``pushpull_list`` of (b)'s last gradients equals the local store's
+    bit for bit.
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -409,7 +438,8 @@ backward; 0 elsewhere) and the quant phase's timed int8 BERT-base
 forwards (``quant_launches``: 12 each on the f32 forward; 0 elsewhere)
 and the sparse phase's (``sparse_launches``, 0: no attention) and the np
 phase's 8 BERT-base steps (``np_launches``: the bf16 forward and fused
-backward; 0 elsewhere);
+backward; 0 elsewhere) and the sp phase's llama steps (``sp_launches``:
+the bf16 forward, dq and dkv; 0 on the fused and f32 rows);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -495,7 +525,14 @@ decompositions by their invariants); the np loss at step 1 against
 another order); the np curve against the nd curve 2e-3 relative a step
 (``NP_CURVE_TOL``: the fused backward's dq sums by atomics, so two runs of
 one step differ in the last bits, and Adam carries that on); the saved
-parameters bit for bit.
+parameters bit for bit.  sp: against the unsharded flash call, over max
+|ref|, f32 out 1e-5 and gradients 1e-4 (sums in another order), bf16 out
+1e-2 and gradients 2e-2 (``SP_TOL``: the ring rounds each block's output,
+and each block's dq, dk and dv, to bf16 before their f32 sums), and
+the same ``SP_TOL`` for the kernels against their plain version at the
+phase's shapes, over max |plain|; the ring
+and Ulysses llama losses against the fused ones ``BF16_LOSS_TOL``
+relative a step; the collectives and the stores bit for bit.
 """
 
 from __future__ import annotations
@@ -5416,10 +5453,10 @@ def image_phase(torch, fa, mx, args, smi):
 # carry no random generator, as the reference's do not)
 UTIL = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
         "vocab": 30522, "batch": 32, "len": 512, "lr": 1e-4,
-        "fused_steps": 3, "curve_steps": 6, "fault_at": 4, "sigterm_at": 3,
+        "fused_steps": 3, "curve_steps": 4, "fault_at": 2, "sigterm_at": 1,
         "compress": {"type": "2bit", "threshold": 0.5}}
 SPEEDOMETER_TOL = 0.05     # its samples/s against the phase's own clock
-TURN_STEPS = 3             # timed steps a turn (after one to warm up)
+TURN_STEPS = 2             # timed steps a turn (after one to warm up)
 
 # the child that shows where an asynchronous CUDA error surfaces: an
 # out-of-range gather asserts on the device; NaiveEngine synchronizes after
@@ -5674,9 +5711,9 @@ def _dir_bytes(path):
 
 
 def _util_resume(torch, tmx, run, root):
-    """6 uninterrupted steps (their gradients recorded); auto_resume with
-    save_every=2 whose train_fn raises once at step 4; a run that sends
-    itself SIGTERM during step 3, then a fresh net and trainer resumed
+    """4 uninterrupted steps (their gradients recorded); auto_resume with
+    save_every=2 whose train_fn raises once at step 2; a run that sends
+    itself SIGTERM during step 1, then a fresh net and trainer resumed
     from its directory.  Every resumed curve equals the uninterrupted one
     bit for bit (each step replays the recorded gradient after its own
     backward).  Then save and restore ms and one step's bytes on disk."""
@@ -7971,6 +8008,342 @@ def np_phase(torch, fa, mx, args, smi):
     return counts, numbers
 
 
+# -- sp: the device mesh, sequence-parallel attention, the dist kvstore -------
+
+# llama3_8b (LLAMA_CONFIGS["llama3_8b"]): 32 heads, 8 kv heads, head_dim
+# 128, 4096 units, FFN 14336, vocab 128256; its attention over a 4-shard
+# sequence axis of the one card at 16384 positions (bf16) and 4096 (f32,
+# and f32 with the last 1000 positions padded), then the model cut to 2
+# layers at B 2 x L 4096 on a dp 2 x sp 4 mesh of the card
+SP = {"shards": 4, "heads": 32, "kv_heads": 8, "head_dim": 128,
+      "len_bf16": 16384, "len_f32": 4096, "pad": 1000,
+      "vocab": 128256, "layers": 2, "units": 4096, "hidden": 14336,
+      "batch": 2, "len": 4096, "steps": 3, "lr": 1e-4}
+# (out, gradients) over max |ref| against the unsharded flash call: f32
+# sums in another order; in bf16 each ring block's output is rounded to
+# bf16 before the f32 merge and each block's dq, dk, dv before their f32
+# sum (up to 4 roundings a position where the unsharded call has one)
+SP_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2e-2)}
+SP_IMPLS = ("fused", "ring", "ulysses")
+
+
+def _sp_launches(impl, n, layers=1):
+    """Flash launches of one forward + backward of ``layers`` attention
+    calls: the ring's n(n+1)/2 causal blocks, Ulysses' n head groups, the
+    unsharded call; every sequence here is longer than BWD_BLOCK, so each
+    backward is one dq and one dkv launch."""
+    per = {"ring": n * (n + 1) // 2, "ulysses": n, "fused": 1}[impl]
+    return {"flash_fwd": per * layers, "flash_bwd_dq": per * layers,
+            "flash_bwd_dkv": per * layers, "flash_bwd_fused": 0}
+
+
+def _sp_grads(torch, attend, q, k, v, do):
+    """(out, dq, dk, dv) of ``attend(q, k, v)`` and the gradients of
+    sum(out * do)."""
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    out = attend(*leaves)
+    return (out.detach(), *torch.autograd.grad(out, leaves, do))
+
+
+def _sp_plain(torch, fa, label, dname, q, k, v, do, seg_q, seg_kv, causal,
+              scale):
+    """The flash kernels (``flash_attention``, forward and backward)
+    against their plain version on the same inputs, at one shape the sp
+    path gives them: out, dq, dk, dv over max |plain|, within SP_TOL."""
+    def attend(fn):
+        return lambda a, b, c: fn(a, b, c, seg_q, seg_kv, causal, scale)
+    got = _sp_grads(torch, attend(fa.flash_attention), q, k, v, do)
+    want = _sp_grads(torch, attend(fa.flash_attention_plain), q, k, v, do)
+    errs = [((a.float() - b.float()).abs().max()
+             / b.float().abs().max()).item() for a, b in zip(got, want)]
+    tol_out, tol_grad = SP_TOL[dname]
+    _log(f"sp plain {label} {tuple(q.shape)} kv {tuple(k.shape)[2]} "
+         f"{dname} causal={causal}: out, dq, dk, dv against the plain "
+         f"version {[f'{e:.2e}' for e in errs]} of max |plain| (bounds "
+         f"{tol_out:g}, {tol_grad:g})")
+    if errs[0] > tol_out or max(errs[1:]) > tol_grad:
+        raise AssertionError(f"sp plain {label} {dname}: {errs}")
+    return errs
+
+
+def _sp_plain_cases(torch, fa, dname, L_label, q, k, v, do, seg, n, scale,
+                    ulysses=True):
+    """_sp_plain at the shapes ring and Ulysses give the kernels for one
+    (q, k, v) over n shards: the unsharded call, the ring's diagonal block
+    (0, 0) causal and its block (1, 0) not, and Ulysses' head group."""
+    Lb = q.shape[2] // n
+
+    def blk(t, i):
+        return t[:, :, i * Lb:(i + 1) * Lb]
+
+    def sblk(i):
+        return None if seg is None else seg[:, i * Lb:(i + 1) * Lb]
+    cases = [("unsharded", q, k, v, do, seg, seg, True),
+             ("ring block (0, 0)", blk(q, 0), blk(k, 0), blk(v, 0),
+              blk(do, 0), sblk(0), sblk(0), True),
+             ("ring block (1, 0)", blk(q, 1), blk(k, 0), blk(v, 0),
+              blk(do, 1), sblk(1), sblk(0), False)]
+    if ulysses:
+        g = q.shape[1] // n
+        cases.append(("ulysses group", q[:, :g], k[:, :g], v[:, :g],
+                      do[:, :g], None, None, True))
+    return {name: _sp_plain(torch, fa, f"{name} {L_label}", dname,
+                            *(t.contiguous() if t is not None else None
+                              for t in ts), causal, scale)
+            for name, *ts, causal in cases}
+
+
+def _sp_kernels(torch, fa, tmx, smi):
+    """Ring and Ulysses on DeviceMesh((4,), ("sp",)) of the card against
+    flash_attention over the whole sequence: out, dq, dk, dv, the launches
+    of one call, and device ms beside the unsharded call.  The flash
+    kernels themselves are held against their plain version at each shape
+    this path and the llama's give them (_sp_plain_cases)."""
+    from mxnet_tpu_torch import parallel
+    from mxnet_tpu_torch.kernels.ring_attention import \
+        sequence_parallel_attention as ring
+    from mxnet_tpu_torch.kernels.ulysses import \
+        ulysses_sequence_parallel_attention as ulysses
+    n, H, D = SP["shards"], SP["heads"], SP["head_dim"]
+    mesh = parallel.DeviceMesh((n,), ("sp",), devices=[tmx.gpu(0)] * n)
+    scale = 1.0 / math.sqrt(D)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    out = {}
+    for dname, L, padded in (("bfloat16", SP["len_bf16"], False),
+                             ("float32", SP["len_f32"], False),
+                             ("float32", SP["len_f32"], True)):
+        dt = getattr(torch, dname)
+
+        def draw(heads):
+            return torch.randn(1, heads, L, D, generator=g, device="cuda",
+                               dtype=dt)
+        q, do = draw(H), draw(H)
+        k, v = (draw(SP["kv_heads"]).repeat_interleave(
+            H // SP["kv_heads"], dim=1) for _ in range(2))
+        seg = _segs(torch, 1, L, SP["pad"], "cuda") if padded else None
+        fns = {"fused": lambda a, b, c: fa.flash_attention(
+                   a, b, c, seg, seg, True, scale),
+               "ring": lambda a, b, c: ring(a, b, c, mesh, "sp", seg, seg,
+                                            True, scale)}
+        if not padded:
+            fns["ulysses"] = lambda a, b, c: ulysses(
+                a, b, c, mesh, "sp", causal=True, sm_scale=scale)
+        want = _sp_grads(torch, fns["fused"], q, k, v, do)
+        tol_out, tol_grad = SP_TOL[dname]
+        label = f"{dname} L={L}" + (f" padded {SP['pad']}" if padded else "")
+        out[("plain", dname, padded)] = _sp_plain_cases(
+            torch, fa, dname, label, q, k, v, do, seg, n, scale,
+            ulysses=not padded)
+        ms = {}
+        for impl, fn in fns.items():
+            _reset_counts(fa)
+            got = _sp_grads(torch, fn, q, k, v, do)
+            counts = _counts(fa)
+            want_counts = _sp_launches(impl, n)
+            if {c: counts[c] for c in want_counts} != want_counts or \
+                    counts["flash_fwd_f32"] != (
+                        want_counts["flash_fwd"] if dname == "float32"
+                        else 0):
+                raise AssertionError(f"sp {impl} {label}: launches "
+                                     f"{counts}, want {want_counts}")
+            errs = [((a.float() - b.float()).abs().max()
+                     / b.float().abs().max()).item()
+                    for a, b in zip(got, want)]
+            ms[impl] = (
+                _time_ms(torch, lambda f=fn: f(q, k, v), iters=2, reps=3,
+                         warmup=1),
+                _time_ms(torch, lambda f=fn: _sp_grads(torch, f, q, k, v,
+                                                       do),
+                         iters=2, reps=3, warmup=1))
+            if impl != "fused":
+                _log(f"sp {impl} {label}: out, dq, dk, dv against the "
+                     f"unsharded flash call {[f'{e:.2e}' for e in errs]} "
+                     f"of max |ref| (bounds {tol_out:g}, {tol_grad:g}); "
+                     f"launches a call: forward {counts['flash_fwd']}, dq "
+                     f"{counts['flash_bwd_dq']}, dkv {counts['flash_bwd_dkv']}")
+                if errs[0] > tol_out or max(errs[1:]) > tol_grad:
+                    raise AssertionError(f"sp {impl} {label}: {errs}")
+                out[(impl, dname, padded)] = {"errs": errs}
+        _log(f"sp times {label} ({smi}): forward / forward+backward ms: "
+             + ", ".join(f"{k} {a:.3f} / {b:.3f}" for k, (a, b)
+                         in ms.items()))
+        for impl in fns:
+            if impl != "fused":
+                out[(impl, dname, padded)].update(
+                    {"ms": ms[impl], "fused_ms": ms["fused"]})
+        del q, k, v, do, want
+    # the llama's shapes (B 2 x L 4096 bf16 on sp 4): its fused call, its
+    # ring blocks and its Ulysses head groups
+    B, L = SP["batch"], SP["len"]
+    q, do = (torch.randn(B, H, L, D, generator=g, device="cuda",
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn(B, SP["kv_heads"], L, D, generator=g, device="cuda",
+                        dtype=torch.bfloat16).repeat_interleave(
+                            H // SP["kv_heads"], dim=1) for _ in range(2))
+    out[("plain", "llama")] = _sp_plain_cases(
+        torch, fa, "bfloat16", f"llama B={B} L={L}", q, k, v, do, None, n,
+        scale)
+    return out
+
+
+def _sp_llama(torch, fa, mx, args, smi):
+    """llama3_8b's widths cut to 2 layers, bf16, B 2 x L 4096, 3 TrainStep
+    steps with multi-precision Adam for each attn_impl on a dp 2 x sp 4
+    mesh of the card, from the same weights and batch.  Returns (per impl:
+    losses, launch counts, numbers; the last run's gradients)."""
+    from mxnet_tpu_torch import parallel
+    tmx, llama = mx["pkg"], mx["llama"]
+    s = SP
+    mesh = parallel.DeviceMesh((2, 4), ("dp", "sp"), devices=[tmx.gpu(0)] * 8)
+    rng = np.random.RandomState(args.seed + 25)
+    toks = rng.randint(0, s["vocab"], (s["batch"], s["len"]))
+    toks = torch.tensor(toks, dtype=torch.int32, device="cuda")
+    labs = torch.roll(toks, -1, dims=1)
+    runs, grads = {}, None
+    prev = parallel.current_mesh()
+    parallel.set_mesh(mesh)
+    try:
+        for impl in SP_IMPLS:
+            _fresh_peak(torch)
+            net = llama.LlamaModel(
+                vocab_size=s["vocab"], num_layers=s["layers"],
+                units=s["units"], hidden=s["hidden"], heads=s["heads"],
+                kv_heads=s["kv_heads"], attn_impl=impl, prefix="llm_")
+            net.cast(torch.bfloat16)        # drawn in bf16
+            tmx.random.seed(args.seed)
+            net.initialize(_llama_init(tmx, 0.02), ctx=tmx.gpu())
+            step = parallel.TrainStep(
+                net, _llama_loss(mx["nn"]), mx["optimizer"].Adam(
+                    learning_rate=s["lr"], multi_precision=True),
+                mesh=mesh, data_spec=("dp", "sp"))
+            _reset_counts(fa)
+            losses, _ = _timed_steps(torch, step, toks, labs, s["steps"])
+            counts = _counts(fa)
+            want = {k: v * s["steps"] for k, v in _sp_launches(
+                impl, s["shards"], s["layers"]).items()}
+            if {k: counts[k] for k in want} != want or any(
+                    counts[k] for k in counts if k not in want):
+                raise AssertionError(f"sp llama {impl}: launches {counts}, "
+                                     f"want {want}")
+            _, ms = _timed_steps(torch, step, toks, labs, 3)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            prof = _profile_step(torch, lambda: step(toks, labs),
+                                 f"sp llama {impl}")
+            med = statistics.median(ms)
+            n_matmul = sum(p.numel() for n_, p in net.named_parameters()
+                           if not n_.startswith("embed"))
+            flops_tok = 6 * n_matmul + 6 * s["layers"] * s["units"] \
+                * s["len"]
+            tps = s["batch"] * s["len"] / (med / 1e3)
+            runs[impl] = {
+                "losses": losses, "counts": counts, "step_ms": med,
+                "tokens_per_s": tps,
+                "mfu": tps * flops_tok / PEAK_FLOPS["bfloat16"],
+                "peak_gib": peak,
+                "idle_share": max(0.0, 1 - prof["device_ms"]
+                                  / prof["wall_ms"])}
+            if impl == SP_IMPLS[-1]:
+                grads = [p.grad.detach().clone() for p in step._params]
+            step = net = None
+            gc.collect()
+            torch.cuda.empty_cache()
+    finally:
+        parallel.set_mesh(prev)
+    fused = runs["fused"]["losses"]
+    for impl in SP_IMPLS:
+        r = runs[impl]
+        rel = max(abs(a - b) / abs(b) for a, b in zip(r["losses"], fused))
+        _log(f"sp llama {impl} ({smi}): losses "
+             f"{[round(x, 5) for x in r['losses']]} (max rel {rel:.2e} "
+             f"against fused, bound {BF16_LOSS_TOL:g}); step "
+             f"{r['step_ms']:.2f} ms, {r['tokens_per_s']:.1f} tokens/s, "
+             f"MFU {r['mfu']:.4f}, peak {r['peak_gib']:.2f} GiB, idle share "
+             f"{r['idle_share']:.3f}; launches over {s['steps']} steps "
+             f"{ {k: v for k, v in r['counts'].items() if v} }")
+        if rel > BF16_LOSS_TOL or not all(map(math.isfinite, r["losses"])):
+            raise AssertionError(f"sp llama {impl}: {r['losses']} against "
+                                 f"fused {fused}")
+    return runs, grads
+
+
+def _sp_collectives(torch, tmx, grads, smi):
+    """allreduce / allgather over 4 shards of the card against plain torch;
+    mx.kv.create("dist_sync") as a world of one over NCCL: its
+    pushpull_list of the llama's gradients equals the local store's bit
+    for bit."""
+    from mxnet_tpu_torch import parallel
+    g = torch.Generator(device="cuda").manual_seed(26)
+    ts = [torch.randn(1024, 1024, generator=g, device="cuda")
+          for _ in range(SP["shards"])]
+    ctxs = [tmx.gpu(0)] * SP["shards"]
+    vals = [tmx.nd.NDArray(t, c) for t, c in zip(ts, ctxs)]
+    plain = ts[0] + ts[1] + ts[2] + ts[3]
+    checks = {
+        "allreduce sum": (parallel.allreduce(vals), plain),
+        "allreduce mean": (parallel.allreduce(vals, op="mean"),
+                           plain / SP["shards"]),
+        "allgather": (parallel.allgather(vals), torch.cat(ts))}
+    for name, (outs, want) in checks.items():
+        if len(outs) != SP["shards"] or not all(
+                torch.equal(o._data, want) and o.ctx == tmx.gpu(0)
+                for o in outs):
+            raise AssertionError(f"sp {name} differs from plain torch")
+    kv = tmx.kv.create("dist_sync")
+    if (kv.backend, kv.rank, kv.num_workers) != ("nccl", 0, 1):
+        raise AssertionError(f"dist_sync: {kv.backend} rank {kv.rank} of "
+                             f"{kv.num_workers}")
+    local = tmx.kv.create("local")
+    keys = list(range(len(grads)))
+    vals = [tmx.nd.NDArray(t, tmx.gpu(0)) for t in grads]
+    outs, ms = {}, {}
+    for name, store in (("dist", kv), ("local", local)):
+        for k, t in zip(keys, grads):
+            store.init(k, tmx.nd.NDArray(torch.zeros_like(t), tmx.gpu(0)))
+        outs[name] = [tmx.nd.NDArray(torch.empty_like(t), tmx.gpu(0))
+                      for t in grads]
+        ms[name] = []
+        for _ in range(2):      # the first dist call creates NCCL's comm
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            store.pushpull_list(keys, vals, outs[name])
+            torch.cuda.synchronize()
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(a._data, b._data)
+               for a, b in zip(outs["dist"], outs["local"]))
+    nbytes = sum(t.numel() * t.element_size() for t in grads)
+    _log(f"sp collectives ({smi}): allreduce sum and mean, allgather over "
+         f"{SP['shards']} shards of the card equal to plain torch; "
+         f"dist_sync: {kv.backend}, rank {kv.rank} of {kv.num_workers}; "
+         f"pushpull_list of {len(grads)} gradients ({nbytes / 2**30:.2f} "
+         f"GiB) equal to the local store's bit for bit: {same}; host ms "
+         f"of two calls: dist {ms['dist'][0]:.1f} (with NCCL's set-up), "
+         f"{ms['dist'][1]:.1f}; local {ms['local'][0]:.1f}, "
+         f"{ms['local'][1]:.1f}")
+    if not same:
+        raise AssertionError("dist_sync and local pushpull_list differ")
+
+
+def sp_phase(torch, fa, mx, args, smi):
+    """The device mesh and sequence-parallel attention on the card: (a)
+    ring and Ulysses at llama3_8b's attention shape against the unsharded
+    flash kernels; (b) llama3_8b's widths, 2 layers, trained through
+    TrainStep on a dp x sp mesh with each attn_impl; (c) the eager
+    collectives and the dist kvstore over NCCL.  Returns (launch counts
+    of (b)'s steps, numbers)."""
+    tmx = mx["pkg"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    kernels = _sp_kernels(torch, fa, tmx, smi)
+    runs, grads = _sp_llama(torch, fa, mx, args, smi)
+    _sp_collectives(torch, tmx, grads, smi)
+    grads = None
+    counts = {k: sum(r["counts"][k] for r in runs.values())
+              for k in _COUNTERS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"kernels": kernels, "llama": runs}
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -8181,6 +8554,7 @@ def main(argv=None):
     sparse_counts, _ = _phase("sparse", sparse_phase, torch, fa, mx, args,
                               smi)
     np_counts, _ = _phase("np", np_phase, torch, fa, mx, args, smi)
+    sp_counts, _ = _phase("sp", sp_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -8237,6 +8611,8 @@ def main(argv=None):
         "sparse_launches": sparse_counts["flash_fwd"],
         # the np phase's 8 BERT-base bf16 steps under npx.set_np()
         "np_launches": np_counts["flash_fwd"],
+        # the sp phase's llama steps (fused, ring and Ulysses), bf16
+        "sp_launches": sp_counts["flash_fwd"],
     }]
     # the f32 kernel at the quant path's shape, on its own q, k, v
     att = quant_numbers["flash"]
@@ -8315,6 +8691,7 @@ def main(argv=None):
                 "quant_launches": _dtype_count(quant_counts, kind_, pre),
                 "sparse_launches": _dtype_count(sparse_counts, kind_, pre),
                 "np_launches": _dtype_count(np_counts, kind_, pre),
+                "sp_launches": _dtype_count(sp_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":

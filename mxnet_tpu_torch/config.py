@@ -187,7 +187,8 @@ KNOWN_VARS = {
     "MXNET_KVSTORE_TIMEOUT_S": (
         "300",
         "Default resilience.Deadline bound (seconds) on blocking waits "
-        "(ResultHandle.result, RouterHandle.result); 0 disables it."),
+        "(ResultHandle.result, RouterHandle.result, the dist kvstore's "
+        "rendezvous and collectives); 0 disables it."),
     "MXNET_RESILIENCE_MAX_RETRIES": (
         "3",
         "Re-attempts a Retry policy makes after the first failure of a "
@@ -207,11 +208,21 @@ KNOWN_VARS = {
         "Comma list of faults to arm when MXNET_CHAOS=1: "
         "'site:kind[:times[:delay_s[:after]]]' with kind in "
         "delay|transient|fatal|exit, e.g. 'serving.reply:exit:1'."),
+    "MXNET_DIST_COORDINATOR": (
+        None,
+        "host:port of the dist kvstore's rendezvous (a TCP store that rank "
+        "0 serves; tools/launch.py writes it); unset = a world of one."),
     "MXNET_DIST_NUM_WORKERS": (
-        "1", "World size a heartbeat record reports."),
+        "1", "World size the dist kvstore rendezvous waits for (and a "
+             "heartbeat record reports)."),
     "MXNET_DIST_RANK": (
-        "0", "This process's rank (heartbeat file name; the router sets "
-             "it to the replica index)."),
+        "0", "This process's rank in the dist kvstore world (heartbeat "
+             "file name; the router sets it to the replica index)."),
+    "MXNET_KVSTORE_BIGARRAY_BOUND": (
+        str(1000 * 1000),
+        "Accepted for parity and ignored: the dist kvstore sums every "
+        "array with one all_reduce, which NCCL and gloo run as "
+        "reduce-scatter + all-gather where that pays."),
     "MXNET_ELASTIC_HEARTBEAT_S": (
         "2", "Heartbeat interval (seconds) of resilience.heartbeat."),
     "MXNET_ELASTIC_HEARTBEAT_DIR": (

@@ -67,7 +67,7 @@ class Context:
     __str__ = __repr__
 
     def __enter__(self):
-        self._old.append(current_context())
+        self._old.append(scoped_context())
         Context._default.value = self
         return self
 
@@ -104,6 +104,11 @@ def num_gpus():
 def current_context():
     """The innermost ``with ctx:`` context of this thread, else ``gpu(0)``."""
     return getattr(Context._default, "value", None) or gpu(0)
+
+
+def scoped_context():
+    """The innermost ``with ctx:`` context of this thread, or None."""
+    return getattr(Context._default, "value", None)
 
 
 def context_of(device):

@@ -19,8 +19,10 @@ needs no gradient buffers: set ``grad_req`` to ``"null"`` first
 (``net.collect_params().setattr("grad_req", "null")``).  ``remat`` (None:
 ``MXNET_BACKWARD_DO_MIRROR``) recomputes each decoder block's activations
 in the backward (``gluon.utils.remat_call`` per block while recording).
-Not ported: ``attn_impl`` other than ``"fused"`` (ring and Ulysses
-attention over a sequence-parallel mesh); it raises.
+``attn_impl="ring"`` or ``"ulysses"`` runs attention through
+``F.contrib.sp_att_qkv`` over the current mesh's axis ``sp_axis``
+(``parallel.set_mesh``), local attention when no mesh carries it; the
+parameters are the same as the fused net's.
 """
 
 from __future__ import annotations
@@ -93,19 +95,20 @@ def _rotate(F, x, cos, sin):
 
 
 class LlamaBlock(HybridBlock):
-    """One pre-norm decoder block; ``sp_axis`` names the mesh axis of ring
-    and Ulysses attention, which are not ported (``attn_impl`` must be
-    ``"fused"``)."""
+    """One pre-norm decoder block; ``attn_impl`` is "fused" (the flash
+    path of ``masked_att_qkv``), "ring" or "ulysses" (``sp_att_qkv`` over
+    the current mesh's axis ``sp_axis``)."""
 
     def __init__(self, units, hidden, heads, kv_heads, attn_impl="fused",
-                 sp_axis="sp", **kwargs):  # noqa: ARG002
+                 sp_axis="sp", **kwargs):
         super().__init__(**kwargs)
         if units % heads or heads % kv_heads:
             raise MXNetError("units % heads and heads % kv_heads must be 0")
-        if attn_impl != "fused":
+        if attn_impl not in ("fused", "ring", "ulysses"):
             raise MXNetError(
-                f"attn_impl {attn_impl!r}: ring and Ulysses attention over "
-                "a sequence-parallel mesh are not yet ported; use 'fused'")
+                f"attn_impl {attn_impl!r}: want fused|ring|ulysses")
+        self._attn_impl = attn_impl
+        self._sp_axis = sp_axis
         self._units = units
         self._heads = heads
         self._kv = kv_heads
@@ -139,9 +142,14 @@ class LlamaBlock(HybridBlock):
         q = _rope(F, self._heads_of(F, self.q_proj(h), self._heads))
         k = _rope(F, self._heads_of(F, self.k_proj(h), self._kv))
         v = self._heads_of(F, self.v_proj(h), self._kv)
-        ctx_vec = F.contrib.masked_att_qkv(
-            q, k, v, None, num_kv_groups=self._heads // self._kv,
-            causal=True)                                   # (B, H, L, D)
+        if self._attn_impl == "fused":
+            ctx_vec = F.contrib.masked_att_qkv(
+                q, k, v, None, num_kv_groups=self._heads // self._kv,
+                causal=True)                               # (B, H, L, D)
+        else:
+            ctx_vec = F.contrib.sp_att_qkv(
+                q, k, v, impl=self._attn_impl, axis=self._sp_axis,
+                num_kv_groups=self._heads // self._kv, causal=True)
         attn = self.o_proj(F.reshape(F.transpose(ctx_vec, axes=(0, 2, 1, 3)),
                                      shape=(0, 0, self._units)))
         x = x + attn

@@ -34,7 +34,11 @@ its ``compute``; ``mxnet_trainer_steps_total`` and
 ``mxnet_trainer_step_seconds`` count the steps.  ``trainer.step`` is a
 chaos site (``resilience.chaos``).
 
-Not ported: the distributed stores raise.
+A distributed store (``kvstore="dist_sync"``, ``kvstore/dist.py``) forms
+its process group when the trainer first needs the store, so a failed
+rendezvous raises there; every worker's parameters then take rank 0's
+values (MXNet's ``init`` and ``pull``), and each step's reduction spans
+every worker.
 """
 
 from __future__ import annotations
@@ -72,7 +76,7 @@ class Trainer:
             if not isinstance(p, Parameter):
                 raise MXNetError(f"invalid parameter {p}")
         if isinstance(kvstore, str) and kvstore.lower() not in _SKIPPABLE:
-            kvstore = kvs.create(kvstore)     # raises for dist_* names
+            kvstore = kvs.create(kvstore)
         self._params = list(params)
         optimizer_params = dict(optimizer_params or {})
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
@@ -116,12 +120,18 @@ class Trainer:
         else:
             self._kvstore = kvt
         if self._kvstore is not None:
+            # a failed rendezvous raises here, not inside a step
+            self._kvstore.connect()
             if self._compression_params:
                 self._kvstore.set_gradient_compression(
                     self._compression_params)
+            peers = self._kvstore.num_workers > 1
             for i, p in enumerate(self._params):
                 if p.grad_req != "null":
                     self._kvstore.init(i, p.data())
+                    if peers:
+                        # every worker starts from rank 0's weights
+                        self._kvstore.pull(i, p.list_data())
             if self._update_on_kvstore:
                 self._kvstore.set_optimizer(self._optimizer)
         else:

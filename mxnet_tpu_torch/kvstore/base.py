@@ -51,6 +51,11 @@ class KVStoreBase:
     def num_workers(self):
         return 1
 
+    def connect(self):
+        """Join the store's workers (a distributed store forms its process
+        group here, and a failed rendezvous raises); nothing for a store
+        of one process."""
+
     def broadcast(self, key, value, out):
         raise NotImplementedError
 

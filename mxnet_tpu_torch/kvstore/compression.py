@@ -94,3 +94,16 @@ class GradientCompression:
     def decompress(self, packed, shape, dtype):
         t, shifts = self._const(dtype, packed.device)
         return _dequantize_2bit(packed, t, shifts, shape)
+
+    def decompress_sum(self, packed2d, shape, dtype):
+        """The sum of the dequantized rows of ``packed2d`` (one process's
+        codes a row): t times (count of +t codes - count of -t codes)."""
+        t, shifts = self._const(dtype, packed2d.device)
+        n = 1
+        for d in shape:
+            n *= int(d)
+        codes = ((packed2d.unsqueeze(-1) >> shifts) & 3).reshape(
+            packed2d.shape[0], -1)[:, :n]
+        plus = (codes == 1).sum(dim=0).to(dtype)
+        minus = (codes == 2).sum(dim=0).to(dtype)
+        return ((plus - minus) * t).reshape(tuple(shape))

@@ -8,7 +8,9 @@ and either stores the sum or, with an optimizer set
 updates the stored weight; ``pull`` copies the stored value into every
 output, on its own device.  ``pushpull_list`` reduces many keys at once,
 bucket by bucket (``fusion.GradBucketer``), with the same adds as the
-per-key path, so the two give the same bits.
+per-key path, so the two give the same bits.  The distributed store
+(``dist.py``) is this store with two steps more: ``_push_sum`` and
+``_across`` also sum a key's or a bucket's value over its workers.
 
 With ``set_gradient_compression`` each replica's pushed gradient is
 quantized to 2 bits and dequantized (``compression.py``, a residual per
@@ -97,6 +99,12 @@ class KVStoreLocal(KVStoreBase):
         dev = values[0]._data.device
         return fusion.tree_sum(self._stage(values, dev))
 
+    def _push_sum(self, key, value):
+        """The sum a push of ``value`` to ``key`` stores: the replicas',
+        each compressed first when compression is on.  A distributed store
+        overrides it to sum across its workers too."""
+        return self._reduce(self._compress_values(key, value))
+
     @staticmethod
     def _reduce_rowsparse(values):
         """Row-sparse values merged: the union of their rows, each row's
@@ -137,7 +145,7 @@ class KVStoreLocal(KVStoreBase):
             if sp is not _tel.NULL_SPAN:
                 sp.set(key=str(key), bytes=_tel.payload_bytes(value))
             stored = self._stored(key)
-            merged = self._reduce(self._compress_values(key, value))
+            merged = self._push_sum(key, value)
             if self._updater is not None:
                 self._updater(key, merged, stored)
             elif isinstance(merged, _sparse.BaseSparseNDArray) or \
@@ -205,21 +213,16 @@ class KVStoreLocal(KVStoreBase):
         self._bucket_bytes = int(float(mb) * (1 << 20))
         self._bucketer = None
 
-    def pushpull_list(self, keys, values, outs, priority=0):
-        """pushpull of every key: bucket by bucket, unless the store owns
-        the update (it runs per key inside push), buckets are off,
-        gradients are compressed or a value is sparse."""
-        if self._updater is not None or self._bucket_bytes <= 0:
-            return KVStoreBase.pushpull_list(self, keys, values, outs,
-                                             priority=priority)
-        if self._compression is not None or any(
-                isinstance(x, _sparse.BaseSparseNDArray) for v in values
-                for x in (v if _is_list(v) else [v])):
-            # compressed and sparse keys reduce one by one
-            if _ttrace._ENABLED:
-                fusion.record_fallback(len(keys))
-            return KVStoreBase.pushpull_list(self, keys, values, outs,
-                                             priority=priority)
+    def _fusable(self, keys, values):  # noqa: ARG002
+        """Whether ``keys`` may reduce bucket by bucket: no compression and
+        no sparse value."""
+        return self._compression is None and not any(
+            isinstance(x, _sparse.BaseSparseNDArray) for v in values
+            for x in (v if _is_list(v) else [v]))
+
+    def _bucket_sums(self, keys, values):
+        """(bucket, its keys' sums over the replicas) for each bucket of
+        ``keys``, staged and reduced as the bucket is reached."""
         vlists = [list(v) if _is_list(v) else [v] for v in values]
         if self._bucketer is None:
             self._bucketer = fusion.GradBucketer(self._bucket_bytes)
@@ -227,28 +230,49 @@ class KVStoreLocal(KVStoreBase):
             self._stored(k)
         signature = tuple((tuple(v[0].shape), v[0]._data.dtype, len(v))
                           for v in vlists)
-        buckets = self._bucketer.plan(signature)
+        for b in self._bucketer.plan(signature):
+            dev = vlists[b.positions[0]][0]._data.device
+            arrays = [t for r in range(b.n_rep) for t in self._stage(
+                [vlists[p][r] for p in b.positions], dev)]
+            yield b, self._bucketer.reduce_bucket(b, arrays)
+
+    def _across(self, bucket, sums):  # noqa: ARG002
+        """A bucket's sums over every worker: in one process, the sums
+        themselves.  A distributed store overrides it."""
+        return sums
+
+    def pushpull_list(self, keys, values, outs, priority=0):
+        """pushpull of every key: bucket by bucket, unless the store owns
+        the update (it runs per key inside push), buckets are off,
+        gradients are compressed or a value is sparse."""
+        if self._updater is not None or self._bucket_bytes <= 0:
+            return KVStoreBase.pushpull_list(self, keys, values, outs,
+                                             priority=priority)
+        if not self._fusable(keys, values):
+            # compressed and sparse keys reduce one by one
+            if _ttrace._ENABLED:
+                fusion.record_fallback(len(keys))
+            return KVStoreBase.pushpull_list(self, keys, values, outs,
+                                             priority=priority)
         enabled = _ttrace._ENABLED
         with _tel.span("kvstore.fused_pushpull", "kvstore") as sp:
-            total_bytes = 0
-            for b in buckets:
-                t0 = _time.perf_counter_ns() if enabled else 0
-                dev = vlists[b.positions[0]][0]._data.device
-                arrays = [t for r in range(b.n_rep) for t in self._stage(
-                    [vlists[p][r] for p in b.positions], dev)]
-                for p, t in zip(b.positions, self._bucketer.reduce_bucket(
-                        b, arrays)):
+            total_bytes = n_buckets = 0
+            t0 = _time.perf_counter_ns() if enabled else 0
+            for b, sums in self._bucket_sums(keys, values):
+                for p, t in zip(b.positions, self._across(b, sums)):
                     _write(self._store[keys[p]], t)
                     o = outs[p]
                     for out_nd in (o if _is_list(o) else [o]):
                         if out_nd is not None:
                             _write(out_nd, t)
+                n_buckets += 1
                 if enabled:
                     fusion.record_bucket(b, _time.perf_counter_ns() - t0)
                     total_bytes += b.nbytes * b.n_rep
+                    t0 = _time.perf_counter_ns()
             if enabled:
                 fusion.record_pushpull()
-                sp.set(keys=len(keys), buckets=len(buckets),
+                sp.set(keys=len(keys), buckets=n_buckets,
                        bytes=total_bytes)
 
     def pushpull_flat(self, keys, values, outs, priority=0):  # noqa: ARG002

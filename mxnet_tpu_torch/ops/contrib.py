@@ -5,7 +5,14 @@ unfused interleaved and multi-head score/value ops, and the small ops
 (``div_sqrt_dim``, ``arange_like``, ``index_array``,
 ``gradient_multiplier``, ``quadratic``, ``allclose``, ``hawkes_ll``,
 ``fft``, ``ifft``, ``count_sketch``), ``ctc_loss`` and the box ops
-``box_iou`` and ``box_nms``.  ``sp_att_qkv`` is not ported yet.
+``box_iou`` and ``box_nms``, and ``sp_att_qkv``, attention over a
+sequence-parallel mesh axis.
+
+``sp_att_qkv`` reads the mesh from ``parallel.current_mesh()`` at each
+call: with no mesh, or one without its axis, it is the local
+``masked_att_qkv`` with every position valid; else ring attention
+(``kernels/ring_attention.py``) or Ulysses (``kernels/ulysses.py``) over
+the axis's shards, on the flash kernels, the result back on q's device.
 
 ``box_nms`` (and the detection ops of ``vision.py``) suppress on the
 tensors' device: ``greedy_nms`` builds the suppression matrix in blocks
@@ -49,7 +56,7 @@ from ..base import MXNetError
 from .registry import register
 
 __all__ = ["masked_selfatt", "masked_att_qkv", "masked_encdec_att",
-           "multihead_attention"]
+           "multihead_attention", "sp_att_qkv"]
 
 
 def _split_interleaved(qkv, heads):
@@ -151,6 +158,31 @@ def masked_att_qkv(q, k, v, valid_length=None, num_kv_groups=1,
         k = torch.repeat_interleave(k, num_kv_groups, dim=1)
         v = torch.repeat_interleave(v, num_kv_groups, dim=1)
     return _attend(q, k, v, valid_length, causal)
+
+
+@register("contrib.sp_att_qkv", promote="common")
+def sp_att_qkv(q, k, v, impl="ring", axis="sp", num_kv_groups=1,
+               causal=False):
+    """Sequence-parallel attention over separate (B, H, L, D) q/k/v, every
+    position valid: ``impl`` "ring" or "ulysses" over the current mesh's
+    axis ``axis``, scale 1/sqrt(D); k/v may carry fewer heads (GQA, as
+    ``masked_att_qkv``)."""
+    from .. import parallel
+    if num_kv_groups > 1:
+        k = torch.repeat_interleave(k, num_kv_groups, dim=1)
+        v = torch.repeat_interleave(v, num_kv_groups, dim=1)
+    mesh = parallel.current_mesh()
+    if mesh is None or axis not in mesh.axis_names \
+            or q.device.type == "meta":
+        return _attend(q, k, v, None, causal)
+    scale = 1.0 / float(q.shape[3]) ** 0.5
+    if impl == "ulysses":
+        from ..kernels.ulysses import ulysses_sequence_parallel_attention \
+            as attend
+    else:
+        from ..kernels.ring_attention import sequence_parallel_attention \
+            as attend
+    return attend(q, k, v, mesh, axis=axis, causal=causal, sm_scale=scale)
 
 
 # -- the unfused interleaved and multi-head ops -------------------------------

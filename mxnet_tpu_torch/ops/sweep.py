@@ -376,6 +376,9 @@ def _spec(r):
         "contrib.masked_att_qkv": lambda: (
             [t(2, 2, 4, 8), t(2, 2, 4, 8), t(2, 2, 4, 8), f(3, 4)],
             {"causal": True}),
+        "contrib.sp_att_qkv": lambda: (
+            [t(2, 4, 4, 8), t(2, 2, 4, 8), t(2, 2, 4, 8)],
+            {"num_kv_groups": 2, "causal": True}),
         "contrib.masked_encdec_att": lambda: (
             [t(4, 2, 8), t(5, 2, 16), f(3, 5)], {"heads": 2}),
         "contrib.masked_selfatt": lambda: ([t(4, 2, 24), f(3, 4)],

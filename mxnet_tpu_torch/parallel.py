@@ -1,5 +1,22 @@
-"""One training step on one device — the port of
-``mxnet_tpu/parallel.py::TrainStep`` for a single card.
+"""Device meshes, eager collectives and the training step — the port of
+``mxnet_tpu/parallel.py``.
+
+A :class:`DeviceMesh` is a named-axis grid of shards in one process, each
+shard a Context (``DeviceMesh((2, 4), ("dp", "sp"), devices=[gpu(0)] *
+8)``): the reference's mesh is single-controller too (one process over
+``jax.devices()``), and so is MXNet's own multi-GPU (``ctx=[gpu(0),
+gpu(1)]``).  Shards may name the same card.  ``spec``/``sharded``/
+``replicated`` return a :class:`Placement` (the mesh and one axis entry a
+dimension), the port's record of the reference's ``NamedSharding``.
+:func:`allreduce` and :func:`allgather` reduce or concatenate a value per
+shard in one process: the sum runs on the first value's device in its
+dtype, and each shard gets the result on its own device (a copy between
+distinct cards; the same tensor where shards share one).  ``attention``,
+``ring_attention`` and ``ulysses_attention`` resolve lazily to the
+sequence-parallel kernels (``kernels/ring_attention.py``,
+``kernels/ulysses.py``).
+
+``TrainStep`` is one training step on one device.
 
 ``TrainStep(net, loss_fn, optimizer)`` runs
 
@@ -66,9 +83,15 @@ counts its capture saw.
 ``run(stacked_data, stacked_label)`` takes the steps along the leading
 axis, ``run(data, label, steps=K)`` takes K steps on one batch; both
 return the losses as one tensor, step by step, without synchronising (the
-reference scans the steps in one program).  Meshes of more than one
-device, sharding rules, data layouts and autoshard plans are not ported:
-asking for one raises ``MXNetError``.
+reference scans the steps in one program).  ``mesh`` (default: the
+current mesh) may hold several shards when they all lie on the net's
+device: the step is then the one-device step, which is what the
+reference's placement computes on one device, and ``contrib.sp_att_qkv``
+inside it runs ring or Ulysses attention over the current mesh's
+sequence axis.  ``data_spec`` must name axes of that mesh and places
+nothing while its shards share one card.  A mesh over distinct devices,
+sharding rules and autoshard plans wait for ROADMAP A.9's sharding slice
+and raise ``MXNetError``.
 
 Telemetry, as the reference's: with telemetry on, each call is one step
 of the step clock (``telemetry.STEP_CLOCK``), whose ``h2d`` phase is the
@@ -89,6 +112,7 @@ place of a replay.
 from __future__ import annotations
 
 import time as _time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -99,14 +123,33 @@ from .base import MXNetError
 from .telemetry import costmodel as _costmodel
 from .telemetry import stepclock as _sclock
 from .telemetry import tracer as _ttrace
-from .context import resolve_device
+from .context import Context, context_of, cpu, gpu, resolve_device
 from .gluon.block import Block
 from .gluon.utils import _block_tensors, remat_call
 from .kernels import flash_attention as _fa
 from .ndarray.ndarray import NDArray
 from .ops import registry
 
-__all__ = ["TrainStep"]
+__all__ = ["DeviceMesh", "Placement", "make_mesh", "data_parallel_ctxs",
+           "TrainStep", "allreduce", "allgather", "current_mesh",
+           "set_mesh", "attention", "ring_attention", "ulysses_attention"]
+
+
+def __getattr__(name):
+    # the sequence-parallel entry points, resolved at first use as the
+    # reference resolves them
+    if name in ("attention", "ring_attention"):
+        from .kernels.ring_attention import (ring_attention,
+                                             sequence_parallel_attention)
+        val = sequence_parallel_attention if name == "attention" \
+            else ring_attention
+    elif name == "ulysses_attention":
+        from .kernels.ulysses import ulysses_attention as val
+    else:
+        raise AttributeError(
+            f"module 'mxnet_tpu_torch.parallel' has no attribute {name!r}")
+    globals()[name] = val
+    return val
 
 _M_STEP_DISPATCHES = _tel.counter(
     "mxnet_sharding_step_dispatches_total",
@@ -121,12 +164,197 @@ _M_MICROBATCHES = _tel.counter(
     "(n_micro per dispatch; n_micro=1 steps do not count).")
 
 
-def _mesh_size(mesh):
-    """Devices in ``mesh``: a device, a sequence of devices, or an object
-    with ``devices`` (a device mesh)."""
-    if isinstance(mesh, (torch.device, str)):
-        return 1
-    return int(np.asarray(getattr(mesh, "devices", mesh), dtype=object).size)
+# -- the mesh ----------------------------------------------------------------
+
+_current_mesh = None
+
+
+def current_mesh():
+    """The mesh :func:`set_mesh` or :func:`make_mesh` made current, or
+    None."""
+    return _current_mesh
+
+
+def set_mesh(mesh):
+    """Make ``mesh`` (a :class:`DeviceMesh` or None) current; returns
+    it."""
+    global _current_mesh
+    _current_mesh = mesh
+    return mesh
+
+
+def _as_ctx(device):
+    """A Context for a Context, ``torch.device`` or device string."""
+    if isinstance(device, Context):
+        return device
+    if isinstance(device, (torch.device, str)):
+        return context_of(torch.device(device))
+    raise MXNetError(f"a mesh shard is a Context or a torch.device, got "
+                     f"{device!r}")
+
+
+def _visible_ctxs():
+    """Every CUDA card this process sees, one Context each; the host
+    where there is none."""
+    return [gpu(i) for i in range(torch.cuda.device_count())] or [cpu(0)]
+
+
+class Placement(NamedTuple):
+    """Where an array lies on ``mesh``: ``spec[d]`` is the mesh axis (or
+    tuple of axes) that dimension ``d`` is split over, None or absent for
+    a whole dimension; an empty ``spec`` is replication."""
+    mesh: "DeviceMesh"
+    spec: tuple
+
+
+class DeviceMesh:
+    """A named-axis grid of shards in one process (axes e.g. ``('dp',)``,
+    ``('dp', 'sp')``), outermost axis first.  ``devices`` (default: every
+    visible card, one shard each) are Contexts or ``torch.device``s, laid
+    out row-major over ``shape``; several may name the same card."""
+
+    def __init__(self, shape=None, axis_names=("dp",), devices=None):
+        ctxs = [_as_ctx(d) for d in (_visible_ctxs() if devices is None
+                                     else devices)]
+        if shape is None:
+            shape = (len(ctxs),)
+        total = 1
+        for n in shape:
+            total *= n
+        if total != len(ctxs):
+            raise MXNetError(
+                f"mesh shape {tuple(shape)} needs {total} devices, got "
+                f"{len(ctxs)}")
+        if len(shape) != len(axis_names):
+            raise MXNetError("mesh shape and axis_names rank mismatch")
+        self.axis_names = tuple(axis_names)
+        self.shape = tuple(int(n) for n in shape)
+        self._ctxs = ctxs
+        self.devices = [c.torch_device() for c in ctxs]
+
+    # -- placements ------------------------------------------------------------
+    def replicated(self):
+        return Placement(self, ())
+
+    def sharded(self, *spec):
+        """The placement splitting dimension d over ``spec[d]``: an axis
+        name, a tuple of axis names, or None."""
+        return self.spec(*spec)
+
+    def spec(self, *spec):
+        """:meth:`sharded`; an entry naming an axis this mesh lacks
+        raises."""
+        for entry in spec:
+            for a in entry if isinstance(entry, (tuple, list)) else (entry,):
+                if a is not None and a not in self.axis_names:
+                    raise MXNetError(
+                        f"mesh {self!r} has no axis {a!r}; axes are "
+                        f"{self.axis_names}")
+        return Placement(self, tuple(spec))
+
+    @property
+    def size(self):
+        return len(self._ctxs)
+
+    def axis_size(self, name):
+        return self.shape[self.axis_names.index(name)]
+
+    def ctxs(self):
+        """One Context per shard, row-major."""
+        return list(self._ctxs)
+
+    def axis_devices(self, name):
+        """The devices of the shards along axis ``name`` at index 0 of
+        every other axis, in axis order."""
+        if name not in self.axis_names:
+            raise MXNetError(f"mesh {self!r} has no axis {name!r}; axes are "
+                             f"{self.axis_names}")
+        grid = np.empty(len(self.devices), dtype=object)
+        grid[:] = self.devices
+        grid = grid.reshape(self.shape)
+        k = self.axis_names.index(name)
+        index = tuple(slice(None) if i == k else 0
+                      for i in range(len(self.shape)))
+        return list(grid[index])
+
+    def __repr__(self):
+        dims = ", ".join(f"{n}={s}" for n, s in zip(self.axis_names,
+                                                    self.shape))
+        return f"DeviceMesh({dims})"
+
+
+def make_mesh(shape=None, axis_names=("dp",), devices=None):
+    """A new :class:`DeviceMesh`, made current."""
+    return set_mesh(DeviceMesh(shape=shape, axis_names=axis_names,
+                               devices=devices))
+
+
+def data_parallel_ctxs(n=None):
+    """The Context list of MXNet's multi-device loop (``[mx.gpu(i) for i
+    in range(n)]``): the visible cards, the first ``n`` of them."""
+    ctxs = _visible_ctxs()
+    return ctxs if n is None else ctxs[:n]
+
+
+# -- eager collectives -------------------------------------------------------
+
+def _values(values):
+    """(tensors, Contexts) of a list of NDArrays or tensors."""
+    tensors = [v._data if isinstance(v, NDArray) else v for v in values]
+    ctxs = [v._ctx if isinstance(v, NDArray) else context_of(t.device)
+            for v, t in zip(values, tensors)]
+    return tensors, ctxs
+
+
+def _spread(total, tensors, ctxs):
+    """``total`` on each value's device, as NDArrays of the values'
+    Contexts: a copy between distinct cards, the same tensor on one."""
+    return [NDArray(total.to(t.device, non_blocking=True), c)
+            for t, c in zip(tensors, ctxs)]
+
+
+def allreduce(values, mesh=None, op="sum"):  # noqa: ARG001
+    """The sum (``op="sum"``) or mean (``"mean"``) of one value per shard,
+    given back on each value's device: MXNet's CommDevice reduction, the
+    reference's psum.  Exactly the values given are reduced, whatever the
+    mesh's size."""
+    if op not in ("sum", "mean"):
+        raise MXNetError(f"allreduce op must be 'sum' or 'mean', got {op!r}")
+    if len(values) == 1:
+        return list(values)
+    tensors, ctxs = _values(values)
+    dev = tensors[0].device
+    total = tensors[0].clone()
+    for t in tensors[1:]:
+        total += t.to(dev, non_blocking=True)
+    if op == "mean":
+        total /= len(tensors)
+    return _spread(total, tensors, ctxs)
+
+
+def allgather(values, mesh=None):  # noqa: ARG001
+    """The values concatenated along axis 0, given back on each value's
+    device (the reference's all_gather over the mesh axis)."""
+    if len(values) == 1:
+        return list(values)
+    tensors, ctxs = _values(values)
+    dev = tensors[0].device
+    total = torch.cat([t.to(dev, non_blocking=True).reshape(
+        (-1,) + tuple(t.shape[1:])) for t in tensors])
+    return _spread(total, tensors, ctxs)
+
+
+# -- the training step --------------------------------------------------------
+
+def _mesh_devices(mesh):
+    """The devices of ``mesh``: a DeviceMesh, a Context or device, or a
+    (nested) sequence of them."""
+    if isinstance(mesh, DeviceMesh):
+        return mesh.devices
+    if isinstance(mesh, (Context, torch.device, str)):
+        return [_as_ctx(mesh).torch_device()]
+    return [_as_ctx(d).torch_device()
+            for d in np.asarray(mesh, dtype=object).reshape(-1)]
 
 
 def _net_device(net):
@@ -194,14 +422,35 @@ class TrainStep:
     def __init__(self, net, loss_fn, optimizer, optimizer_params=None,
                  mesh=None, donate=True, partition_rules=None,
                  data_spec=None, n_micro=None, remat=None, plan=None):
-        if mesh is not None and _mesh_size(mesh) > 1:
-            raise MXNetError("TrainStep: meshes of more than one device are "
-                             "not ported to mxnet_tpu_torch")
         for name, value in (("partition_rules", partition_rules),
-                            ("data_spec", data_spec), ("plan", plan)):
+                            ("plan", plan)):
             if value:
                 raise MXNetError(f"TrainStep: {name} is not ported to "
-                                 f"mxnet_tpu_torch")
+                                 f"mxnet_tpu_torch (ROADMAP A.9)")
+        if mesh is None:
+            mesh = current_mesh()
+        self._mesh_device = None
+        if mesh is not None:
+            devices = set(_mesh_devices(mesh))
+            if len(devices) > 1:
+                raise MXNetError(
+                    f"TrainStep: a mesh over more than one device "
+                    f"({sorted(map(str, devices))}) waits for ROADMAP A.9's "
+                    f"sharding slice (data and tensor parallelism across "
+                    f"cards); shards that share the net's card run here")
+            self._mesh_device = devices.pop()
+        self.mesh = mesh if isinstance(mesh, DeviceMesh) else None
+        if data_spec is not None:
+            axes_of = self.mesh.axis_names if self.mesh is not None \
+                else ("dp",)
+            for entry in tuple(data_spec):
+                for a in entry if isinstance(entry, (tuple, list)) \
+                        else (entry,):
+                    if a is not None and a not in axes_of:
+                        raise MXNetError(
+                            f"data_spec {tuple(data_spec)} names axis {a!r} "
+                            f"the mesh {self.mesh or DeviceMesh()!r} does "
+                            f"not carry")
         if n_micro is None:
             n_micro = max(1, config.get_int("MXNET_MICROBATCH", 1))
         n_micro = int(n_micro)
@@ -260,6 +509,13 @@ class TrainStep:
             with autograd.pause(), torch.no_grad():
                 self.net(data)
         self._collect()
+        home = self._mesh_device
+        if home is not None and (home.type, home.index or 0) != (
+                self.device.type, self.device.index or 0):
+            raise MXNetError(
+                f"TrainStep: the mesh's shards lie on {self._mesh_device}, "
+                f"the net on {self.device}; a mesh beyond the net's card "
+                f"waits for ROADMAP A.9's sharding slice")
 
     def _collect(self):
         """(Re)read the trainable tensors; keep each optimizer state that

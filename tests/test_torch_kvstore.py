@@ -80,8 +80,12 @@ def test_create_names():
         kv = mx.kv.create(name)
         assert isinstance(kv, mx.kv.KVStoreLocal) and kv.type == name
         assert (kv.rank, kv.num_workers) == (0, 1)
-    for name in ("dist_sync", "dist_device_sync", "dist_async", "horovod"):
-        with pytest.raises(mx.MXNetError, match="not yet ported"):
+    # the distributed names (tests/test_torch_dist_kvstore.py): the dist
+    # store, dist_async and horovod raise as in the reference
+    for name in ("dist_sync", "dist_device_sync"):
+        assert isinstance(mx.kv.create(name), mx.kv.KVStoreDistTPUSync)
+    for name in ("dist_async", "horovod"):
+        with pytest.raises(mx.MXNetError, match="unsupported|not available"):
             mx.kv.create(name)
     with pytest.raises(mx.MXNetError, match="unknown"):
         mx.kv.create("rocket")

@@ -151,12 +151,17 @@ def test_save_load_round_trip_is_bit_exact(tmp_path):
 
 
 @pytest.mark.parametrize("kwargs,match", [
-    ({"attn_impl": "ring"}, "attn_impl"),
-    ({"attn_impl": "ulysses"}, "attn_impl"),
-    ({"remat": True, "attn_impl": "ring"}, "attn_impl")])
+    ({"attn_impl": "dense"}, "attn_impl"),
+    ({"attn_impl": "Ring"}, "attn_impl"),
+    ({"remat": True, "attn_impl": "flash"}, "attn_impl")])
 def test_unported_options_raise(kwargs, match):
+    """"fused", "ring" and "ulysses" are the implementations (ring and
+    Ulysses: ``tests/test_torch_sp_llama.py``); any other name raises, as
+    in the reference."""
     with pytest.raises(MXNetError, match=match):
         tllama.llama_model("llama_tiny", vocab_size=50, **kwargs)
+    with pytest.raises(mx.MXNetError, match="want fused"):
+        jllama.llama_model("llama_tiny", vocab_size=50, **kwargs)
 
 
 def test_backward_do_mirror_raises(monkeypatch):

@@ -251,15 +251,12 @@ print('alive')
 
 # metrics that only modules the port does not have yet register
 UNPORTED = {
-    "kvstore/dist.py": "A.9",
     "telemetry/perfgate.py": "A.11",
     "sharding.py": "A.9",
     "autoshard/planner.py": "A.9",
     "resilience/controller.py": "A.9 (ElasticController)",
 }
 UNPORTED_METRICS = {
-    "mxnet_kvstore_allreduce_bytes_total": "A.9",
-    "mxnet_kvstore_allreduce_seconds": "A.9",
     "mxnet_sharding_resolved_params_total": "A.9",
     "mxnet_sharding_fallback_params_total": "A.9",
     "mxnet_sharding_skipped_allreduce_total": "A.9",

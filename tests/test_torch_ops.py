@@ -30,10 +30,8 @@ from mxnet_tpu_torch.ops import registry, sweep
 OPS = sweep.sweep_ops()
 
 # the reference ops the port does not register yet, each with the ROADMAP
-# item that ports it
-UNPORTED = {
-    "contrib.sp_att_qkv": "A.9",
-}
+# item that ports it (none since contrib.sp_att_qkv)
+UNPORTED = {}
 
 ALIASES = {
     "SequenceMask": "sequence_mask", "SequenceLast": "sequence_last",
@@ -64,7 +62,7 @@ def test_unported_names_are_exactly_the_assigned_ones():
     missing = reference - ported
     assert missing == set(UNPORTED)
     assert not ported - reference
-    assert len(reference) == 339 and len(ported) == 338
+    assert len(reference) == 339 and len(ported) == 339
 
 
 def test_aliases_resolve_to_their_targets():
@@ -186,6 +184,7 @@ FD_SKIP = {
                               "precision lost (gradients held against the "
                               "reference in test_matches_reference)",
     "contrib.masked_encdec_att": "float32 softmax core, as masked_att_qkv",
+    "contrib.sp_att_qkv": "float32 softmax core, as masked_att_qkv",
     "contrib.masked_selfatt": "float32 softmax core, as masked_att_qkv",
     "contrib.multihead_attention": "float32 softmax core, as "
                                    "masked_att_qkv",

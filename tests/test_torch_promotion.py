@@ -35,7 +35,7 @@ TOL_BF16 = 2e-2
 
 ROUND_FIRST = {"LayerNorm", "GroupNorm", "InstanceNorm",
                "contrib.masked_att_qkv", "contrib.masked_encdec_att",
-               "contrib.multihead_attention"}
+               "contrib.multihead_attention", "contrib.sp_att_qkv"}
 
 OPS = [n for n in sweep.sweep_ops()
        if any(a.dtype.kind == "f" for a in sweep.op_inputs(n)[0])]

@@ -227,10 +227,15 @@ def test_trainstep_losses_match_jax(case):
 
 @pytest.mark.parametrize("kw,match", [
     (dict(n_micro=0), "n_micro"),
-    (dict(mesh=np.empty((2, 2), object)), "more than one device"),
+    (dict(mesh=parallel.DeviceMesh((2, 2), ("dp", "sp"), devices=[
+        "cpu", "cpu", "cuda:0", "cuda:0"])), "more than one device"),
     (dict(partition_rules=[("x", ())]), "partition_rules"),
-    (dict(data_spec=("dp",)), "data_spec"), (dict(plan=object()), "plan"),
-    (dict(mesh=["cpu", "cpu"]), "more than one device")])
+    (dict(data_spec=("tp",)), "data_spec"), (dict(plan=object()), "plan"),
+    (dict(mesh=["cpu", "cuda:0"]), "more than one device")])
 def test_trainstep_refuses_what_is_not_ported(kw, match):
+    """A mesh over distinct devices, sharding rules and plans wait for
+    the sharding slice; a data_spec axis the (default one-device) mesh
+    lacks raises as in the reference.  Meshes whose shards share the
+    net's device run (``tests/test_torch_sp_llama.py``)."""
     with pytest.raises(MXNetError, match=match):
         parallel.TrainStep(torch.nn.Linear(2, 2), _torch_loss, "adam", **kw)
