@@ -153,11 +153,12 @@ result line; each prints its seconds):
     f32 and bf16 through the Trainer and in bf16 through TrainStep, each
     Trainer step held against a plain NAG, the loss curves printed; (d)
     ``Estimator.fit`` of resnet18_v1 over 4 batches with a
-    CheckpointHandler, reloaded bit for bit; (c) BERT-base bf16 10
-    steps from a 2-worker DataLoader, LAMB with polynomial warmup-decay,
-    Loss and Accuracy of the argmax, beside the gluon phase's Adam loop;
-    losses falling, the schedules' rates, no loader fallback, no worker
-    left, 12 bf16 forward and 12 bf16 fused backward launches a BERT step;
+    CheckpointHandler, reloaded bit for bit; (c) BERT-base's widths cut to
+    6 layers, bf16 10 steps from a 2-worker DataLoader, LAMB with
+    polynomial warmup-decay, Loss and Accuracy of the argmax, beside the
+    gluon phase's Adam loop; losses falling, the schedules' rates, no
+    loader fallback, no worker left, 6 bf16 forward and 6 bf16 fused
+    backward launches a BERT step;
     step ms, images or samples/s, MFU, peak memory, idle share, ms in
     next() and in the metrics' update;
 14. nd — the rest of ``mx.nd``: (a) every op the port registers, the
@@ -393,21 +394,47 @@ result line; each prints its seconds):
     against ``flash_attention_plain`` on the same inputs (out, dq, dk,
     dv) at every shape this phase gives them: the unsharded call, the
     ring's diagonal block (causal) and an off-diagonal one (not), and
-    Ulysses' head group, at (a)'s three cases and at (b)'s B 2 x L 4096
-    bf16 (ring blocks (2, 32, 1024, 128), Ulysses (2, 8, 4096, 128));
+    Ulysses' head group, at (a)'s three cases and at the shapes of (b)'s
+    dp shard, B 1 x L 4096 bf16 (the fused call (1, 32, 4096, 128), ring
+    blocks (1, 32, 1024, 128), Ulysses (1, 8, 4096, 128));
     (b) ``LlamaModel`` at llama3_8b's
     widths (vocab 128256, 4096 units, FFN 14336, 32 heads, 8 kv heads)
     cut to 2 layers, bf16, B 2 x L 4096, 3 ``TrainStep`` steps with
     multi-precision Adam (1e-4) on ``DeviceMesh((2, 4), ("dp", "sp"))``
     for each of ``attn_impl`` fused, ring and ulysses from the same
-    weights and batch: the loss curves, launches a step (ring 2 x 10
-    forward, dq and dkv; Ulysses 2 x 4; fused 2), median step ms of 3
+    weights and batch, each dp shard running its batch row: the loss
+    curves, launches a step (ring 2 x 2 x 10 forward, dq and dkv; Ulysses
+    2 x 2 x 4; fused 2 x 2), median step ms of 3
     more replays, tokens/s, MFU, peak memory and one profiled step's idle
     share; (c) ``parallel.allreduce`` (sum, mean) and ``allgather`` over
     4 shards equal to plain torch sums and concatenation bit for bit;
     ``mx.kv.create("dist_sync")`` is a world of one over NCCL, and its
     ``pushpull_list`` of (b)'s last gradients equals the local store's
     bit for bit.
+26. shard — sharding rules, the sharded TrainStep, the autoshard planner
+    and GPipe on ``LlamaModel`` at llama3_8b's widths (vocab 128256, 4096
+    units, FFN 14336, 32 heads, 8 kv heads) cut to 2 layers, bf16,
+    multi-precision Adam (1e-4), each mesh's shards sharing the card:
+    (a) ``partition_rules=sharding.rule_pack("llama")`` on
+    ``DeviceMesh((2, 2), ("dp", "tp"))``, B 2 x L 4096, 4 steps against
+    the unsharded step on the same weights and batch (2e-3 relative),
+    each shard's parameter and optimizer-state bytes beside the unsharded
+    totals / tp, the blocks' tp path counted, 8 forward, 8 dq and 8 dK/dV
+    flash launches a step (each tp shard's head group, (1, 16, 4096,
+    128)), step ms, MFU, peak and idle share of both; (d) that net saved
+    (gathered on save) and restored into a fresh net split by a step, the
+    parameters bit for bit, then one SGD step of each bit for bit; (b)
+    ``autoshard.plan`` for 4 shards, B 4 x L 2048, under 0.4 and 0.5 of
+    the dp-only ``estimate_memory`` (the second must carry fsdp), and
+    ``TrainStep(plan=)`` 4 steps against the unsharded step (2e-3),
+    the estimate's per-device bytes beside each shard's measured bytes
+    and the card's peak; (c) ``pipeline.PipelinedBlock`` over the 2
+    decoder blocks on a pp mesh of 2, 4 microbatches of 2048 tokens: the
+    output and the stacked gradients against the blocks in turn, forward
+    + backward ms of both, 8 + 8 + 8 launches; the flash kernels against
+    ``flash_attention_plain`` at (1, 16, 4096, 128) and (1, 32, 2048,
+    128); one bf16 GEMM (8192 x 4096) @ (4096 x d), d = 32 ... 512, its
+    efficiency (the planner's tile term).
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -439,7 +466,9 @@ forwards (``quant_launches``: 12 each on the f32 forward; 0 elsewhere)
 and the sparse phase's (``sparse_launches``, 0: no attention) and the np
 phase's 8 BERT-base steps (``np_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the sp phase's llama steps (``sp_launches``:
-the bf16 forward, dq and dkv; 0 on the fused and f32 rows);
+the bf16 forward, dq and dkv; 0 on the fused and f32 rows) and the shard
+phase's tp and plan steps and pipeline (``shard_launches``: the bf16
+forward, dq and dkv; 0 on the fused and f32 rows);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -3011,8 +3040,10 @@ LOOP_CLASSES, LOOP_SHADE = 10, 12
 LOOP_LAMB_LR = 1e-2
 LOOP_NAG = {"learning_rate": 0.005, "momentum": 0.9, "wd": 1e-4}
 LOOP_NAG_WITNESS_LR = 0.025
-LOOP_BERT = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
-             "batch": 32, "seq": 512, "vocab": 30522}    # bert_12_768_12
+# bert_12_768_12's widths, its depth cut from 12 layers to 6 (the smoke's
+# time goes to later phases; every check of the phase stays)
+LOOP_BERT = {"layers": 6, "units": 768, "hidden": 3072, "heads": 12,
+             "batch": 32, "seq": 512, "vocab": 30522}
 
 
 def _small_resnet(tmx):
@@ -8025,6 +8056,7 @@ SP = {"shards": 4, "heads": 32, "kv_heads": 8, "head_dim": 128,
 # sum (up to 4 roundings a position where the unsharded call has one)
 SP_TOL = {"float32": (1e-5, 1e-4), "bfloat16": (1e-2, 2e-2)}
 SP_IMPLS = ("fused", "ring", "ulysses")
+SP_DP = 2           # the dp axis of the sp llama's mesh
 
 
 def _sp_launches(impl, n, layers=1):
@@ -8046,7 +8078,7 @@ def _sp_grads(torch, attend, q, k, v, do):
 
 
 def _sp_plain(torch, fa, label, dname, q, k, v, do, seg_q, seg_kv, causal,
-              scale):
+              scale, phase="sp"):
     """The flash kernels (``flash_attention``, forward and backward)
     against their plain version on the same inputs, at one shape the sp
     path gives them: out, dq, dk, dv over max |plain|, within SP_TOL."""
@@ -8057,12 +8089,12 @@ def _sp_plain(torch, fa, label, dname, q, k, v, do, seg_q, seg_kv, causal,
     errs = [((a.float() - b.float()).abs().max()
              / b.float().abs().max()).item() for a, b in zip(got, want)]
     tol_out, tol_grad = SP_TOL[dname]
-    _log(f"sp plain {label} {tuple(q.shape)} kv {tuple(k.shape)[2]} "
+    _log(f"{phase} plain {label} {tuple(q.shape)} kv {tuple(k.shape)[2]} "
          f"{dname} causal={causal}: out, dq, dk, dv against the plain "
          f"version {[f'{e:.2e}' for e in errs]} of max |plain| (bounds "
          f"{tol_out:g}, {tol_grad:g})")
     if errs[0] > tol_out or max(errs[1:]) > tol_grad:
-        raise AssertionError(f"sp plain {label} {dname}: {errs}")
+        raise AssertionError(f"{phase} plain {label} {dname}: {errs}")
     return errs
 
 
@@ -8172,9 +8204,10 @@ def _sp_kernels(torch, fa, tmx, smi):
                 out[(impl, dname, padded)].update(
                     {"ms": ms[impl], "fused_ms": ms["fused"]})
         del q, k, v, do, want
-    # the llama's shapes (B 2 x L 4096 bf16 on sp 4): its fused call, its
-    # ring blocks and its Ulysses head groups
-    B, L = SP["batch"], SP["len"]
+    # the llama's shapes (L 4096 bf16 on sp 4, the B 2 batch split over
+    # dp 2: B 1 a dp shard): its fused call, its ring blocks and its
+    # Ulysses head groups
+    B, L = SP["batch"] // SP_DP, SP["len"]
     q, do = (torch.randn(B, H, L, D, generator=g, device="cuda",
                          dtype=torch.bfloat16) for _ in range(2))
     k, v = (torch.randn(B, SP["kv_heads"], L, D, generator=g, device="cuda",
@@ -8212,15 +8245,19 @@ def _sp_llama(torch, fa, mx, args, smi):
             net.cast(torch.bfloat16)        # drawn in bf16
             tmx.random.seed(args.seed)
             net.initialize(_llama_init(tmx, 0.02), ctx=tmx.gpu())
+            # the tokens split over sp only where attention runs over it
             step = parallel.TrainStep(
                 net, _llama_loss(mx["nn"]), mx["optimizer"].Adam(
                     learning_rate=s["lr"], multi_precision=True),
-                mesh=mesh, data_spec=("dp", "sp"))
+                mesh=mesh, data_spec=("dp",) if impl == "fused"
+                else ("dp", "sp"))
             _reset_counts(fa)
             losses, _ = _timed_steps(torch, step, toks, labs, s["steps"])
             counts = _counts(fa)
+            # the batch splits over the mesh's 2 dp shards, each running
+            # its own forward: 2 x the attention calls of one forward
             want = {k: v * s["steps"] for k, v in _sp_launches(
-                impl, s["shards"], s["layers"]).items()}
+                impl, s["shards"], s["layers"] * SP_DP).items()}
             if {k: counts[k] for k in want} != want or any(
                     counts[k] for k in counts if k not in want):
                 raise AssertionError(f"sp llama {impl}: launches {counts}, "
@@ -8342,6 +8379,441 @@ def sp_phase(torch, fa, mx, args, smi):
     gc.collect()
     torch.cuda.empty_cache()
     return counts, {"kernels": kernels, "llama": runs}
+
+
+# -- the shard phase: sharding rules, the sharded step, autoshard, GPipe -----
+
+# llama3_8b's widths cut to 2 layers, bf16, multi-precision Adam; (a) tp on
+# a dp 2 x tp 2 mesh of the card, B 2 x L 4096; (b) the autoshard plan for
+# 4 shards, B 4 x L 2048; (c) GPipe over the 2 blocks, 4 microbatches of
+# 2048 tokens
+SHARD = {"vocab": 128256, "layers": 2, "units": 4096, "hidden": 14336,
+         "heads": 32, "kv_heads": 8, "head_dim": 128, "lr": 1e-4,
+         "steps": 4, "timed": 3, "tp_batch": 2, "tp_len": 4096,
+         "plan_batch": 4, "plan_len": 2048, "plan_shards": 4,
+         "pipe_micro": 4, "pipe_batch": 4, "pipe_len": 2048}
+# the plan's budget over the dp-only estimate: the reference's recipe takes
+# 0.4, where at this cut depth (a 128256-word head over 2 layers: the
+# logits dominate) only tp 4 with 4 microbatches fits; at 0.5 the first
+# fitter is fsdp 4 (both printed)
+SHARD_BUDGETS = (0.4, 0.5)
+# the pipeline against the sequential blocks, over max |ref|: the output
+# (each microbatch's products round in bf16 as the whole batch's do, but
+# cuBLAS may pick another kernel at another M) and the weights' gradients
+# (the 4 microbatches' bf16 gradients add in bf16 where one product over
+# the batch accumulates in f32)
+SHARD_PIPE_TOL = (2e-2, 5e-2)
+
+
+def _shard_llama(torch, tmx, llama, seed):
+    s = SHARD
+    net = llama.LlamaModel(
+        vocab_size=s["vocab"], num_layers=s["layers"], units=s["units"],
+        hidden=s["hidden"], heads=s["heads"], kv_heads=s["kv_heads"],
+        prefix="llm_")
+    net.cast(torch.bfloat16)            # drawn in bf16
+    tmx.random.seed(seed)
+    net.initialize(_llama_init(tmx, 0.02), ctx=tmx.gpu())
+    return net
+
+
+def _shard_batch(torch, seed, B, L):
+    rng = np.random.RandomState(seed)
+    toks = torch.tensor(rng.randint(0, SHARD["vocab"], (B, L)),
+                        dtype=torch.int32, device="cuda")
+    return toks, torch.roll(toks, -1, dims=1)
+
+
+def _shard_bytes(torch, step, mesh):
+    """Per shard (row-major): the bytes of the parameter slices and of
+    their optimizer state that shard holds (a whole parameter counts in
+    every shard)."""
+    import itertools
+    from mxnet_tpu_torch.parallel import _flat
+    state_of = {id(t): st for t, st in zip(step._params, step._states)}
+    out = []
+    for coords in itertools.product(*(range(n) for n in mesh.shape)):
+        pb = sb = 0
+        for p in step.net.collect_params().values():
+            t = p._slices.held_by(coords) if p._slices is not None \
+                else p.data()._data
+            pb += t.numel() * t.element_size()
+            sb += sum(x.numel() * x.element_size()
+                      for x in _flat(state_of.get(id(t)), []))
+        out.append((pb, sb))
+    return out
+
+
+def _shard_run(torch, fa, tmx, mx, net, label, toks, labs, smi, **kw):
+    """SHARD["steps"] TrainStep steps (multi-precision Adam), counted,
+    then SHARD["timed"] timed replays and one profiled step: (losses,
+    launch counts of the counted steps, numbers, step)."""
+    s = SHARD
+    step = tmx.parallel.TrainStep(
+        net, _llama_loss(mx["nn"]), mx["optimizer"].Adam(
+            learning_rate=s["lr"], multi_precision=True), **kw)
+    _fresh_peak(torch)
+    _reset_counts(fa)
+    losses, _ = _timed_steps(torch, step, toks, labs, s["steps"])
+    counts = _counts(fa)
+    _, ms = _timed_steps(torch, step, toks, labs, s["timed"])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    prof = _profile_step(torch, lambda: step(toks, labs), f"shard {label}")
+    med = statistics.median(ms)
+    n_matmul = sum(p.shape[0] * p.shape[1] for n_, p in
+                   net.collect_params().items()
+                   if len(p.shape) == 2 and "tok_" not in n_)
+    tokens = toks.numel()
+    flops_tok = 6 * n_matmul + 6 * s["layers"] * s["units"] * toks.shape[1]
+    tps = tokens / (med / 1e3)
+    return losses, counts, {
+        "step_ms": med, "tokens_per_s": tps,
+        "mfu": tps * flops_tok / PEAK_FLOPS["bfloat16"], "peak_gib": peak,
+        "idle_share": max(0.0, 1 - prof["device_ms"] / prof["wall_ms"])}, \
+        step
+
+
+def _shard_check_launches(label, counts, per_step):
+    want = {"flash_fwd": per_step, "flash_bwd_dq": per_step,
+            "flash_bwd_dkv": per_step}
+    want = {k: v * SHARD["steps"] for k, v in want.items()}
+    if {k: counts[k] for k in want} != want or any(
+            counts[k] for k in counts if k not in want):
+        raise AssertionError(f"shard {label}: launches {counts}, want "
+                             f"{want}")
+
+
+def _shard_rel(got, want):
+    return max(abs(a - b) / abs(b) for a, b in zip(got, want))
+
+
+def _shard_tp(torch, fa, mx, args, smi):
+    """(a): llama_rules on dp 2 x tp 2 against the unsharded step from the
+    same weights and batch; returns (launch counts, numbers, the trained
+    sharded net, its mesh, the batch)."""
+    tmx, llama = mx["pkg"], mx["llama"]
+    from mxnet_tpu_torch import sharding
+    s = SHARD
+    toks, labs = _shard_batch(torch, args.seed + 26, s["tp_batch"],
+                              s["tp_len"])
+    ref_losses, _, ref, step = _shard_run(
+        torch, fa, tmx, mx, _shard_llama(torch, tmx, llama, args.seed),
+        "tp unsharded", toks, labs, smi)
+    ref_params = sum(p.data()._data.numel() * 2 for p in
+                     step.net.collect_params().values())
+    ref_state = sum(x.numel() * x.element_size() for st in step._states
+                    for x in tmx.parallel._flat(st, []))
+    step = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    mesh = tmx.parallel.DeviceMesh((2, 2), ("dp", "tp"),
+                                   devices=[tmx.gpu(0)] * 4)
+    net = _shard_llama(torch, tmx, llama, args.seed)
+    before = dict(llama.TP_COUNTS)
+    losses, counts, num, step = _shard_run(
+        torch, fa, tmx, mx, net, "tp dp2xtp2", toks, labs, smi, mesh=mesh,
+        partition_rules=sharding.rule_pack("llama"))
+    split = llama.TP_COUNTS["split"] - before["split"]
+    gathered = llama.TP_COUNTS["gathered"] - before["gathered"]
+    per_shard = _shard_bytes(torch, step, mesh)
+    rel = _shard_rel(losses, ref_losses)
+    _log(f"shard tp ({smi}): llama3_8b widths, {s['layers']} layers, bf16, "
+         f"B {s['tp_batch']} x L {s['tp_len']}, rule_pack('llama') on "
+         f"dp 2 x tp 2 of the card: losses {[round(x, 5) for x in losses]}"
+         f" against the unsharded step's "
+         f"{[round(x, 5) for x in ref_losses]} (max rel {rel:.2e}, bound "
+         f"{SHARD_LOSS_TOL:g}); blocks on the tp path {split}, gathered "
+         f"{gathered} (Python forwards: the eager step and the capture); "
+         f"launches over {s['steps']} steps "
+         f"{ {k: v for k, v in counts.items() if v} }")
+    for i, (pb, sb) in enumerate(per_shard):
+        _log(f"shard tp bytes: shard {i}: parameters {pb / 2**30:.3f} GiB, "
+             f"optimizer state {sb / 2**30:.3f} GiB; unsharded totals / tp:"
+             f" {ref_params / 2 / 2**30:.3f} GiB, "
+             f"{ref_state / 2 / 2**30:.3f} GiB")
+    for label, r in (("unsharded", ref), ("dp2xtp2", num)):
+        _log(f"shard tp {label} ({smi}): step {r['step_ms']:.2f} ms, "
+             f"{r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f}, peak "
+             f"{r['peak_gib']:.2f} GiB, idle share {r['idle_share']:.3f}")
+    if rel > SHARD_LOSS_TOL or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"shard tp: {losses} against {ref_losses}")
+    # each Python forward (the eager first step, the capture) runs every
+    # block on the tp path once a data shard
+    if not split or split % (2 * s["layers"]) or gathered:
+        raise AssertionError(f"shard tp: tp path taken {split} times, "
+                             f"gathered {gathered}")
+    # a data shard's blocks attend per tp shard: dp x tp x layers a step
+    _shard_check_launches("tp", counts, 2 * 2 * s["layers"])
+    step = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"ref": ref, "tp": num, "losses": losses,
+                    "ref_losses": ref_losses}, net, mesh, (toks, labs)
+
+
+def _shard_plan(torch, fa, mx, args, smi):
+    """(b): the plan for 4 shards under a budget below the dp-only
+    estimate, trained through TrainStep(plan=) against the unsharded step
+    from the same weights and batch."""
+    tmx, llama = mx["pkg"], mx["llama"]
+    from mxnet_tpu_torch import autoshard
+    from mxnet_tpu_torch.telemetry import costmodel as tcm
+    s = SHARD
+    B, L, n = s["plan_batch"], s["plan_len"], s["plan_shards"]
+    shapes = llama.LlamaModel(
+        vocab_size=s["vocab"], num_layers=s["layers"], units=s["units"],
+        hidden=s["hidden"], heads=s["heads"], kv_heads=s["kv_heads"],
+        prefix="llm_")
+    shapes.cast(torch.bfloat16)         # shapes and dtypes, no values
+    dp_est = tcm.estimate_memory(shapes, {"dp": n}, None, batch=B, seq=L,
+                                 data_axes=("dp",), multi_precision=True)
+    plans = {}
+    for frac in SHARD_BUDGETS:
+        plans[frac] = autoshard.plan(
+            shapes, global_batch=B, seq=L, n_devices=n, multi_precision=True,
+            hbm_budget_bytes=int(frac * dp_est["total_bytes"]))
+        _log(f"shard plan ({smi}): budget {frac} x the dp-only estimate "
+             f"{dp_est['total_bytes'] / 2**30:.2f} GiB: {plans[frac]!r}, "
+             f"estimated step {plans[frac].step_time_s:.4f} s; runners "
+             f"{plans[frac].search['top']}")
+    plan = plans[SHARD_BUDGETS[-1]]
+    if "fsdp" not in plan.mesh_axes:
+        raise AssertionError(f"shard plan: {plan!r} carries no fsdp")
+    toks, labs = _shard_batch(torch, args.seed + 27, B, L)
+    ref_losses, _, ref, step = _shard_run(
+        torch, fa, tmx, mx, _shard_llama(torch, tmx, llama, args.seed),
+        "plan unsharded", toks, labs, smi)
+    step = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses, counts, num, step = _shard_run(
+        torch, fa, tmx, mx, _shard_llama(torch, tmx, llama, args.seed),
+        "plan", toks, labs, smi, plan=plan)
+    per_shard = _shard_bytes(torch, step, step.mesh)
+    est = plan.estimate
+    rel = _shard_rel(losses, ref_losses)
+    _log(f"shard plan ({smi}): TrainStep(plan=) on {step.mesh!r} "
+         f"(rule_pack {plan.rule_pack}, data_spec {plan.data_spec}, n_micro "
+         f"{plan.n_micro}, remat {plan.remat}), B {B} x L {L}: losses "
+         f"{[round(x, 5) for x in losses]} against the unsharded step's "
+         f"{[round(x, 5) for x in ref_losses]} (max rel {rel:.2e}, bound "
+         f"{SHARD_LOSS_TOL:g}); launches over {s['steps']} steps "
+         f"{ {k: v for k, v in counts.items() if v} }")
+    for i, (pb, sb) in enumerate(per_shard):
+        _log(f"shard plan bytes: shard {i}: parameters {pb / 2**30:.3f} GiB"
+             f" (estimate {est['params_bytes'] / 2**30:.3f}), optimizer "
+             f"state {sb / 2**30:.3f} GiB (estimate "
+             f"{est['opt_state_bytes'] / 2**30:.3f}); estimate per device "
+             f"{est['total_bytes'] / 2**30:.3f} GiB; the card's peak over "
+             f"all {n} shards {num['peak_gib']:.2f} GiB")
+    num["est_step_ms"] = plan.step_time_s * 1e3
+    for label, r in (("unsharded", ref), ("planned", num)):
+        _log(f"shard plan {label} ({smi}): step {r['step_ms']:.2f} ms"
+             + (f" (the plan's estimated step {r['est_step_ms']:.2f} ms)"
+                if "est_step_ms" in r else "")
+             + f", {r['tokens_per_s']:.1f} tokens/s, MFU {r['mfu']:.4f}, "
+             f"peak {r['peak_gib']:.2f} GiB, idle share "
+             f"{r['idle_share']:.3f}")
+    if rel > SHARD_LOSS_TOL or not all(map(math.isfinite, losses)):
+        raise AssertionError(f"shard plan: {losses} against {ref_losses}")
+    data_shards = 1
+    for a in tmx.parallel._entry_axes(plan.data_spec[0]) \
+            if plan.data_spec else ():
+        data_shards *= plan.mesh_shape[a]
+    # a tp axis the batch does not split over computes each block's
+    # attention per tp shard (the heads divide here)
+    tp = plan.mesh_shape.get("tp", 1)
+    _shard_check_launches("plan", counts,
+                          s["layers"] * data_shards * plan.n_micro * tp)
+    step = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"ref": ref, "plan": num, "losses": losses,
+                    "ref_losses": ref_losses, "mesh": plan.mesh_shape}
+
+
+def _shard_pipe(torch, fa, mx, args, smi):
+    """(c): PipelinedBlock over the 2 decoder blocks on a pp mesh of 2
+    shards of the card, 4 microbatches, against the blocks in turn."""
+    tmx, llama = mx["pkg"], mx["llama"]
+    from mxnet_tpu_torch import pipeline
+    s = SHARD
+    net = _shard_llama(torch, tmx, llama, args.seed)
+    blocks = net.blocks
+    mesh = tmx.parallel.DeviceMesh((2,), ("pp",), devices=[tmx.gpu(0)] * 2)
+    g = torch.Generator(device="cuda").manual_seed(args.seed + 28)
+    x = torch.randn(s["pipe_batch"], s["pipe_len"], s["units"], generator=g,
+                    device="cuda", dtype=torch.bfloat16)
+    w = torch.randn(x.shape, generator=g, device="cuda",
+                    dtype=torch.bfloat16)
+    piped = pipeline.PipelinedBlock(blocks, mesh,
+                                    n_microbatches=s["pipe_micro"])
+    names = list(blocks[0].collect_params().keys())
+    own = [[p.data()._data for p in b.collect_params().values()]
+           for b in blocks]
+
+    def run_pipe():
+        out = piped(x)._data
+        leaves = [t for k in names for t in piped.stacked[k]]
+        return out, torch.autograd.grad((out.float() * w).sum(), leaves)
+
+    def run_seq():
+        y = x
+        for b in blocks:
+            y = b(y)
+        return y, torch.autograd.grad((y.float() * w).sum(),
+                                      [t for ts in own for t in ts])
+
+    _reset_counts(fa)
+    out, grads = run_pipe()
+    torch.cuda.synchronize()
+    counts = _counts(fa)
+    ref, ref_grads = run_seq()
+    out_err = ((out.float() - ref.float()).abs().max()
+               / ref.float().abs().max()).item()
+    # the pipeline's gradients come name-major (stage 0, stage 1 of each
+    # name), the blocks' block-major
+    S = len(blocks)
+    grad_err = 0.0
+    for i, _ in enumerate(names):
+        for st in range(S):
+            a, b = grads[i * S + st], ref_grads[st * len(names) + i]
+            grad_err = max(grad_err, ((a.float() - b.float()).abs().max()
+                                      / b.float().abs().max()).item())
+    t_pipe = _time_ms(torch, run_pipe, iters=1, reps=3, warmup=1)
+    t_seq = _time_ms(torch, run_seq, iters=1, reps=3, warmup=1)
+    want = {"flash_fwd": S * s["pipe_micro"],
+            "flash_bwd_dq": S * s["pipe_micro"],
+            "flash_bwd_dkv": S * s["pipe_micro"]}
+    _log(f"shard pipe ({smi}): PipelinedBlock over {S} llama3_8b-width "
+         f"blocks on pp {S} of the card, {s['pipe_micro']} microbatches of "
+         f"{s['pipe_batch'] // s['pipe_micro']} x {s['pipe_len']}, bf16: "
+         f"output {out_err:.2e} and stacked gradients {grad_err:.2e} of "
+         f"max |sequential| (bounds {SHARD_PIPE_TOL[0]:g}, "
+         f"{SHARD_PIPE_TOL[1]:g}); forward + backward {t_pipe:.2f} ms "
+         f"against the sequential blocks' {t_seq:.2f} ms; launches "
+         f"{ {k: v for k, v in counts.items() if v} }")
+    if out_err > SHARD_PIPE_TOL[0] or grad_err > SHARD_PIPE_TOL[1]:
+        raise AssertionError(f"shard pipe: {out_err}, {grad_err}")
+    if {k: counts[k] for k in want} != want or any(
+            counts[k] for k in counts if k not in want):
+        raise AssertionError(f"shard pipe: launches {counts}, want {want}")
+    return counts, {"pipe_ms": t_pipe, "seq_ms": t_seq, "out_err": out_err,
+                    "grad_err": grad_err}
+
+
+def _shard_ckpt(torch, mx, net, mesh, batch, args, smi):
+    """(d): the tp-sharded net of (a) saved (gathered on save) and
+    restored into a fresh net already split by a step: the parameters bit
+    for bit; then one more step of each equal bit for bit."""
+    tmx, llama = mx["pkg"], mx["llama"]
+    from mxnet_tpu_torch import sharding
+    toks, labs = batch
+    rules = sharding.rule_pack("llama")
+
+    def sgd_step(n, lr):
+        return tmx.parallel.TrainStep(
+            n, _llama_loss(mx["nn"]), mx["optimizer"].SGD(learning_rate=lr),
+            mesh=mesh, partition_rules=rules)
+
+    import shutil
+    d = tempfile.mkdtemp(prefix="mx_shard_ckpt_")
+    try:
+        t0 = time.perf_counter()
+        mgr = tmx.checkpoint.CheckpointManager(d)
+        mgr.save(4, net=net)
+        t_save = time.perf_counter() - t0
+        fresh = _shard_llama(torch, tmx, llama, args.seed + 1)
+        sgd_step(fresh, 0.0)(toks, labs)        # splits it
+        t0 = time.perf_counter()
+        mgr.restore(net=fresh)
+        t_restore = time.perf_counter() - t0
+        same = all(torch.equal(a.data()._data, b.data()._data) for a, b in
+                   zip(net.collect_params().values(),
+                       fresh.collect_params().values()))
+        split = all((a._slices is None) == (b._slices is None) for a, b in
+                    zip(net.collect_params().values(),
+                        fresh.collect_params().values()))
+        la = float(sgd_step(net, 1e-4)(toks, labs))
+        lb = float(sgd_step(fresh, 1e-4)(toks, labs))
+        after = all(torch.equal(a.data()._data, b.data()._data) for a, b in
+                    zip(net.collect_params().values(),
+                        fresh.collect_params().values()))
+        size = sum(os.path.getsize(os.path.join(r, f))
+                   for r, _, fs in os.walk(d) for f in fs)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    _log(f"shard ckpt ({smi}): the dp 2 x tp 2 net gathered on save "
+         f"({size / 2**30:.2f} GiB in {t_save:.1f} s) and restored into a "
+         f"fresh split net in {t_restore:.1f} s: parameters bit-equal "
+         f"{same}, split alike {split}; one more SGD step: loss {la!r} "
+         f"and {lb!r}, parameters bit-equal {after}")
+    if not (same and split and after and la == lb):
+        raise AssertionError("shard ckpt: the restored net differs")
+
+
+def _shard_kernels(torch, fa):
+    """The flash kernels against their plain version at the shapes this
+    phase gives them: (1, 16, 4096, 128) (a tp shard's head group) and
+    (1, 32, 2048, 128) (a plan data shard, a pipeline microbatch), bf16,
+    causal."""
+    s = SHARD
+    g = torch.Generator(device="cuda").manual_seed(29)
+    out = {}
+    for H, L in ((s["heads"] // 2, s["tp_len"]), (s["heads"],
+                                                  s["plan_len"])):
+        q, k, v, do = (torch.randn(1, H, L, s["head_dim"], generator=g,
+                                   device="cuda", dtype=torch.bfloat16)
+                       for _ in range(4))
+        out[(H, L)] = _sp_plain(torch, fa, f"({H} heads, L {L})",
+                                "bfloat16", q, k, v, do, None, None, True,
+                                1.0 / math.sqrt(s["head_dim"]),
+                                phase="shard")
+    return out
+
+
+def _shard_gemm_tile(torch, smi):
+    """One bf16 GEMM (8192 x 4096) @ (4096 x d) for d = 32 ... 512: its
+    efficiency against the card's bf16 peak, for the planner's tile
+    term."""
+    eff = {}
+    for d in (32, 64, 128, 256, 512):
+        a = torch.randn(8192, 4096, device="cuda", dtype=torch.bfloat16)
+        b = torch.randn(4096, d, device="cuda", dtype=torch.bfloat16)
+        t = _time_ms(torch, lambda: a @ b, iters=20, reps=5, warmup=3)
+        eff[d] = 2.0 * 8192 * 4096 * d / (t / 1e3) / PEAK_FLOPS["bfloat16"]
+    _log(f"shard gemm tile ({smi}): bf16 (8192 x 4096) @ (4096 x d), "
+         f"efficiency against the bf16 peak: "
+         + ", ".join(f"d {d} {e:.3f}" for d, e in eff.items()))
+    return eff
+
+
+def shard_phase(torch, fa, mx, args, smi):
+    """Sharding rules, the sharded TrainStep, the autoshard planner and
+    GPipe on the card: (a) tensor parallelism, (b) the plan, (c) the
+    pipeline, (d) the checkpoint; the flash kernels against their plain
+    version at the phase's shapes; the GEMM tile term.  Returns (launch
+    counts of (a), (b) and (c), numbers)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    tp_counts, tp, net, mesh, batch = _shard_tp(torch, fa, mx, args, smi)
+    _shard_ckpt(torch, mx, net, mesh, batch, args, smi)
+    net = batch = None
+    gc.collect()
+    torch.cuda.empty_cache()
+    plan_counts, plan = _shard_plan(torch, fa, mx, args, smi)
+    pipe_counts, pipe = _shard_pipe(torch, fa, mx, args, smi)
+    kernels = _shard_kernels(torch, fa)
+    tile = _shard_gemm_tile(torch, smi)
+    counts = {k: tp_counts[k] + plan_counts[k] + pipe_counts[k]
+              for k in _COUNTERS}
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, {"tp": tp, "plan": plan, "pipe": pipe,
+                    "kernels": kernels, "tile": tile}
+
+
+SHARD_LOSS_TOL = 2e-3   # relative, sharded against unsharded bf16 losses
 
 
 def _ptxas_summary(log):
@@ -8555,6 +9027,8 @@ def main(argv=None):
                               smi)
     np_counts, _ = _phase("np", np_phase, torch, fa, mx, args, smi)
     sp_counts, _ = _phase("sp", sp_phase, torch, fa, mx, args, smi)
+    shard_counts, _ = _phase("shard", shard_phase, torch, fa, mx, args,
+                             smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -8613,6 +9087,8 @@ def main(argv=None):
         "np_launches": np_counts["flash_fwd"],
         # the sp phase's llama steps (fused, ring and Ulysses), bf16
         "sp_launches": sp_counts["flash_fwd"],
+        # the shard phase's tp steps, plan steps and pipeline, bf16
+        "shard_launches": shard_counts["flash_fwd"],
     }]
     # the f32 kernel at the quant path's shape, on its own q, k, v
     att = quant_numbers["flash"]
@@ -8692,6 +9168,7 @@ def main(argv=None):
                 "sparse_launches": _dtype_count(sparse_counts, kind_, pre),
                 "np_launches": _dtype_count(np_counts, kind_, pre),
                 "sp_launches": _dtype_count(sp_counts, kind_, pre),
+                "shard_launches": _dtype_count(shard_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
             })
             if kind_ == "fused":

@@ -132,7 +132,8 @@ from . import util  # noqa: E402,F401
 # ``mx.np`` stay out of a plain ``import mxnet_tpu_torch``
 _LAZY = {"serving": "serving", "native": "native", "numpy": "numpy",
          "np": "numpy", "numpy_extension": "numpy_extension",
-         "npx": "numpy_extension", "rtc": "rtc"}
+         "npx": "numpy_extension", "rtc": "rtc", "sharding": "sharding",
+         "pipeline": "pipeline", "autoshard": "autoshard"}
 
 
 def __getattr__(name):

@@ -23,6 +23,15 @@ the previous committed step when the latest does not restore.  A step
 that the manifest says a world of several processes committed is refused
 (the port writes only one-process checkpoints).
 
+Parameters that a sharded ``parallel.TrainStep`` stores in slices are
+gathered on save (``Parameter.data()``: the reference's default,
+gather-on-save, so the file does not depend on the mesh) and scattered
+into the slices on restore (``set_data``), or restored whole into a net
+that no step has split yet.  The reference's sharded save
+(``MXNET_CHECKPOINT_SHARDED=1``: orbax writes each shard) is not ported:
+with the knob set, saving a net holding split parameters raises
+(ROADMAP A.9).
+
 ``auto_resume(train_fn, directory, net, trainer)`` restores the latest
 step, runs ``train_fn(step)`` from the one after it, saves every
 ``save_every`` steps, replays from the last good step when ``train_fn``
@@ -179,9 +188,16 @@ class CheckpointManager:
         os.makedirs(tmp)
         files = []
         if net is not None:
+            params = net.collect_params()
+            if config.get_int("MXNET_CHECKPOINT_SHARDED", 0) and any(
+                    p._slices is not None for p in params.values()):
+                raise MXNetError(
+                    "checkpoint: MXNET_CHECKPOINT_SHARDED=1 (a file per "
+                    "shard) is not ported (ROADMAP A.9); unset it to "
+                    "gather the split parameters on save")
             files.append(os.path.join(tmp, _PARAMS))
             nd.save(files[-1], {name: p.data() for name, p in
-                                net.collect_params().items()})
+                                params.items()})
         if trainer is not None:
             files.append(os.path.join(tmp, _STATES))
             trainer.save_states(files[-1])

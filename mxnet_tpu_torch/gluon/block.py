@@ -399,7 +399,7 @@ class HybridBlock(Block):
                 params = {k: v._data
                           for k, v in self._params_for(args, ctx).items()}
                 break
-            params[name] = p._value(ctx)._data
+            params[name] = p._tensor(ctx)
         return self.hybrid_forward(tensor_ops, *args, **params, **kwargs)
 
     def forward(self, *args, **kwargs):
@@ -432,7 +432,7 @@ class HybridBlock(Block):
                 [a for a in (*args, *kwargs.values())
                  if isinstance(a, NDArray)]
                 + [p._value(ctx) for p in self._all_params
-                   if p._data is not None])
+                   if p._data is not None and p._slices is None])
         return _wrap(out, a._ctx)
 
     def hybrid_forward(self, F, x, *args, **kwargs):

@@ -23,7 +23,7 @@ from ..block import HybridBlock
 from ..nn import Dense, Dropout, Embedding, LayerNorm
 
 __all__ = ["BERTEncoderCell", "BERTEncoder", "BERTModel", "bert_model",
-           "BERT_CONFIGS"]
+           "BERT_CONFIGS", "apply_tp_shardings"]
 
 # name -> (num_layers, units, hidden, heads)
 BERT_CONFIGS = {
@@ -146,3 +146,16 @@ def bert_model(name="bert_12_768_12", vocab_size=30522, max_length=512,
     if dtype != torch.float32:
         net.cast(dtype)
     return initializer.init_weights(net, generator, init_std)
+
+
+def apply_tp_shardings(model, axis="tp"):
+    """Annotate megatron-style tensor-parallel shardings on a BERTModel —
+    delegates to the declarative rule pack (``sharding.bert_rules``):
+    attn qkv + ffn_1 column-parallel, attn proj + ffn_2 row-parallel,
+    word/decoder tables over the vocab dim.  Dense weights are
+    (out_features, in_features).  A sharded ``parallel.TrainStep`` gathers
+    these weights at use: a contiguous row chunk of the fused qkv weight
+    mixes q, k and v, so the encoder computes the dense math."""
+    from ... import sharding as _sh
+    _sh.apply_rules(model, _sh.bert_rules(tp=axis))
+    return model

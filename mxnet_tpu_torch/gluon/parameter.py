@@ -15,11 +15,27 @@ initial values (data parallelism: ``gluon.utils.split_and_load`` gives each
 replica a slice of the batch and the Trainer reduces the gradients through
 a kvstore).  The replica on the first context is the one registered with
 the blocks; a Block's forward reads the replica of its input's context.
+
+``sharding`` is a layout hint (a mesh axis per dimension) and
+``mesh_reduced`` says that a mesh computation already sums the
+gradients over the data shards (``gluon.Trainer`` then skips its local
+reduction; ``sharding.mark_mesh_reduced``).  A ``parallel.TrainStep``
+whose placement splits a parameter stores it as one tensor per distinct
+slice, each on its shard's device (``parallel._Sliced``): the
+parameter's own tensor is then a placeholder on the ``meta`` device that
+holds no memory, ``data()`` gathers the slices into the whole value (a
+copy: writing into it changes nothing), ``set_data`` and
+``load_parameters`` scatter into them, and a forward reads the gathered
+value, or, inside the step, what the step's data shard reads.  Its
+gradient lives inside the step: ``grad()`` raises, and so does a
+``Trainer`` over it.  ``reset_ctx`` gathers it back into one tensor.
 """
 
 from __future__ import annotations
 
+import contextlib
 import re
+import threading
 import weakref
 
 import numpy as np
@@ -36,6 +52,31 @@ __all__ = ["Parameter", "Constant", "ParameterDict",
 
 class DeferredInitializationError(MXNetError):
     pass
+
+
+# what the running forward reads for a parameter: the data shard of a
+# sharded parallel.TrainStep, or a pipeline stage (a thread's own:
+# autograd's device thread re-enters it for a recompute).  A view has
+# ``lookup(param)`` (a tensor, or None for the parameter's own value) and
+# ``model_axes(param, dim)`` (the model axes that split a dimension of the
+# parameter, which a block may compute over: empty for none)
+_VIEW = threading.local()
+
+
+def _shard_view():
+    """The view this thread's forward runs in, or None."""
+    return getattr(_VIEW, "value", None)
+
+
+@contextlib.contextmanager
+def _entered(view):
+    """Run the enclosed forward as data shard ``view``."""
+    prev = getattr(_VIEW, "value", None)
+    _VIEW.value = view
+    try:
+        yield view
+    finally:
+        _VIEW.value = prev
 
 
 def _contexts(ctx):
@@ -69,10 +110,12 @@ class Parameter:
         self.stype = stype
         self.grad_stype = grad_stype
         # a layout hint (a mesh axis per dim, as gluon.contrib.SparseMoE
-        # sets); recorded, read by nothing until multi-GPU parallelism
+        # sets), read by parallel.TrainStep without partition rules
         self.sharding = sharding
+        self.mesh_reduced = False
         self._data = None           # NDArray over a torch.nn.Parameter
         self._data_list = None      # one such NDArray per context
+        self._slices = None         # parallel._Sliced while split
         self._ctx_list = None
         self._deferred_init = None
         self._owners = []           # (weakref to Block, attribute name)
@@ -160,6 +203,10 @@ class Parameter:
         self._make(data._data)
 
     def _init_grad(self):
+        if self._slices is not None:
+            self._slices.requires_grad_(self._grad_req != "null")
+            self._data._grad = None
+            return
         for d in self._data_list:
             d._data.requires_grad_(self._grad_req != "null")
             d.grad_req = self._grad_req
@@ -223,13 +270,65 @@ class Parameter:
 
     def data(self, ctx=None):
         """The value on ``ctx``; None, or a Parameter on one context: the
-        first replica."""
+        first replica.  A parameter stored in slices gives its whole
+        value, gathered (a copy)."""
         self._check_initialized()
+        if self._slices is not None:
+            return NDArray(self._slices.gather().detach(), self._ctx)
         return self._value(ctx)
 
     def list_data(self):
         self._check_initialized()
+        if self._slices is not None:
+            return [self.data()]
         return list(self._data_list)
+
+    # -- sliced storage (parallel.TrainStep) ---------------------------------
+    def _tensor(self, ctx):
+        """The tensor a forward on ``ctx`` reads: what the running view
+        gives for this parameter (a sharded step's data shard, a pipeline
+        stage), else the replica, or the gathered slices."""
+        view = _shard_view()
+        if view is not None:
+            value = view.lookup(self)
+            if value is not None:
+                return value
+        if self._slices is not None:
+            return self._slices.gather()
+        return self._value(ctx)._data
+
+    def _device(self):
+        """The device of the value (of its first slice when split)."""
+        if self._slices is not None:
+            return self._slices.device
+        return self._data._data.device
+
+    def _store_slices(self, sliced):
+        """Keep the value as ``sliced`` (a ``parallel._Sliced``); the
+        registered tensor becomes a placeholder that holds no memory."""
+        dtype = self._device_dtype()
+        self._slices = sliced
+        self._data_list = [_placed(torch.nn.Parameter(
+            torch.empty(self.shape, dtype=dtype, device="meta"),
+            requires_grad=False), self._ctx)]
+        self._data = self._data_list[0]
+        self._init_grad()
+        self._register()
+
+    def _unslice(self, ctx=None):
+        """Gather a split value back into one tensor (on ``ctx``, else
+        on the first context)."""
+        if self._slices is None:
+            return
+        whole = self._slices.gather().detach()
+        self._slices = None
+        if ctx is not None:
+            self._ctx_list = _contexts(ctx)
+        self._make(whole.to(resolve_device(self._ctx_list[0]), copy=True))
+
+    def _device_dtype(self):
+        return self._data._data.dtype if self._data is not None \
+            else torch_dtype(self.dtype)
 
     def grad(self, ctx=None, stype=None):
         """The gradient buffer on ``ctx``; with ``stype`` (default: the
@@ -237,6 +336,7 @@ class Parameter:
         a RowSparseNDArray taken on the device (what
         ``Embedding(sparse_grad=True)`` gives: the dense buffer holds the
         scattered rows, the view compresses them)."""
+        self._refuse_slices("grad")
         d = self.data(ctx)
         if d._grad is None:
             raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
@@ -245,8 +345,16 @@ class Parameter:
             return sparse.row_sparse_array(d._grad)
         return d._grad
 
+    def _refuse_slices(self, what):
+        if self._slices is not None:
+            raise MXNetError(
+                f"Parameter {self.name!r} is stored in slices by a sharded "
+                f"parallel.TrainStep, whose step owns its gradient: {what} "
+                f"is not available (reset_ctx gathers it back)")
+
     def list_grad(self):
         self._check_initialized()
+        self._refuse_slices("list_grad")
         if self._data._grad is None:
             raise MXNetError(f"Parameter {self.name!r} has grad_req='null'")
         return [d._grad for d in self._data_list]
@@ -256,6 +364,9 @@ class Parameter:
 
     def reset_ctx(self, ctx):
         """Move the value to the context(s) ``ctx``: one replica each."""
+        if self._slices is not None:
+            self._unslice(ctx)
+            return
         self._ctx_list = _contexts(ctx)
         if self._data is not None:
             self._make(self._data._data.detach().to(
@@ -280,11 +391,14 @@ class Parameter:
             self._make(src.detach().to(resolve_device(self._ctx_list[0]),
                                        torch_dtype(self.dtype), copy=True))
             return
+        if self._slices is not None:
+            self._slices.scatter(src.detach())
+            return
         for d in self._data_list:
             d._set_data(src.detach())
 
     def zero_grad(self):
-        if self._data is None:
+        if self._data is None or self._slices is not None:
             return
         with torch.no_grad():
             for d in self._data_list:
@@ -295,6 +409,8 @@ class Parameter:
         """Cast the value to ``dtype`` in place (the same ``nn.Parameter``);
         the gradient buffer restarts at zero in the new dtype."""
         self.dtype = numpy_dtype(torch_dtype(dtype))
+        if self._slices is not None:
+            self._slices.cast(torch_dtype(dtype))
         if self._data is not None:
             for d in self._data_list:
                 d._data.data = d._data.data.to(torch_dtype(dtype))

@@ -39,10 +39,18 @@ its process group when the trainer first needs the store, so a failed
 rendezvous raises there; every worker's parameters then take rank 0's
 values (MXNet's ``init`` and ``pull``), and each step's reduction spans
 every worker.
+
+Parameters flagged ``mesh_reduced`` (``sharding.mark_mesh_reduced``: a
+mesh computation already summed their gradients) skip the reduction of a
+local store, counted in ``mxnet_sharding_skipped_allreduce_total``; a
+distributed store reduces them still, and ``update_on_kvstore=True``
+refuses them (the store would reduce inside its push).  The knob
+``MXNET_SHARDING_SKIP_ALLREDUCE=0`` reduces them like any other.
 """
 
 from __future__ import annotations
 
+from .. import config
 from .. import kvstore as kvs
 from .. import optimizer as opt
 from .. import optimizer_fusion
@@ -51,6 +59,7 @@ from ..base import MXNetError
 from ..resilience import chaos as _chaos
 from ..telemetry import stepclock as _sclock
 from ..telemetry import tracer as _ttrace
+from ..kvstore.dist import KVStoreDistTPUSync
 from .parameter import Parameter, ParameterDict
 
 __all__ = ["Trainer"]
@@ -218,13 +227,36 @@ class Trainer:
 
     def _reduce(self):
         trained = self._trained()
+        # parameters whose gradients a mesh computation already summed
+        # over the data shards (Parameter.mesh_reduced) skip the local
+        # reduction, which would count them again; a dist store still
+        # reduces everything (the mesh spans one process, the store the
+        # job)
+        skip = config.get_int("MXNET_SHARDING_SKIP_ALLREDUCE", 1)
         if self._update_on_kvstore:
+            if skip and any(p.mesh_reduced for _, p in trained):
+                raise MXNetError(
+                    "update_on_kvstore=True cannot honor "
+                    "Parameter.mesh_reduced: the store reduces inside "
+                    "push, double-counting gradients the mesh already "
+                    "reduced.  Use update_on_kvstore=False, clear the "
+                    "mesh_reduced flags, or set "
+                    "MXNET_SHARDING_SKIP_ALLREDUCE=0 to accept the "
+                    "unconditional reduction.")
             # the store updates on push; pull hands out the new weights
             for i, p in trained:
                 grads, datas = p.list_grad(), p.list_data()
                 self._kvstore.push(i, grads if len(grads) > 1 else grads[0])
                 self._kvstore.pull(i, datas if len(datas) > 1 else datas[0])
             return
+        if skip and not isinstance(self._kvstore, KVStoreDistTPUSync):
+            n_all = len(trained)
+            trained = [(i, p) for i, p in trained if not p.mesh_reduced]
+            if n_all > len(trained) and _ttrace._ENABLED:
+                from .. import sharding
+                sharding._M_SKIPPED_ALLREDUCE.inc(n_all - len(trained))
+            if not trained:
+                return
         keys = [i for i, _ in trained]
         vals = [g if len(g) > 1 else g[0]
                 for g in (p.list_grad() for _, p in trained)]

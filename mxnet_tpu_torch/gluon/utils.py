@@ -96,12 +96,17 @@ def _keep_draws(ctx, func, *args, **kwargs):  # noqa: ARG001
 
 def _block_tensors(block):
     """Every tensor of ``block`` (a Gluon Block: its parameters' values on
-    every context; a torch module: its parameters and buffers)."""
+    every context, the slices of a split one; a torch module: its
+    parameters and buffers; any other callable: none)."""
     from .block import Block
     if isinstance(block, Block):
-        return [d._data for p in block.collect_params().values()
-                if p._data is not None for d in p._data_list]
-    return list(block.parameters()) + list(block.buffers())
+        return [t for p in block.collect_params().values()
+                if p._data is not None
+                for t in (p._slices.tensors() if p._slices is not None
+                          else [d._data for d in p._data_list])]
+    if isinstance(block, torch.nn.Module):
+        return list(block.parameters()) + list(block.buffers())
+    return []
 
 
 def remat_call(block, *inputs):
@@ -122,7 +127,9 @@ def remat_call(block, *inputs):
     forward's: a generator cannot be rewound inside a captured CUDA graph.
     Raises ``MXNetError`` for a block with several outputs and for one
     that writes its own state in the forward (BatchNorm's running
-    statistics in training), whose write the recompute would repeat."""
+    statistics in training), whose write the recompute would repeat.
+    ``block`` may also be a plain function of tensors, whose state is
+    not checked."""
     from .block import Block, HybridBlock, _forward_ctx
     nd_in = next((a for a in inputs if isinstance(a, NDArray)), None)
     recording = autograd.is_recording() if nd_in is not None \
@@ -165,6 +172,7 @@ def remat_call(block, *inputs):
         return out
     autograd._note_inputs(
         [a for a in inputs if isinstance(a, NDArray)]
-        + ([d for p in block.collect_params().values() if p._data is not None
+        + ([d for p in block.collect_params().values()
+            if p._data is not None and p._slices is None
             for d in p._data_list] if isinstance(block, Block) else []))
     return NDArray(out, nd_in._ctx)

@@ -16,7 +16,7 @@ distinct cards; the same tensor where shards share one).  ``attention``,
 sequence-parallel kernels (``kernels/ring_attention.py``,
 ``kernels/ulysses.py``).
 
-``TrainStep`` is one training step on one device.
+``TrainStep`` is one training step over one device's shards.
 
 ``TrainStep(net, loss_fn, optimizer)`` runs
 
@@ -83,15 +83,35 @@ counts its capture saw.
 ``run(stacked_data, stacked_label)`` takes the steps along the leading
 axis, ``run(data, label, steps=K)`` takes K steps on one batch; both
 return the losses as one tensor, step by step, without synchronising (the
-reference scans the steps in one program).  ``mesh`` (default: the
-current mesh) may hold several shards when they all lie on the net's
-device: the step is then the one-device step, which is what the
-reference's placement computes on one device, and ``contrib.sp_att_qkv``
-inside it runs ring or Ulysses attention over the current mesh's
-sequence axis.  ``data_spec`` must name axes of that mesh and places
-nothing while its shards share one card.  A mesh over distinct devices,
-sharding rules and autoshard plans wait for ROADMAP A.9's sharding slice
-and raise ``MXNetError``.
+reference scans the steps in one program).
+
+``mesh`` (default: the current mesh) may hold several shards that all lie
+on the net's card; the step then realises the reference's placements
+itself, in one autograd graph (one CUDA graph on the card) whose
+collectives are differentiable torch ops (``cat``, sums, ``.to``):
+
+- each parameter's placement is resolved on the mesh
+  (``sharding.resolve_spec``): from ``partition_rules`` (authoritative:
+  unmatched parameters replicate) or, without rules, from the
+  parameter's own ``sharding`` hint.  A parameter it splits is stored as
+  one tensor per distinct slice on its shard's device (``_Sliced``),
+  and its optimizer state is made per slice, so it is split alike;
+- the batch splits over the axes of ``data_spec``'s first entry
+  (default: the mesh's first axis; ``()`` keeps it whole), each data
+  shard runs the forward on its rows, and the loss is the shards' mean
+  weighted by their rows; ``n_micro`` and ``remat`` apply per shard.  An
+  axis named for a later dimension (``("dp", "sp")``) splits nothing
+  here: it must be an axis the net's attention runs over (the llama's
+  ``attn_impl="ring"|"ulysses"``), else the call raises;
+- a data shard's forward reads a split parameter gathered on its device
+  (ZeRO-3's gather at use: autograd sums the gradient back into each
+  slice), except where a block computes per tensor-parallel shard (the
+  zoo llama under ``sharding.llama_rules``: ``_ShardView.tp_part``).
+
+``plan`` (an ``autoshard.Plan``) supplies the mesh (over the net's card
+repeated), the rules, ``data_spec``, ``n_micro`` and ``remat``; the
+arguments given win.  A mesh over distinct devices raises
+``MXNetError``: one CUDA graph cannot span cards (ROADMAP A.9).
 
 Telemetry, as the reference's: with telemetry on, each call is one step
 of the step clock (``telemetry.STEP_CLOCK``), whose ``h2d`` phase is the
@@ -111,6 +131,8 @@ place of a replay.
 
 from __future__ import annotations
 
+import functools
+import itertools
 import time as _time
 from typing import NamedTuple
 
@@ -125,6 +147,7 @@ from .telemetry import stepclock as _sclock
 from .telemetry import tracer as _ttrace
 from .context import Context, context_of, cpu, gpu, resolve_device
 from .gluon.block import Block
+from .gluon.parameter import _entered
 from .gluon.utils import _block_tensors, remat_call
 from .kernels import flash_attention as _fa
 from .ndarray.ndarray import NDArray
@@ -344,6 +367,225 @@ def allgather(values, mesh=None):  # noqa: ARG001
     return _spread(total, tensors, ctxs)
 
 
+# -- placements realised: sliced storage and the data shards' view ----------
+
+def _entry_axes(entry):
+    """The mesh axes of one placement entry (an axis, a tuple, None)."""
+    if entry is None:
+        return ()
+    return tuple(entry) if isinstance(entry, (tuple, list)) else (entry,)
+
+
+def _grid(mesh):
+    """The mesh's devices as an object array of its shape."""
+    grid = np.empty(len(mesh.devices), dtype=object)
+    grid[:] = mesh.devices
+    return grid.reshape(mesh.shape)
+
+
+def _row_major(coords, sizes):
+    index = 0
+    for c, n in zip(coords, sizes):
+        index = index * n + c
+    return index
+
+
+class _Sliced:
+    """A parameter's value under a splitting Placement: one tensor per
+    distinct slice, each on the device of the first shard (row-major)
+    that holds it.  ``split`` lists (dimension, axes, number of chunks)
+    of the split dimensions; a slice's key is its chunk index along each
+    of them, a chunk's position along a dimension the row-major index of
+    the shard's coordinates on that dimension's axes."""
+
+    def __init__(self, placement, value, requires_grad):
+        mesh, spec = placement
+        self.placement = placement
+        self.shape = tuple(value.shape)
+        self.split = []
+        for d, entry in enumerate(spec):
+            axes = _entry_axes(entry)
+            if axes:
+                n = 1
+                for a in axes:
+                    n *= mesh.axis_size(a)
+                self.split.append((d, axes, n))
+        grid, homes = _grid(mesh), {}
+        for coords in itertools.product(*(range(n) for n in mesh.shape)):
+            homes.setdefault(self.key_of(mesh, coords), grid[coords])
+        self._tensors = {}
+        with torch.no_grad():
+            for key, dev in homes.items():
+                self._tensors[key] = torch.nn.Parameter(
+                    value[self._index(key)].to(dev, copy=True),
+                    requires_grad=requires_grad)
+
+    def key_of(self, mesh, coords):
+        """The key of the slice the shard at grid ``coords`` holds."""
+        where = dict(zip(mesh.axis_names, coords))
+        return tuple(_row_major([where[a] for a in axes],
+                                [mesh.axis_size(a) for a in axes])
+                     for _, axes, _ in self.split)
+
+    def _index(self, key):
+        index = [slice(None)] * len(self.shape)
+        for (d, _, n), i in zip(self.split, key):
+            size = self.shape[d] // n
+            index[d] = slice(i * size, (i + 1) * size)
+        return tuple(index)
+
+    @property
+    def device(self):
+        return next(iter(self._tensors.values())).device
+
+    def tensors(self):
+        """The slices, in key order."""
+        return [self._tensors[k] for k in sorted(self._tensors)]
+
+    def _assemble(self, device, ranges):
+        """The slices whose chunk index along each split dimension lies
+        in ``ranges`` (one range a split dimension), concatenated on
+        ``device`` (a differentiable gather)."""
+        def level(i, prefix):
+            if i == len(self.split):
+                t = self._tensors[prefix]
+                return t if t.device == device else t.to(device)
+            parts = [level(i + 1, prefix + (c,)) for c in ranges[i]]
+            return parts[0] if len(parts) == 1 else \
+                torch.cat(parts, dim=self.split[i][0])
+        return level(0, ())
+
+    def gather(self, device=None):
+        """The whole value on ``device`` (default: the first slice's)."""
+        return self._assemble(device or self.device,
+                              [range(n) for _, _, n in self.split])
+
+    def part(self, dim, k, ways, device):
+        """Chunk ``k`` of ``ways`` equal chunks along ``dim`` (whole along
+        the other dimensions) on ``device``: the slices that make it up
+        where the split along ``dim`` nests in ``ways``, else a narrow of
+        the whole value."""
+        ranges = [range(n) for _, _, n in self.split]
+        for i, (d, _, n) in enumerate(self.split):
+            if d == dim and n % ways == 0:
+                m = n // ways
+                ranges[i] = range(k * m, (k + 1) * m)
+                return self._assemble(device, ranges)
+        size = self.shape[dim] // ways
+        return self.gather(device).narrow(dim, k * size, size)
+
+    def scatter(self, src):
+        """Write the whole value ``src`` into the slices."""
+        with torch.no_grad():
+            for key, t in self._tensors.items():
+                t.copy_(src[self._index(key)])
+
+    def requires_grad_(self, flag):
+        for t in self._tensors.values():
+            t.requires_grad_(flag)
+
+    def cast(self, dtype):
+        for t in self._tensors.values():
+            t.data = t.data.to(dtype)
+
+    def held_by(self, coords):
+        """The slice the shard at grid ``coords`` holds."""
+        return self._tensors[self.key_of(self.placement.mesh, coords)]
+
+
+class _Layout:
+    """How a sharded step runs on its mesh: the data axes the batch
+    splits over (row-major, ``n_data`` shards) and the placement of each
+    parameter."""
+
+    def __init__(self, mesh, data_axes, placements):
+        self.mesh = mesh
+        self.data_axes = tuple(data_axes)
+        self.placements = placements        # id(Parameter) -> Placement
+        self.n_data = 1
+        for a in self.data_axes:
+            self.n_data *= mesh.axis_size(a)
+        self._grid = _grid(mesh)
+
+    def device(self, j, k=0, axis=None):
+        """The device of data shard ``j``'s shard ``k`` along the model
+        axis ``axis`` (the other axes at index 0)."""
+        names = self.mesh.axis_names
+        coords = [0] * len(names)
+        sizes = [self.mesh.axis_size(a) for a in self.data_axes]
+        for a, c in zip(self.data_axes, np.unravel_index(j, sizes)):
+            coords[names.index(a)] = c
+        if axis is not None:
+            coords[names.index(axis)] = k
+        return self._grid[tuple(coords)]
+
+
+class _ShardView:
+    """What the forward of data shard ``j`` reads: each split parameter
+    gathered on the shard's device once (ZeRO-3's gather at use; autograd
+    sums the gradient back into every slice), or, where a block computes
+    per shard of a model axis (the zoo llama's tensor parallelism), the
+    chunks of each shard."""
+
+    def __init__(self, layout, j):
+        self.layout = layout
+        self.j = j
+        self._cache = {}
+
+    @property
+    def device(self):
+        return self.layout.device(self.j)
+
+    def size(self, axis):
+        return self.layout.mesh.axis_size(axis)
+
+    def tp_device(self, k, axis):
+        return self.layout.device(self.j, k, axis)
+
+    def lookup(self, param):
+        """A split parameter gathered on the shard's device (once a
+        view); None for a whole one (its own tensor)."""
+        if param._slices is None:
+            return None
+        v = self._cache.get(id(param))
+        if v is None:
+            v = self._cache[id(param)] = param._slices.gather(self.device)
+        return v
+
+    def model_axes(self, param, dim):
+        """The model axes (not data axes, more than one shard) that
+        split dimension ``dim`` of ``param``: a tuple, empty for none."""
+        pl = self.layout.placements.get(id(param))
+        if pl is None or dim >= len(pl.spec):
+            return ()
+        return tuple(a for a in _entry_axes(pl.spec[dim])
+                     if a not in self.layout.data_axes and self.size(a) > 1)
+
+    def tp_part(self, param, dim, k, axis):
+        """Chunk ``k`` of the ways of ``axis`` along ``dim`` of ``param``
+        on that shard's device."""
+        dev, ways = self.tp_device(k, axis), self.size(axis)
+        if param._slices is not None:
+            return param._slices.part(dim, k, ways, dev)
+        whole = param._tensor(None)
+        size = whole.shape[dim] // ways
+        return whole.narrow(dim, k * size, size).to(dev)
+
+
+def _sp_axes(net):
+    """The mesh axes the net's attention runs over (blocks built with
+    ``attn_impl="ring"`` or ``"ulysses"``: the zoo llama)."""
+    if not isinstance(net, Block):
+        return set()
+    out, todo = set(), [net]
+    while todo:
+        b = todo.pop()
+        if getattr(b, "_attn_impl", "fused") in ("ring", "ulysses"):
+            out.add(getattr(b, "_sp_axis", "sp"))
+        todo.extend(b._children.values())
+    return out
+
+
 # -- the training step --------------------------------------------------------
 
 def _mesh_devices(mesh):
@@ -366,7 +608,7 @@ def _net_device(net):
     params = list(net.collect_params().values())
     for p in params:
         if p._data is not None:
-            return p._data._data.device
+            return p._device()
     return resolve_device(next(p._ctx for p in params if p._ctx is not None))
 
 
@@ -422,11 +664,27 @@ class TrainStep:
     def __init__(self, net, loss_fn, optimizer, optimizer_params=None,
                  mesh=None, donate=True, partition_rules=None,
                  data_spec=None, n_micro=None, remat=None, plan=None):
-        for name, value in (("partition_rules", partition_rules),
-                            ("plan", plan)):
-            if value:
-                raise MXNetError(f"TrainStep: {name} is not ported to "
-                                 f"mxnet_tpu_torch (ROADMAP A.9)")
+        if plan is not None:
+            from .autoshard import Plan
+            if not isinstance(plan, Plan):
+                raise MXNetError(f"TrainStep: plan must be an autoshard.Plan, "
+                                 f"got {type(plan).__name__}")
+            # the plan's values are defaults: arguments given win
+            if mesh is None:
+                n = int(np.prod(plan.mesh_sizes))
+                mesh = plan.build_mesh(devices=[_net_device(net)] * n)
+            if partition_rules is None:
+                partition_rules = plan.rules()
+            if data_spec is None:
+                data_spec = plan.data_spec
+            if n_micro is None:
+                n_micro = plan.n_micro
+            if remat is None:
+                remat = plan.remat
+        if partition_rules is not None and not isinstance(net, Block):
+            raise MXNetError(
+                "TrainStep: partition_rules match Gluon parameter names; "
+                f"{type(net).__name__} is not a Gluon Block")
         if mesh is None:
             mesh = current_mesh()
         self._mesh_device = None
@@ -435,9 +693,10 @@ class TrainStep:
             if len(devices) > 1:
                 raise MXNetError(
                     f"TrainStep: a mesh over more than one device "
-                    f"({sorted(map(str, devices))}) waits for ROADMAP A.9's "
-                    f"sharding slice (data and tensor parallelism across "
-                    f"cards); shards that share the net's card run here")
+                    f"({sorted(map(str, devices))}): the sharding slice "
+                    f"realises placements on shards that share the net's "
+                    f"card; a step over distinct cards (one CUDA graph "
+                    f"cannot span them) waits for ROADMAP A.9")
             self._mesh_device = devices.pop()
         self.mesh = mesh if isinstance(mesh, DeviceMesh) else None
         if data_spec is not None:
@@ -451,6 +710,9 @@ class TrainStep:
                             f"data_spec {tuple(data_spec)} names axis {a!r} "
                             f"the mesh {self.mesh or DeviceMesh()!r} does "
                             f"not carry")
+        self._rules = partition_rules
+        self._data_spec = None if data_spec is None else tuple(data_spec)
+        self._layout = None
         if n_micro is None:
             n_micro = max(1, config.get_int("MXNET_MICROBATCH", 1))
         n_micro = int(n_micro)
@@ -484,10 +746,22 @@ class TrainStep:
         (Gluon) or names (a torch module) by index, as the Trainer tells
         it (LARS reads the names, lr_mult/wd_mult the Parameters)."""
         if isinstance(self.net, Block):
-            params = [p for p in self.net.collect_params().values()
-                      if p.grad_req != "null"]
-            self.optimizer.param_dict = dict(enumerate(params))
-            return [p.data()._data for p in params]
+            tensors, owners = [], []
+            for p in self.net.collect_params().values():
+                if p.grad_req == "null":
+                    continue
+                ts = p._slices.tensors() if p._slices is not None \
+                    else [p.data()._data]
+                tensors += ts
+                owners += [p] * len(ts)
+            if len(tensors) > len(set(map(id, owners))) and isinstance(
+                    self.optimizer, (opt.LARS, opt.LAMB)):
+                raise MXNetError(
+                    f"TrainStep: {type(self.optimizer).__name__}'s update "
+                    f"reads each weight's whole norm; it cannot update a "
+                    f"parameter stored in slices")
+            self.optimizer.param_dict = dict(enumerate(owners))
+            return tensors
         named = [(n, p) for n, p in self.net.named_parameters()
                  if p.requires_grad]
         self.optimizer.idx2name = {i: n for i, (n, _) in enumerate(named)}
@@ -508,6 +782,7 @@ class TrainStep:
                 p._data is None for p in self.net.collect_params().values()):
             with autograd.pause(), torch.no_grad():
                 self.net(data)
+        self._layout = self._place()
         self._collect()
         home = self._mesh_device
         if home is not None and (home.type, home.index or 0) != (
@@ -516,6 +791,56 @@ class TrainStep:
                 f"TrainStep: the mesh's shards lie on {self._mesh_device}, "
                 f"the net on {self.device}; a mesh beyond the net's card "
                 f"waits for ROADMAP A.9's sharding slice")
+
+    def _place(self):
+        """Resolve each parameter's placement on the mesh and store the
+        split ones in slices (the others whole); the data axes from
+        ``data_spec``.  Returns the step's layout, or None where the step
+        is the one-device step (no mesh, or nothing split and one data
+        shard)."""
+        from . import sharding
+        params = list(self.net.collect_params().values()) \
+            if isinstance(self.net, Block) else []
+        mesh = self.mesh
+        if mesh is None or mesh.size == 1:
+            for p in params:
+                p._unslice()
+            return None
+        spec = self._data_spec if self._data_spec is not None \
+            else (mesh.axis_names[0],)
+        sp = _sp_axes(self.net)
+        for d, entry in enumerate(spec[1:], 1):
+            for a in _entry_axes(entry):
+                if a not in sp:
+                    raise MXNetError(
+                        f"TrainStep: data_spec {spec} splits dimension {d} "
+                        f"over axis {a!r}, which no attention of the net "
+                        f"runs over (a token split needs blocks built with "
+                        f"attn_impl='ring' or 'ulysses' over {a!r})")
+        specs = None if self._rules is None else \
+            sharding.match_partition_rules(
+                self._rules, {p.name: p for p in params})
+        placements = {}
+        for p in params:
+            # under rules the rules decide, else the parameter's own hint
+            logical = p.sharding if specs is None else specs.get(p.name, ())
+            split = False
+            if logical:
+                pl, split = sharding.resolve_spec(logical, mesh,
+                                                  shape=p.shape)
+            elif specs is not None and _ttrace._ENABLED:
+                sharding._M_FALLBACK.inc()
+            if not split:
+                p._unslice()
+                continue
+            placements[id(p)] = pl
+            if p._slices is None or p._slices.placement != pl:
+                p._unslice()
+                p._store_slices(_Sliced(pl, p.data()._data,
+                                        p.grad_req != "null"))
+        layout = _Layout(mesh, _entry_axes(spec[0]) if spec else (),
+                         placements)
+        return layout if placements or layout.n_data > 1 else None
 
     def _collect(self):
         """(Re)read the trainable tensors; keep each optimizer state that
@@ -621,9 +946,33 @@ class TrainStep:
 
     # -- the step -------------------------------------------------------------
     def _loss(self, data, label):
+        """The loss of ``data``: the net's, or over a sharded layout the
+        mean of the data shards' losses weighted by their rows, each
+        shard's forward reading the parameters as its view gives them."""
+        lay = self._layout
+        if lay is None:
+            return self._shard_loss(self.net, data, label)
+        n = lay.n_data
+        if data.shape[0] % n:
+            raise MXNetError(
+                f"TrainStep: a batch of {data.shape[0]} does not split over "
+                f"the data axes {lay.data_axes} ({n} shards)")
+        total = None
+        for j, (d, l) in enumerate(zip(data.chunk(n), label.chunk(n))):
+            view = _ShardView(lay, j)
+            loss = self._shard_loss(functools.partial(self._forward_in, view),
+                                    d.to(view.device), l.to(view.device))
+            term = loss.to(data.device) * (d.shape[0] / data.shape[0])
+            total = term if total is None else total + term
+        return total
+
+    def _forward_in(self, view, data):
+        with _entered(view):
+            return self.net(data)
+
+    def _shard_loss(self, forward, data, label):
         with autograd.train_mode():
-            out = remat_call(self.net, data) if self._remat \
-                else self.net(data)
+            out = remat_call(forward, data) if self._remat else forward(data)
             loss = self.loss_fn(out, label)
         return loss.mean() if loss.dim() else loss
 

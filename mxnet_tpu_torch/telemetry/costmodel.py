@@ -59,8 +59,15 @@ datasheet figures for the H100 SXM and PCIe cards, the CPU's nominal
 5e11 FLOP/s and 5e10 B/s, ``MXNET_PEAK_FLOPS`` / ``MXNET_PEAK_HBM_GBS``
 over either.  The f32 peak is the card's own (TF32 is off in the port),
 not a fraction of the bf16 one.  An unknown CUDA card raises.
-:func:`estimate_memory` needs the sharding rule packs and raises
-(ROADMAP A.9).
+:func:`matmul_tile` and :func:`link_bytes_per_s` are the auto-sharder's
+hardware terms (``autoshard.planner``): the matmul tile width below which
+a split dimension wastes the card's tiles, and the card-to-card link's
+bytes a second in one direction.  On the CPU they are the reference's
+(128 lanes, the memory rate over 10), so a plan made on the CPU is the
+reference's byte for byte.
+
+:func:`estimate_memory` is the reference's analytic per-device memory of
+one training step under a rule pack and mesh, term for term.
 """
 
 from __future__ import annotations
@@ -78,6 +85,7 @@ __all__ = [
     "add_rearm_hook", "arm_from_env", "counting", "flash_flops",
     "measure", "signature", "peak_flops", "peak_hbm_bytes_per_s",
     "roofline", "lane_summary", "estimate_memory", "report_text",
+    "matmul_tile", "link_bytes_per_s",
     "summarize_entries", "site_table_lines",
 ]
 
@@ -97,6 +105,21 @@ _CUDA_PEAKS = (
     ("H100 SXM", (989.4e12, 66.9e12, 3.35e12)),
 )
 _HALF = ("bfloat16", "bf16", "float16", "fp16", "half")
+# the planner's terms: the matmul tile width, and the link's bytes/s a
+# direction from NVIDIA's datasheets (NVLink 4 on the SXM card, PCIe 5 x16
+# on the PCIe card).  The tile: chip_smoke.py's "shard" phase times one
+# bf16 GEMM (8192 x 4096) @ (4096 x d); on an H100 80GB HBM3 at 700 W its
+# efficiency against the bf16 peak was 0.079, 0.155, 0.301, 0.535, 0.719
+# at d = 32, 64, 128, 256, 512: proportional to d up to 256, then rising
+# more slowly, so a split below 256 wastes the card's tiles
+_CPU_TILE = 128
+_CPU_LINK_FRACTION = 10.0
+_CUDA_TILE = 256
+_CUDA_LINKS = (
+    ("H100 PCIe", 64e9),
+    ("H100 80GB HBM3", 450e9),
+    ("H100 SXM", 450e9),
+)
 
 _M_EXECUTABLES = _metrics.counter(
     "mxnet_costmodel_executables_total",
@@ -499,6 +522,25 @@ def peak_hbm_bytes_per_s():
     return _cuda_peaks()[2]
 
 
+def matmul_tile():
+    """The width of the card's matmul tile (the planner's efficiency
+    term); the reference's 128 lanes on the CPU."""
+    return _CPU_TILE if _device_kind()[1] else _CUDA_TILE
+
+
+def link_bytes_per_s():
+    """Bytes/s a direction of the link between two cards (the planner's
+    collective term); the memory rate over 10 on the CPU, as the
+    reference's interconnect term."""
+    if _device_kind()[1]:
+        return peak_hbm_bytes_per_s() / _CPU_LINK_FRACTION
+    kind, _ = _device_kind()
+    for sub, rate in _CUDA_LINKS:
+        if sub in kind:
+            return rate
+    raise MXNetError(f"costmodel: no link figure for the card {kind!r}")
+
+
 def roofline(flops, bytes_accessed, seconds=None, dtype="bfloat16"):
     """The roofline read on one program: arithmetic intensity against the
     machine ridge, the MFU bound it implies, and (given a measured time)
@@ -575,9 +617,247 @@ def report_text():
     return "\n".join(lines)
 
 
-def estimate_memory(*args, **kwargs):  # noqa: ARG001
-    """The reference's fits-per-shape estimator reads the sharding rule
-    packs, which are not ported (ROADMAP A.9)."""
-    raise MXNetError("costmodel.estimate_memory needs the sharding rule "
-                     "packs of sharding.py, which the port does not have "
-                     "yet (ROADMAP A.9)")
+# -- fits-per-shape: analytic per-device memory ---------------------------
+
+def _mesh_axis_sizes(mesh_shape):
+    """{'dp': 2, 'tp': 2, ...} from a dict, a DeviceMesh, or a
+    (shape, axis_names) pair."""
+    if hasattr(mesh_shape, "axis_names"):      # parallel.DeviceMesh
+        return dict(zip(tuple(mesh_shape.axis_names),
+                        tuple(mesh_shape.shape)))
+    if isinstance(mesh_shape, dict):
+        return {str(k): int(v) for k, v in mesh_shape.items()}
+    shape, names = mesh_shape
+    return dict(zip(names, (int(s) for s in shape)))
+
+
+def _sharded_numel(shape, spec, axes):
+    """Element count of one param's per-device shard under ``spec`` —
+    resolve_spec's exact degradation semantics (missing axes drop out,
+    indivisible dims stay whole)."""
+    n = 1
+    spec = tuple(spec or ())
+    for d, dim in enumerate(shape):
+        div = 1
+        if d < len(spec):
+            entry = spec[d]
+            entry = entry if isinstance(entry, (tuple, list)) \
+                else (entry,) if entry is not None else ()
+            for a in entry:
+                div *= axes.get(a, 1)
+        n *= dim // div if (div > 1 and dim % div == 0) else dim
+    return n
+
+
+def _param_table(model_cfg):
+    """{name: (shape, itemsize)} from a Block, ParameterDict, or dict of
+    shapes/arrays."""
+    import numpy as _np
+    if hasattr(model_cfg, "collect_params"):
+        model_cfg = model_cfg.collect_params()
+    out = {}
+    for name, leaf in dict(model_cfg.items()).items():
+        shape = tuple(leaf) if isinstance(leaf, (tuple, list)) \
+            else tuple(leaf.shape)
+        dt = getattr(leaf, "dtype", None)
+        size = getattr(dt, "itemsize", None)    # a torch dtype has one
+        out[name] = (shape, 4 if dt is None else
+                     size if isinstance(size, int) else _np.dtype(dt).itemsize)
+    return out
+
+
+_EMBED_PAT = ("tok_", "word_", "embed", "position_")
+
+
+def _drop_axes(spec, drop):
+    """``spec`` with every axis in ``drop`` removed (per-dim entries keep
+    their remaining axes)."""
+    out = []
+    for entry in tuple(spec or ()):
+        entry = entry if isinstance(entry, (tuple, list)) \
+            else (entry,) if entry is not None else ()
+        kept = tuple(a for a in entry if a not in drop)
+        out.append(kept if len(kept) > 1 else (kept[0] if kept else None))
+    return tuple(out)
+
+
+def _state_itemsize(itemsize, multi_precision):
+    """Bytes of one optimizer-state element (Adam's m or v, momentum):
+    on a card the port's multi-precision optimizers keep it in f32 beside
+    the f32 master; on the host the reference's term, the weight's own
+    width, so that the host's estimates and plans are the reference's."""
+    if multi_precision and itemsize < 4 and not _device_kind()[1]:
+        return 4
+    return itemsize
+
+
+def estimate_memory(model_cfg, mesh_shape, rule_pack, batch, seq=None,
+                    optimizer="adam", multi_precision=False,
+                    data_axes=("dp", "sp"), vocab=None,
+                    n_micro=1, remat=False, fsdp_axes=("fsdp",)):
+    """Analytic per-device HBM (bytes) for ONE fused training step.
+
+    Parameters
+    ----------
+    model_cfg : a gluon Block (post-init), ParameterDict, or
+        ``{name: shape|array}`` dict — the named param tree the rule pack
+        matches against.
+    mesh_shape : ``{'dp': 2, 'tp': 2, 'sp': 2}``, a DeviceMesh, or a
+        ``(shape, axis_names)`` pair.
+    rule_pack : pack name (``'llama'``/``'llama_fsdp'``/``'bert'``/...),
+        an ordered ``(regex, spec)`` rule list, or None (fully
+        replicated).
+    batch : GLOBAL batch size (samples).
+    seq : tokens per sample (token models; None => 1, feature models).
+    optimizer : 'adam' (m+v state) or 'sgd' (momentum assumed on).
+    multi_precision : half-precision weights keep fp32 masters (and,
+        on a card, fp32 optimizer state: ``_state_itemsize``).
+    data_axes : mesh axes the token batch shards over (data_spec) —
+        include the fsdp axis for ZeRO-3 layouts (the batch rides it).
+    vocab : LM-head width for the logits term; inferred from the widest
+        embedding-named param when None.
+    n_micro : gradient-accumulation microbatches per step (TrainStep
+        ``n_micro``): live activations/logits divide by it, but a full
+        gradient ACCUMULATOR joins the working set (and under fsdp the
+        per-microbatch gradients live gathered inside the scan before
+        their reduce-scatter — both measured on the llama lane).
+    remat : TrainStep ``remat`` — saved activations halve (checkpointed
+        segment stores inputs; backward recomputes with roughly half the
+        residual set live); the planner treats remat as the last lever.
+    fsdp_axes : axes with gather-on-use semantics (params sharded along
+        them are all-gathered right before each matmul).
+
+    Returns a breakdown dict whose ``total_bytes`` is the estimated
+    steady-state peak for a donated step: live arguments (params +
+    optimizer state + batch) plus the backward working set (gradients +
+    saved activations + the fp32 logits head + the fsdp gather
+    working set).  On the host the terms are the reference's, byte for
+    byte (its calibration was against its own compiler's peaks); on a
+    card multi-precision state counts in f32, as the port keeps it
+    (``_state_itemsize``); ``chip_smoke.py``'s
+    "shard" phase prints the estimate beside each shard's measured
+    parameter and state bytes and the card's peak.
+    """
+    axes = _mesh_axis_sizes(mesh_shape)
+    table = _param_table(model_cfg)
+    if rule_pack is None:
+        specs = {name: () for name in table}
+    else:
+        from .. import sharding as _sh
+        rules = _sh.rule_pack(rule_pack) if isinstance(rule_pack, str) \
+            else rule_pack
+        specs = _sh.match_partition_rules(
+            rules, {n: shape for n, (shape, _i) in table.items()})
+
+    if optimizer == "adam":
+        n_state = 2
+    elif optimizer in ("sgd", "sgd_mom"):
+        n_state = 1
+    else:
+        raise ValueError(f"estimate_memory: unknown optimizer "
+                         f"{optimizer!r} (adam|sgd)")
+    n_micro = max(1, int(n_micro))
+
+    tokens = int(batch) * int(seq or 1)
+    data_div = 1
+    for a in data_axes:
+        data_div *= axes.get(a, 1)
+    tokens_dev = max(1, tokens // data_div)
+    # only one microbatch's activations are live at a time
+    tokens_act = max(1, tokens_dev // n_micro)
+
+    params_b = state_b = 0
+    act_elems = 0.0
+    gathered_b = 0          # full-along-fsdp bytes of gather-on-use params
+    inferred_vocab = 0
+    seen_inputs = set()
+    fsdp_drop = frozenset(fsdp_axes)
+    for name, (shape, itemsize) in table.items():
+        spec = specs.get(name, ())
+        numel = _sharded_numel(shape, spec, axes)
+        params_b += numel * itemsize
+        state_b += numel * _state_itemsize(itemsize, multi_precision) \
+            * n_state
+        if multi_precision and itemsize < 4:
+            state_b += numel * 4
+        nofsdp_spec = _drop_axes(spec, fsdp_drop)
+        gathered = _sharded_numel(shape, nofsdp_spec, axes)
+        if gathered != numel:
+            # actually fsdp-sharded (divisible, axis present): the
+            # all-gather before use materializes the full-along-fsdp
+            # weight (still divided by any tp axes it carries)
+            gathered_b += gathered * itemsize
+        is_embed = any(p in name for p in _EMBED_PAT)
+        if is_embed and len(shape) == 2:
+            inferred_vocab = max(inferred_vocab, shape[0])
+        if len(shape) == 2 and not is_embed:
+            # every matmul's backward saves its input activation
+            # (tokens × in_features, sharded when the weight is
+            # row-parallel) and hands a same-shaped output cotangent
+            # through (tokens × out_features, sharded when
+            # column-parallel): count the saved input plus the layer
+            # output that the residual stream keeps live.  Matmuls in
+            # one layer reading the SAME activation (q/k/v, gate/up)
+            # save it ONCE — dedup by (layer prefix, sharded width).
+            # Activation widths use the NON-fsdp sharding: the matmul
+            # runs on the gathered weight, so activations shard only
+            # over tp-style axes.
+            out_f = _sharded_numel((shape[0],), nofsdp_spec[:1], axes)
+            in_f = _sharded_numel((shape[1],), nofsdp_spec[1:2], axes) \
+                if len(nofsdp_spec) > 1 else shape[1]
+            layer_key = name.rsplit("_", 2)[0]
+            if (layer_key, in_f) not in seen_inputs:
+                seen_inputs.add((layer_key, in_f))
+                act_elems += tokens_act * in_f
+            act_elems += tokens_act * out_f
+
+    # fp32 logits head: softmax_cross_entropy upcasts and saves both the
+    # logits and their softmax for backward
+    v = int(vocab) if vocab else inferred_vocab
+    logits_b = 2 * tokens_act * v * 4 if v else 0
+    # gradients live as temps through backward + the fused update; a
+    # microbatched step additionally carries the accumulator, and under
+    # fsdp the in-scan per-microbatch gradients are FULL along fsdp
+    # until their reduce-scatter (measured: llama dp×fsdp micro lane)
+    grads_b = params_b
+    if n_micro > 1:
+        grads_b += gathered_b if gathered_b else params_b
+    acts_b = int(act_elems) * 4     # residuals saved in compute precision
+    if remat:
+        acts_b //= 2
+    # gather-on-use working set: roughly half the gathered weight bytes
+    # live at the peak while the scheduler can overlap gathers with
+    # frees (measured 195.4KB vs 197.6KB predicted on the llama
+    # dp2×fsdp4 lane) — but once the live ACTIVATION set outgrows that
+    # half, XLA holds the full gathered set (measured crossover on the
+    # batch-32 dp4×fsdp2 lane: half-model 14% under, full-model 3%
+    # over).  Inside a microbatch scan gathers can't overlap frees
+    # across the scan boundary at all, so the full set always counts
+    # there (fsdp micro2 lane: within 1.5% with this, 17% under
+    # without).
+    if n_micro > 1:
+        gather_b = gathered_b
+    else:
+        gather_b = min(gathered_b, max(gathered_b // 2, acts_b))
+    batch_b = 2 * tokens_dev * 4    # data + label, int32 tokens
+    total = (params_b + state_b + grads_b + batch_b + acts_b + logits_b
+             + gather_b)
+    return {
+        "params_bytes": int(params_b),
+        "opt_state_bytes": int(state_b),
+        "grads_bytes": int(grads_b),
+        "batch_bytes": int(batch_b),
+        "activation_bytes": int(acts_b),
+        "logits_bytes": int(logits_b),
+        "fsdp_gather_bytes": int(gather_b),
+        # the UN-clamped full-along-fsdp weight bytes: what one step's
+        # all-gathers actually move per microbatch (the residency-
+        # clamped fsdp_gather_bytes above is a PEAK-MEMORY quantity and
+        # must not be used for communication accounting)
+        "fsdp_gathered_bytes": int(gathered_b),
+        "total_bytes": int(total),
+        "tokens_per_device": tokens_dev,
+        "n_micro": n_micro,
+        "remat": bool(remat),
+        "mesh": dict(axes),
+    }

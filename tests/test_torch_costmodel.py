@@ -324,8 +324,9 @@ def test_unknown_card_raises_and_cpu_is_nominal(monkeypatch):
         with pytest.raises(MXNetError,
                            match="MXNET_PEAK_FLOPS.*MXNET_PEAK_HBM_GBS"):
             fn()
-    with pytest.raises(MXNetError, match="ROADMAP A.9"):
-        tcm.estimate_memory({"w": (4, 4)}, {"dp": 1}, None, batch=1)
+    # the estimator is the reference's (tests/test_torch_autoshard.py)
+    assert tcm.estimate_memory({"w": (4, 4)}, {"dp": 1}, None, batch=1) \
+        == jcm.estimate_memory({"w": (4, 4)}, {"dp": 1}, None, batch=1)
 
 
 def test_wrapped_site_and_late_arming():

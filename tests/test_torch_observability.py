@@ -252,18 +252,9 @@ print('alive')
 # metrics that only modules the port does not have yet register
 UNPORTED = {
     "telemetry/perfgate.py": "A.11",
-    "sharding.py": "A.9",
-    "autoshard/planner.py": "A.9",
     "resilience/controller.py": "A.9 (ElasticController)",
 }
 UNPORTED_METRICS = {
-    "mxnet_sharding_resolved_params_total": "A.9",
-    "mxnet_sharding_fallback_params_total": "A.9",
-    "mxnet_sharding_skipped_allreduce_total": "A.9",
-    "mxnet_autoshard_candidates_total": "A.9",
-    "mxnet_autoshard_fits_total": "A.9",
-    "mxnet_autoshard_plans_total": "A.9",
-    "mxnet_autoshard_no_fit_total": "A.9",
     "mxnet_controller_restarts_total": "A.9 (ElasticController)",
     "mxnet_controller_resizes_total": "A.9 (ElasticController)",
     "mxnet_controller_worker_failures_total": "A.9 (ElasticController)",
