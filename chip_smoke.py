@@ -46,9 +46,10 @@ result line; each prints its seconds):
     ``ServingEngine(
     max_batch=8, block_tokens=16, max_seq=2048, prefill_tokens=1024)``
     answers 8 requests of 100-1000 prompt tokens, 16 new tokens each; the
-    forward kernel's counter must grow by >= layers per prefill; one
-    prefill is repeated with attention bound to the plain version and the
-    logits compared;
+    forward kernel's counter must grow by >= layers per prefill; the
+    decode steps after the first run under ``analysis.no_retrace()``
+    (they build nothing); one prefill is repeated with attention bound to
+    the plain version and the logits compared;
  7. tier — the rest of serving at full width: (a) the serve phase's
     llama3_8b behind ``ServingEngine(max_batch=8, block_tokens=16,
     max_seq=2048, prefill_tokens=1024)`` answers 8 requests sharing a
@@ -70,7 +71,10 @@ result line; each prints its seconds):
     engines built (their heartbeats), bursts of 32 requests until replica
     0 is SIGKILLed while it decodes (at most 3): every answer equals
     an in-process engine's, the death, the retry and the respawn are
-    counted, and no process is left after ``Router.stop()``;
+    counted, and no process is left after ``Router.stop()``; the whole
+    phase runs with the lock-order checker armed (``MXNET_LOCKCHECK=1`` in
+    this process and in both replicas): no ``LockOrderError``, the edges
+    recorded here printed;
  8. train oracle — bert_3_128_2 at seq 512 (fused backward) and llama_small
     at seq 1024 (dq + dkv) train 6 steps on the card (``TrainStep`` captured
     as a CUDA graph: one eager warm-up, then 5 replays) and on the CPU
@@ -84,7 +88,11 @@ result line; each prints its seconds):
     full width, in bf16 with multi-precision Adam, then again in f32 with
     plain Adam (``bert_seq512_f32``, ``llama_seq2048_f32``, bench.py's
     lanes under MXNET_BENCH_DTYPE=float32), 8 captured ``TrainStep``
-    steps on one batch, and padded BERT steps whose lengths ride in the
+    steps on one batch (the 6 replays after the eager call and the
+    capture under ``analysis.no_retrace()``), each lane's perf-gate record
+    of GATE_REPLAYS more replays with the cost ledger armed (one armed
+    dispatch a replay, no build, the lane's flash launches a replay), and
+    padded BERT steps whose lengths ride in the
     batch: losses finite and falling, kernel launches per step (a replay
     counts its capture's; every launch in the lane's dtype; none on the
     CUDA-core route for wide bf16 heads), median step ms, samples/s, MFU
@@ -248,8 +256,9 @@ result line; each prints its seconds):
     (341, 256) on the card against the CPU (within 1), device ms.  No
     flash kernel launches;
 19. util — the training utilities as a user's script drives them, on
-    BERT-base at bench.py's bert_seq512 width (vocab 30522, batch 32, seq
-    512, bf16, multi-precision Adam at 1e-4, dropout 0; attention on the
+    BERT-base at bench.py's bert_seq512 width cut to 6 layers (vocab
+    30522, batch 32, seq 512, bf16, multi-precision Adam at 1e-4, dropout
+    0; attention on the
     flash forward and the fused backward), see ``util_phase``: (a) 3
     steps with ``MXNET_OPTIMIZER_FUSED=1`` and 3 with 0 from the same
     weights on the same gradients: weights bitwise equal, median step ms
@@ -435,6 +444,17 @@ result line; each prints its seconds):
     ``flash_attention_plain`` at (1, 16, 4096, 128) and (1, 32, 2048,
     128); one bf16 GEMM (8192 x 4096) @ (4096 x d), d = 32 ... 512, its
     efficiency (the planner's tile term).
+27. gate — the perf gate on the card: ``tools/torch_perfgate.py --check
+    --device cuda --jobs 7`` against the card tier
+    ``tests/perf_baseline_torch_cuda.json`` (each of the seven lanes in a
+    child that loads the built kernels) must pass under the bands (exact
+    dispatches, builds, executables and counters; FLOPs and bytes 2 %,
+    peak memory 5 %); each lane's record, observed wall and flash launches
+    printed; ``MXNET_KVSTORE_BUCKET_MB=0`` must turn
+    ``trainer_fused_kvstore`` red (exit 1, more dispatches a step); the
+    f32 kernels against ``flash_attention_plain`` at the lanes' shapes,
+    (2, 2, 512, 64) (single-tile forward, fused backward) and (1, 4,
+    2048, 16) causal (streaming forward, dq, dkv).
 The second-to-last line is ``{"kernels": [...]}``: ``flash_fwd`` at the
 f32 prefill shape (``launches`` counts all train lanes' timed steps,
 ``serve_launches`` the serve phase's, ``f32_launches`` the f32 launches of
@@ -468,7 +488,9 @@ phase's 8 BERT-base steps (``np_launches``: the bf16 forward and fused
 backward; 0 elsewhere) and the sp phase's llama steps (``sp_launches``:
 the bf16 forward, dq and dkv; 0 on the fused and f32 rows) and the shard
 phase's tp and plan steps and pipeline (``shard_launches``: the bf16
-forward, dq and dkv; 0 on the fused and f32 rows);
+forward, dq and dkv; 0 on the fused and f32 rows) and the gate phase's
+lane children (``gate_launches``: the f32 forward, fused, dq and dkv of
+its two train lanes; 0 on the bf16 rows);
 the last line is ``{"ok": true, "device": {...}}``.
 
 Tolerances.  Forward, on valid rows: f32 out and lse 2e-5 max abs error
@@ -1037,7 +1059,12 @@ def serve_phase(torch, fa, tmx, llama, serving, args):
 
     def timed_decode(*a, **kw):
         t = time.perf_counter()
-        r = orig_decode(*a, **kw)            # returns host numpy: synced
+        if decode_s:
+            # the steady decode steps build nothing
+            with tmx.analysis.no_retrace():
+                r = orig_decode(*a, **kw)    # returns host numpy: synced
+        else:
+            r = orig_decode(*a, **kw)
         decode_s.append(time.perf_counter() - t)
         return r
 
@@ -1065,7 +1092,8 @@ def serve_phase(torch, fa, tmx, llama, serving, args):
          f"{len(prefill_s)} prefills (P=1024) median "
          f"{statistics.median(prefill_s) * 1e3:.1f} ms "
          f"[{', '.join(f'{s * 1e3:.1f}' for s in prefill_s)}]; "
-         f"{len(decode_s)} decode steps (B=8) median "
+         f"{len(decode_s)} decode steps (B=8, all after the first under "
+         f"no_retrace()) median "
          f"{statistics.median(decode_s) * 1e3:.1f} ms; flash launches "
          f"{launches} ({launches / len(prefill_s):.1f} per prefill); "
          f"launches {counts}")
@@ -1364,7 +1392,8 @@ def _tier_router(torch, tmx, serving, args, smi):
     workdir = tempfile.mkdtemp(prefix="mx_tier_router_")
     names = ("dispatched", "retries", "replica_deaths", "respawns")
     c0 = {m: tel.counter(f"mxnet_router_{m}_total").value for m in names}
-    router = serving.Router(cmd, 2, workdir, hang_s=120.0)
+    router = serving.Router(cmd, 2, workdir, hang_s=120.0,
+                            env_extra={"MXNET_LOCKCHECK": "1"})
     killed, bursts = None, []
     try:
         t0 = time.perf_counter()
@@ -1415,6 +1444,7 @@ def _tier_router(torch, tmx, serving, args, smi):
         # shuts down (its socket's EOF) as a death too
         delta = {m: tel.counter(f"mxnet_router_{m}_total").value - c0[m]
                  for m in names}
+        order_errors = _tier_lock_order_errors(workdir)
     except AssertionError as exc:
         free, total = torch.cuda.mem_get_info()
         raise AssertionError(
@@ -1435,6 +1465,9 @@ def _tier_router(torch, tmx, serving, args, smi):
         raise AssertionError(f"tier router: counters {delta}")
     if live:
         raise AssertionError(f"tier router: processes left: {live}")
+    if order_errors:
+        raise AssertionError(f"tier router: a replica raised "
+                             f"LockOrderError: {order_errors}")
     _log(f"tier router: 2 llama_small replicas (vocab {V}) up and built "
          f"in {up_s:.1f} s; {len(bursts)} burst(s) of {n} requests x "
          f"{new} tokens answered in "
@@ -1444,26 +1477,53 @@ def _tier_router(torch, tmx, serving, args, smi):
          f"; no process left ({smi})")
 
 
+def _tier_lock_order_errors(workdir):
+    """The replicas' log lines naming a LockOrderError."""
+    logs = os.path.join(workdir, "logs")
+    found = []
+    for fn in sorted(os.listdir(logs)) if os.path.isdir(logs) else ():
+        with open(os.path.join(logs, fn), errors="replace") as f:
+            found += [f"{fn}: {ln.strip()}" for ln in f
+                      if "LockOrderError" in ln]
+    return found
+
+
 def tier_phase(torch, fa, mx, llama, serving, net, args, smi):
     """The rest of serving on the card (see the module docstring, phase
     7): the prefix cache and speculative decoding at llama3_8b width, the
     MT adapter on transformer_base, and the router tier with a replica
-    killed; then the SLO histograms of the in-process engines."""
+    killed; then the SLO histograms of the in-process engines.  The lock
+    order checker is armed throughout (``MXNET_LOCKCHECK=1`` in this
+    process, the router's, and in both replicas)."""
     tmx = mx["pkg"]
     tel = tmx.telemetry
+    an = tmx.analysis
     tel.REGISTRY.reset()
     _reset_counts(fa)
-    prompts, plain = _tier_prefix(torch, fa, tmx, serving, net, args, smi)
-    _tier_spec(torch, fa, tmx, llama, serving, net, prompts, plain, args,
-               smi)
-    _tier_mt(torch, fa, tmx, serving, args, smi)
-    counts = _counts(fa)
-    ttft = _hist_quantiles(tel.REGISTRY.get("mxnet_serving_ttft_seconds"))
-    tpot = _hist_quantiles(tel.REGISTRY.get("mxnet_serving_tpot_seconds"))
-    _log(f"tier slo: in-process engines of the phase, histogram bucket "
-         f"bounds: TTFT p50 <= {ttft[0]} s, p99 <= {ttft[1]} s; TPOT p50 "
-         f"<= {tpot[0]} s, p99 <= {tpot[1]} s ({smi})")
-    _tier_router(torch, tmx, serving, args, smi)
+    an.arm_lockcheck(True)
+    an.lockcheck_reset()
+    try:
+        prompts, plain = _tier_prefix(torch, fa, tmx, serving, net, args,
+                                      smi)
+        _tier_spec(torch, fa, tmx, llama, serving, net, prompts, plain,
+                   args, smi)
+        _tier_mt(torch, fa, tmx, serving, args, smi)
+        counts = _counts(fa)
+        ttft = _hist_quantiles(
+            tel.REGISTRY.get("mxnet_serving_ttft_seconds"))
+        tpot = _hist_quantiles(
+            tel.REGISTRY.get("mxnet_serving_tpot_seconds"))
+        _log(f"tier slo: in-process engines of the phase, histogram bucket "
+             f"bounds: TTFT p50 <= {ttft[0]} s, p99 <= {ttft[1]} s; TPOT "
+             f"p50 <= {tpot[0]} s, p99 <= {tpot[1]} s ({smi})")
+        _tier_router(torch, tmx, serving, args, smi)
+        edges = an.lockcheck_edges()
+    finally:
+        an.arm_lockcheck(None)
+        an.lockcheck_reset()
+    _log(f"tier lockcheck: MXNET_LOCKCHECK=1 in this process and both "
+         f"replicas, no LockOrderError; {len(edges)} acquisition edge(s) "
+         f"recorded here: {sorted(edges)}")
     return counts
 
 
@@ -1796,6 +1856,43 @@ def _lane_model(torch, mx, lane, dtype, seed, remat=False):
             6 * n_matmul + 6 * layers * units * L, layers, B, L, vocab)
 
 
+GATE_REPLAYS = 4       # replays in a lane's perf-gate window
+
+
+def _gate_record(torch, fa, tmx, step, toks, labs, lane, dname, want):
+    """The perf gate's record of a captured step's replays
+    (``telemetry.perfgate``'s ``_steady_capture`` and ``_finish_record``):
+    the cost ledger armed, one analysed call, then GATE_REPLAYS replays
+    under ``no_retrace()``.  Each replay must be one armed dispatch, build
+    nothing, and launch ``want`` (kernel -> launches a step)."""
+    from mxnet_tpu_torch.telemetry import perfgate as pg
+    tel = tmx.telemetry
+    tel.costmodel.arm()
+    tel.clear()
+    try:
+        step(toks, labs)                    # the ledger analyses this call
+        torch.cuda.synchronize()
+        before = _counts(fa)
+        with tmx.analysis.no_retrace():
+            steady = pg._steady_capture(lambda: step(toks, labs),
+                                        iters=GATE_REPLAYS)
+        torch.cuda.synchronize()
+        rec = pg._finish_record({"lane": lane}, "parallel.TrainStep", steady,
+                                dtype=dname)
+    finally:
+        tel.costmodel.disarm()
+        tel.clear()
+    got = {k: (_counts(fa)[k] - before[k]) / GATE_REPLAYS for k in want}
+    _log(f"lane {lane} gate record: metrics {rec['metrics']}; observed "
+         f"{rec['observed']}; flash launches a replay {got}")
+    m = rec["metrics"]
+    if m["dispatches_per_step"] != 1.0 or m["retraces_steady"] != 0 \
+            or m["executables"] != 1 or got != want:
+        raise AssertionError(f"{lane}: gate record {m}, launches a replay "
+                             f"{got}, want {want}")
+    return rec
+
+
 def _timed_steps(torch, step, toks, labs, steps):
     """``steps`` TrainStep calls, each drained: (losses, wall ms)."""
     losses, step_ms = [], []
@@ -1901,10 +1998,17 @@ def train_lane_phase(torch, fa, mx, args):
         _log(f"lane {lane}: {n_params} params, {dname}, built in "
              f"{time.perf_counter() - t0:.1f} s")
         _reset_counts(fa)
-        losses, step_ms = _timed_steps(torch, step, toks, labs, steps)
+        # an eager call, then the capture; the replays build nothing
+        losses, step_ms = _timed_steps(torch, step, toks, labs, 2)
+        with tmx.analysis.no_retrace():
+            more, more_ms = _timed_steps(torch, step, toks, labs, steps - 2)
+        losses, step_ms = losses + more, step_ms + more_ms
         counts = _counts(fa)
         prof = _profile_step(torch, lambda: step(toks, labs), lane)
         peak = torch.cuda.max_memory_allocated()
+        # after the peak and the profile: the gate's analysed call runs
+        # eagerly beside the captured graph's pool
+        _gate_record(torch, fa, tmx, step, toks, labs, lane, dname, want)
         extra = {}
         if lane.startswith("bert_seq512"):
             extra = _padded_steps(torch, fa, mx, net, loss_fn, toks, labs,
@@ -5482,7 +5586,9 @@ def image_phase(torch, fa, mx, args, smi):
 # bench.py's bert_seq512 lane (:529-531) at full width: vocab 30522, batch
 # 32, seq 512, bf16 with multi-precision Adam; dropout 0 (the checkpoints
 # carry no random generator, as the reference's do not)
-UTIL = {"layers": 12, "units": 768, "hidden": 3072, "heads": 12,
+# BERT-base's widths, its depth cut from 12 layers to 6 (the np phase's
+# BERT-base keeps 12: NP_LAYERS)
+UTIL = {"layers": 6, "units": 768, "hidden": 3072, "heads": 12,
         "vocab": 30522, "batch": 32, "len": 512, "lr": 1e-4,
         "fused_steps": 3, "curve_steps": 4, "fault_at": 2, "sigterm_at": 1,
         "compress": {"type": "2bit", "threshold": 0.5}}
@@ -5520,11 +5626,13 @@ sys.exit(1)
 """
 
 
-def _util_net(torch, tmx, seed):
-    """BERT-base as Gluon blocks on the card, hybridized, bf16."""
+def _util_net(torch, tmx, seed, layers=None):
+    """BERT-base's widths as Gluon blocks on the card, hybridized, bf16,
+    ``layers`` deep (the util phase's UTIL["layers"] by default)."""
     bert = tmx.gluon.model_zoo.bert
     u = UTIL
-    net = bert.BERTModel(vocab_size=u["vocab"], num_layers=u["layers"],
+    net = bert.BERTModel(vocab_size=u["vocab"],
+                         num_layers=layers or u["layers"],
                          units=u["units"], hidden_size=u["hidden"],
                          num_heads=u["heads"], max_length=u["len"],
                          dropout=0.0, prefix="bert_")
@@ -7816,6 +7924,7 @@ def sparse_phase(torch, fa, mx, args, smi):
 # -- np: mx.np, npx and util --------------------------------------------------
 
 NP_STEPS = 8
+NP_LAYERS = 12         # the np phase's BERT-base: the whole depth
 NP_LOSS_TOL = 1e-6     # relative: the np head's step-1 loss, SoftmaxCELoss
 NP_CURVE_TOL = 2e-3    # relative a step: the np curve against the nd curve
 
@@ -7923,7 +8032,7 @@ def _np_bert(torch, fa, tmx, args, smi):
     u = UTIL
     B, L = u["batch"], u["len"]
     _fresh_peak(torch)
-    net = _util_net(torch, tmx, args.seed)
+    net = _util_net(torch, tmx, args.seed, layers=NP_LAYERS)
     params = net.collect_params()
     start = {k: p.data()._data.detach().clone() for k, p in params.items()}
     trainer = tmx.gluon.Trainer(params, "adam", {
@@ -7979,8 +8088,8 @@ def _np_bert(torch, fa, tmx, args, smi):
             raise AssertionError("npx.save / npx.load changed a parameter")
     finally:
         tmx.npx.reset_np()
-    want = {k: NP_STEPS * UTIL["layers"] for k in ("flash_fwd",
-                                                   "flash_bwd_fused")}
+    want = {k: NP_STEPS * NP_LAYERS for k in ("flash_fwd",
+                                              "flash_bwd_fused")}
     if {k: counts[k] for k in want} != want or any(
             v for k, v in counts.items() if k not in want):
         raise AssertionError(f"np BERT-base launches {counts}")
@@ -8002,7 +8111,7 @@ def _np_bert(torch, fa, tmx, args, smi):
     # attention's 12 x layers x units x L
     n_matmul = sum(p.numel() for n, p in net.named_parameters()
                    if "word_embed" not in n and "position" not in n)
-    flops_tok = 6 * n_matmul + 12 * u["layers"] * u["units"] * L
+    flops_tok = 6 * n_matmul + 12 * NP_LAYERS * u["units"] * L
     numbers = {"step_ms": med, "samples_per_s": B / (med / 1e3),
                "mfu": B / (med / 1e3) * L * flops_tok
                / PEAK_FLOPS["bfloat16"],
@@ -8816,6 +8925,119 @@ def shard_phase(torch, fa, mx, args, smi):
 SHARD_LOSS_TOL = 2e-3   # relative, sharded against unsharded bf16 losses
 
 
+# -- gate: the perf gate on the card ------------------------------------------------
+
+GATE = {"baseline": os.path.join("tests", "perf_baseline_torch_cuda.json"),
+        "jobs": 7, "budget_s": 60.0, "timeout_s": 600}
+# the kernels at the gate lanes' shapes: bert_seq512 (bert_3_128_2: 2
+# heads of 64, batch 2, seq 512, no mask: the single-tile forward and the
+# fused backward) and llama_longseq (4 heads of 16 after GQA, seq 2048,
+# causal: the streaming forward, dq and dkv), f32
+GATE_SHAPES = (("bert_seq512", (2, 2, 512, 64), False),
+               ("llama_longseq", (1, 4, 2048, 16), True))
+# each lane's flash launches: its run() calls (two warm-up, two in the
+# window, one drain) x scan steps x layers; bert_headline's seq 32 takes
+# the dense path, and the other lanes run no flash kernel
+_GATE_CALLS = 5
+GATE_LAUNCHES = {
+    "bert_seq512": {k: _GATE_CALLS * 2 * 3 for k in (
+        "flash_fwd", "flash_fwd_f32", "flash_bwd_fused",
+        "flash_bwd_fused_f32")},
+    "llama_longseq": {k: _GATE_CALLS * 1 * 2 for k in (
+        "flash_fwd", "flash_fwd_f32", "flash_bwd_dq", "flash_bwd_dq_f32",
+        "flash_bwd_dkv", "flash_bwd_dkv_f32")},
+}
+
+
+def _gate_cli(torch, root, env, *args):
+    res = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "torch_perfgate.py"),
+         *args], capture_output=True, text=True, env=env, cwd=root,
+        timeout=GATE["timeout_s"])
+    try:
+        report = json.loads(res.stdout)
+    except ValueError:
+        report = None
+    return res.returncode, report, res.stderr
+
+
+def gate_phase(torch, fa, mx, args, smi):
+    """The perf gate on the card: ``tools/torch_perfgate.py --check
+    --device cuda`` against the card tier (seven lanes, one child each,
+    loading the built kernels), each lane's record and observed wall
+    printed; the red path (``MXNET_KVSTORE_BUCKET_MB=0`` must exit 1);
+    the flash kernels against their plain version at the lanes' shapes.
+    Returns (the lanes' flash launches, numbers)."""
+    del args
+    root = os.path.dirname(os.path.abspath(__file__))
+    baseline = os.path.join(root, GATE["baseline"])
+    env = dict(os.environ, MXNET_PERFGATE_BASELINE=baseline)
+    env.pop("MXNET_KVSTORE_BUCKET_MB", None)
+    tmp = tempfile.mkdtemp(prefix="mx_gate_")
+    records_path = os.path.join(tmp, "records.json")
+    t0 = time.perf_counter()
+    try:
+        rc, report, err = _gate_cli(
+            torch, root, env, "--check", "--device", "cuda", "--jobs",
+            str(GATE["jobs"]), "--json", "--records", records_path)
+        check_s = time.perf_counter() - t0
+        if rc != 0 or report is None or not report["ok"]:
+            raise AssertionError(f"gate: --check exited {rc}: {report}; "
+                                 f"{err[-3000:]}")
+        with open(records_path) as f:
+            records = json.load(f)
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    counts = {k: 0 for k in _COUNTERS}
+    for name, rec in sorted(records.items()):
+        launches = rec["observed"].pop("flash_launches")
+        for k, n in launches.items():
+            counts[k] += n
+        got = {k: n for k, n in launches.items() if n}
+        _log(f"gate lane {name} ({smi}): {report['lanes'][name]['verdict']}"
+             f"; metrics {rec['metrics']}; counters {rec['counters']}; "
+             f"sites {sorted(rec['sites'])}; observed {rec['observed']}; "
+             f"flash launches {got}")
+        if got != GATE_LAUNCHES.get(name, {}):
+            raise AssertionError(f"gate lane {name}: flash launches {got}, "
+                                 f"want {GATE_LAUNCHES.get(name, {})}")
+    t1 = time.perf_counter()
+    rc, red, err = _gate_cli(
+        torch, root, dict(env, MXNET_KVSTORE_BUCKET_MB="0"), "--check",
+        "--device", "cuda", "--lanes", "trainer_fused_kvstore", "--json")
+    red_s = time.perf_counter() - t1
+    fails = {} if red is None else {
+        f["metric"]: f for f in
+        red["lanes"]["trainer_fused_kvstore"]["failures"]}
+    d = fails.get("dispatches_per_step")
+    if rc != 1 or d is None or not d["got"] > d["base"]:
+        raise AssertionError(f"gate: the red path exited {rc}: {red}; "
+                             f"{err[-2000:]}")
+    _log(f"gate red path ({smi}): MXNET_KVSTORE_BUCKET_MB=0 -> exit 1, "
+         f"trainer_fused_kvstore dispatches a step {d['base']} -> "
+         f"{d['got']}, drifted {sorted(fails)}")
+    gate_s = time.perf_counter() - t0
+    _log(f"gate: 7 lanes within the card tier's bands (exact dispatches, "
+         f"builds, executables and counters; FLOPs and bytes 2 %, peak 5 "
+         f"%) in {check_s:.1f} s (--jobs {GATE['jobs']}), red path "
+         f"{red_s:.1f} s, {gate_s:.1f} s in all (budget "
+         f"{GATE['budget_s']:.0f} s)")
+    if gate_s > GATE["budget_s"]:
+        raise AssertionError(f"gate: {gate_s:.1f} s, over its budget of "
+                             f"{GATE['budget_s']:.0f} s")
+    g = torch.Generator(device="cuda").manual_seed(37)
+    errs = {}
+    for lane, shape, causal in GATE_SHAPES:
+        q, k, v, do = (torch.randn(*shape, generator=g, device="cuda")
+                       for _ in range(4))
+        errs[lane] = _sp_plain(torch, fa, f"{lane} lane", "float32", q, k,
+                               v, do, None, None, causal,
+                               1.0 / math.sqrt(shape[-1]), phase="gate")
+    return counts, {"check_s": check_s, "red_s": red_s, "gate_s": gate_s,
+                    "kernel_errs": errs}
+
+
 def _ptxas_summary(log):
     """(kernel<template args>, registers, spill-store bytes, ptxas's spill
     line) for every compiled kernel."""
@@ -9029,6 +9251,7 @@ def main(argv=None):
     sp_counts, _ = _phase("sp", sp_phase, torch, fa, mx, args, smi)
     shard_counts, _ = _phase("shard", shard_phase, torch, fa, mx, args,
                              smi)
+    gate_counts, _ = _phase("gate", gate_phase, torch, fa, mx, args, smi)
 
     t_k, t_p, t_l, bound, bound_by = timings[("prefill", "float32")]
     kernels = [{
@@ -9089,6 +9312,9 @@ def main(argv=None):
         "sp_launches": sp_counts["flash_fwd"],
         # the shard phase's tp steps, plan steps and pipeline, bf16
         "shard_launches": shard_counts["flash_fwd"],
+        # the gate phase's seven lane children (f32): bert_seq512's
+        # single-tile forward, llama_longseq's streaming forward
+        "gate_launches": gate_counts["flash_fwd"],
     }]
     # the f32 kernel at the quant path's shape, on its own q, k, v
     att = quant_numbers["flash"]
@@ -9170,6 +9396,7 @@ def main(argv=None):
                 "sp_launches": _dtype_count(sp_counts, kind_, pre),
                 "shard_launches": _dtype_count(shard_counts, kind_, pre),
                 "tier_launches": _dtype_count(tier_counts, kind_, pre),
+                "gate_launches": _dtype_count(gate_counts, kind_, pre),
             })
             if kind_ == "fused":
                 kernels[-1]["gluon_launches"] = \

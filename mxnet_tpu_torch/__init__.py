@@ -133,7 +133,8 @@ from . import util  # noqa: E402,F401
 _LAZY = {"serving": "serving", "native": "native", "numpy": "numpy",
          "np": "numpy", "numpy_extension": "numpy_extension",
          "npx": "numpy_extension", "rtc": "rtc", "sharding": "sharding",
-         "pipeline": "pipeline", "autoshard": "autoshard"}
+         "pipeline": "pipeline", "autoshard": "autoshard",
+         "analysis": "analysis"}
 
 
 def __getattr__(name):

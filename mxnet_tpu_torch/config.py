@@ -142,8 +142,27 @@ KNOWN_VARS = {
         "If set, a daemon-thread HTTP server exposes the live telemetry "
         "plane on this port: /metrics (Prometheus exposition of the "
         "registry), /statusz (knobs, world, step-clock verdict, serving "
-        "gauges), /ledger.json (cost and op ledgers), /healthz.  0 binds "
-        "an ephemeral port; unset (default) = no server."),
+        "gauges), /ledger.json (cost and op ledgers), /healthz, "
+        "/perfgate.json (the live ledger against the committed perf "
+        "baseline).  0 binds an ephemeral port; unset (default) = no "
+        "server."),
+    "MXNET_PERFGATE_BASELINE": (
+        None,
+        "Path of the committed perf baseline the gate diffs against "
+        "(tools/torch_perfgate.py --check, /perfgate.json).  Unset "
+        "(default) = tests/perf_baseline_torch.json, the host tier; the "
+        "card tier is tests/perf_baseline_torch_cuda.json."),
+    "MXNET_PERFGATE_LANES": (
+        None,
+        "Comma-separated lane filter for perfgate snapshot/check runs "
+        "(e.g. 'bert_headline,trainer_fused_kvstore').  Unset (default) = "
+        "every registered lane; a filtered --check is reported as "
+        "PARTIAL."),
+    "MXNET_PERFGATE_CHILD_TIMEOUT_S": (
+        "420",
+        "Per-lane wall budget (seconds) of the perfgate snapshot child "
+        "processes (each lane builds its workload and runs its "
+        "steady-state window in a fresh interpreter)."),
     "MXNET_STEPCLOCK_WINDOW": (
         "64",
         "Steps the StepClock keeps for the rolling input-/comms-/compute-"
@@ -199,6 +218,12 @@ KNOWN_VARS = {
         "backoff * 2^k (with +/-25% jitter)."),
     "MXNET_RESILIENCE_BACKOFF_MAX_S": (
         "2", "Cap on the exponential retry backoff (seconds)."),
+    "MXNET_LOCKCHECK": (
+        "0",
+        "If 1, locks created through analysis.tracked() record their "
+        "acquisition order and raise LockOrderError on a cycle — the "
+        "runtime twin of graftcheck GC06 (debug/test builds; disarmed "
+        "locks are returned raw, zero overhead)."),
     "MXNET_CHAOS": (
         "0",
         "If 1, arm chaos faults from MXNET_CHAOS_SITES at import "

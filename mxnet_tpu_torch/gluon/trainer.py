@@ -290,20 +290,21 @@ class Trainer:
         o = self._optimizer
         trained = self._trained()
         perkey = set()
+        enabled = _ttrace._ENABLED
         if self._fused_kind() is not None:
             run = self._update_fused
             # sparse parameters (and sparse gradients) keep the per-key
             # path, as the reference's fused step routes them
             perkey = {i for i, p in trained if p.stype != "default"
                       or p.grad_stype != "default"}
-            if perkey and _ttrace._ENABLED:
+            if perkey and enabled:
                 optimizer_fusion.record_fallback(len(perkey))
         elif optimizer_fusion.supported_kind(o) is not None:
             run = self._update_per_param
         else:
             run = opt.Updater.call_multi
         counts, num = dict(o._index_update_count), o.num_update
-        fused = run == self._update_fused and _ttrace._ENABLED
+        fused = run == self._update_fused and enabled
         for j, upd in enumerate(self._updaters):
             if j:       # every replica sees the same step count
                 o._index_update_count.clear()

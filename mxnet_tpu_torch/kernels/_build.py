@@ -24,6 +24,7 @@ import os
 import subprocess
 import threading
 
+from ..analysis import runtime as _art
 from ..base import MXNetError
 
 __all__ = ["build_kernel_libraries", "build_log", "library_path",
@@ -79,6 +80,7 @@ def build_kernel_libraries(sources):
                 with open(log) as f:
                     _logs[s] = f.read()
                 _libs[s] = ctypes.CDLL(out)
+                _art.note_build(f"kernels.{s}")
                 continue
             os.makedirs(BUILD_DIR, exist_ok=True)
             tmp = f"{out}.tmp.{os.getpid()}"
@@ -100,6 +102,7 @@ def build_kernel_libraries(sources):
             os.replace(f"{tmp}.log", out[:-3] + ".log")
             os.replace(tmp, out)
             _libs[s] = ctypes.CDLL(out)
+            _art.note_build(f"kernels.{s}")
         if failed:
             raise MXNetError("kernel build failed: " + "\n".join(failed))
         return {s: _libs[s] for s in sources}

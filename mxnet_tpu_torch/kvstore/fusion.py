@@ -29,6 +29,8 @@ import torch
 
 from .. import config
 from .. import telemetry as _tel
+from ..analysis import runtime as _art
+from ..telemetry import costmodel as _costmodel
 
 _M_FUSED_PUSHPULLS = _tel.counter(
     "mxnet_kvstore_fused_pushpulls_total",
@@ -129,6 +131,7 @@ class GradBucketer:
         buckets = self._plan_cache.get(signature)
         if buckets is None:
             buckets = self._plan_cache[signature] = self._build(signature)
+            _art.note_build("kvstore.fusion")
         return buckets
 
     def _build(self, signature):
@@ -155,10 +158,23 @@ class GradBucketer:
     def reduce_bucket(bucket, arrays):
         """``arrays``: replica-major (replica r's tensors for every key of
         the bucket, then replica r+1's), all on one device -> the list of
-        per-key replica sums."""
-        n = len(bucket.positions)
-        if bucket.n_rep == 1:
-            return list(arrays)
-        return tree_sum([list(arrays[r * n:(r + 1) * n])
-                         for r in range(bucket.n_rep)],
-                        add=torch._foreach_add)
+        per-key replica sums.  Armed, the cost ledger's
+        ``kvstore.fusion.reduce`` site (the reference's), keyed by the
+        bucket's layout."""
+        if not _costmodel._ARMED:
+            return _reduce(bucket, arrays)
+        return _REDUCE_SITE.call(
+            _reduce, (bucket, arrays),
+            key=(bucket.dtype, bucket.n_rep, tuple(bucket.shapes)))
+
+
+_REDUCE_SITE = _costmodel.Site("kvstore.fusion.reduce")
+
+
+def _reduce(bucket, arrays):
+    n = len(bucket.positions)
+    if bucket.n_rep == 1:
+        return list(arrays)
+    return tree_sum([list(arrays[r * n:(r + 1) * n])
+                     for r in range(bucket.n_rep)],
+                    add=torch._foreach_add)

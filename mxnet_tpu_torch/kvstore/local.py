@@ -248,13 +248,13 @@ class KVStoreLocal(KVStoreBase):
         if self._updater is not None or self._bucket_bytes <= 0:
             return KVStoreBase.pushpull_list(self, keys, values, outs,
                                              priority=priority)
+        enabled = _ttrace._ENABLED
         if not self._fusable(keys, values):
             # compressed and sparse keys reduce one by one
-            if _ttrace._ENABLED:
+            if enabled:
                 fusion.record_fallback(len(keys))
             return KVStoreBase.pushpull_list(self, keys, values, outs,
                                              priority=priority)
-        enabled = _ttrace._ENABLED
         with _tel.span("kvstore.fused_pushpull", "kvstore") as sp:
             total_bytes = n_buckets = 0
             t0 = _time.perf_counter_ns() if enabled else 0

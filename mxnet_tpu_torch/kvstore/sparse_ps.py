@@ -19,8 +19,8 @@ multi-precision master starts at the row, a momentum at zero).
 optimizer, updater) under the store's lock, updates under its table's
 lock only (pushes to different tables run concurrently), and starts over
 if the generation moved in between, so no push of an old optimizer
-writes state after a reset.  The locks are plain ``threading.Lock``s:
-lock-order tracking waits with the rest of ``analysis/`` (ROADMAP A.11).
+writes state after a reset.  Both locks go through the lock-order checker
+(``analysis.runtime.tracked``, ``MXNET_LOCKCHECK``).
 
 The port reaches it directly (``SparsePS()``); routing the ``dist_*``
 kvstores' row_sparse keys to it waits for ``kvstore/dist.py`` (A.9).
@@ -32,6 +32,7 @@ import threading
 
 import torch
 
+from ..analysis.runtime import tracked as _tracked
 from ..base import MXNetError
 
 __all__ = ["SparsePS"]
@@ -42,7 +43,7 @@ class _Table:
 
     def __init__(self, value):
         self.value = value          # CPU tensor (rows, *cols)
-        self.lock = threading.Lock()
+        self.lock = _tracked(threading.Lock(), "SparsePS._Table.lock")
         # the optimizer state over the whole table, a tensor a leaf, and
         # which rows have theirs (SparsePS._state_tree keeps the structure)
         self.state_leaves = None
@@ -74,7 +75,7 @@ class SparsePS:
         self._state_tree = {}
         # guards the optimizer, updater and state maps; always taken
         # before a table's lock
-        self._lock = threading.Lock()
+        self._lock = _tracked(threading.Lock(), "SparsePS._lock")
         self._gen = 0
 
     # -- registration -------------------------------------------------------
@@ -161,6 +162,10 @@ class SparsePS:
         if key not in self._state_tree:
             proto = optimizer.create_state_multi_precision(
                 key, tbl.value[rows[:1]])
+            # graftcheck: ignore[GC04] — caller (push) holds tbl.lock and
+            # the generation check; set_optimizer re-clears this map after
+            # synchronizing on every table lock, so a stale write here
+            # cannot survive an optimizer swap
             self._state_tree[key] = _tree_of(proto)
             n = tbl.value.shape[0]
             tbl.state_leaves = [torch.zeros((n,) + tuple(lf.shape[1:]),

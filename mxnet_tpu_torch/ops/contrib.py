@@ -76,11 +76,18 @@ def _flash_eligible(seq, head_dim):
     return seq >= floor and seq % 128 == 0 and head_dim % 8 == 0
 
 
+def _filled(value, dtype, device):
+    """A 0-d tensor holding ``value``, written on ``device`` by a fill
+    kernel: a tensor made from a Python number on the card copies from the
+    host, which a CUDA graph capture refuses."""
+    return torch.full((), value, dtype=dtype, device=device)
+
+
 def _dense_sdpa(q, k, v, seg, causal, scale):
     """Masked softmax(QK^T)V, fp32 softmax, -1e9 masking — the dense path
     below the flash floor."""
     att = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=q.device)
+    neg = _filled(-1e9, torch.float32, q.device)
     if seg is not None:
         mask = seg[:, None, :, None] == seg[:, None, None, :]
         att = torch.where(mask, att, neg)
@@ -126,7 +133,7 @@ def _dense_sdpa_cross(q, k, v, seg_kv, scale, causal=False):
     None: all valid), fp32 softmax, -1e9 masking; ``causal`` (Lq == Lk)
     adds the lower-triangular mask."""
     att = torch.einsum("bhqd,bhkd->bhqk", q, k).float() * scale
-    neg = torch.tensor(-1e9, dtype=torch.float32, device=q.device)
+    neg = _filled(-1e9, torch.float32, q.device)
     if seg_kv is not None:
         att = torch.where((seg_kv > 0)[:, None, None, :], att, neg)
     if causal:
@@ -189,15 +196,13 @@ def sp_att_qkv(q, k, v, impl="ring", axis="sp", num_kv_groups=1,
 
 @register("contrib.div_sqrt_dim")
 def _div_sqrt_dim(data):
-    return data / torch.sqrt(torch.tensor(float(data.shape[-1]),
-                                          dtype=data.dtype,
-                                          device=data.device))
+    return data / torch.sqrt(_filled(float(data.shape[-1]), data.dtype,
+                                     data.device))
 
 
 def _inv_sqrt(d, like):
     """1 / sqrt(d) in ``like``'s dtype, as the reference scales q."""
-    return 1.0 / torch.sqrt(torch.tensor(float(d), dtype=like.dtype,
-                                         device=like.device))
+    return 1.0 / torch.sqrt(_filled(float(d), like.dtype, like.device))
 
 
 @register("contrib.interleaved_matmul_selfatt_qk")

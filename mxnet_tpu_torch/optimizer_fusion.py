@@ -49,6 +49,7 @@ import torch
 
 from . import config
 from . import telemetry as _tel
+from .analysis import runtime as _art
 from .telemetry import costmodel as _costmodel
 from .telemetry import tracer as _ttrace
 
@@ -164,6 +165,7 @@ def _note(tensors):
     if signature not in _signatures:
         _signatures.add(signature)
         _builds += 1
+        _art.note_build("optimizer_fusion")
 
 
 def _kind_or_raise(optzr):

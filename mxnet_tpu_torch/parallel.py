@@ -141,6 +141,7 @@ import torch
 
 from . import autograd, config, optimizer as opt, random
 from . import telemetry as _tel
+from .analysis import runtime as _art
 from .base import MXNetError
 from .telemetry import costmodel as _costmodel
 from .telemetry import stepclock as _sclock
@@ -647,6 +648,11 @@ class _StepCount(dict):
         return self._t
 
 
+def _rounded(x, dtype):
+    """The Python number ``x`` rounded to ``dtype`` (on the host)."""
+    return float(torch.tensor(x, dtype=dtype))
+
+
 class _Graph:
     """One captured step: its graph, static inputs, loss and the launch
     counts its capture saw."""
@@ -913,7 +919,11 @@ class TrainStep:
         for i in range(len(self._params)):
             o._update_count(i)
         if self._copied is not None:
-            self._copied.synchronize()      # the last copy left the buffer
+            # graftcheck: ignore[GC01] — waits for the last step's copy of
+            # the scalars (a few doubles) out of the pinned buffer before
+            # it is rewritten; that copy was queued ahead of the last
+            # replay, so the host still runs a step ahead of the card
+            self._copied.synchronize()
         self._host[:g] = torch.tensor([o._get_lr(i) for i in self._leaders],
                                       dtype=torch.float64)
         self._host[g] = float(o._index_update_count.get(0, self._step_count))
@@ -1000,12 +1010,11 @@ class TrainStep:
         for dt in {g.dtype for g in acc}:
             # 1/n_micro rounded to the gradient's dtype, as the reference
             # multiplies by jnp.asarray(1 / n_micro, dtype)
-            torch._foreach_mul_([g for g in acc if g.dtype == dt], float(
-                torch.tensor(1.0 / self._n_micro, dtype=dt)))
+            torch._foreach_mul_([g for g in acc if g.dtype == dt],
+                                _rounded(1.0 / self._n_micro, dt))
         self._update(acc)
         losses = torch.stack(losses)
-        return losses.sum() * float(torch.tensor(1.0 / self._n_micro,
-                                                 dtype=losses.dtype))
+        return losses.sum() * _rounded(1.0 / self._n_micro, losses.dtype)
 
     def _capture(self, data, label):
         """Capture the step for this signature and return it (not run)."""
@@ -1034,6 +1043,7 @@ class TrainStep:
         finally:
             counts = [a - b for a, b in zip(_launch_counts(), before)]
             _set_launch_counts(before)
+        _art.note_build("parallel.TrainStep")
         return _Graph(graph, static_d, static_l, loss, counts)
 
     def _abandon_capture(self, stream):
@@ -1066,14 +1076,20 @@ class TrainStep:
                (tuple(label.shape), label.dtype))
         # one flag read a step: the step clock's step is this call
         enabled = _ttrace._ENABLED
+        new = sig not in self._signatures
         if enabled:
             _sclock.STEP_CLOCK.begin_step()
             _M_STEP_DISPATCHES.inc()
             if self._n_micro > 1:
                 _M_MICROBATCHES.inc(self._n_micro)
-            if sig not in self._signatures:
+            if new:
                 _M_RETRACES.inc()
-        self._signatures.add(sig)
+        if new:
+            self._signatures.add(sig)
+            if self.device.type != "cuda":
+                # on the host nothing is captured: a new signature's first
+                # call is the build (on the card _capture counts)
+                _art.note_build("parallel.TrainStep")
         loss = self._step(data, label, sig, enabled)
         if enabled:
             _sclock.STEP_CLOCK.end_step()

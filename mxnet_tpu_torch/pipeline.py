@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from .analysis import runtime as _art
 from .base import MXNetError
 from .gluon.parameter import _entered
 from .ndarray.ndarray import NDArray
@@ -203,6 +204,7 @@ class PipelinedBlock:
                         for k, v in stacked.items()}
         self._fn = gpipe(self._stage_fn, self.n_stages, self.n_microbatches,
                          self.mesh, axis=self.axis, data_axis=self.data_axis)
+        _art.note_build("pipeline.PipelinedBlock")
 
     def __call__(self, x):
         if isinstance(x, NDArray):

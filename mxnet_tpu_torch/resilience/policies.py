@@ -13,9 +13,8 @@ The port's own copy of ``mxnet_tpu/resilience/policies.py``:
 Both read their defaults from config (``MXNET_RESILIENCE_MAX_RETRIES``,
 ``MXNET_RESILIENCE_BACKOFF_S``, ``MXNET_RESILIENCE_BACKOFF_MAX_S``,
 ``MXNET_KVSTORE_TIMEOUT_S``) and compose: ``Retry.call(Deadline.call, fn)``
-or the ``protect()`` helper.  Locks are plain ``threading.Lock``s: the
-lock-order checker (``analysis.runtime.tracked``) is not ported yet
-(ROADMAP A.11).
+or the ``protect()`` helper.  ``Deadline``'s lock goes through the
+lock-order checker (``analysis.runtime.tracked``, ``MXNET_LOCKCHECK``).
 """
 
 from __future__ import annotations
@@ -29,6 +28,7 @@ import weakref
 from ..base import MXNetError
 from .. import config
 from .. import telemetry as _tel
+from ..analysis.runtime import tracked as _tracked
 
 __all__ = [
     "TransientError", "ResilienceError", "RetryExhaustedError",
@@ -177,7 +177,7 @@ class Deadline:
         self.timeout_s = timeout_s if timeout_s is not None \
             else config.get_float("MXNET_KVSTORE_TIMEOUT_S", 300.0)
         self.site = site
-        self._lock = threading.Lock()
+        self._lock = _tracked(threading.Lock(), "Deadline._lock")
         self._task_queue = None
         self._worker = None
 

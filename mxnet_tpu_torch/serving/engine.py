@@ -42,6 +42,7 @@ import time
 
 from .. import config
 from .. import telemetry as _tel
+from ..analysis.runtime import tracked as _tracked
 from ..telemetry import tracer as _ttrace
 from ..base import MXNetError
 from ..resilience import Deadline, ResilienceError
@@ -345,7 +346,8 @@ class ServingEngine:
         self._seen_hits = 0
         self._seen_hit_tokens = 0
         self.default_sla_s = config.get_float("MXNET_SERVING_SLA_S", 0.0)
-        self._lock = threading.Lock()      # queue + slots + cache
+        self._lock = _tracked(threading.Lock(),  # queue + slots + cache
+                              "ServingEngine._lock")
         self._queue = collections.deque()
         self._slots = [None] * self.max_batch
         self._tables_dev = None            # device copy of cache.tables
@@ -437,7 +439,7 @@ class ServingEngine:
 
     def _finish(self, slot_idx, error=None):
         slot = self._slots[slot_idx]
-        self._slots[slot_idx] = None      # self._lock held by callers
+        self._slots[slot_idx] = None  # graftcheck: ignore[GC04] — helper only called from step()/_admit with self._lock held
         self.cache.release(slot_idx)
         req = slot.req
         req.error = error
@@ -466,7 +468,7 @@ class ServingEngine:
         """Free a running sequence's blocks and requeue it (front) for
         recompute — prompt + generated-so-far re-prefills later."""
         slot = self._slots[slot_idx]
-        self._slots[slot_idx] = None      # self._lock held by callers
+        self._slots[slot_idx] = None  # graftcheck: ignore[GC04] — helper only called from step() with self._lock held
         self.cache.release(slot_idx)
         slot.req.preempts += 1
         slot.req.queued_t = time.perf_counter()
@@ -577,7 +579,7 @@ class ServingEngine:
         else:
             self.cache.ctx_len[slot_idx] = 0
             last = self.adapter.bos_id
-        self._slots[slot_idx] = _Slot(req, last, now)
+        self._slots[slot_idx] = _Slot(req, last, now)  # graftcheck: ignore[GC04] — helper only called from _admit under step()'s self._lock
         if self._req_finished(req):
             self._finish(slot_idx)
 

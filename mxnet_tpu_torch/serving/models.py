@@ -509,13 +509,15 @@ class LlamaServingAdapter(_AdapterBase):
                 self._all_valid = torch.ones((len(tokens),),
                                              dtype=torch.bool,
                                              device=self.device)
-            valid = self._all_valid
+            rows = self._all_valid
         else:
-            valid = torch.as_tensor(np.asarray(valid, bool),
-                                    device=self.device)
+            rows = torch.as_tensor(np.asarray(valid, bool),
+                                   device=self.device)
         nxt, _ = _llama_decode(
             self.cfg, self.weights, self._kv, self.to_device(tokens),
-            tables, self.to_device(ctx), valid)
+            tables, self.to_device(ctx), rows)
+        # graftcheck: ignore[GC01] — the scheduler's one read-back a step:
+        # the engine checks EOS and emits the (B,) next tokens on the host
         return nxt.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
@@ -525,6 +527,8 @@ class LlamaServingAdapter(_AdapterBase):
         g, _ = _llama_multi(
             self.cfg, self.weights, self._kv, self.to_device(tokens), tables,
             self.to_device(ctx), self.to_device(n_valid))
+        # graftcheck: ignore[GC01] — the verify's one read-back: the engine
+        # accepts drafts and emits tokens on the host
         return g.cpu().numpy().astype(np.int32)
 
     @torch.inference_mode()
@@ -633,6 +637,8 @@ class TransformerServingAdapter(_AdapterBase):
         nxt, _ = _tf_decode(
             self.cfg, self.weights, self._kv, self._cross_k, self._cross_v,
             self._seg, self.to_device(tokens), tables, self.to_device(ctx))
+        # graftcheck: ignore[GC01] — the scheduler's one read-back a step:
+        # the engine checks EOS and emits the (B,) next tokens on the host
         return nxt.cpu().numpy().astype(np.int32)
 
 

@@ -1,5 +1,5 @@
 """mx.telemetry of the port — the port's own copy of
-``mxnet_tpu/telemetry`` (its perf gate aside).
+``mxnet_tpu/telemetry``.
 
 Per-process pieces:
 
@@ -33,7 +33,12 @@ The job-wide plane on top:
   unhandled exceptions, deadlines, chaos exits, SIGTERM and SIGUSR2
   (``MXNET_FLIGHTREC*``).
 - **httpd** — the live scrape plane (``MXNET_TELEMETRY_PORT``):
-  ``/metrics``, ``/statusz``, ``/ledger.json``, ``/healthz``.
+  ``/metrics``, ``/statusz``, ``/ledger.json``, ``/healthz``,
+  ``/perfgate.json``.
+- **perfgate** — the perf-regression gate: seven lanes' structural
+  records (dispatches a step, builds at steady state, FLOPs, bytes, peak
+  memory, counters) held to a committed baseline a device tier
+  (``tools/torch_perfgate.py``).
 
 Instrumentation is wired into the port's chokepoints: op dispatch
 (``ops.registry``), the kvstore's push/pull, ``gluon.Trainer``'s step
@@ -42,7 +47,7 @@ the fused optimizer, checkpoint save/restore and serving.  Span recording
 is gated on one flag: ``MXNET_TELEMETRY=1`` in the environment,
 ``telemetry.enable()`` at runtime, or ``mx.profiler.start()``; metrics
 always count.  With the flag off, op dispatch pays one module-attribute
-read.  Not ported: ``perfgate`` (ROADMAP A.11).
+read.
 """
 
 from __future__ import annotations
@@ -54,6 +59,7 @@ from . import costmodel          # noqa: E402 - needs metrics loaded
 from . import aggregate          # noqa: E402 - needs tracer/metrics/stepclock
 from . import flightrec          # noqa: E402 - needs aggregate
 from . import httpd              # noqa: E402 - needs metrics/costmodel
+from . import perfgate           # noqa: E402 - needs config/costmodel
 from .ledger import record_op
 from .metrics import (  # noqa: F401
     DEFAULT_BUCKETS, REGISTRY, Counter, Gauge, Histogram, MetricsRegistry,
@@ -74,7 +80,7 @@ __all__ = [
     "record_op", "record_dispatch", "payload_bytes", "ledger", "metrics",
     "tracer", "env_enabled",
     "aggregate", "flightrec", "stepclock", "StepClock", "STEP_CLOCK",
-    "report", "costmodel", "httpd",
+    "report", "costmodel", "httpd", "perfgate",
 ]
 
 

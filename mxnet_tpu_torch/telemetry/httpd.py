@@ -17,12 +17,14 @@ A ``ThreadingHTTPServer`` on a daemon thread, off by default, armed by
   200 + ``{phase, heartbeat_age_s}`` while the armed beater is fresh, 503
   once it goes stale past ``MXNET_ROUTER_HANG_S``; a process with no
   heartbeat armed answers 200;
+- ``GET /perfgate.json`` — the live cost ledger against the committed
+  perf baseline (``perfgate.live_delta``; 404 without a baseline), and
+  its one-word verdict as the ``perfgate`` row of ``/statusz``;
 - ``GET /``            — a plain-text index.
 
-Not ported: the reference's ``/perfgate.json`` and the ``perfgate`` row
-of ``/statusz`` (``telemetry/perfgate.py``, ROADMAP A.11).  Handlers only
-read the registry (each metric snapshots under its own lock), and
-rendering happens on the server's per-connection threads.  Stdlib-only.
+Handlers only read the registry (each metric snapshots under its own
+lock), and rendering happens on the server's per-connection threads.
+Stdlib-only.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ def _statusz():
         "world": config.get_int("MXNET_DIST_NUM_WORKERS", 1),
         "telemetry_enabled": tracer._ENABLED,
         "costmodel_armed": costmodel.armed(),
+        "perfgate": _perfgate_verdict(),
         "stepclock": stepclock.STEP_CLOCK.summary(),
         "serving": serving,
         "knobs": knobs,
@@ -80,6 +83,46 @@ def _ledger_json():
         "costmodel_sites": costmodel.LEDGER.site_summary(),
         "ops": {k: list(v) for k, v in ledger.snapshot().items()},
     }
+
+
+def _perfgate():
+    """(status_code, body) — the live snapshot-vs-committed-baseline
+    delta.  Reuses the gate's diff engine over the live cost ledger: only
+    per-site analytic invariants that overlap the baseline lanes are
+    compared (a live process runs one workload, not the lane matrix).
+    404 when no baseline is committed."""
+    import os
+    from . import perfgate
+    path = perfgate.default_baseline_path()
+    if not os.path.exists(path):
+        return 404, {"error": "no committed baseline", "path": path}
+    try:
+        doc = perfgate.load_baseline(path)
+    except perfgate.BaselineError as e:
+        return 500, {"error": str(e)}
+    counters = {}
+    for m in metrics.REGISTRY.collect():
+        if m.kind == "counter" and getattr(m, "value", 0):
+            counters[m.name] = m.value
+    delta = perfgate.live_delta(doc, costmodel.LEDGER.site_summary(),
+                                counters)
+    delta["baseline_path"] = path
+    return 200, delta
+
+
+def _perfgate_verdict():
+    """One-word gate state for the /statusz row; never raises."""
+    try:
+        code, delta = _perfgate()
+        if code == 404:
+            return "no-baseline"
+        if code != 200:
+            return "baseline-error"
+        if not delta["ok"]:
+            return "drift"
+        return "ok" if delta.get("overlap_sites") else "no-overlap"
+    except Exception:  # noqa: BLE001 — a status row must not kill statusz
+        return "error"
 
 
 def _healthz():
@@ -128,12 +171,27 @@ class _Handler(BaseHTTPRequestHandler):
                     self.end_headers()
                     self.wfile.write(body)
                     return
+            elif path == "/perfgate.json":
+                code, delta = _perfgate()
+                body = json.dumps(delta, indent=1, sort_keys=True,
+                                  default=str).encode()
+                ctype = "application/json"
+                if code != 200:
+                    # same non-HTML contract as /healthz: the scraper
+                    # wants the JSON payload with the 404/500
+                    self.send_response(code)
+                    self.send_header("Content-Type", ctype)
+                    self.send_header("Content-Length", str(len(body)))
+                    self.end_headers()
+                    self.wfile.write(body)
+                    return
             elif path == "/":
                 body = (b"mxnet_tpu_torch telemetry\n"
                         b"  /metrics     Prometheus exposition\n"
                         b"  /statusz     run status JSON\n"
                         b"  /ledger.json cost + op ledgers\n"
-                        b"  /healthz     heartbeat liveness probe\n")
+                        b"  /healthz     heartbeat liveness probe\n"
+                        b"  /perfgate.json live vs committed perf baseline\n")
                 ctype = "text/plain; charset=utf-8"
             else:
                 self.send_error(404, "unknown endpoint")

@@ -116,8 +116,14 @@ def test_unknown_path_404_and_stop():
         assert httpd.start() == port               # idempotent
         with pytest.raises(RuntimeError, match="already serving"):
             httpd.start(port=port + 1 if port < 65535 else port - 1)
+        # the perf gate's live delta answers against the committed host
+        # baseline
+        status, ctype, body = _get(port, "/perfgate.json")
+        assert status == 200 and ctype == "application/json"
+        assert json.loads(body)["baseline_path"].endswith(
+            "perf_baseline_torch.json")
         with pytest.raises(urllib.error.HTTPError) as ei:
-            _get(port, "/perfgate.json")
+            _get(port, "/no-such-endpoint")
         assert ei.value.code == 404
     finally:
         httpd.stop()

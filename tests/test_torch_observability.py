@@ -251,7 +251,6 @@ print('alive')
 
 # metrics that only modules the port does not have yet register
 UNPORTED = {
-    "telemetry/perfgate.py": "A.11",
     "resilience/controller.py": "A.9 (ElasticController)",
 }
 UNPORTED_METRICS = {
